@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (vtpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py [--json PATH]
+
+Phases, any failure exits nonzero:
+1. environment: the card's name and power limit, torch/CUDA versions, and
+   the build of every kernel in vtpu_torch/csrc (one nvcc per source, all
+   started together);
+2. every kernel against its plain PyTorch version at the serving path's
+   shapes plus one ragged case each, with kernel, plain and library times
+   and the least time the card could take for the same work;
+3. the main path: the flagship ModelConfig served by ServingEngine on a
+   paged pool, six requests streamed, greedy streams checked against the
+   port's plain trunk (use_kernels=False) under a logit-margin rule, and
+   launch counts showing both kernels ran; then one more wave under
+   torch.profiler for the device's busy share;
+4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
+   ``{"ok": true, "device": {...}}``.
+Needs a CUDA device and the repo checkout; refuses to run without either.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+# peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+# bf16 outputs: kernel and plain version both round P and the output to
+# bf16 but sum in different orders, so a value near a rounding boundary
+# may land one bf16 ulp apart (2^-6 ~ 1.6e-2 for |o| < 4)
+ATOL = 2e-2
+# a greedy step whose plain-trunk top-1/top-2 logit margin is below this
+# may flip under bf16 rounding: the stream comparison stops there
+MARGIN = 0.05
+SEED = 0
+# the H100's highest SM clock: a sleep of n * 1e6 * this many cycles lasts at
+# least n ms
+MAX_CLOCK_GHZ = 1.98
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 2, hold: bool = True) -> tuple[float, float]:
+    """(device ms, host ms) per call over ``iters`` calls. With ``hold`` the
+    stream waits behind a device-side sleep while the host enqueues every
+    call, so the CUDA events time the device work back to back rather than
+    the host's Python between launches (the hold is sized from one steady
+    call). The plain versions launch thousands of small ops per call,
+    which would fill the launch queue during a hold: they are timed without
+    one, host gaps included. The second number is the host's enqueue time
+    per call."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # one steady call, device included, sizes the hold
+    fn(0)
+    torch.cuda.synchronize()
+    hold_ms = max(100.0, 3e3 * (time.perf_counter() - t0) * iters)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(int(hold_ms * MAX_CLOCK_GHZ * 1e6))
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    torch.cuda.synchronize()
+    if hold and host * iters > hold_ms:
+        raise AssertionError(f"enqueue took {host * iters:.0f} ms, longer than the "
+                             f"{hold_ms:.0f} ms hold: the device time would include host gaps")
+    return start.elapsed_time(end) / iters, host
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_flash(gen, log) -> dict:
+    import torch.nn.functional as F
+
+    from vtpu_torch.ops.attention import flash_attention, flash_attention_ref
+
+    errs = []
+    for shape in [(4, 1024, 8, 128), (2, 200, 8, 128)]:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = max_err(got, flash_attention_ref(q, k, v))
+        log(f"flash_attention {shape} bf16: max_abs_err {err:.3e} (atol {ATOL})")
+        if not err <= ATOL:
+            raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
+        errs.append(err)
+    # timing at the serving shape over three input sets (> the 50 MB L2)
+    b, s, h, dh = 4, 1024, 8, 128
+    sets = [tuple(torch.randn((b, s, h, dh), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(3)) for _ in range(3)]
+    ms, host = time_ms(lambda i: flash_attention(*sets[i % 3]), 30)
+    plain, _ = time_ms(lambda i: flash_attention_ref(*sets[i % 3]), 3, warmup=1,
+                       hold=False)
+    lib, _ = time_ms(lambda i: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in sets[i % 3]), is_causal=True), 30)
+    nbytes = 4 * b * s * h * dh * 2
+    flops = 4 * b * h * dh * s * (s + 1) / 2
+    bms, by = bound_ms(nbytes, flops)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "vtpu_torch/csrc/flash_attention.cu",
+            "replaces": "vtpu/ops/attention.py:210", "max_abs_err": max(errs),
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "host_ms": host}
+
+
+def check_paged(gen, log) -> dict:
+    import torch.nn.functional as F
+
+    from vtpu_torch.ops.attention import gather_kv_pages
+    from vtpu_torch.ops.decode_attn import paged_decode_attention, paged_decode_attention_ref
+
+    n_layers, nb, page, h, dh, wp = 12, 41, 128, 8, 128, 10
+    kp = torch.randn((n_layers, nb, page, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn((n_layers, nb, page, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    kp[:, 0] = 1e3  # the null block holds garbage that must never be observed
+    vp[:, 0] = -1e3
+    # decode tick at the serving shape: 4 slots, prompts of 600..1024 plus
+    # generated tokens, private pages, null-padded rows
+    table = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
+    lens1 = [1040, 700, 613, 1024]
+    nxt = 1
+    for r, ln in enumerate(lens1):
+        n = -(-ln // page)
+        table[r, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        nxt += n
+    kv1 = torch.tensor(lens1, dtype=torch.int32, device="cuda")[:, None].contiguous()
+    q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    # verify-shaped chunk: T = 4, ragged lengths, two rows sharing their
+    # leading (prefix) blocks and diverging at a copied boundary block
+    cow = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
+    cow[0, :3] = torch.tensor([1, 2, 3], dtype=torch.int32)
+    cow[1, :3] = torch.tensor([1, 2, 4], dtype=torch.int32)
+    cow[2, :1] = 5
+    cow[3, :8] = torch.arange(6, 14, dtype=torch.int32)
+    kv4 = torch.tensor([[300, 301, 302, 303], [290, 291, 292, 293], [5, 6, 7, 8],
+                        [1000, 1001, 1002, 1003]], dtype=torch.int32, device="cuda")
+    q4 = torch.randn((4, 4, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    errs = []
+    for q, tab, kvl, what in [(q1, table, kv1, "T=1"), (q4, cow, kv4, "T=4 ragged COW")]:
+        for layer in (0, n_layers - 1):
+            got = paged_decode_attention(q, kp, vp, tab, kvl, layer)
+            torch.cuda.synchronize()
+            err = max_err(got, paged_decode_attention_ref(q, kp, vp, tab, kvl, layer))
+            log(f"paged_decode_attention {what} layer {layer}: max_abs_err {err:.3e} "
+                f"(atol {ATOL})")
+            if not err <= ATOL:
+                raise AssertionError(
+                    f"paged_decode_attention disagrees with its plain version: {err}")
+            errs.append(err)
+    # timing: one decode tick's call per layer, cycling the 12 planes so
+    # consecutive calls read different pool memory, as the trunk does
+    ms, host = time_ms(
+        lambda i: paged_decode_attention(q1, kp, vp, table, kv1, i % n_layers), 60)
+    plain, _ = time_ms(lambda i: paged_decode_attention_ref(q1, kp, vp, table, kv1,
+                                                             i % n_layers), 12, hold=False)
+    mask = (torch.arange(wp * page, device="cuda")[None, :] < kv1)[:, None, None]  # [B,1,1,W]
+
+    def library(i):
+        k = gather_kv_pages(kp[i % n_layers], table)
+        v = gather_kv_pages(vp[i % n_layers], table)
+        return F.scaled_dot_product_attention(q1.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask)
+
+    lib, _ = time_ms(library, 60)
+    keys = sum(lens1)
+    nbytes = keys * h * dh * 2 * 2 + 2 * q1.numel() * 2 + table.numel() * 4 + kv1.numel() * 4
+    bms, by = bound_ms(nbytes, 4 * keys * h * dh)
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "vtpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": "vtpu/ops/decode_attn.py:347", "max_abs_err": max(errs),
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "host_ms": host}
+
+
+def reference_stream(params, cfg, prompt: np.ndarray, steps: int):
+    """Greedy stream of the port's plain trunk with each step's top-1/top-2
+    logit margin."""
+    from vtpu_torch.models import decode_step, prefill
+
+    toks = torch.from_numpy(prompt[None]).cuda()
+    logits, cache = prefill(params, cfg, toks)
+    row = logits[0, -1]
+    out, margins = [], []
+    for i in range(steps):
+        if not bool(torch.isfinite(row).all()):
+            raise AssertionError("plain trunk produced non-finite logits")
+        top = torch.topk(row, 2).values
+        margins.append(float(top[0] - top[1]))
+        out.append(int(torch.argmax(row)))
+        if i + 1 < steps:
+            logits, cache = decode_step(
+                params, cfg, cache, torch.tensor([out[-1]], dtype=torch.int32, device="cuda"))
+            row = logits[0]
+    return out, margins
+
+
+def stream_all(eng, prompts) -> tuple[list[dict], float]:
+    """Submit every prompt at once; a reader thread per request records its
+    tokens and first-token time. Returns (records, wall seconds)."""
+    recs = [{"toks": []} for _ in prompts]
+
+    def read(req, rec):
+        for tok in req.stream():
+            rec.setdefault("first", time.perf_counter())
+            rec["toks"].append(tok)
+        rec["status"] = req.status
+
+    t0 = time.perf_counter()
+    threads = []
+    for prompt, rec in zip(prompts, recs):
+        rec["submit"] = time.perf_counter()
+        req = eng.submit(prompt)
+        th = threading.Thread(target=read, args=(req, rec), daemon=True)
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("a stream did not finish within 600 s")
+    return recs, time.perf_counter() - t0
+
+
+def profile_wave(eng, prompts) -> dict | None:
+    """Stream one more wave under torch.profiler: the device's busy share of
+    the wave's wall time and device time by kernel name. None when the
+    profiler recorded no device activity. The profiler slows the host, so
+    the idle share it shows is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = stream_all(eng, prompts)
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    if not by_name:
+        return None
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (wall * 1e3),
+            "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}
+
+
+def main_path(log, card: str) -> dict:
+    from vtpu_torch.models import ModelConfig, init_params
+    from vtpu_torch.ops import _build
+    from vtpu_torch.serving import ServingConfig, ServingEngine
+
+    # the flagship serving model of bench.py (bench_scale, TPU branch)
+    cfg = ModelConfig(vocab=8192, d_model=1024, n_heads=8, n_layers=12, d_ff=4096,
+                      max_seq=1280, head_dim=128, dtype=torch.bfloat16, use_kernels=True)
+    new_tokens = 16
+    params = init_params(SEED, cfg)
+    eng = ServingEngine(params, cfg, ServingConfig(
+        slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens, kv_page=128))
+    rs = np.random.RandomState(SEED)
+    prompts = [rs.randint(0, cfg.vocab, (int(n),)).astype(np.int32)
+               for n in rs.randint(600, 1025, 6)]
+    eng.start()
+    try:
+        # warm-up request: CUDA/cuBLAS initialisation stays out of the run
+        stream_all(eng, [prompts[0]])
+        base = eng.stats()
+        _build.reset_launches()
+        recs, wall = stream_all(eng, prompts)
+        launches = _build.launches()
+        after = eng.stats()
+        prof = profile_wave(eng, prompts)
+    finally:
+        eng.stop()
+    if eng.loop_error is not None:
+        raise AssertionError(f"serving loop failed: {eng.loop_error!r}")
+    ticks = after["decode_ticks"] - base["decode_ticks"]
+    fetches = after["tick_fetches"] - base["tick_fetches"]
+    gets_per_tick = fetches / ticks if ticks else None
+    for rec in recs:
+        if rec.get("status") != "OK" or len(rec["toks"]) != new_tokens:
+            raise AssertionError(f"stream ended {rec.get('status')} after "
+                                 f"{len(rec['toks'])} of {new_tokens} tokens")
+    if gets_per_tick != 1.0:
+        raise AssertionError(f"device_gets_per_tick {gets_per_tick} != 1.0")
+    if launches["flash_attention"] <= 0:
+        raise AssertionError("the main path launched no flash_attention kernel")
+    if launches["paged_decode_attention"] != cfg.n_layers * ticks:
+        raise AssertionError(
+            f"paged_decode_attention launched {launches['paged_decode_attention']} "
+            f"times over {ticks} decode ticks, expected {cfg.n_layers} per tick")
+    if after["kv_pool_free"] != after["kv_pool_blocks"]:
+        raise AssertionError("paged pool not fully free after the run")
+
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    compared = ties = 0
+    for prompt, rec in zip(prompts, recs):
+        ref, margins = reference_stream(params, plain_cfg, prompt, new_tokens)
+        for i, (got, want) in enumerate(zip(rec["toks"], ref)):
+            if margins[i] < MARGIN:
+                ties += 1
+                break
+            if got != want:
+                raise AssertionError(
+                    f"engine stream {rec['toks']} differs from the plain trunk {ref} "
+                    f"at step {i} (margin {margins[i]:.3f})")
+            compared += 1
+    ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
+    total = sum(len(rec["toks"]) for rec in recs)
+    log(f"main path on {card}: {len(prompts)} requests, {total} tokens in {wall:.3f} s "
+        f"({total / wall:.1f} tokens/s), TTFT p50 {ttft[len(ttft) // 2]:.1f} ms "
+        f"max {ttft[-1]:.1f} ms; decode ticks {ticks}, device_gets_per_tick "
+        f"{gets_per_tick}; launches {launches}")
+    log(f"streams vs plain trunk: {compared} tokens compared equal, {ties} streams "
+        f"cut at a top-1/top-2 margin < {MARGIN}")
+    if prof is None:
+        log("profiled wave: the profiler recorded no device activity (not measured)")
+    else:
+        log(f"profiled wave on {card}: wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['device_busy_ms']:.1f} ms ({100 * prof['device_busy_share']:.1f}%); "
+            "by kernel: " + "; ".join(f"{n} {ms:.2f} ms" for n, ms in prof["top_kernels_ms"]))
+    return {"launches": launches, "decode_ticks": ticks, "tokens": total,
+            "wall_s": wall, "tokens_per_s": total / wall, "ttft_ms": ttft,
+            "device_gets_per_tick": gets_per_tick, "compared_tokens": compared,
+            "margin_cuts": ties,
+            "prefill_batch_hist": after["prefill_batch_hist"],
+            "kv_bucket_hist": after["kv_bucket_hist"],
+            "paged_attn_kernel_ticks": after["paged_attn_kernel_ticks"]
+            - base["paged_attn_kernel_ticks"], "profiled_wave": prof}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", help="also write every measurement to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from vtpu_torch.ops import _build
+
+    def log(msg: str) -> None:
+        print(msg, flush=True)
+
+    card = gpu_line()
+    name = torch.cuda.get_device_name(0)
+    log(f"card: {card}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    builds = _build.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
+        + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in builds.items()))
+    for k, v in builds.items():
+        for line in v["ptxas"].splitlines():
+            if "registers" in line or ("spill" in line and "0 bytes spill" not in line):
+                log(f"  {k}: {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kernels = [check_flash(gen, log), check_paged(gen, log)]
+    for kern in kernels:
+        log(f"{kern['name']} on {card}: kernel {kern['ms']:.4f} ms, plain "
+            f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']:.4f} ms, bound "
+            f"{kern['bound_ms']:.4f} ms ({kern['bound_by']}); host enqueue "
+            f"{kern['host_ms']:.4f} ms per wrapper call")
+    run = main_path(log, card)
+    for kern in kernels:
+        kern["launches"] = run["launches"][kern["name"]]
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+                       "builds": {k: v["seconds"] for k, v in builds.items()},
+                       "kernels": kernels, "main_path": run}, f, indent=1)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
