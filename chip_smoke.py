@@ -7,14 +7,23 @@ Phases, any failure exits nonzero:
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel in vtpu_torch/csrc (one nvcc per source, all
    started together);
-2. every kernel against its plain PyTorch version at the serving path's
-   shapes plus one ragged case each, with kernel, plain and library times
-   and the least time the card could take for the same work;
-3. the main path: the flagship ModelConfig served by ServingEngine on a
-   paged pool, six requests streamed, greedy streams checked against the
-   port's plain trunk (use_kernels=False) under a logit-margin rule, and
-   launch counts showing both kernels ran; then one more wave under
-   torch.profiler for the device's busy share;
+2. every kernel against its plain PyTorch version at its path's shapes
+   plus one ragged case each (the dense decode kernel also at a bucket
+   below S), with kernel, plain and library times and the least time the
+   card could take for the same work; the dense decode kernel is timed at
+   the study's four T=1 cells;
+3. the paths, each with every launch count set to 0 just before it and
+   read just after:
+   a. the main path: the flagship ModelConfig served by ServingEngine on a
+      paged bf16 pool, six requests streamed, greedy streams checked
+      against the port's plain trunk (use_kernels=False) under a
+      logit-margin rule, and launch counts showing both kernels ran; then
+      one more wave under torch.profiler for the device's busy share;
+   b. the int8 serving path: the same model and wave with kv_int8=True,
+      every decode tick through the int8 paged kernel, streams checked
+      against the plain int8 trunk;
+   c. the dense decode study: decode_attention over the study's four T=1
+      cells in bf16 and in int8;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -41,9 +50,22 @@ PEAK_BF16_FLOPS = 989e12
 # may land one bf16 ulp apart (2^-6 ~ 1.6e-2 for |o| < 4)
 ATOL = 2e-2
 # a greedy step whose plain-trunk top-1/top-2 logit margin is below this
-# may flip under bf16 rounding: the stream comparison stops there
+# may flip under bf16 rounding: the stream comparison stops there. The same
+# margin holds for int8 KV: a K/V value that bf16 rounding moves across a
+# quantization boundary changes one code of 127 (a 0.8% step of that
+# head's absmax on one element), smaller than the bf16 noise already
+# allowed for
 MARGIN = 0.05
 SEED = 0
+# the flagship serving model of bench.py (bench_scale, TPU branch)
+FLAGSHIP = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=12, d_ff=4096, max_seq=1280,
+                head_dim=128)
+# the dense decode study's cells (hack/decode_attn_bench.py): batch x window
+STUDY_CELLS = ((8, 1024), (8, 2048), (32, 1024), (32, 2048))
+STUDY_H, STUDY_DH = 8, 128
+# bytes one timed input set should exceed so that calls cycling through the
+# sets find their operands outside the 50 MB L2, as the trunk's layer walk does
+COLD_BYTES = 150e6
 # the H100's highest SM clock: a sleep of n * 1e6 * this many cycles lasts at
 # least n ms
 MAX_CLOCK_GHZ = 1.98
@@ -71,7 +93,7 @@ def time_ms(fn, iters: int, warmup: int = 2, hold: bool = True) -> tuple[float, 
     t0 = time.perf_counter()  # one steady call, device included, sizes the hold
     fn(0)
     torch.cuda.synchronize()
-    hold_ms = max(100.0, 3e3 * (time.perf_counter() - t0) * iters)
+    hold_ms = max(200.0, 3e3 * (time.perf_counter() - t0) * iters)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if hold:
@@ -203,6 +225,197 @@ def check_paged(gen, log) -> dict:
             "library_ms": lib, "host_ms": host}
 
 
+def rand_int8(gen, shape) -> torch.Tensor:
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+
+def rand_scales(gen, shape) -> torch.Tensor:
+    # the study's range, [1e-3, 2.1e-2] (hack/decode_attn_bench.py)
+    return torch.rand(shape, generator=gen, device="cuda") * 0.02 + 1e-3
+
+
+def dequant(xq: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    return (xq.float() * sc[..., None]).to(torch.bfloat16)
+
+
+def check_paged_int8(gen, log) -> dict:
+    import torch.nn.functional as F
+
+    from vtpu_torch.ops.attention import gather_kv_pages
+    from vtpu_torch.ops.decode_attn import (
+        paged_decode_attention_int8kv, paged_decode_attention_int8kv_ref,
+    )
+
+    n_layers, nb, page, h, dh, wp = 12, 41, 128, 8, 128, 10
+    shape = (n_layers, nb, page, h, dh)
+    kq, vq = rand_int8(gen, shape), rand_int8(gen, shape)
+    ks, vs = rand_scales(gen, shape[:4]), rand_scales(gen, shape[:4])
+    # the null block's values and scales hold garbage that must never be observed
+    kq[:, 0], vq[:, 0], ks[:, 0], vs[:, 0] = 127, -127, 1e3, 1e3
+    # the serving tick and the ragged copy-on-write chunk of check_paged
+    table = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
+    lens1 = [1040, 700, 613, 1024]
+    nxt = 1
+    for r, ln in enumerate(lens1):
+        n = -(-ln // page)
+        table[r, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        nxt += n
+    kv1 = torch.tensor(lens1, dtype=torch.int32, device="cuda")[:, None].contiguous()
+    q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    cow = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
+    cow[0, :3] = torch.tensor([1, 2, 3], dtype=torch.int32)
+    cow[1, :3] = torch.tensor([1, 2, 4], dtype=torch.int32)
+    cow[2, :1] = 5
+    cow[3, :8] = torch.arange(6, 14, dtype=torch.int32)
+    kv4 = torch.tensor([[300, 301, 302, 303], [290, 291, 292, 293], [5, 6, 7, 8],
+                        [1000, 1001, 1002, 1003]], dtype=torch.int32, device="cuda")
+    q4 = torch.randn((4, 4, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    errs = []
+    for q, tab, kvl, what in [(q1, table, kv1, "T=1"), (q4, cow, kv4, "T=4 ragged COW")]:
+        for layer in (0, n_layers - 1):
+            args = (q, kq, ks, vq, vs, tab, kvl, layer)
+            got = paged_decode_attention_int8kv(*args)
+            torch.cuda.synchronize()
+            err = max_err(got, paged_decode_attention_int8kv_ref(*args))
+            log(f"paged_decode_attention_int8kv {what} layer {layer}: max_abs_err {err:.3e} "
+                f"(atol {ATOL})")
+            if not (err <= ATOL and bool(torch.isfinite(got.float()).all())):
+                raise AssertionError(
+                    f"paged_decode_attention_int8kv disagrees with its plain version: {err}")
+            errs.append(err)
+    ms, host = time_ms(lambda i: paged_decode_attention_int8kv(
+        q1, kq, ks, vq, vs, table, kv1, i % n_layers), 60)
+    plain, _ = time_ms(lambda i: paged_decode_attention_int8kv_ref(
+        q1, kq, ks, vq, vs, table, kv1, i % n_layers), 12, hold=False)
+    mask = (torch.arange(wp * page, device="cuda")[None, :] < kv1)[:, None, None]
+
+    def library(i):
+        l = i % n_layers
+        k = dequant(gather_kv_pages(kq[l], table), gather_kv_pages(ks[l], table))
+        v = dequant(gather_kv_pages(vq[l], table), gather_kv_pages(vs[l], table))
+        return F.scaled_dot_product_attention(q1.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask)
+
+    # ~12 small ops per call: fewer calls, so the held launch queue never fills
+    lib, _ = time_ms(library, 20)
+    keys = sum(lens1)
+    nbytes = (keys * h * dh * 1 * 2 + keys * h * 4 * 2 + 2 * q1.numel() * 2
+              + table.numel() * 4 + kv1.numel() * 4)
+    bms, by = bound_ms(nbytes, 4 * keys * h * dh)
+    return {"name": "paged_decode_attention_int8kv", "route": "cuda",
+            "source": "vtpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": "vtpu/ops/decode_attn.py:435", "max_abs_err": max(errs),
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "host_ms": host}
+
+
+def study_inputs(gen, b: int, s: int, t: int, int8: bool, copies: int = 1) -> list[dict]:
+    """``copies`` input sets of one study cell, made as
+    hack/decode_attn_bench.py makes them: q (and bf16 k/v) standard normal,
+    int8 k/v uniform in +-127 with scales in [1e-3, 2.1e-2], row lengths
+    uniform in [S/2, S] (+ i for query i, at most S)."""
+    h, dh = STUDY_H, STUDY_DH
+    lens = torch.randint(s // 2, s + 1, (b, 1), generator=gen, device="cuda")
+    lens = torch.clamp(lens + torch.arange(t, device="cuda")[None, :], max=s).to(torch.int32)
+    base = {"q": torch.randn((b, t, h, dh), generator=gen, device="cuda").to(torch.bfloat16),
+            "kv_len": lens.contiguous()}
+    if int8:
+        base.update(k=rand_int8(gen, (b, s, h, dh)), v=rand_int8(gen, (b, s, h, dh)),
+                    k_scale=rand_scales(gen, (b, s, h)), v_scale=rand_scales(gen, (b, s, h)))
+    else:
+        base.update({key: torch.randn((b, s, h, dh), generator=gen, device="cuda")
+                     .to(torch.bfloat16) for key in ("k", "v")})
+    return [base] + [{key: x.clone() for key, x in base.items()} for _ in range(copies - 1)]
+
+
+def check_decode(gen, log, int8: bool) -> dict:
+    """decode_attention (bf16, or int8 with scales) against its plain version
+    at one T=1 cell, one ragged T=4 case and one bucket < S case (garbage past
+    the bucket); then kernel, plain and library times at the study's four
+    T=1 cells. The entry's numbers are the (32, 2048) cell's."""
+    import torch.nn.functional as F
+
+    from vtpu_torch.ops.decode_attn import decode_attention, decode_attention_ref
+
+    name = "decode_attention_int8kv" if int8 else "decode_attention"
+    cases = [("T=1 (8, 1024)", study_inputs(gen, 8, 1024, 1, int8)[0], 0),
+             ("T=4 ragged (4, 512)", study_inputs(gen, 4, 512, 4, int8)[0], 0)]
+    bounded = study_inputs(gen, 4, 2048, 1, int8)[0]
+    bounded["kv_len"] = torch.tensor([[700], [1024], [2048], [300]], dtype=torch.int32,
+                                     device="cuda")
+    garbage = ({"k": 127, "v": -127, "k_scale": 1e3, "v_scale": 1e3} if int8
+               else {"k": 1e3, "v": -1e3})
+    for key, val in garbage.items():  # past the bucket: never read
+        bounded[key][:, 1024:] = val
+    cases.append(("bucket 1024 < S 2048", bounded, 1024))
+    errs = []
+    for what, x, bucket in cases:
+        got = decode_attention(**x, bucket=bucket)
+        torch.cuda.synchronize()
+        err = max_err(got, decode_attention_ref(**x, bucket=bucket))
+        log(f"{name} {what}: max_abs_err {err:.3e} (atol {ATOL})")
+        if not (err <= ATOL and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"{name} disagrees with its plain version: {err}")
+        errs.append(err)
+    cells = []
+    for b, s in STUDY_CELLS:
+        per_set = b * s * STUDY_H * STUDY_DH * (1 if int8 else 2) * 2
+        sets = study_inputs(gen, b, s, 1, int8, copies=max(1, -(-int(COLD_BYTES) // per_set)))
+        x0 = sets[0]
+        ms, host = time_ms(lambda i: decode_attention(**sets[i % len(sets)]), 30)
+        plain, _ = time_ms(lambda i: decode_attention_ref(**sets[i % len(sets)]), 3, warmup=1,
+                           hold=False)
+        mask = (torch.arange(s, device="cuda")[None, :] < x0["kv_len"])[:, None, None]
+
+        def library(i):
+            x = sets[i % len(sets)]
+            k, v = ((dequant(x[key], x[f"{key}_scale"]) if int8 else x[key]) for key in "kv")
+            return F.scaled_dot_product_attention(x["q"].transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), attn_mask=mask)
+
+        lib, _ = time_ms(library, 30)
+        keys = int(x0["kv_len"].sum())
+        per_key = STUDY_H * STUDY_DH * (1 if int8 else 2) * 2 + (STUDY_H * 4 * 2 if int8 else 0)
+        nbytes = keys * per_key + 2 * x0["q"].numel() * 2 + x0["kv_len"].numel() * 4
+        bms, by = bound_ms(nbytes, 4 * keys * STUDY_H * STUDY_DH)
+        cells.append({"batch": b, "window": s, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                      "bound_ms": bms, "bound_by": by, "host_ms": host})
+        log(f"{name} cell (batch {b}, window {s}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    top = cells[-1]
+    return {"name": name, "route": "cuda", "source": "vtpu_torch/csrc/decode_attention.cu",
+            "replaces": "vtpu/ops/decode_attn.py:315" if int8 else "vtpu/ops/decode_attn.py:196",
+            "max_abs_err": max(errs), "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "host_ms": top["host_ms"], "cells": cells}
+
+
+def study_path(gen, log) -> dict:
+    """The dense decode study as a user drives it: decode_attention once per
+    T=1 study cell in bf16 and in int8, with every launch count set to 0
+    just before and read just after; outputs finite and of q's shape."""
+    from vtpu_torch.ops import _build
+    from vtpu_torch.ops.decode_attn import decode_attention
+
+    inputs = [study_inputs(gen, b, s, 1, int8)[0] for int8 in (False, True)
+              for b, s in STUDY_CELLS]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = [decode_attention(**x) for x in inputs]
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    for x, out in zip(inputs, outs):
+        if out.shape != x["q"].shape or not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"decode_attention gave {tuple(out.shape)} or non-finite "
+                                 f"values for q {tuple(x['q'].shape)}")
+    n = len(STUDY_CELLS)
+    if launches["decode_attention"] != n or launches["decode_attention_int8kv"] != n:
+        raise AssertionError(f"the study path launched {launches}, expected {n} of each "
+                             "dense decode kernel")
+    log(f"study path: {len(inputs)} decode_attention calls; launches {launches}")
+    return {"launches": launches}
+
+
 def reference_stream(params, cfg, prompt: np.ndarray, steps: int):
     """Greedy stream of the port's plain trunk with each step's top-1/top-2
     logit margin."""
@@ -275,16 +488,21 @@ def profile_wave(eng, prompts) -> dict | None:
             "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}
 
 
-def main_path(log, card: str) -> dict:
-    from vtpu_torch.models import ModelConfig, init_params
+def serving_path(log, card: str, params, kv_int8: bool) -> dict:
+    """Serve six requests on the flagship model over a paged pool, bf16 or
+    int8 KV, with every launch count set to 0 just before the counted wave
+    and read just after. The bf16 run (the main path) streams one more wave
+    under the profiler."""
+    from vtpu_torch.models import ModelConfig
     from vtpu_torch.ops import _build
     from vtpu_torch.serving import ServingConfig, ServingEngine
 
-    # the flagship serving model of bench.py (bench_scale, TPU branch)
-    cfg = ModelConfig(vocab=8192, d_model=1024, n_heads=8, n_layers=12, d_ff=4096,
-                      max_seq=1280, head_dim=128, dtype=torch.bfloat16, use_kernels=True)
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True, kv_int8=kv_int8)
+    what = "int8 serving path" if kv_int8 else "main path"
+    paged, other = "paged_decode_attention_int8kv", "paged_decode_attention"
+    if not kv_int8:
+        paged, other = other, paged
     new_tokens = 16
-    params = init_params(SEED, cfg)
     eng = ServingEngine(params, cfg, ServingConfig(
         slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens, kv_page=128))
     rs = np.random.RandomState(SEED)
@@ -299,7 +517,7 @@ def main_path(log, card: str) -> dict:
         recs, wall = stream_all(eng, prompts)
         launches = _build.launches()
         after = eng.stats()
-        prof = profile_wave(eng, prompts)
+        prof = None if kv_int8 else profile_wave(eng, prompts)
     finally:
         eng.stop()
     if eng.loop_error is not None:
@@ -314,15 +532,16 @@ def main_path(log, card: str) -> dict:
     if gets_per_tick != 1.0:
         raise AssertionError(f"device_gets_per_tick {gets_per_tick} != 1.0")
     if launches["flash_attention"] <= 0:
-        raise AssertionError("the main path launched no flash_attention kernel")
-    if launches["paged_decode_attention"] != cfg.n_layers * ticks:
+        raise AssertionError(f"the {what} launched no flash_attention kernel")
+    if launches[paged] != cfg.n_layers * ticks or launches[other] != 0:
         raise AssertionError(
-            f"paged_decode_attention launched {launches['paged_decode_attention']} "
-            f"times over {ticks} decode ticks, expected {cfg.n_layers} per tick")
+            f"{paged} launched {launches[paged]} times over {ticks} decode ticks, "
+            f"expected {cfg.n_layers} per tick, and {other} {launches[other]} times, "
+            "expected none")
     if after["kv_pool_free"] != after["kv_pool_blocks"]:
         raise AssertionError("paged pool not fully free after the run")
 
-    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)  # kv_int8 kept
     compared = ties = 0
     for prompt, rec in zip(prompts, recs):
         ref, margins = reference_stream(params, plain_cfg, prompt, new_tokens)
@@ -337,15 +556,15 @@ def main_path(log, card: str) -> dict:
             compared += 1
     ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
     total = sum(len(rec["toks"]) for rec in recs)
-    log(f"main path on {card}: {len(prompts)} requests, {total} tokens in {wall:.3f} s "
+    log(f"{what} on {card}: {len(prompts)} requests, {total} tokens in {wall:.3f} s "
         f"({total / wall:.1f} tokens/s), TTFT p50 {ttft[len(ttft) // 2]:.1f} ms "
         f"max {ttft[-1]:.1f} ms; decode ticks {ticks}, device_gets_per_tick "
         f"{gets_per_tick}; launches {launches}")
-    log(f"streams vs plain trunk: {compared} tokens compared equal, {ties} streams "
-        f"cut at a top-1/top-2 margin < {MARGIN}")
-    if prof is None:
+    log(f"{what} streams vs plain {'int8 ' if kv_int8 else ''}trunk: {compared} tokens "
+        f"compared equal, {ties} streams cut at a top-1/top-2 margin < {MARGIN}")
+    if prof is None and not kv_int8:
         log("profiled wave: the profiler recorded no device activity (not measured)")
-    else:
+    elif prof is not None:
         log(f"profiled wave on {card}: wall {prof['wall_ms']:.1f} ms, device busy "
             f"{prof['device_busy_ms']:.1f} ms ({100 * prof['device_busy_share']:.1f}%); "
             "by kernel: " + "; ".join(f"{n} {ms:.2f} ms" for n, ms in prof["top_kernels_ms"]))
@@ -386,20 +605,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [check_flash(gen, log), check_paged(gen, log)]
+    kernels = [check_flash(gen, log), check_paged(gen, log), check_paged_int8(gen, log),
+               check_decode(gen, log, int8=False), check_decode(gen, log, int8=True)]
     for kern in kernels:
         log(f"{kern['name']} on {card}: kernel {kern['ms']:.4f} ms, plain "
             f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']:.4f} ms, bound "
             f"{kern['bound_ms']:.4f} ms ({kern['bound_by']}); host enqueue "
             f"{kern['host_ms']:.4f} ms per wrapper call")
-    run = main_path(log, card)
+    from vtpu_torch.models import ModelConfig, init_params
+
+    # weights depend on the widths only: one seeded set serves both KV types
+    params = init_params(SEED, ModelConfig(**FLAGSHIP, dtype=torch.bfloat16))
+    runs = {"main_path": serving_path(log, card, params, kv_int8=False),
+            "int8_serving_path": serving_path(log, card, params, kv_int8=True),
+            "study_path": study_path(gen, log)}
+    bf16, int8 = runs["main_path"], runs["int8_serving_path"]
+    log(f"serving waves on {card}: bf16 KV {bf16['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{bf16['ttft_ms'][len(bf16['ttft_ms']) // 2]:.1f} ms; int8 KV "
+        f"{int8['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{int8['ttft_ms'][len(int8['ttft_ms']) // 2]:.1f} ms")
+    # each kernel's launches come from the path that runs it
+    path_of = {"flash_attention": "main_path", "paged_decode_attention": "main_path",
+               "paged_decode_attention_int8kv": "int8_serving_path",
+               "decode_attention": "study_path", "decode_attention_int8kv": "study_path"}
     for kern in kernels:
-        kern["launches"] = run["launches"][kern["name"]]
+        kern["launches"] = runs[path_of[kern["name"]]]["launches"][kern["name"]]
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                        "builds": {k: v["seconds"] for k, v in builds.items()},
-                       "kernels": kernels, "main_path": run}, f, indent=1)
+                       "kernels": kernels, **runs}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

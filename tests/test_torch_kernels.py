@@ -13,7 +13,11 @@ import torch
 
 from vtpu_torch.ops import _build
 from vtpu_torch.ops.attention import flash_attention, flash_attention_ref
-from vtpu_torch.ops.decode_attn import paged_decode_attention, paged_decode_attention_ref
+from vtpu_torch.ops.decode_attn import (
+    decode_attention, decode_attention_ref, paged_decode_attention,
+    paged_decode_attention_int8kv, paged_decode_attention_int8kv_ref,
+    paged_decode_attention_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +32,19 @@ def dev():
 
 def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _tol(dtype) -> float:
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+def _int8(rng, shape, dev):
+    return torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8)).to(dev)
+
+
+def _scales(rng, shape, dev):
+    # the study's range: [1e-3, 2.1e-2]
+    return torch.from_numpy((rng.rand(*shape) * 0.02 + 1e-3).astype(np.float32)).to(dev)
 
 
 @pytest.mark.parametrize("shape", [(2, 1024, 8, 128), (1, 200, 4, 64), (2, 77, 2, 32)])
@@ -76,3 +93,93 @@ def test_paged_kernel_matches_plain(dev, dtype, case):
         torch.cuda.synchronize()
         want = paged_decode_attention_ref(q, kp, vp, table, kv_len, layer)
         assert _err(got, want) <= (2e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["flat_t1", "ragged_t3", "poisoned_null"])
+def test_paged_int8_kernel_matches_plain(dev, dtype, case):
+    rng = np.random.RandomState(3)
+    shape = (3, 9, 16, 4, 128)
+    kq, vq = _int8(rng, shape, dev), _int8(rng, shape, dev)
+    ks, vs = _scales(rng, shape[:4], dev), _scales(rng, shape[:4], dev)
+    table = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 8, 1]], dtype=torch.int32,
+                         device=dev)
+    if case == "flat_t1":
+        t, lens = 1, [[5], [33], [64]]
+    elif case == "ragged_t3":
+        t, lens = 3, [[17, 18, 19], [38, 39, 40], [62, 63, 64]]
+    else:  # the null block's values and scales: never observable
+        kq[:, 0], vq[:, 0], ks[:, 0], vs[:, 0] = 127, -127, 1e3, 1e3
+        t, lens = 1, [[3], [20], [50]]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.randn(3, t, 4, 128).astype(np.float32)).to(dev, dtype)
+    for layer in (0, 2):
+        before = _build.launches()["paged_decode_attention_int8kv"]
+        got = paged_decode_attention_int8kv(q, kq, ks, vq, vs, table, kv_len, layer)
+        torch.cuda.synchronize()
+        assert _build.launches()["paged_decode_attention_int8kv"] == before + 1
+        want = paged_decode_attention_int8kv_ref(q, kq, ks, vq, vs, table, kv_len, layer)
+        assert _err(got, want) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("kv", ["native", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["ragged_t4", "flat_t1", "multi_tile", "bucket"])
+def test_dense_decode_kernel_matches_plain(dev, dtype, kv, case):
+    """decode_attention's kernel against its plain version: ragged T=4,
+    [B] lengths at T=1, a long multi-tile window and a bucket that bounds
+    the reads below S (keys past it hold garbage that must not be read)."""
+    rng = np.random.RandomState(4)
+    b, h, dh, bucket = 2, 4, 128, 0
+    if case == "ragged_t4":
+        t, s, lens = 4, 256, [[5, 6, 7, 8], [200, 201, 202, 203]]
+    elif case == "flat_t1":
+        t, s, lens = 1, 256, [5, 200]
+    elif case == "multi_tile":
+        t, s, lens = 1, 1024, [[700], [1024]]
+    else:
+        t, s, bucket, lens = 1, 1024, 300, [[100], [1024]]
+    shape = (b, s, h, dh)
+    if kv == "int8":
+        k, v = _int8(rng, shape, dev), _int8(rng, shape, dev)
+        ks, vs = _scales(rng, shape[:3], dev), _scales(rng, shape[:3], dev)
+    else:
+        k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+                for _ in range(2))
+        ks = vs = None
+    if bucket:
+        if kv == "int8":
+            k[:, bucket:], v[:, bucket:], ks[:, bucket:], vs[:, bucket:] = 127, -127, 1e3, 1e3
+        else:
+            k[:, bucket:], v[:, bucket:] = 1e3, -1e3
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.randn(b, t, h, dh).astype(np.float32)).to(dev, dtype)
+    name = "decode_attention_int8kv" if kv == "int8" else "decode_attention"
+    before = _build.launches()[name]
+    got = decode_attention(q, k, v, kv_len, ks, vs, bucket=bucket)
+    torch.cuda.synchronize()
+    assert _build.launches()[name] == before + 1
+    want = decode_attention_ref(q, k, v, kv_len, ks, vs, bucket=bucket)
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) <= _tol(dtype)
+
+
+def test_decode_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q = torch.zeros((1, 1, 2, 8), device=dev)
+    k8 = torch.zeros((1, 16, 2, 8), dtype=torch.int8, device=dev)
+    sc = torch.ones((1, 16, 2), device=dev)
+    lens = torch.tensor([4], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        decode_attention(q, k8, k8, lens, sc, sc)  # int8 head_dim 8: 8 bytes
+    with pytest.raises(ValueError, match="takes torch.int8"):
+        decode_attention(q, k8.float(), k8.float(), lens, sc, sc)
+    with pytest.raises(ValueError, match="scales must be float32"):
+        decode_attention(q, k8, k8, lens, sc.double(), sc)
+    pool = torch.zeros((1, 2, 16, 2, 16), dtype=torch.int8, device=dev)
+    spool = torch.ones((1, 2, 16, 2), device=dev)
+    table = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    q16 = torch.zeros((1, 1, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="outside the pool"):
+        paged_decode_attention_int8kv(q16, pool, spool, pool, spool, table, lens, layer=1)
+    with pytest.raises(ValueError, match="scale pools must be float32"):
+        paged_decode_attention_int8kv(q16, pool, spool[..., :1], pool, spool, table, lens)

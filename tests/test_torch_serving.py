@@ -294,7 +294,8 @@ def test_unported_serving_fields_raise(weights, field, value):
 
 def test_unported_model_options_raise(weights):
     _, tp = weights
-    cfg8 = ModelConfig(**DIMS, dtype=torch.float32, kv_int8=True)
+    # kv_int8=True is ported; "auto" (the reference's TPU-measured router) is not
+    cfg8 = ModelConfig(**DIMS, dtype=torch.float32, kv_int8="auto")
     with pytest.raises(NotImplementedError, match="kv_int8"):
         ServingEngine(tp, cfg8, ServingConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="sample="):

@@ -12,10 +12,13 @@ from vtpu_torch.models.transformer import (
     init_paged_kv_cache,
     init_params,
     kv_bytes_per_token,
+    kv_keys,
     kv_quantized,
     prefill,
+    quantize_kv,
     sample_tokens,
     spec_verify_loop,
+    store_kv,
     transformer_layer,
 )
 
@@ -30,9 +33,12 @@ __all__ = [
     "init_paged_kv_cache",
     "init_params",
     "kv_bytes_per_token",
+    "kv_keys",
     "kv_quantized",
     "prefill",
+    "quantize_kv",
     "sample_tokens",
     "spec_verify_loop",
+    "store_kv",
     "transformer_layer",
 ]

@@ -4,7 +4,8 @@ Counterpart of vtpu/models/transformer.py, with its layouts kept at every
 public function so the two packages compare like with like: activations
 [B, S, H, Dh], per-layer weights stacked on a leading axis [L, d_in, d_out]
 and applied as ``x @ w``, tied embeddings, caches [L, B, max_seq, H, Dh] and
-paged pools [L, n_blocks, page, H, Dh].
+paged pools [L, n_blocks, page, H, Dh] (``kv_int8``: int8 values with f32
+scale planes [..., H] beside them, quantized by ``quantize_kv``).
 
 Differences from the reference, all PyTorch idiom:
 - the layer loop is a Python loop (there is no scan/fori_loop split to keep);
@@ -13,7 +14,8 @@ Differences from the reference, all PyTorch idiom:
   cache per step;
 - ``cfg.use_kernels`` (for ``use_pallas``) routes prefill to the flash kernel
   at any S and, through ``paged_attn_route``, paged decode to the paged
-  kernel; on CPU tensors both wrappers run their plain versions.
+  kernel (bf16 or int8); on CPU tensors the wrappers run their plain
+  versions.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import torch.nn.functional as F
 
 from vtpu_torch.device import resolve_device
 from vtpu_torch.ops import (
-    apply_rope, causal_attention, flash_attention, paged_attn_route,
-    paged_causal_attention, paged_decode_attention, rms_norm, rope_angles,
+    apply_rope, causal_attention, causal_attention_int8kv, flash_attention,
+    paged_attn_route, paged_causal_attention, paged_causal_attention_int8kv,
+    paged_decode_attention, paged_decode_attention_int8kv, rms_norm, rope_angles,
     scaled_normal,
 )
 
@@ -46,9 +49,10 @@ class ModelConfig:
     head_dim: int = 128
     dtype: torch.dtype = torch.bfloat16
     use_kernels: bool = True
-    # int8 KV cache: not ported yet (the int8 paged kernel is the next
-    # slice); a true value raises where a cache would be built
-    kv_int8: bool = False
+    # int8 KV cache with per-token-per-head f32 scales. Any true value builds
+    # int8 caches here; the serving engine refuses "auto" (the reference's
+    # router was measured on a TPU)
+    kv_int8: bool | str = False
 
     @property
     def qkv_dim(self) -> int:
@@ -59,10 +63,44 @@ def kv_quantized(cfg) -> bool:
     return bool(getattr(cfg, "kv_int8", False))
 
 
-def _require_unquantized(cfg) -> None:
-    if kv_quantized(cfg):
-        raise NotImplementedError(
-            "ModelConfig.kv_int8 is not ported to vtpu_torch yet")
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., H, Dh] -> (int8 values, [..., H] f32 absmax/127 scales):
+    per-token-per-head symmetric scaling, the scale clamped at 1e-6 / 127,
+    rounding half to even as jnp.round does."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _kv_planes(cfg, shape: tuple, device) -> dict[str, torch.Tensor]:
+    """Zero-filled k/v planes of ``shape`` [..., H, Dh]: cfg.dtype, or int8
+    with [..., H] f32 k_scale/v_scale planes."""
+    if not kv_quantized(cfg):
+        return {key: torch.zeros(shape, dtype=cfg.dtype, device=device) for key in ("k", "v")}
+    planes = {key: torch.zeros(shape, dtype=torch.int8, device=device) for key in ("k", "v")}
+    for key in ("k_scale", "v_scale"):
+        planes[key] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return planes
+
+
+def kv_keys(cache: dict) -> tuple[str, ...]:
+    """The KV planes a cache holds: k/v, plus k_scale/v_scale when int8."""
+    return ("k", "v", "k_scale", "v_scale") if "k_scale" in cache else ("k", "v")
+
+
+def store_kv(cache: dict, l: int, idx: tuple, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write [N, H, Dh] k/v rows at plane ``l``, index ``idx`` of every KV
+    plane of ``cache`` in place: as they are, or quantized with their scales
+    written beside them for an int8 cache."""
+    if "k_scale" not in cache:
+        cache["k"][(l, *idx)] = k
+        cache["v"][(l, *idx)] = v
+        return
+    for key, x in (("k", k), ("v", v)):
+        xq, sc = quantize_kv(x)
+        cache[key][(l, *idx)] = xq
+        cache[f"{key}_scale"][(l, *idx)] = sc
 
 
 def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
@@ -93,25 +131,22 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, device=None) -> dict[str, torch.Tensor]:
-    """Dense per-row cache [L, batch, max_seq, H, Dh], zero-filled."""
-    _require_unquantized(cfg)
+    """Dense per-row cache [L, batch, max_seq, H, Dh], zero-filled (int8
+    with [L, batch, max_seq, H] f32 scale planes when cfg.kv_int8)."""
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.max_seq, cfg.n_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
-    }
+    return {**_kv_planes(cfg, shape, device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
 def init_paged_kv_cache(cfg: ModelConfig, slots: int, page: int, n_blocks: int,
                         device=None) -> dict[str, torch.Tensor]:
     """Paged pool state: one block pool per k/v plane [L, n_blocks, page, H,
-    Dh] (zero-filled) plus a per-slot page table [slots, max_seq // page]
-    int32. Block 0 is the NULL block: the allocator never hands it out and
-    unmapped table entries point at it, so padding reads land on one block
-    every reader masks."""
-    _require_unquantized(cfg)
+    Dh] (zero-filled; int8 with [L, n_blocks, page, H] f32 scale pools when
+    cfg.kv_int8) plus a per-slot page table [slots, max_seq // page] int32.
+    Block 0 is the NULL block: the allocator never hands it out and unmapped
+    table entries point at it, so padding reads land on one block every
+    reader masks."""
     if cfg.max_seq % page:
         raise ValueError(f"kv page {page} must divide max_seq {cfg.max_seq}")
     device = resolve_device(device)
@@ -119,8 +154,7 @@ def init_paged_kv_cache(cfg: ModelConfig, slots: int, page: int, n_blocks: int,
     return {
         "table": torch.zeros((slots, cfg.max_seq // page), dtype=torch.int32, device=device),
         "len": torch.zeros((slots,), dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        **_kv_planes(cfg, shape, device),
     }
 
 
@@ -219,7 +253,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             logits_at: Optional[torch.Tensor] = None):
     """Full-sequence forward. tokens: [B, S] int. Returns (logits, kv_cache):
     [B, S, vocab] f32 logits, or [B, vocab] gathered at ``logits_at`` ([B]
-    positions) before the vocab projection."""
+    positions) before the vocab projection. An int8 cache stores the
+    quantized K/V; the forward itself attends over the unquantized ones."""
     b, s = tokens.shape
     if s > cfg.max_seq:
         raise ValueError(f"prompt length {s} exceeds max_seq {cfg.max_seq}")
@@ -230,8 +265,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache = init_kv_cache(cfg, b, device=dev)
     for l in range(cfg.n_layers):
         x, (k, v) = transformer_layer(cfg, _layer(params, l), x, cos, sin, positions)
-        cache["k"][l, :, :s] = k
-        cache["v"][l, :, :s] = v
+        store_kv(cache, l, (slice(None), slice(0, s)), k, v)
     x = rms_norm(x, params["final_norm"])
     if logits_at is not None:
         x = x[torch.arange(b, device=dev), logits_at]
@@ -248,8 +282,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: dict[str, torch.Tensor]
     pos0 = cache["len"][0]
 
     def write_kv(l, kv, k, v):
-        kv["k"][l, :, pos0] = k[:, 0]
-        kv["v"][l, :, pos0] = v[:, 0]
+        store_kv(kv, l, (slice(None), pos0), k[:, 0], v[:, 0])
         return kv
 
     logits, new_kv = decode_layer_loop(params, cfg, cache, token, kv_bucket, write_kv)
@@ -280,7 +313,8 @@ def spec_verify_loop(params: Params, cfg: ModelConfig, cache: dict[str, torch.Te
     Paged pools ("table" in cache) read either through the paged kernel
     (the whole pool plus the layer index, walking the table in place) or
     through the gather route, resolved by ``paged_attn_route(paged_attn,
-    window, device)``. Both share the masking and null-block contracts.
+    window, device)``. Both share the masking and null-block contracts. An
+    int8 cache (k_scale/v_scale present) takes the int8 twin of each route.
     Returns (logits [B, T, vocab] f32, kv dict)."""
     b, t = draft.shape
     bucket = kv_bucket or cfg.max_seq
@@ -301,19 +335,34 @@ def spec_verify_loop(params: Params, cfg: ModelConfig, cache: dict[str, torch.Te
     positions = torch.clamp(lens[:, None] + steps[None, :], max=cfg.max_seq - 1)
     ragged_len = torch.clamp(lens[:, None] + 1 + steps[None, :], max=cfg.max_seq)
     x = params["embed"][draft].to(cfg.dtype)
-    kv = {"k": cache["k"], "v": cache["v"]}
+    quant = "k_scale" in cache
+    kv = {key: cache[key] for key in kv_keys(cache)}
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         q, k, v = _qkv(cfg, lp, x, cos, sin, positions)
         kv = write_kv(l, kv, k, v)
-        if use_kernel:
+        if use_kernel and quant:
+            attn = paged_decode_attention_int8kv(q, kv["k"], kv["k_scale"], kv["v"],
+                                                 kv["v_scale"], table_w, ragged_len, layer=l)
+        elif use_kernel:
             attn = paged_decode_attention(q, kv["k"], kv["v"], table_w, ragged_len, layer=l)
-        elif table is not None:
-            attn = paged_causal_attention(q, kv["k"][l], kv["v"][l], table_w,
-                                          kv_len=ragged_len)
         else:
-            attn = causal_attention(q, kv["k"][l][:, :bucket], kv["v"][l][:, :bucket],
-                                    kv_len=ragged_len)
+            # one layer's planes; the gather route reads them through the
+            # table, the dense cache over its first ``bucket`` positions
+            view = ({key: kv[key][l] for key in kv} if table is not None
+                    else {key: kv[key][l][:, :bucket] for key in kv})
+            if table is not None and quant:
+                attn = paged_causal_attention_int8kv(
+                    q, view["k"], view["k_scale"], view["v"], view["v_scale"], table_w,
+                    kv_len=ragged_len)
+            elif table is not None:
+                attn = paged_causal_attention(q, view["k"], view["v"], table_w,
+                                              kv_len=ragged_len)
+            elif quant:
+                attn = causal_attention_int8kv(q, view["k"], view["k_scale"], view["v"],
+                                               view["v_scale"], kv_len=ragged_len)
+            else:
+                attn = causal_attention(q, view["k"], view["v"], kv_len=ragged_len)
         x = x + attn.reshape(b, t, cfg.qkv_dim) @ lp["wo"]
         x = x + ffn(lp, x)
     x = rms_norm(x, params["final_norm"])

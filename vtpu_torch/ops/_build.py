@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C entry point (bound through ctypes: no PyTorch headers, so a
 build takes seconds, not minutes). Libraries land in ``build/vtpu_torch/``
-at the repo root, keyed by a hash of the source and flags, and are reused
+at the repo root, keyed by a hash of the source, every ``csrc/*.cuh``
+header (a source may include any of them) and the flags, and are reused
 while that hash is unchanged. Nothing here runs at import: the first call
 of a kernel wrapper on a CUDA tensor builds what it needs, and
 ``build_all`` starts one ``nvcc`` per source at once.
@@ -32,7 +33,11 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"flash_attention": 0, "paged_decode_attention": 0}
+LAUNCHES: dict[str, int] = {
+    "flash_attention": 0, "paged_decode_attention": 0,
+    "paged_decode_attention_int8kv": 0, "decode_attention": 0,
+    "decode_attention_int8kv": 0,
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -62,8 +67,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

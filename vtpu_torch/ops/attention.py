@@ -1,11 +1,12 @@
 """Causal attention: the plain PyTorch paths plus the flash-prefill kernel.
 
 Counterpart of vtpu/ops/attention.py. ``causal_attention``,
-``gather_kv_pages`` and ``paged_causal_attention`` are the plain (gather)
-route and keep the reference's masking contract verbatim: kv_len None is
-plain causal (prefill), [B] is the causal suffix plus per-row validity
-(lockstep decode), [B, Sq] is the ragged per-query form (speculative verify
-and the serving decode trunk).
+``gather_kv_pages`` and ``paged_causal_attention``, with their int8-KV
+twins ``causal_attention_int8kv`` and ``paged_causal_attention_int8kv``,
+are the plain (gather) route and keep the reference's masking contract
+verbatim: kv_len None is plain causal (prefill), [B] is the causal suffix
+plus per-row validity (lockstep decode), [B, Sq] is the ragged per-query
+form (speculative verify and the serving decode trunk).
 
 ``flash_attention`` is the wrapper of the hand-written Hopper kernel in
 vtpu_torch/csrc/flash_attention.cu; ``flash_attention_ref`` beside it is its
@@ -55,6 +56,27 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def causal_attention_int8kv(q: torch.Tensor, kq: torch.Tensor, k_scale: torch.Tensor,
+                            vq: torch.Tensor, v_scale: torch.Tensor,
+                            kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal attention over an int8-quantized KV window. q: [B, Sq, H, Dh];
+    kq, vq: [B, Sk, H, Dh] int8; k_scale, v_scale: [B, Sk, H] f32; kv_len as
+    in ``causal_attention``. The scales apply after the products, never to
+    the operands: k_scale multiplies the f32 scores before the mask and
+    softmax, v_scale the probabilities after it; the probabilities are cast
+    to q's dtype before P.V and the int8 values enter both products as
+    values of q's dtype (int8 -> bf16 -> f32 is exact)."""
+    sq, dh = q.shape[1], q.shape[3]
+    sk = kq.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kq.float()) * scale
+    scores = scores * k_scale.permute(0, 2, 1)[:, :, None, :]  # [B, H, 1, Sk]
+    scores = torch.where(_causal_mask(sq, sk, kv_len, q.device), scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1) * v_scale.permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), vq.to(q.dtype))
+    return out.to(q.dtype)
+
+
 def gather_kv_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """One layer's plane [n_blocks, page, ...] gathered through table [B, Wp]
     into [B, Wp * page, ...], positionally identical to a dense cache
@@ -72,6 +94,18 @@ def paged_causal_attention(q: torch.Tensor, k_pool: torch.Tensor,
     k = gather_kv_pages(k_pool, table)
     v = gather_kv_pages(v_pool, table)
     return causal_attention(q, k, v, kv_len=kv_len)
+
+
+def paged_causal_attention_int8kv(q: torch.Tensor, kq_pool: torch.Tensor,
+                                  k_scale_pool: torch.Tensor, vq_pool: torch.Tensor,
+                                  v_scale_pool: torch.Tensor, table: torch.Tensor,
+                                  kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Paged ``causal_attention_int8kv``: one layer's int8 value planes
+    [n_blocks, page, H, Dh] and f32 scale planes [n_blocks, page, H],
+    gathered through the same table, then the int8-window attention."""
+    return causal_attention_int8kv(
+        q, gather_kv_pages(kq_pool, table), gather_kv_pages(k_scale_pool, table),
+        gather_kv_pages(vq_pool, table), gather_kv_pages(v_scale_pool, table), kv_len=kv_len)
 
 
 # q rows and keys per tile: the CUDA kernel's BQ and BK

@@ -1,19 +1,28 @@
-"""Paged decode/verify attention that walks the page table over the pool.
+"""Decode/verify attention kernels: the paged product path that walks the
+page table over the pool, and the dense-cache study.
 
-Counterpart of the product path in vtpu/ops/decode_attn.py.
-``paged_decode_attention`` takes the WHOLE pool [L, n_blocks, page, H, Dh]
-plus a layer index and attends over pool blocks in place: no per-layer
-slice, no gathered window. It wraps the hand-written Hopper kernel in
-vtpu_torch/csrc/paged_decode_attention.cu; ``paged_decode_attention_ref``
-beside it is the plain version, the same page-by-page online softmax in
-PyTorch. The wrapper takes the plain version only for CPU tensors; for a
-CUDA tensor it launches the kernel or raises.
+Counterpart of vtpu/ops/decode_attn.py. ``paged_decode_attention`` and
+``paged_decode_attention_int8kv`` take the WHOLE pool [L, n_blocks, page, H,
+Dh] (int8 pools with [L, n_blocks, page, H] f32 scale pools) plus a layer
+index and attend over pool blocks in place: no per-layer slice, no gathered
+window. ``decode_attention`` attends over a dense [B, S, H, Dh] cache (bf16,
+or int8 with [B, S, H] scales) bounded to a read bucket; like the
+reference's, it is on no serving path (the study surface). Each wraps a
+hand-written Hopper kernel in vtpu_torch/csrc (paged_decode_attention.cu,
+decode_attention.cu) and has its plain version beside it (``*_ref``): the
+same tile-by-tile online softmax in PyTorch. A wrapper takes the plain
+version only for CPU tensors; for a CUDA tensor it launches the kernel or
+raises.
+
+int8 scales apply after the products exactly as the reference's
+``_attend_head`` places them: k_scale on the scores before the mask, max and
+exp; v_scale on the probabilities only in P.V, never in the denominator.
 
 Routing: the reference's TPU floors (PAGED_ATTN_MIN_WINDOW*,
 PAGED_ATTN_T_FLOORS) were measured on a TPU and are not carried over. Auto
-resolves to the kernel on CUDA and to the gather route on the CPU; a row
-that routes some shape away from the kernel on the card must come from a
-measurement on the card.
+resolves to the kernel on CUDA and to the gather route on the CPU, for bf16
+and int8 pools alike; a row that routes some shape away from the kernel on
+the card must come from a measurement on the card.
 """
 
 from __future__ import annotations
@@ -32,8 +41,9 @@ _NEG_INF = -1e30
 PAGED_ATTN_ROUTES = ("kernel", "gather")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_T = 16  # queries per slot per call the kernel takes
-_paged_fn = None
+_MAX_T = 16  # queries per row per call the kernels take
+DENSE_TILE = 64  # keys per tile of the dense kernel (DENSE_TILE in decode_attention.cu)
+_fns: dict = {}  # C symbol -> bound ctypes function, set at first launch
 
 
 def paged_attn_route(override: Optional[str], window: int, device) -> str:
@@ -41,8 +51,8 @@ def paged_attn_route(override: Optional[str], window: int, device) -> str:
 
     ``override`` "kernel" or "gather" forces a route; anything else but None
     raises. None (auto) is "kernel" on CUDA and "gather" elsewhere, at every
-    ``window`` (the read window in tokens): no window floor has been
-    measured on the card yet, so none applies."""
+    ``window`` (the read window in tokens) and for bf16 and int8 pools: no
+    floor has been measured on the card yet, so none applies."""
     if override is not None:
         if override not in PAGED_ATTN_ROUTES:
             raise ValueError(
@@ -70,49 +80,135 @@ def _check_pool(q: torch.Tensor, pool: torch.Tensor, table: torch.Tensor) -> Non
             f"table must be [B, Wp] with B={q.shape[0]}, got {tuple(table.shape)}")
 
 
-def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
-                               v_pool: torch.Tensor, table: torch.Tensor,
-                               kv_len: torch.Tensor, layer: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: walk the table page by page with
-    an online softmax (f32 max/denominator/accumulator; masked scores
-    selected to -1e30 and their p to exactly 0; P cast to q's dtype before
-    P.V). Same arguments as ``paged_decode_attention``."""
-    t = q.shape[1]
-    kv_len = _norm_kv_len(kv_len, t)
-    _check_pool(q, k_pool, table)
-    b, _, h, dh = q.shape
-    page = k_pool.shape[2]
+def _check_scales(k_scale, v_scale) -> bool:
+    """Whether the call is int8 (both scales given); one alone raises."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale (int8) or neither")
+    return k_scale is not None
+
+
+def _online_softmax(q: torch.Tensor, kv_len: torch.Tensor, tiles) -> torch.Tensor:
+    """The plain tile walk shared by the plain versions: q [B, T, H, Dh],
+    kv_len [B, T]; ``tiles`` yields (first key position, k, v, k_scale,
+    v_scale) with k, v [B, n, H, Dh] and scales [B, n, H] or None. f32
+    max/denominator/accumulator; masked scores selected to -1e30 and their p
+    to exactly 0; k_scale on the scores before the mask, v_scale on p after
+    the denominator; P cast to q's dtype before P.V."""
+    b, t, h, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     qf = q.float().permute(0, 2, 1, 3)  # [B, H, T, Dh]
     lens = kv_len[:, None, :, None]     # [B, 1, T, 1]
     m = torch.full((b, h, t), _NEG_INF, device=q.device)
     l = torch.zeros((b, h, t), device=q.device)
     acc = torch.zeros((b, h, t, dh), device=q.device)
-    for j in range(table.shape[1]):
-        blk = table[:, j]
-        kt = k_pool[layer, blk].float().permute(0, 2, 1, 3)  # [B, H, page, Dh]
-        vt = v_pool[layer, blk].float().permute(0, 2, 1, 3)
-        ok = j * page + torch.arange(page, device=q.device) < lens
-        sc = torch.where(ok, qf @ kt.transpose(-1, -2) * scale, _NEG_INF)
+    for k0, kt, vt, kst, vst in tiles:
+        # int8 -> f32 is exact, as the reference's int8 -> q's dtype is
+        kt = kt.float().permute(0, 2, 1, 3)  # [B, H, n, Dh]
+        vt = vt.float().permute(0, 2, 1, 3)
+        ok = k0 + torch.arange(kt.shape[2], device=q.device) < lens
+        sc = qf @ kt.transpose(-1, -2) * scale
+        if kst is not None:
+            sc = sc * kst.permute(0, 2, 1)[:, :, None, :]
+        sc = torch.where(ok, sc, _NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.where(ok, torch.exp(sc - m_new[..., None]), 0.0)
         l = l * alpha + p.sum(dim=-1)
+        if vst is not None:
+            p = p * vst.permute(0, 2, 1)[:, :, None, :]
         acc = acc * alpha[..., None] + p.to(q.dtype).float() @ vt
         m = m_new
     out = torch.where(l[..., None] > 0, acc / l[..., None].clamp_min(1e-30), 0.0)
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
-def _paged_kernel():
-    global _paged_fn
-    if _paged_fn is None:
-        fn = _build.load("paged_decode_attention").vtpu_paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
+def _paged_ref(q, k_pool, v_pool, table, kv_len, layer, k_scale_pool=None,
+               v_scale_pool=None) -> torch.Tensor:
+    kv_len = _norm_kv_len(kv_len, q.shape[1])
+    _check_pool(q, k_pool, table)
+    page = k_pool.shape[2]
+
+    def tiles():
+        for j in range(table.shape[1]):
+            blk = table[:, j]
+            yield (j * page, k_pool[layer, blk], v_pool[layer, blk],
+                   None if k_scale_pool is None else k_scale_pool[layer, blk],
+                   None if v_scale_pool is None else v_scale_pool[layer, blk])
+
+    return _online_softmax(q, kv_len, tiles())
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, table: torch.Tensor,
+                               kv_len: torch.Tensor, layer: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the paged kernel: walk the table page by page
+    with the online softmax of ``_online_softmax``. Same arguments as
+    ``paged_decode_attention``."""
+    return _paged_ref(q, k_pool, v_pool, table, kv_len, layer)
+
+
+def paged_decode_attention_int8kv_ref(q: torch.Tensor, kq_pool: torch.Tensor,
+                                      k_scale_pool: torch.Tensor, vq_pool: torch.Tensor,
+                                      v_scale_pool: torch.Tensor, table: torch.Tensor,
+                                      kv_len: torch.Tensor, layer: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the int8 paged kernel: the same page walk
+    with the scales placed as in the reference's ``_attend_head``. Same
+    arguments as ``paged_decode_attention_int8kv``."""
+    return _paged_ref(q, kq_pool, vq_pool, table, kv_len, layer, k_scale_pool, v_scale_pool)
+
+
+def _kernel(lib: str, sym: str, argtypes: list):
+    fn = _fns.get(sym)
+    if fn is None:
+        fn = getattr(_build.load(lib), sym)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _paged_fn = fn
-    return _paged_fn
+        _fns[sym] = fn
+    return fn
+
+
+def _check_launch(name: str, q: torch.Tensor, kv_len: torch.Tensor, caches: tuple,
+                  others: tuple) -> None:
+    """Checks shared by every kernel wrapper on a CUDA tensor: q's dtype,
+    int32 [B, T] kv_len, T and head_dim in range, every operand contiguous
+    on q's device, and 16-byte aligned caches."""
+    b, t, _, dh = q.shape
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{name} takes float32 or bfloat16 q, got {q.dtype}")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b, t):
+        raise ValueError(f"kv_len must be int32 [B, T] = {(b, t)}, got "
+                         f"{kv_len.dtype} {tuple(kv_len.shape)}")
+    tensors = (q, kv_len) + caches + others
+    if any(x.device != q.device for x in tensors):
+        raise ValueError(f"{name} needs every operand on q's device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name} needs contiguous operands")
+    if any(x.data_ptr() % 16 for x in caches):
+        raise ValueError(f"{name} needs 16-byte aligned caches")
+    if not 1 <= t <= _MAX_T or any((dh * x.element_size()) % 16 for x in (q,) + caches):
+        raise ValueError(f"unsupported shape: T={t} (1..{_MAX_T}), head_dim={dh} "
+                         "(a multiple of 16 bytes in every operand)")
+
+
+def _check_paged(name: str, q, k_pool, v_pool, table, kv_len, layer,
+                 kv_dtype: torch.dtype, scale_pools: tuple = ()) -> int:
+    h, dh = q.shape[2:]
+    if k_pool.dtype != kv_dtype or v_pool.dtype != kv_dtype:
+        raise ValueError(f"{name} takes {kv_dtype} pools, got {k_pool.dtype}, {v_pool.dtype}")
+    if k_pool.shape != v_pool.shape or tuple(k_pool.shape[3:]) != (h, dh):
+        raise ValueError(f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do "
+                         f"not match q heads {(h, dh)}")
+    for sp in scale_pools:
+        if sp.dtype != torch.float32 or sp.shape != k_pool.shape[:4]:
+            raise ValueError(f"scale pools must be float32 {tuple(k_pool.shape[:4])}, "
+                             f"got {sp.dtype} {tuple(sp.shape)}")
+    if table.dtype != torch.int32:
+        raise ValueError("table must be int32")
+    _check_launch(name, q, kv_len, (k_pool, v_pool), (table,) + scale_pools)
+    layer = int(layer)
+    if not 0 <= layer < k_pool.shape[0]:
+        raise ValueError(f"layer {layer} outside the pool's {k_pool.shape[0]} planes")
+    return layer
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -121,47 +217,129 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Fused paged decode/verify attention over the block pool in place.
 
     q: [B, T, H, Dh] (T = 1 for a decode tick, K+1 for a verify chunk);
-    k_pool, v_pool: the whole pool [L, n_blocks, page, H, Dh]; ``layer``
-    picks the plane; table: [B, Wp] int32 block ids for the read window,
-    padded with the null block 0; kv_len: ragged [B, T] int32 (query i of row
-    b reads k_pos < kv_len[b, i]) or [B] with T = 1."""
+    k_pool, v_pool: the whole pool [L, n_blocks, page, H, Dh] in q's dtype;
+    ``layer`` picks the plane; table: [B, Wp] int32 block ids for the read
+    window, padded with the null block 0; kv_len: ragged [B, T] int32 (query
+    i of row b reads k_pos < kv_len[b, i]) or [B] with T = 1."""
     t = q.shape[1]
     kv_len = _norm_kv_len(kv_len, t)
     _check_pool(q, k_pool, table)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, table, kv_len, layer)
+    name = "paged_decode_attention"
+    layer = _check_paged(name, q, k_pool, v_pool, table, kv_len, layer, q.dtype)
     b, _, h, dh = q.shape
-    n_layers, nb, page = k_pool.shape[:3]
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"paged_decode_attention takes float32 or bfloat16 q "
-                         f"and pools of q's dtype, got {q.dtype}, "
-                         f"{k_pool.dtype}, {v_pool.dtype}")
-    if k_pool.shape != v_pool.shape or tuple(k_pool.shape[3:]) != (h, dh):
-        raise ValueError(f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do "
-                         f"not match q heads {(h, dh)}")
-    if table.dtype != torch.int32 or kv_len.dtype != torch.int32:
-        raise ValueError("table and kv_len must be int32")
-    if tuple(kv_len.shape) != (b, t):
-        raise ValueError(f"kv_len must be [B, T] = {(b, t)}, got {tuple(kv_len.shape)}")
-    tensors = (q, k_pool, v_pool, table, kv_len)
-    if any(x.device != q.device for x in tensors):
-        raise ValueError("paged_decode_attention needs every operand on q's device")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("paged_decode_attention needs contiguous operands")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_decode_attention needs 16-byte aligned pools")
-    if not 1 <= t <= _MAX_T or (dh * q.element_size()) % 16:
-        raise ValueError(f"unsupported shape: T={t} (1..{_MAX_T}), head_dim={dh} "
-                         "(a multiple of 16 bytes)")
-    layer = int(layer)
-    if not 0 <= layer < n_layers:
-        raise ValueError(f"layer {layer} outside the pool's {n_layers} planes")
     out = torch.empty_like(q)
-    fn = _paged_kernel()
+    fn = _kernel(name, "vtpu_paged_decode_attention",
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-             kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, t, h, dh, nb,
-             page, table.shape[1], layer, 1.0 / math.sqrt(dh),
+             kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, t, h, dh,
+             k_pool.shape[1], k_pool.shape[2], table.shape[1], layer, 1.0 / math.sqrt(dh),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.LAUNCHES["paged_decode_attention"] += 1
-    _build.check(err, "paged_decode_attention")
+    _build.LAUNCHES[name] += 1
+    _build.check(err, name)
+    return out
+
+
+def paged_decode_attention_int8kv(q: torch.Tensor, kq_pool: torch.Tensor,
+                                  k_scale_pool: torch.Tensor, vq_pool: torch.Tensor,
+                                  v_scale_pool: torch.Tensor, table: torch.Tensor,
+                                  kv_len: torch.Tensor, layer: int = 0) -> torch.Tensor:
+    """int8 paged decode/verify attention: int8 value pools [L, n_blocks,
+    page, H, Dh] stream as int8 and convert in the kernel; f32 scale pools
+    [L, n_blocks, page, H] walk the same table and apply post-product as in
+    ``causal_attention_int8kv``. Same table/kv_len/layer contract as
+    ``paged_decode_attention``; q (and the output) float32 or bfloat16."""
+    t = q.shape[1]
+    kv_len = _norm_kv_len(kv_len, t)
+    _check_pool(q, kq_pool, table)
+    if q.device.type == "cpu":
+        return paged_decode_attention_int8kv_ref(q, kq_pool, k_scale_pool, vq_pool,
+                                                 v_scale_pool, table, kv_len, layer)
+    name = "paged_decode_attention_int8kv"
+    layer = _check_paged(name, q, kq_pool, vq_pool, table, kv_len, layer, torch.int8,
+                         (k_scale_pool, v_scale_pool))
+    b, _, h, dh = q.shape
+    out = torch.empty_like(q)
+    fn = _kernel("paged_decode_attention", "vtpu_paged_decode_attention_int8kv",
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    err = fn(q.data_ptr(), kq_pool.data_ptr(), k_scale_pool.data_ptr(), vq_pool.data_ptr(),
+             v_scale_pool.data_ptr(), table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+             _DTYPES[q.dtype], b, t, h, dh, kq_pool.shape[1], kq_pool.shape[2],
+             table.shape[1], layer, 1.0 / math.sqrt(dh),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.LAUNCHES[name] += 1
+    _build.check(err, name)
+    return out
+
+
+def _dense_args(q, k, kv_len, bucket):
+    s = k.shape[1]
+    bucket = bucket or s
+    if bucket > s:
+        raise ValueError(f"bucket {bucket} exceeds cache length {s}")
+    return _norm_kv_len(kv_len, q.shape[1]), bucket
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None,
+                         bucket: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the dense kernel: walk the cache's first
+    ``bucket`` keys in DENSE_TILE-key tiles with the online softmax of
+    ``_online_softmax``. Same arguments as ``decode_attention``."""
+    _check_scales(k_scale, v_scale)
+    kv_len, bucket = _dense_args(q, k, kv_len, bucket)
+
+    def tiles():
+        for k0 in range(0, bucket, DENSE_TILE):
+            k1 = min(k0 + DENSE_TILE, bucket)
+            yield (k0, k[:, k0:k1], v[:, k0:k1],
+                   None if k_scale is None else k_scale[:, k0:k1],
+                   None if v_scale is None else v_scale[:, k0:k1])
+
+    return _online_softmax(q, kv_len, tiles())
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     bucket: int = 0) -> torch.Tensor:
+    """Decode/verify attention over a dense cache, bounded to a read bucket.
+
+    q: [B, T, H, Dh] float32 or bfloat16; k, v: [B, S, H, Dh] in q's dtype,
+    or int8 with k_scale/v_scale [B, S, H] float32; kv_len: ragged [B, T]
+    int32 (query i of row b reads k_pos < kv_len[b, i]) or [B] with T = 1.
+    ``bucket`` (0 = S) bounds the reads: keys at or past it are never read,
+    and a bucket past S raises. Like the reference's, this entry point is
+    the study surface, on no serving path."""
+    scaled = _check_scales(k_scale, v_scale)
+    kv_len, bucket = _dense_args(q, k, kv_len, bucket)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, kv_len, k_scale, v_scale, bucket)
+    name = "decode_attention_int8kv" if scaled else "decode_attention"
+    b, t, h, dh = q.shape
+    kv_dtype = torch.int8 if scaled else q.dtype
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise ValueError(f"{name} takes {kv_dtype} k/v with q {q.dtype}, got "
+                         f"{k.dtype}, {v.dtype}")
+    if k.dim() != 4 or k.shape != v.shape or (k.shape[0], *k.shape[2:]) != (b, h, dh):
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} must be [B, S, H, Dh] "
+                         f"with q's B, H, Dh {(b, h, dh)}")
+    scales = (k_scale, v_scale) if scaled else ()
+    for sc in scales:
+        if sc.dtype != torch.float32 or sc.shape != k.shape[:3]:
+            raise ValueError(f"scales must be float32 {tuple(k.shape[:3])}, got "
+                             f"{sc.dtype} {tuple(sc.shape)}")
+    _check_launch(name, q, kv_len, (k, v), scales)
+    out = torch.empty_like(q)
+    fn = _kernel("decode_attention", "vtpu_decode_attention",
+                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             k_scale.data_ptr() if scaled else None, v_scale.data_ptr() if scaled else None,
+             kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], int(scaled), b, t, h, dh,
+             k.shape[1], bucket, 1.0 / math.sqrt(dh),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.LAUNCHES[name] += 1
+    _build.check(err, name)
     return out

@@ -64,8 +64,11 @@ def batched_admission_step(model: Any, temperature: float, top_k: int, top_p: fl
 class TransformerSlotModel:
     """Dense transformer with a slot-pooled KV cache on one device: a dense
     per-slot ring, or with ``kv_page`` a paged block pool whose page table
-    the engine fills at admission. ``paged_attn`` (None, "kernel",
-    "gather") is the paged read-route override."""
+    the engine fills at admission. With ``cfg.kv_int8`` either holds int8
+    values with f32 scale planes beside them, as ``init_kv_cache`` and
+    ``init_paged_kv_cache`` lay them out.
+    ``paged_attn`` (None, "kernel", "gather") is the paged read-route
+    override."""
 
     supports_kv_buckets = True
 

@@ -9,8 +9,10 @@ shape changing; inactive slots compute but their writes are dropped.
 What this slice does not port raises instead of being ignored: every
 ``ServingConfig`` field named in ``_UNPORTED`` must stay at its default,
 ``pipeline_decode=True`` and ``async_admission=False`` are refused, as are
-``ModelConfig.kv_int8`` and a custom ``sample=`` callable. Prefix
-registration is a later slice.
+``ModelConfig.kv_int8="auto"`` and a custom ``sample=`` callable. Prefix
+registration is a later slice. ``kv_int8=True`` serves int8 KV: dense or
+paged int8 planes with f32 scale planes beside them, written quantized at
+every KV write site here.
 
 Writes the reference drops. JAX's ``.at[...].set(..., mode="drop")`` lets an
 out-of-range block id or position vanish (inactive lanes, positions past the
@@ -37,7 +39,7 @@ import torch
 
 from vtpu_torch.device import resolve_device
 from vtpu_torch.models.transformer import (
-    ModelConfig, Params, decode_layer_loop, kv_bytes_per_token, prefill,
+    ModelConfig, Params, decode_layer_loop, kv_bytes_per_token, kv_keys, prefill, store_kv,
 )
 from vtpu_torch.ops import _build
 from vtpu_torch.ops.decode_attn import paged_attn_route
@@ -135,8 +137,11 @@ def _check_ported(serving: ServingConfig, cfg: ModelConfig, sample) -> None:
         raise NotImplementedError(
             "ServingConfig.async_admission=False (the serial admission path) "
             "is not ported to vtpu_torch")
-    if getattr(cfg, "kv_int8", False):
-        raise NotImplementedError("ModelConfig.kv_int8 is not ported to vtpu_torch yet")
+    if isinstance(getattr(cfg, "kv_int8", False), str):
+        raise NotImplementedError(
+            f"ModelConfig.kv_int8={cfg.kv_int8!r} is not ported to vtpu_torch: the "
+            "reference resolves 'auto' with a router measured on a TPU (v5e), and "
+            "an H100 router needs an H100 measurement; pass True or False")
     if sample is not None:
         raise NotImplementedError(
             "a custom sample= callable is not ported to vtpu_torch yet")
@@ -352,7 +357,8 @@ def batched_decode_step(params: Params, cfg: ModelConfig, cache: dict, tokens: t
     len // page], len % page)) and advances by one. Inactive slots compute
     but write nothing, and neither does a slot at the context wall: the
     kept rows are selected up front (one small device read per tick) so no
-    out-of-range or stale-table write is ever issued. ``kv_bucket`` bounds
+    out-of-range or stale-table write reaches any plane (an int8 cache's
+    scales included). ``kv_bucket`` bounds
     the attention reads (0 = max_seq); ``paged_attn`` picks the paged read
     route. Updates the cache in place; returns (logits [B, vocab], cache)."""
     lens = cache["len"]
@@ -367,8 +373,7 @@ def batched_decode_step(params: Params, cfg: ModelConfig, cache: dict, tokens: t
         idx = (rows, pos)
 
     def write_kv(l, kv, k, v):
-        kv["k"][(l, *idx)] = k[rows, 0]
-        kv["v"][(l, *idx)] = v[rows, 0]
+        store_kv(kv, l, idx, k[rows, 0], v[rows, 0])  # int8: values and scales
         return kv
 
     logits, new_kv = decode_layer_loop(params, cfg, cache, tokens, kv_bucket, write_kv,
@@ -382,12 +387,13 @@ def _scatter_prefill_pages(cache: dict, seq_cache: dict, logits: torch.Tensor,
     [L, N, s, H, Dh] KV reshapes to pages and scatters into each row's
     mapped blocks (the table rows the engine set at reservation). Pad pages
     past a short reservation land on the null block 0, which every reader
-    masks. Returns (last-position logits [N, vocab], cache)."""
+    masks. An int8 pool's [L, N, s, H] scales scatter beside its values.
+    Returns (last-position logits [N, vocab], cache)."""
     page = cache["k"].shape[2]
     wp = s // page
     blk = cache["table"][slots, :wp].long()  # [N, Wp]
     n = slots.shape[0]
-    for key in ("k", "v"):
+    for key in kv_keys(cache):
         pool = cache[key]
         pages = seq_cache[key][:, :, :s].reshape(
             (pool.shape[0], n, wp, page) + tuple(pool.shape[3:]))
@@ -420,7 +426,7 @@ def prefill_into_slots(params: Params, cfg: ModelConfig, cache: dict, tokens: to
     s = tokens.shape[1]
     if "table" in cache:
         return _scatter_prefill_pages(cache, seq_cache, logits, slots, true_lens, s)
-    for key in ("k", "v"):
+    for key in kv_keys(cache):
         cache[key][:, slots, :s] = seq_cache[key][:, :, :s]
     cache["len"][slots] = true_lens.to(torch.int32)
     if logits.dim() == 2:
@@ -597,6 +603,9 @@ class ServingEngine:
         # process-wide kernel launch counts (the wrappers' counters)
         s["flash_launches"] = _build.LAUNCHES["flash_attention"]
         s["paged_attn_launches"] = _build.LAUNCHES["paged_decode_attention"]
+        s["paged_attn_int8kv_launches"] = _build.LAUNCHES["paged_decode_attention_int8kv"]
+        s["decode_attn_launches"] = _build.LAUNCHES["decode_attention"]
+        s["decode_attn_int8kv_launches"] = _build.LAUNCHES["decode_attention_int8kv"]
         return s
 
     # ----------------------------------------------------------- lifecycle
