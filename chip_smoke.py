@@ -11,7 +11,9 @@ Phases, any failure exits nonzero:
    plus one ragged case each (the dense decode kernel also at a bucket
    below S), with kernel, plain and library times and the least time the
    card could take for the same work; the dense decode kernel is timed at
-   the study's four T=1 cells;
+   the study's four T=1 cells; the paged kernels (bf16, int8) also on each
+   tp=2 head shard of the serving tick, against their plain versions and
+   the head slice of the full-pool call;
 3. the paths, each with every launch count set to 0 just before it and
    read just after:
    a. the main path: the flagship ModelConfig served by ServingEngine on a
@@ -24,6 +26,12 @@ Phases, any failure exits nonzero:
       against the plain int8 trunk;
    c. the dense decode study: decode_attention over the study's four T=1
       cells in bf16 and in int8;
+   d. tensor-parallel serving: two spawned ranks (NCCL, one card each,
+      where there are two cards; else gloo, both on card 0) serve the
+      main path's wave with bf16 and then int8 KV, every decode tick
+      through the head-local paged kernel on each rank, streams checked
+      against the plain trunk of the same KV type; given four cards, four
+      ranks over NCCL serve the same waves after them;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -60,6 +68,8 @@ SEED = 0
 # the flagship serving model of bench.py (bench_scale, TPU branch)
 FLAGSHIP = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=12, d_ff=4096, max_seq=1280,
                 head_dim=128)
+# tensor-parallel ranks of the TP phases (the reference's tp=2 serving mesh)
+TP = 2
 # the dense decode study's cells (hack/decode_attn_bench.py): batch x window
 STUDY_CELLS = ((8, 1024), (8, 2048), (32, 1024), (32, 2048))
 STUDY_H, STUDY_DH = 8, 128
@@ -156,6 +166,22 @@ def check_flash(gen, log) -> dict:
             "library_ms": lib, "host_ms": host}
 
 
+def serving_tick(wp: int, page: int):
+    """The page table and lengths of a decode tick at the serving shape: 4
+    slots, prompts of 600..1024 plus generated tokens, private pages,
+    null-padded rows. Returns (table [4, wp] int32, kv_len [4, 1] int32,
+    the lengths)."""
+    table = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
+    lens1 = [1040, 700, 613, 1024]
+    nxt = 1
+    for r, ln in enumerate(lens1):
+        n = -(-ln // page)
+        table[r, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        nxt += n
+    kv1 = torch.tensor(lens1, dtype=torch.int32, device="cuda")[:, None].contiguous()
+    return table, kv1, lens1
+
+
 def check_paged(gen, log) -> dict:
     import torch.nn.functional as F
 
@@ -167,16 +193,7 @@ def check_paged(gen, log) -> dict:
     vp = torch.randn((n_layers, nb, page, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
     kp[:, 0] = 1e3  # the null block holds garbage that must never be observed
     vp[:, 0] = -1e3
-    # decode tick at the serving shape: 4 slots, prompts of 600..1024 plus
-    # generated tokens, private pages, null-padded rows
-    table = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
-    lens1 = [1040, 700, 613, 1024]
-    nxt = 1
-    for r, ln in enumerate(lens1):
-        n = -(-ln // page)
-        table[r, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
-        nxt += n
-    kv1 = torch.tensor(lens1, dtype=torch.int32, device="cuda")[:, None].contiguous()
+    table, kv1, lens1 = serving_tick(wp, page)
     q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
     # verify-shaped chunk: T = 4, ragged lengths, two rows sharing their
     # leading (prefix) blocks and diverging at a copied boundary block
@@ -253,14 +270,7 @@ def check_paged_int8(gen, log) -> dict:
     # the null block's values and scales hold garbage that must never be observed
     kq[:, 0], vq[:, 0], ks[:, 0], vs[:, 0] = 127, -127, 1e3, 1e3
     # the serving tick and the ragged copy-on-write chunk of check_paged
-    table = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
-    lens1 = [1040, 700, 613, 1024]
-    nxt = 1
-    for r, ln in enumerate(lens1):
-        n = -(-ln // page)
-        table[r, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
-        nxt += n
-    kv1 = torch.tensor(lens1, dtype=torch.int32, device="cuda")[:, None].contiguous()
+    table, kv1, lens1 = serving_tick(wp, page)
     q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
     cow = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
     cow[0, :3] = torch.tensor([1, 2, 3], dtype=torch.int32)
@@ -307,6 +317,88 @@ def check_paged_int8(gen, log) -> dict:
             "replaces": "vtpu/ops/decode_attn.py:435", "max_abs_err": max(errs),
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "host_ms": host}
+
+
+def check_paged_tp(gen, log, int8: bool) -> dict:
+    """Row 4, the paged kernel on one rank's head shard (the reference's
+    ``_shard_body``), in one process: the serving tick's pool (bf16, or
+    int8 with scale pools) and q split on heads into TP head shards; each
+    shard's call with a mesh against its plain version (within ATOL) and
+    against the head slice of the full-pool call (blocks are per (row,
+    head), so the two must be bitwise equal); then kernel, plain and library
+    times at the head-local shape."""
+    import torch.nn.functional as F
+
+    from vtpu_torch.ops.attention import gather_kv_pages
+    from vtpu_torch.ops.decode_attn import (
+        paged_decode_attention, paged_decode_attention_int8kv,
+        paged_decode_attention_int8kv_ref, paged_decode_attention_ref,
+    )
+    from vtpu_torch.parallel import TpMesh, head_shard
+
+    n_layers, nb, page, h, dh, wp = 12, 41, 128, 8, 128, 10
+    shape = (n_layers, nb, page, h, dh)
+    if int8:
+        name, fn, ref = ("paged_decode_attention_int8kv_tp", paged_decode_attention_int8kv,
+                         paged_decode_attention_int8kv_ref)
+        pools = [rand_int8(gen, shape), rand_scales(gen, shape[:4]),
+                 rand_int8(gen, shape), rand_scales(gen, shape[:4])]
+        axes = (-2, -1, -2, -1)
+        for x, val in zip(pools, (127, 1e3, -127, 1e3)):
+            x[:, 0] = val  # the null block's garbage: never observable
+    else:
+        name, fn, ref = "paged_decode_attention_tp", paged_decode_attention, \
+            paged_decode_attention_ref
+        pools = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2)]
+        axes = (-2, -2)
+        pools[0][:, 0], pools[1][:, 0] = 1e3, -1e3
+    table, kv1, lens1 = serving_tick(wp, page)
+    q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    meshes = [TpMesh(rank=r, size=TP, device=torch.device("cuda")) for r in range(TP)]
+    shards = [[head_shard(x, ax, m) for x, ax in zip([q1] + pools, (-2,) + axes)]
+              for m in meshes]
+    errs, diffs = [], []
+    for layer in (0, n_layers - 1):
+        whole = fn(q1, *pools, table, kv1, layer)
+        for m, (q, *ps) in zip(meshes, shards):
+            got = fn(q, *ps, table, kv1, layer, mesh=m)
+            torch.cuda.synchronize()
+            err = max_err(got, ref(q, *ps, table, kv1, layer))
+            diff = max_err(got, head_shard(whole, -2, m))
+            log(f"{name} rank {m.rank} of {TP} layer {layer}: max_abs_err {err:.3e} "
+                f"(atol {ATOL}), max diff from the full-pool call's head slice {diff:.3e} "
+                "(must be 0)")
+            if not (err <= ATOL and diff == 0 and bool(torch.isfinite(got.float()).all())):
+                raise AssertionError(f"{name} disagrees: {err} against its plain version, "
+                                     f"{diff} against the full-pool call")
+            errs.append(err)
+            diffs.append(diff)
+    q, *ps = shards[0]
+    ms, host = time_ms(lambda i: fn(q, *ps, table, kv1, i % n_layers, mesh=meshes[0]), 60)
+    plain, _ = time_ms(lambda i: ref(q, *ps, table, kv1, i % n_layers), 12, hold=False)
+    mask = (torch.arange(wp * page, device="cuda")[None, :] < kv1)[:, None, None]
+
+    def library(i):
+        l = i % n_layers
+        if int8:
+            k = dequant(gather_kv_pages(ps[0][l], table), gather_kv_pages(ps[1][l], table))
+            v = dequant(gather_kv_pages(ps[2][l], table), gather_kv_pages(ps[3][l], table))
+        else:
+            k, v = gather_kv_pages(ps[0][l], table), gather_kv_pages(ps[1][l], table)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask)
+
+    lib, _ = time_ms(library, 20 if int8 else 60)
+    keys, hl = sum(lens1), h // TP
+    per_key = hl * dh * 2 * (1 if int8 else 2) + (hl * 4 * 2 if int8 else 0)
+    nbytes = keys * per_key + 2 * q.numel() * 2 + table.numel() * 4 + kv1.numel() * 4
+    bms, by = bound_ms(nbytes, 4 * keys * hl * dh)
+    return {"name": name, "route": "cuda",
+            "source": "vtpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": "vtpu/ops/decode_attn.py:559", "max_abs_err": max(errs),
+            "max_diff_from_full_pool": max(diffs), "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib, "host_ms": host}
 
 
 def study_inputs(gen, b: int, s: int, t: int, int8: bool, copies: int = 1) -> list[dict]:
@@ -438,6 +530,30 @@ def reference_stream(params, cfg, prompt: np.ndarray, steps: int):
     return out, margins
 
 
+def wave_prompts(vocab: int) -> list[np.ndarray]:
+    """The serving wave: six prompts of 600-1024 tokens from SEED."""
+    rs = np.random.RandomState(SEED)
+    return [rs.randint(0, vocab, (int(n),)).astype(np.int32) for n in rs.randint(600, 1025, 6)]
+
+
+def check_streams(streams: list, refs: list, what: str) -> tuple[int, int]:
+    """Each stream against its plain-trunk reference (tokens, margins) up to
+    the first step whose top-1/top-2 margin is below MARGIN. Returns (tokens
+    compared equal, streams cut at a small margin); a mismatch raises."""
+    compared = ties = 0
+    for toks, (ref, margins) in zip(streams, refs):
+        for i, (got, want) in enumerate(zip(toks, ref)):
+            if margins[i] < MARGIN:
+                ties += 1
+                break
+            if got != want:
+                raise AssertionError(
+                    f"{what} stream {toks} differs from the plain trunk {ref} "
+                    f"at step {i} (margin {margins[i]:.3f})")
+            compared += 1
+    return compared, ties
+
+
 def stream_all(eng, prompts) -> tuple[list[dict], float]:
     """Submit every prompt at once; a reader thread per request records its
     tokens and first-token time. Returns (records, wall seconds)."""
@@ -505,9 +621,7 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
     new_tokens = 16
     eng = ServingEngine(params, cfg, ServingConfig(
         slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens, kv_page=128))
-    rs = np.random.RandomState(SEED)
-    prompts = [rs.randint(0, cfg.vocab, (int(n),)).astype(np.int32)
-               for n in rs.randint(600, 1025, 6)]
+    prompts = wave_prompts(cfg.vocab)
     eng.start()
     try:
         # warm-up request: CUDA/cuBLAS initialisation stays out of the run
@@ -542,18 +656,8 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
         raise AssertionError("paged pool not fully free after the run")
 
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)  # kv_int8 kept
-    compared = ties = 0
-    for prompt, rec in zip(prompts, recs):
-        ref, margins = reference_stream(params, plain_cfg, prompt, new_tokens)
-        for i, (got, want) in enumerate(zip(rec["toks"], ref)):
-            if margins[i] < MARGIN:
-                ties += 1
-                break
-            if got != want:
-                raise AssertionError(
-                    f"engine stream {rec['toks']} differs from the plain trunk {ref} "
-                    f"at step {i} (margin {margins[i]:.3f})")
-            compared += 1
+    refs = [reference_stream(params, plain_cfg, prompt, new_tokens) for prompt in prompts]
+    compared, ties = check_streams([rec["toks"] for rec in recs], refs, "engine")
     ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
     total = sum(len(rec["toks"]) for rec in recs)
     log(f"{what} on {card}: {len(prompts)} requests, {total} tokens in {wall:.3f} s "
@@ -575,7 +679,86 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
             "prefill_batch_hist": after["prefill_batch_hist"],
             "kv_bucket_hist": after["kv_bucket_hist"],
             "paged_attn_kernel_ticks": after["paged_attn_kernel_ticks"]
-            - base["paged_attn_kernel_ticks"], "profiled_wave": prof}
+            - base["paged_attn_kernel_ticks"], "profiled_wave": prof, "refs": refs}
+
+
+def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
+    """Tensor-parallel serving: ``tp`` ranks, spawned, serve the main path's
+    wave on the flagship model, once with bf16 and once with int8 KV, each
+    after a warm-up request served by an engine of its own. Every launch
+    count is set to 0 on every rank just before the counted wave and read
+    just after; the counts of every rank come back to this process. Streams are held against the single-card plain
+    trunk of the same KV type (``refs``, from serving_path). The kernels
+    were built by this process before: the ranks only load them."""
+    import tempfile
+
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.parallel.launch import launch_tp, serve_requests
+    from vtpu_torch.serving import ServingConfig
+
+    if torch.cuda.device_count() >= tp:
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(tp)]
+        how = f"{tp} ranks on {tp} cards over nccl"
+    else:
+        backend, devices = "gloo", ["cuda:0"] * tp
+        how = (f"{tp} ranks sharing one card over gloo (collectives staged through "
+               "host memory: a check of the sharding, not a TP speed figure)")
+    log(f"tensor-parallel serving: {how}")
+    new_tokens = 16
+    serving = ServingConfig(slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens,
+                            kv_page=128)
+    cfgs = {kv: ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True,
+                            kv_int8=kv == "int8") for kv in ("bf16", "int8")}
+    prompts = wave_prompts(FLAGSHIP["vocab"])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = launch_tp(serve_requests, tp, backend, devices, f"file://{tmp}/store",
+                          args=(SEED, [(cfgs[kv], serving) for kv in cfgs], prompts,
+                                new_tokens, True), timeout=600)
+    log(f"tensor-parallel world: {time.perf_counter() - t0:.1f} s wall, start-up included")
+    heads = FLAGSHIP["n_heads"] // tp
+    pool = [FLAGSHIP["n_layers"], 41, 128, heads, FLAGSHIP["head_dim"]]
+    out = {}
+    for i, kv in enumerate(cfgs):
+        lead = ranks[0][i]
+        st = lead["stats"]
+        ticks = st["decode_ticks"]
+        tp_name = ("paged_decode_attention_int8kv_tp" if kv == "int8"
+                   else "paged_decode_attention_tp")
+        other_tp = ("paged_decode_attention_tp" if kv == "int8"
+                    else "paged_decode_attention_int8kv_tp")
+        for toks, status in zip(lead["streams"], lead["statuses"]):
+            if status != "OK" or len(toks) != new_tokens:
+                raise AssertionError(f"tp={tp} {kv} stream ended {status} after {len(toks)} of "
+                                     f"{new_tokens} tokens")
+        if st["device_gets_per_tick"] != 1.0 or st["tp"] != tp:
+            raise AssertionError(f"tp={tp} {kv}: device_gets_per_tick "
+                                 f"{st['device_gets_per_tick']}, tp {st['tp']}")
+        if st["kv_pool_free"] != st["kv_pool_blocks"]:
+            raise AssertionError(f"tp={tp} {kv}: paged pool not fully free after the run")
+        for rank, res in enumerate(r[i] for r in ranks):
+            got = res["launches"]
+            if (got[tp_name] != FLAGSHIP["n_layers"] * ticks or got[other_tp] != 0
+                    or got["paged_decode_attention"] != 0
+                    or got["paged_decode_attention_int8kv"] != 0
+                    or got["flash_attention"] <= 0 or res["kv_shape"] != pool):
+                raise AssertionError(
+                    f"tp={tp} {kv} rank {rank}: launches {got} over {ticks} decode ticks "
+                    f"(expected {FLAGSHIP['n_layers']} {tp_name} per tick, no single-device "
+                    f"paged launch, flash > 0), KV plane {res['kv_shape']} (expected {pool})")
+        compared, ties = check_streams(lead["streams"], refs[kv], f"tp={tp} {kv}")
+        total = sum(len(t) for t in lead["streams"])
+        log(f"tp={tp} {kv} serving on {card} ({how}): {len(prompts)} requests, {total} tokens in "
+            f"{lead['wall_s']:.3f} s ({total / lead['wall_s']:.1f} tokens/s); decode ticks "
+            f"{ticks}; per rank {tp_name} "
+            f"{[r[i]['launches'][tp_name] for r in ranks]}, KV plane {pool}")
+        log(f"tp={tp} {kv} streams vs plain {kv} trunk: {compared} tokens compared equal, "
+            f"{ties} streams cut at a top-1/top-2 margin < {MARGIN}")
+        out[kv] = {"backend": backend, "devices": devices, "ranks": [r[i] for r in ranks],
+                   "decode_ticks": ticks, "tokens": total, "wall_s": lead["wall_s"],
+                   "tokens_per_s": total / lead["wall_s"], "launches": lead["launches"],
+                   "compared_tokens": compared, "margin_cuts": ties}
+    return out
 
 
 def main() -> int:
@@ -606,7 +789,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [check_flash(gen, log), check_paged(gen, log), check_paged_int8(gen, log),
-               check_decode(gen, log, int8=False), check_decode(gen, log, int8=True)]
+               check_decode(gen, log, int8=False), check_decode(gen, log, int8=True),
+               check_paged_tp(gen, log, int8=False), check_paged_tp(gen, log, int8=True)]
     for kern in kernels:
         log(f"{kern['name']} on {card}: kernel {kern['ms']:.4f} ms, plain "
             f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']:.4f} ms, bound "
@@ -619,6 +803,14 @@ def main() -> int:
     runs = {"main_path": serving_path(log, card, params, kv_int8=False),
             "int8_serving_path": serving_path(log, card, params, kv_int8=True),
             "study_path": study_path(gen, log)}
+    del params
+    torch.cuda.empty_cache()  # the TP ranks share this card when there is one
+    refs = {"bf16": runs["main_path"].pop("refs"), "int8": runs["int8_serving_path"].pop("refs")}
+    for tp in (TP, 4):
+        if tp == TP or torch.cuda.device_count() >= tp:
+            out = tp_serving_paths(log, card, refs, tp)
+            pre = "tp" if tp == TP else f"tp{tp}"
+            runs[f"{pre}_serving_path"], runs[f"{pre}_int8_serving_path"] = out["bf16"], out["int8"]
     bf16, int8 = runs["main_path"], runs["int8_serving_path"]
     log(f"serving waves on {card}: bf16 KV {bf16['tokens_per_s']:.1f} tokens/s, TTFT p50 "
         f"{bf16['ttft_ms'][len(bf16['ttft_ms']) // 2]:.1f} ms; int8 KV "
@@ -627,7 +819,9 @@ def main() -> int:
     # each kernel's launches come from the path that runs it
     path_of = {"flash_attention": "main_path", "paged_decode_attention": "main_path",
                "paged_decode_attention_int8kv": "int8_serving_path",
-               "decode_attention": "study_path", "decode_attention_int8kv": "study_path"}
+               "decode_attention": "study_path", "decode_attention_int8kv": "study_path",
+               "paged_decode_attention_tp": "tp_serving_path",
+               "paged_decode_attention_int8kv_tp": "tp_int8_serving_path"}
     for kern in kernels:
         kern["launches"] = runs[path_of[kern["name"]]]["launches"][kern["name"]]
     if args.json:

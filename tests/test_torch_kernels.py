@@ -18,6 +18,7 @@ from vtpu_torch.ops.decode_attn import (
     paged_decode_attention_int8kv, paged_decode_attention_int8kv_ref,
     paged_decode_attention_ref,
 )
+from vtpu_torch.parallel import TpMesh, head_shard
 
 pytestmark = pytest.mark.cuda
 
@@ -162,6 +163,42 @@ def test_dense_decode_kernel_matches_plain(dev, dtype, kv, case):
     want = decode_attention_ref(q, k, v, kv_len, ks, vs, bucket=bucket)
     assert torch.isfinite(got.float()).all()
     assert _err(got, want) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_head_local_paged_kernel_matches_full_pool_head_slice(dev, kv, tp):
+    """The paged kernels under a tp mesh (the reference's ``_shard_body``):
+    each rank's call on its head shard of q and the pools (scale pools too)
+    equals the head slice of the full-pool kernel's output. Blocks are per
+    (row, head), so the two run the same arithmetic: held bitwise. Launches
+    count under the _tp names."""
+    rng = np.random.RandomState(5)
+    shape = (3, 9, 16, 8, 128)
+    table = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 8, 1]], dtype=torch.int32,
+                         device=dev)
+    kv_len = torch.tensor([[17, 18], [38, 39], [63, 64]], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.randn(3, 2, 8, 128).astype(np.float32)).to(dev, torch.bfloat16)
+    if kv == "int8":
+        pools = (_int8(rng, shape, dev), _scales(rng, shape[:4], dev),
+                 _int8(rng, shape, dev), _scales(rng, shape[:4], dev))
+        axes, fn, name = (-2, -1, -2, -1), paged_decode_attention_int8kv, \
+            "paged_decode_attention_int8kv_tp"
+    else:
+        pools = tuple(torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                      .to(dev, torch.bfloat16) for _ in range(2))
+        axes, fn, name = (-2, -2), paged_decode_attention, "paged_decode_attention_tp"
+    for layer in (0, 2):
+        whole = fn(q, *pools, table, kv_len, layer)
+        for rank in range(tp):
+            mesh = TpMesh(rank=rank, size=tp, device=dev)
+            before = _build.launches()[name]
+            got = fn(head_shard(q, -2, mesh), *(head_shard(x, ax, mesh)
+                                                for x, ax in zip(pools, axes)),
+                     table, kv_len, layer, mesh=mesh)
+            torch.cuda.synchronize()
+            assert _build.launches()[name] == before + 1
+            assert torch.equal(got, head_shard(whole, -2, mesh))
 
 
 def test_decode_wrappers_raise_on_what_the_kernels_do_not_take(dev):

@@ -3,11 +3,12 @@
 A package beside the JAX reference (``vtpu``) with the same structure and
 names: ``ops`` (norms, rope, attention with the hand-written Hopper kernels),
 ``models`` (the dense transformer), ``serving`` (the continuous-batching
-engine). It imports torch and numpy only, never jax or anything of ``vtpu``.
+engine), ``parallel`` (tensor-parallel serving over torch.distributed). It
+imports torch and numpy only, never jax or anything of ``vtpu``.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 
-from vtpu_torch import models, ops, serving  # noqa: F401
+from vtpu_torch import models, ops, parallel, serving  # noqa: F401
 
-__all__ = ["models", "ops", "serving"]
+__all__ = ["models", "ops", "parallel", "serving"]

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from vtpu_torch.device import resolve_device
+from vtpu_torch.parallel.sharding import shard_params
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                "attn_norm", "mlp_norm")
@@ -29,7 +30,7 @@ def _expected_shapes(cfg) -> dict[str, tuple[int, ...]]:
     }
 
 
-def _tensor(name: str, arr: Any, shape: tuple[int, ...], cfg, device) -> torch.Tensor:
+def _array(name: str, arr: Any, shape: tuple[int, ...]) -> np.ndarray:
     arr = np.asarray(arr)
     if arr.dtype not in (np.float32, np.float64, np.float16):
         raise TypeError(
@@ -37,18 +38,27 @@ def _tensor(name: str, arr: Any, shape: tuple[int, ...], cfg, device) -> torch.T
             "(np.asarray(x, np.float32))")
     if tuple(arr.shape) != shape:
         raise ValueError(f"parameter {name} has shape {arr.shape}, expected {shape}")
-    return torch.from_numpy(np.array(arr, copy=True)).to(device=device, dtype=cfg.dtype)
+    return arr
 
 
-def params_from_numpy(tree: dict, cfg, device=None) -> dict:
+def params_from_numpy(tree: dict, cfg, device=None, mesh=None) -> dict:
     """{"embed", "layers": {...}, "final_norm"} of float numpy arrays ->
-    the port's parameter dict on ``device`` in ``cfg.dtype``."""
+    the port's parameter dict on ``device`` in ``cfg.dtype``. With ``mesh``
+    (a TpMesh) only this rank's tensor-parallel shard is sliced out and
+    carried over (parallel/sharding.py), so the whole tree never reaches
+    the device."""
     device = resolve_device(device)
     shapes = _expected_shapes(cfg)
-    return {
-        "embed": _tensor("embed", tree["embed"], shapes["embed"], cfg, device),
-        "layers": {key: _tensor(key, tree["layers"][key], shapes[key], cfg, device)
-                   for key in _LAYER_KEYS},
-        "final_norm": _tensor("final_norm", tree["final_norm"], shapes["final_norm"],
-                              cfg, device),
+    full = {
+        "embed": _array("embed", tree["embed"], shapes["embed"]),
+        "layers": {key: _array(key, tree["layers"][key], shapes[key]) for key in _LAYER_KEYS},
+        "final_norm": _array("final_norm", tree["final_norm"], shapes["final_norm"]),
     }
+    part = full if mesh is None else shard_params(full, mesh)
+
+    def tensor(arr):
+        return torch.from_numpy(np.array(arr, copy=True)).to(device=device, dtype=cfg.dtype)
+
+    return {"embed": tensor(part["embed"]),
+            "layers": {key: tensor(x) for key, x in part["layers"].items()},
+            "final_norm": tensor(part["final_norm"])}

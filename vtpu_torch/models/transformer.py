@@ -15,7 +15,13 @@ Differences from the reference, all PyTorch idiom:
 - ``cfg.use_kernels`` (for ``use_pallas``) routes prefill to the flash kernel
   at any S and, through ``paged_attn_route``, paged decode to the paged
   kernel (bf16 or int8); on CPU tensors the wrappers run their plain
-  versions.
+  versions;
+- under a tensor-parallel ``mesh`` (vtpu_torch.parallel.TpMesh) each rank
+  runs the trunk on its shard: ``params`` are the rank's shard
+  (parallel/sharding.py), caches and pools hold its n_heads / tp heads, and
+  the all-reduces XLA places from the reference's shardings are written out
+  (``all_reduce_sum`` after ``wo`` and after ``w_down``). ``mesh=None`` is
+  the single-device path, unchanged.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from vtpu_torch.ops import (
     paged_decode_attention, paged_decode_attention_int8kv, rms_norm, rope_angles,
     scaled_normal,
 )
+from vtpu_torch.parallel.collectives import all_reduce_sum
 
 Params = dict[str, Any]
 
@@ -57,6 +64,11 @@ class ModelConfig:
     @property
     def qkv_dim(self) -> int:
         return self.n_heads * self.head_dim
+
+
+def local_heads(cfg, mesh=None) -> int:
+    """Attention heads one rank holds: n_heads, or n_heads / tp under a mesh."""
+    return cfg.n_heads if mesh is None else cfg.n_heads // mesh.size
 
 
 def kv_quantized(cfg) -> bool:
@@ -130,27 +142,30 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
     }
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, device=None) -> dict[str, torch.Tensor]:
+def init_kv_cache(cfg: ModelConfig, batch: int, device=None,
+                  mesh=None) -> dict[str, torch.Tensor]:
     """Dense per-row cache [L, batch, max_seq, H, Dh], zero-filled (int8
-    with [L, batch, max_seq, H] f32 scale planes when cfg.kv_int8)."""
+    with [L, batch, max_seq, H] f32 scale planes when cfg.kv_int8); H is
+    the rank's n_heads / tp under a mesh."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.max_seq, cfg.n_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, cfg.max_seq, local_heads(cfg, mesh), cfg.head_dim)
     return {**_kv_planes(cfg, shape, device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
 def init_paged_kv_cache(cfg: ModelConfig, slots: int, page: int, n_blocks: int,
-                        device=None) -> dict[str, torch.Tensor]:
+                        device=None, mesh=None) -> dict[str, torch.Tensor]:
     """Paged pool state: one block pool per k/v plane [L, n_blocks, page, H,
     Dh] (zero-filled; int8 with [L, n_blocks, page, H] f32 scale pools when
     cfg.kv_int8) plus a per-slot page table [slots, max_seq // page] int32.
     Block 0 is the NULL block: the allocator never hands it out and unmapped
     table entries point at it, so padding reads land on one block every
-    reader masks."""
+    reader masks. Under a mesh the pools hold the rank's n_heads / tp heads
+    of every block; the table and lengths are whole on every rank."""
     if cfg.max_seq % page:
         raise ValueError(f"kv page {page} must divide max_seq {cfg.max_seq}")
     device = resolve_device(device)
-    shape = (cfg.n_layers, n_blocks, page, cfg.n_heads, cfg.head_dim)
+    shape = (cfg.n_layers, n_blocks, page, local_heads(cfg, mesh), cfg.head_dim)
     return {
         "table": torch.zeros((slots, cfg.max_seq // page), dtype=torch.int32, device=device),
         "len": torch.zeros((slots,), dtype=torch.int32, device=device),
@@ -217,10 +232,11 @@ def _layer(params: Params, l: int) -> dict[str, torch.Tensor]:
     return {name: w[l] for name, w in params["layers"].items()}
 
 
-def _qkv(cfg, lp, x, cos, sin, positions):
-    """Project to rotated q/k/v heads: [B, S, H, Dh] each."""
+def _qkv(cfg, lp, x, cos, sin, positions, mesh=None):
+    """Project to rotated q/k/v heads: [B, S, H, Dh] each (the rank's
+    n_heads / tp heads under a mesh)."""
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
+    h, dh = local_heads(cfg, mesh), cfg.head_dim
     normed = rms_norm(x, lp["attn_norm"])
     q = (normed @ lp["wq"]).reshape(b, s, h, dh)
     k = (normed @ lp["wk"]).reshape(b, s, h, dh)
@@ -228,33 +244,35 @@ def _qkv(cfg, lp, x, cos, sin, positions):
     return apply_rope(q, cos, sin, positions), apply_rope(k, cos, sin, positions), v
 
 
-def _mlp_block(lp, x):
+def _mlp_block(lp, x, mesh=None):
     normed = rms_norm(x, lp["mlp_norm"])
     gate = F.silu((normed @ lp["w_gate"]).float()).to(x.dtype)
-    return (gate * (normed @ lp["w_up"])) @ lp["w_down"]
+    return all_reduce_sum((gate * (normed @ lp["w_up"])) @ lp["w_down"], mesh)
 
 
 def transformer_layer(cfg: ModelConfig, lp: dict[str, torch.Tensor], x: torch.Tensor,
-                      cos, sin, positions):
+                      cos, sin, positions, mesh=None):
     """One decoder block over a full sequence. x: [B, S, D] -> (x, (k, v)).
     With ``cfg.use_kernels`` attention goes to the flash kernel at any S."""
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, lp, x, cos, sin, positions)
+    q, k, v = _qkv(cfg, lp, x, cos, sin, positions, mesh)
     if cfg.use_kernels:
         attn = flash_attention(q, k, v)
     else:
         attn = causal_attention(q, k, v)
-    x = x + attn.reshape(b, s, cfg.qkv_dim) @ lp["wo"]
-    x = x + _mlp_block(lp, x)
+    x = x + all_reduce_sum(attn.reshape(b, s, -1) @ lp["wo"], mesh)
+    x = x + _mlp_block(lp, x, mesh)
     return x, (k, v)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            logits_at: Optional[torch.Tensor] = None):
+            logits_at: Optional[torch.Tensor] = None, mesh=None):
     """Full-sequence forward. tokens: [B, S] int. Returns (logits, kv_cache):
     [B, S, vocab] f32 logits, or [B, vocab] gathered at ``logits_at`` ([B]
     positions) before the vocab projection. An int8 cache stores the
-    quantized K/V; the forward itself attends over the unquantized ones."""
+    quantized K/V; the forward itself attends over the unquantized ones.
+    Under ``mesh``: the rank's shard of params in, its head shard of the
+    cache out, logits whole on every rank."""
     b, s = tokens.shape
     if s > cfg.max_seq:
         raise ValueError(f"prompt length {s} exceeds max_seq {cfg.max_seq}")
@@ -262,9 +280,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cos, sin = _rope_tables(cfg.max_seq, cfg.head_dim, str(dev))
     positions = torch.arange(s, device=dev).expand(b, s)
     x = params["embed"][tokens].to(cfg.dtype)
-    cache = init_kv_cache(cfg, b, device=dev)
+    cache = init_kv_cache(cfg, b, device=dev, mesh=mesh)
     for l in range(cfg.n_layers):
-        x, (k, v) = transformer_layer(cfg, _layer(params, l), x, cos, sin, positions)
+        x, (k, v) = transformer_layer(cfg, _layer(params, l), x, cos, sin, positions, mesh)
         store_kv(cache, l, (slice(None), slice(0, s)), k, v)
     x = rms_norm(x, params["final_norm"])
     if logits_at is not None:
@@ -291,18 +309,18 @@ def decode_step(params: Params, cfg: ModelConfig, cache: dict[str, torch.Tensor]
 
 def decode_layer_loop(params: Params, cfg: ModelConfig, cache: dict[str, torch.Tensor],
                       token: torch.Tensor, kv_bucket: int, write_kv, ffn_fn=None,
-                      paged_attn=None):
+                      paged_attn=None, mesh=None):
     """Shared decode-step body: one token per row is a T=1 verify chunk
     through ``spec_verify_loop``. Returns (logits [B, vocab], kv)."""
     logits, new_kv = spec_verify_loop(
         params, cfg, cache, token[:, None], kv_bucket, write_kv,
-        ffn_fn=ffn_fn, paged_attn=paged_attn)
+        ffn_fn=ffn_fn, paged_attn=paged_attn, mesh=mesh)
     return logits[:, 0], new_kv
 
 
 def spec_verify_loop(params: Params, cfg: ModelConfig, cache: dict[str, torch.Tensor],
                      draft: torch.Tensor, kv_bucket: int, write_kv, ffn_fn=None,
-                     paged_attn=None):
+                     paged_attn=None, mesh=None):
     """THE decode trunk: one forward over a [B, T] chunk whose row-i query
     sits at cache position len[b] + i. Each layer first scatters the
     chunk's KV (the caller's ``write_kv(l, kv, k, v) -> kv`` owns offsets,
@@ -315,10 +333,13 @@ def spec_verify_loop(params: Params, cfg: ModelConfig, cache: dict[str, torch.Te
     through the gather route, resolved by ``paged_attn_route(paged_attn,
     window, device)``. Both share the masking and null-block contracts. An
     int8 cache (k_scale/v_scale present) takes the int8 twin of each route.
+    Under ``mesh`` the cache is the rank's head shard, the paged kernel runs
+    head-local (the reference's ``_shard_body``) and the layer's partial
+    sums are all-reduced; a custom ``ffn_fn`` owns its own reduction.
     Returns (logits [B, T, vocab] f32, kv dict)."""
     b, t = draft.shape
     bucket = kv_bucket or cfg.max_seq
-    ffn = ffn_fn or _mlp_block
+    ffn = ffn_fn or functools.partial(_mlp_block, mesh=mesh)
     dev = draft.device
     cos, sin = _rope_tables(cfg.max_seq, cfg.head_dim, str(dev))
     lens = cache["len"]
@@ -339,13 +360,15 @@ def spec_verify_loop(params: Params, cfg: ModelConfig, cache: dict[str, torch.Te
     kv = {key: cache[key] for key in kv_keys(cache)}
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
-        q, k, v = _qkv(cfg, lp, x, cos, sin, positions)
+        q, k, v = _qkv(cfg, lp, x, cos, sin, positions, mesh)
         kv = write_kv(l, kv, k, v)
         if use_kernel and quant:
             attn = paged_decode_attention_int8kv(q, kv["k"], kv["k_scale"], kv["v"],
-                                                 kv["v_scale"], table_w, ragged_len, layer=l)
+                                                 kv["v_scale"], table_w, ragged_len, layer=l,
+                                                 mesh=mesh)
         elif use_kernel:
-            attn = paged_decode_attention(q, kv["k"], kv["v"], table_w, ragged_len, layer=l)
+            attn = paged_decode_attention(q, kv["k"], kv["v"], table_w, ragged_len, layer=l,
+                                          mesh=mesh)
         else:
             # one layer's planes; the gather route reads them through the
             # table, the dense cache over its first ``bucket`` positions
@@ -363,7 +386,7 @@ def spec_verify_loop(params: Params, cfg: ModelConfig, cache: dict[str, torch.Te
                                                view["v_scale"], kv_len=ragged_len)
             else:
                 attn = causal_attention(q, view["k"], view["v"], kv_len=ragged_len)
-        x = x + attn.reshape(b, t, cfg.qkv_dim) @ lp["wo"]
+        x = x + all_reduce_sum(attn.reshape(b, t, -1) @ lp["wo"], mesh)
         x = x + ffn(lp, x)
     x = rms_norm(x, params["final_norm"])
     logits = (x @ params["embed"].T).float()

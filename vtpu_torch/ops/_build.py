@@ -32,11 +32,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# kernel name -> launches since the last reset_launches()
+# kernel name -> launches since the last reset_launches(); the _tp names
+# count the paged kernels' head-local calls under a tensor-parallel mesh
 LAUNCHES: dict[str, int] = {
     "flash_attention": 0, "paged_decode_attention": 0,
     "paged_decode_attention_int8kv": 0, "decode_attention": 0,
-    "decode_attention_int8kv": 0,
+    "decode_attention_int8kv": 0, "paged_decode_attention_tp": 0,
+    "paged_decode_attention_int8kv_tp": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

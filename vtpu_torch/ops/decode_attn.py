@@ -211,19 +211,39 @@ def _check_paged(name: str, q, k_pool, v_pool, table, kv_len, layer,
     return layer
 
 
+def _check_head_shard(q: torch.Tensor, pools: tuple, mesh) -> None:
+    """With a mesh, q and the pools must be one rank's head-local shard: the
+    same n_heads / tp heads on every operand (``_shard_body``'s operands)."""
+    if mesh is None:
+        return
+    h = q.shape[2]
+    if any(p.shape[3] != h for p in pools):
+        raise ValueError(
+            f"under a tp={mesh.size} mesh q and the pools must be rank "
+            f"{mesh.rank}'s head shard (n_heads / tp heads each), got q heads "
+            f"{h} and pool heads {[p.shape[3] for p in pools]}")
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, table: torch.Tensor,
-                           kv_len: torch.Tensor, layer: int = 0) -> torch.Tensor:
+                           kv_len: torch.Tensor, layer: int = 0, mesh=None) -> torch.Tensor:
     """Fused paged decode/verify attention over the block pool in place.
 
     q: [B, T, H, Dh] (T = 1 for a decode tick, K+1 for a verify chunk);
     k_pool, v_pool: the whole pool [L, n_blocks, page, H, Dh] in q's dtype;
     ``layer`` picks the plane; table: [B, Wp] int32 block ids for the read
     window, padded with the null block 0; kv_len: ragged [B, T] int32 (query
-    i of row b reads k_pos < kv_len[b, i]) or [B] with T = 1."""
+    i of row b reads k_pos < kv_len[b, i]) or [B] with T = 1.
+
+    ``mesh`` (a TpMesh) is the counterpart of the reference's shard_map
+    ``_shard_body``: q and the pools are this rank's head shard (H = n_heads
+    / tp), tables and lengths replicated, and the same kernel walks the
+    head-local pool with no collective. Its launches count under
+    ``paged_decode_attention_tp``."""
     t = q.shape[1]
     kv_len = _norm_kv_len(kv_len, t)
     _check_pool(q, k_pool, table)
+    _check_head_shard(q, (k_pool, v_pool), mesh)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, table, kv_len, layer)
     name = "paged_decode_attention"
@@ -236,7 +256,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
              kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, t, h, dh,
              k_pool.shape[1], k_pool.shape[2], table.shape[1], layer, 1.0 / math.sqrt(dh),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.LAUNCHES[name] += 1
+    _build.LAUNCHES[name if mesh is None else f"{name}_tp"] += 1
     _build.check(err, name)
     return out
 
@@ -244,15 +264,19 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 def paged_decode_attention_int8kv(q: torch.Tensor, kq_pool: torch.Tensor,
                                   k_scale_pool: torch.Tensor, vq_pool: torch.Tensor,
                                   v_scale_pool: torch.Tensor, table: torch.Tensor,
-                                  kv_len: torch.Tensor, layer: int = 0) -> torch.Tensor:
+                                  kv_len: torch.Tensor, layer: int = 0,
+                                  mesh=None) -> torch.Tensor:
     """int8 paged decode/verify attention: int8 value pools [L, n_blocks,
     page, H, Dh] stream as int8 and convert in the kernel; f32 scale pools
     [L, n_blocks, page, H] walk the same table and apply post-product as in
     ``causal_attention_int8kv``. Same table/kv_len/layer contract as
-    ``paged_decode_attention``; q (and the output) float32 or bfloat16."""
+    ``paged_decode_attention``; q (and the output) float32 or bfloat16.
+    ``mesh`` as in ``paged_decode_attention``: the scale pools are head
+    shards too, and launches count under ``paged_decode_attention_int8kv_tp``."""
     t = q.shape[1]
     kv_len = _norm_kv_len(kv_len, t)
     _check_pool(q, kq_pool, table)
+    _check_head_shard(q, (kq_pool, vq_pool), mesh)
     if q.device.type == "cpu":
         return paged_decode_attention_int8kv_ref(q, kq_pool, k_scale_pool, vq_pool,
                                                  v_scale_pool, table, kv_len, layer)
@@ -268,7 +292,7 @@ def paged_decode_attention_int8kv(q: torch.Tensor, kq_pool: torch.Tensor,
              _DTYPES[q.dtype], b, t, h, dh, kq_pool.shape[1], kq_pool.shape[2],
              table.shape[1], layer, 1.0 / math.sqrt(dh),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.LAUNCHES[name] += 1
+    _build.LAUNCHES[name if mesh is None else f"{name}_tp"] += 1
     _build.check(err, name)
     return out
 

@@ -1,5 +1,6 @@
-"""Serving stack of the port (counterpart of vtpu/serving), first slice:
-the synchronous continuous-batching engine over the dense transformer."""
+"""Serving stack of the port (counterpart of vtpu/serving): the synchronous
+continuous-batching engine over the dense transformer, on one device or
+tensor-parallel over torch.distributed (``mesh=``)."""
 
 from vtpu_torch.serving.adapters import TransformerSlotModel
 from vtpu_torch.serving.engine import (

@@ -12,7 +12,9 @@ What this slice does not port raises instead of being ignored: every
 ``ModelConfig.kv_int8="auto"`` and a custom ``sample=`` callable. Prefix
 registration is a later slice. ``kv_int8=True`` serves int8 KV: dense or
 paged int8 planes with f32 scale planes beside them, written quantized at
-every KV write site here.
+every KV write site here. ``mesh=`` (a vtpu_torch.parallel.TpMesh) serves
+tensor-parallel over torch.distributed: see ``ServingEngine`` for how the
+ranks split the work.
 
 Writes the reference drops. JAX's ``.at[...].set(..., mode="drop")`` lets an
 out-of-range block id or position vanish (inactive lanes, positions past the
@@ -54,7 +56,10 @@ log = logging.getLogger(__name__)
 class ServingConfig:
     """The reference's serving knobs, field for field. Fields in
     ``_UNPORTED`` exist so a config carries over unchanged, and must stay
-    at their defaults in this port until their slice lands."""
+    at their defaults in this port until their slice lands. Ported beside
+    these fields: int8 KV (``ModelConfig.kv_int8=True``) and
+    tensor-parallel serving (``ServingEngine(..., mesh=)``), dense or
+    paged, on either paged route."""
 
     slots: int = 4  # concurrent sequences (the decode batch)
     prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024)
@@ -124,6 +129,9 @@ _UNPORTED = (
 
 
 def _check_ported(serving: ServingConfig, cfg: ModelConfig, sample) -> None:
+    """Refuse what this port has not reached. Every other combination is
+    ported, under a tensor-parallel ``mesh`` as on one device: the mesh
+    itself is checked by the adapter (``_validate_serving_mesh``)."""
     for f in dataclasses.fields(ServingConfig):
         if f.name in _UNPORTED and getattr(serving, f.name) != f.default:
             raise NotImplementedError(
@@ -351,7 +359,7 @@ class Request:
 
 def batched_decode_step(params: Params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                         active: torch.Tensor, kv_bucket: int = 0, ffn_fn=None,
-                        paged_attn=None):
+                        paged_attn=None, mesh=None):
     """One decode tick for the whole slot pool: each active slot writes its
     new KV at ITS OWN length (dense: (l, slot, len); paged: (l, table[slot,
     len // page], len % page)) and advances by one. Inactive slots compute
@@ -360,7 +368,9 @@ def batched_decode_step(params: Params, cfg: ModelConfig, cache: dict, tokens: t
     out-of-range or stale-table write reaches any plane (an int8 cache's
     scales included). ``kv_bucket`` bounds
     the attention reads (0 = max_seq); ``paged_attn`` picks the paged read
-    route. Updates the cache in place; returns (logits [B, vocab], cache)."""
+    route; under ``mesh`` params and cache are the rank's shards (the
+    table and lengths are whole, so the kept rows are the same on every
+    rank). Updates the cache in place; returns (logits [B, vocab], cache)."""
     lens = cache["len"]
     rows = torch.nonzero(active & (lens < cfg.max_seq)).squeeze(1)
     pos = lens[rows].long()
@@ -377,7 +387,7 @@ def batched_decode_step(params: Params, cfg: ModelConfig, cache: dict, tokens: t
         return kv
 
     logits, new_kv = decode_layer_loop(params, cfg, cache, tokens, kv_bucket, write_kv,
-                                       ffn_fn=ffn_fn, paged_attn=paged_attn)
+                                       ffn_fn=ffn_fn, paged_attn=paged_attn, mesh=mesh)
     return logits, {**new_kv, "len": torch.where(active, lens + 1, lens)}
 
 
@@ -388,7 +398,9 @@ def _scatter_prefill_pages(cache: dict, seq_cache: dict, logits: torch.Tensor,
     mapped blocks (the table rows the engine set at reservation). Pad pages
     past a short reservation land on the null block 0, which every reader
     masks. An int8 pool's [L, N, s, H] scales scatter beside its values.
-    Returns (last-position logits [N, vocab], cache)."""
+    Under a tensor-parallel mesh both the rows and the pool are the rank's
+    head shard, so the scatter is the same and needs no mesh. Returns
+    (last-position logits [N, vocab], cache)."""
     page = cache["k"].shape[2]
     wp = s // page
     blk = cache["table"][slots, :wp].long()  # [N, Wp]
@@ -405,24 +417,26 @@ def _scatter_prefill_pages(cache: dict, seq_cache: dict, logits: torch.Tensor,
 
 
 def prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
-                      slot: int, true_len: int, prefill_fn=None):
+                      slot: int, true_len: int, prefill_fn=None, mesh=None):
     """Prefill one [1, bucket] right-padded prompt and install it in *slot*.
     Returns (first-token logits [vocab], cache)."""
     dev = tokens.device
     last, cache = prefill_into_slots(
         params, cfg, cache, tokens, torch.tensor([slot], device=dev),
-        torch.tensor([true_len], device=dev), prefill_fn=prefill_fn)
+        torch.tensor([true_len], device=dev), prefill_fn=prefill_fn, mesh=mesh)
     return last[0], cache
 
 
 def prefill_into_slots(params: Params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
-                       slots: torch.Tensor, true_lens: torch.Tensor, prefill_fn=None):
+                       slots: torch.Tensor, true_lens: torch.Tensor, prefill_fn=None,
+                       mesh=None):
     """Batched admission: prefill N right-padded [N, bucket] prompts in one
     forward and scatter each row's KV into its own slot (distinct slots).
-    Causality makes the right padding harmless. ``prefill_fn`` may return
-    [N, S, vocab] logits or, gathering at the final positions, [N, vocab].
-    Returns (last-position logits [N, vocab], cache)."""
-    logits, seq_cache = (prefill_fn or prefill)(params, cfg, tokens)
+    Causality makes the right padding harmless. ``prefill_fn(params, cfg,
+    tokens, mesh=mesh)`` (default ``prefill``) may return [N, S, vocab]
+    logits or, gathering at the final positions, [N, vocab]. Returns
+    (last-position logits [N, vocab], cache)."""
+    logits, seq_cache = (prefill_fn or prefill)(params, cfg, tokens, mesh=mesh)
     s = tokens.shape[1]
     if "table" in cache:
         return _scatter_prefill_pages(cache, seq_cache, logits, slots, true_lens, s)
@@ -444,18 +458,44 @@ class ServingEngine:
     reserve prompt + budget pages first; a dry pool is backpressure), run
     one decode tick for the whole pool over the smallest read window that
     covers the longest live sequence, fetch the sampled tokens (and any
-    admission first tokens) in ONE device-to-host copy, deliver, retire."""
+    admission first tokens) in ONE device-to-host copy, deliver, retire.
+
+    Tensor-parallel serving (``mesh``, a vtpu_torch.parallel.TpMesh) is a
+    leader/worker split over torch.distributed, one process per rank.
+    Rank 0 builds this engine (``params`` its shard, ``shard_params``) and
+    is the leader: its threads, queues, allocator, sampling generators,
+    admission buffer and logits exist on rank 0 only. Every other rank
+    runs ``vtpu_torch.parallel.launch.serve_worker`` with its own shard, the
+    same config and ServingConfig: the same adapter on its shard, following
+    rank 0. Each adapter call of rank 0 (``init_state``,
+    ``prefill_into_slots``, ``decode_step``) first broadcasts its op, its
+    shapes and its tensor arguments, and with them rank 0's current page
+    table and lengths, so the engine's direct state writes outside any
+    adapter call (the reservation's ``state["table"][slot]`` and
+    ``state["len"][slot]``) reach every rank before the step that reads
+    them. Then every rank runs the same step on its head shard, with the
+    all-reduces in the trunk. ``stop()`` sends the workers their stop."""
 
     def __init__(self, params: Params, cfg: ModelConfig,
-                 serving: ServingConfig = ServingConfig(), device=None, sample=None):
+                 serving: ServingConfig = ServingConfig(), device=None, sample=None,
+                 mesh=None):
         _check_ported(serving, cfg, sample)
+        if mesh is not None:
+            if mesh.rank != 0:
+                raise ValueError(
+                    f"rank {mesh.rank} does not build a ServingEngine: rank 0 drives, "
+                    "every other rank runs vtpu_torch.parallel.launch.serve_worker")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.cfg = cfg
         self.serving = serving
+        self.mesh = mesh
         self.model = TransformerSlotModel(
             params, cfg, kv_page=serving.kv_page, kv_pool_blocks=serving.kv_pool_blocks,
-            paged_attn=serving.paged_attn, device=self.device)
-        self.params = params
+            paged_attn=serving.paged_attn, device=self.device, mesh=mesh)
+        self.params = self.model.params
         b = serving.slots
         self._page = serving.kv_page
         self._paged = self._page is not None
@@ -564,6 +604,8 @@ class ServingEngine:
         self._thread.start()
 
     def stop(self) -> None:
+        """End the loop, end every stream, and under a mesh stop the
+        workers (after the loop's last step, which holds the adapter)."""
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
@@ -573,6 +615,7 @@ class ServingEngine:
                             "exit path will retire remaining requests")
         else:
             self._drain_all()
+        self.model.stop_workers()
 
     def stats(self) -> dict:
         s = dict(self._stats)
@@ -585,11 +628,17 @@ class ServingEngine:
         s["queued"] = self._pending.qsize() + len(self._waiting)
         s["paged"] = self._paged
         s["kv_page"] = self._page
+        # under a mesh every rank holds n_heads / tp heads of the cache or
+        # pool, so the bytes a card holds (what a per-card memory cap is
+        # sized against) are the global bytes / tp; one device: the same
+        tp = 1 if self.mesh is None else self.mesh.size
+        s["tp"] = tp
         bpt = kv_bytes_per_token(self.cfg)
         s["kv_hbm_bytes"] = {
-            "dense": self.serving.slots * self.cfg.max_seq * bpt,
-            "paged": self._n_blocks * self._page * bpt if self._paged else None,
+            "dense": self.serving.slots * self.cfg.max_seq * bpt // tp,
+            "paged": self._n_blocks * self._page * bpt // tp if self._paged else None,
         }
+        s["kv_hbm_bytes_per_chip"] = dict(s["kv_hbm_bytes"])
         if self._paged:
             usable = self._n_blocks - 1
             free = self._alloc.free_blocks
@@ -606,6 +655,8 @@ class ServingEngine:
         s["paged_attn_int8kv_launches"] = _build.LAUNCHES["paged_decode_attention_int8kv"]
         s["decode_attn_launches"] = _build.LAUNCHES["decode_attention"]
         s["decode_attn_int8kv_launches"] = _build.LAUNCHES["decode_attention_int8kv"]
+        s["paged_attn_tp_launches"] = _build.LAUNCHES["paged_decode_attention_tp"]
+        s["paged_attn_int8kv_tp_launches"] = _build.LAUNCHES["paged_decode_attention_int8kv_tp"]
         return s
 
     # ----------------------------------------------------------- lifecycle
