@@ -8,12 +8,14 @@ Phases, any failure exits nonzero:
    the build of every kernel in vtpu_torch/csrc (one nvcc per source, all
    started together);
 2. every kernel against its plain PyTorch version at its path's shapes
-   plus one ragged case each (the dense decode kernel also at a bucket
-   below S), with kernel, plain and library times and the least time the
-   card could take for the same work; the dense decode kernel is timed at
-   the study's four T=1 cells; the paged kernels (bf16, int8) also on each
-   tp=2 head shard of the serving tick, against their plain versions and
-   the head slice of the full-pool call;
+   plus ragged cases (flash also at S = 1 and 1000; the dense decode kernel
+   also at a bucket below S and with every row's keys in its first split),
+   with kernel, plain and library times, their ratio, and the least time
+   the card could take for the same work; flash is timed at the serving
+   shape and at a one-row admission, the dense decode kernel at the study's
+   four T=1 cells; the paged kernels (bf16, int8) also on each tp=2 head
+   shard of the serving tick, against their plain versions and the head
+   slice of the full-pool call;
 3. the paths, each with every launch count set to 0 just before it and
    read just after:
    a. the main path: the flagship ModelConfig served by ServingEngine on a
@@ -132,38 +134,53 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_flash(gen, log) -> dict:
+    """flash_attention against its plain version at the serving shape, a
+    ragged S, one key and a long ragged S; then kernel, plain and library
+    (SDPA causal) times at the serving shape [4, 1024, 8, 128] and at the
+    one-row admission [1, 1024, 8, 128], each beside SDPA in this call. The
+    entry's numbers are the serving shape's."""
     import torch.nn.functional as F
 
     from vtpu_torch.ops.attention import flash_attention, flash_attention_ref
 
     errs = []
-    for shape in [(4, 1024, 8, 128), (2, 200, 8, 128)]:
+    for shape in [(4, 1024, 8, 128), (2, 200, 8, 128), (2, 1, 8, 128), (1, 1000, 8, 128)]:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
         err = max_err(got, flash_attention_ref(q, k, v))
         log(f"flash_attention {shape} bf16: max_abs_err {err:.3e} (atol {ATOL})")
-        if not err <= ATOL:
+        if not (err <= ATOL and bool(torch.isfinite(got.float()).all())):
             raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
         errs.append(err)
-    # timing at the serving shape over three input sets (> the 50 MB L2)
-    b, s, h, dh = 4, 1024, 8, 128
-    sets = [tuple(torch.randn((b, s, h, dh), generator=gen, device="cuda")
-                  .to(torch.bfloat16) for _ in range(3)) for _ in range(3)]
-    ms, host = time_ms(lambda i: flash_attention(*sets[i % 3]), 30)
-    plain, _ = time_ms(lambda i: flash_attention_ref(*sets[i % 3]), 3, warmup=1,
-                       hold=False)
-    lib, _ = time_ms(lambda i: F.scaled_dot_product_attention(
-        *(x.transpose(1, 2) for x in sets[i % 3]), is_causal=True), 30)
-    nbytes = 4 * b * s * h * dh * 2
-    flops = 4 * b * h * dh * s * (s + 1) / 2
-    bms, by = bound_ms(nbytes, flops)
+    shapes = {}
+    for b in (4, 1):
+        # three input sets per shape (> the 50 MB L2 at batch 4)
+        s, h, dh = 1024, 8, 128
+        sets = [tuple(torch.randn((b, s, h, dh), generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(3)) for _ in range(3)]
+        ms, host = time_ms(lambda i: flash_attention(*sets[i % 3]), 30)
+        plain, _ = time_ms(lambda i: flash_attention_ref(*sets[i % 3]), 3, warmup=1,
+                           hold=False)
+        lib, _ = time_ms(lambda i: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in sets[i % 3]), is_causal=True), 30)
+        nbytes = 4 * b * s * h * dh * 2
+        flops = 4 * b * h * dh * s * (s + 1) / 2
+        bms, by = bound_ms(nbytes, flops)
+        shapes[b] = {"shape": [b, s, h, dh], "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bms, "bound_by": by, "host_ms": host,
+                     "tflops": flops / ms / 1e9}
+        log(f"flash_attention [{b}, {s}, {h}, {dh}]: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.0f} TFLOP/s), SDPA {lib:.4f} ms (kernel/SDPA "
+            f"{ms / lib:.2f}x), plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+    top = shapes[4]
     return {"name": "flash_attention", "route": "cuda",
             "source": "vtpu_torch/csrc/flash_attention.cu",
             "replaces": "vtpu/ops/attention.py:210", "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib, "host_ms": host}
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "host_ms": top["host_ms"], "shapes": [shapes[4], shapes[1]]}
 
 
 def serving_tick(wp: int, page: int):
@@ -427,7 +444,9 @@ def check_decode(gen, log, int8: bool) -> dict:
     T=1 cells. The entry's numbers are the (32, 2048) cell's."""
     import torch.nn.functional as F
 
-    from vtpu_torch.ops.decode_attn import decode_attention, decode_attention_ref
+    from vtpu_torch.ops.decode_attn import (
+        decode_attention, decode_attention_ref, dense_split_plan,
+    )
 
     name = "decode_attention_int8kv" if int8 else "decode_attention"
     cases = [("T=1 (8, 1024)", study_inputs(gen, 8, 1024, 1, int8)[0], 0),
@@ -440,6 +459,11 @@ def check_decode(gen, log, int8: bool) -> dict:
     for key, val in garbage.items():  # past the bucket: never read
         bounded[key][:, 1024:] = val
     cases.append(("bucket 1024 < S 2048", bounded, 1024))
+    # every row's keys in the first of the splits: the later splits are empty
+    first = study_inputs(gen, 8, 2048, 1, int8)[0]
+    first["kv_len"] = torch.tensor([[60], [1], [128], [100], [5], [64], [65], [127]],
+                                   dtype=torch.int32, device="cuda")
+    cases.append((f"first split only ({dense_split_plan(8, STUDY_H, 2048)} splits)", first, 0))
     errs = []
     for what, x, bucket in cases:
         got = decode_attention(**x, bucket=bucket)
@@ -472,8 +496,9 @@ def check_decode(gen, log, int8: bool) -> dict:
         bms, by = bound_ms(nbytes, 4 * keys * STUDY_H * STUDY_DH)
         cells.append({"batch": b, "window": s, "ms": ms, "plain_ms": plain, "library_ms": lib,
                       "bound_ms": bms, "bound_by": by, "host_ms": host})
-        log(f"{name} cell (batch {b}, window {s}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        log(f"{name} cell (batch {b}, window {s}, {dense_split_plan(b, STUDY_H, s)} splits): "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms (kernel/library "
+            f"{ms / lib:.2f}x), bound {bms:.4f} ms ({by})")
     top = cells[-1]
     return {"name": name, "route": "cuda", "source": "vtpu_torch/csrc/decode_attention.cu",
             "replaces": "vtpu/ops/decode_attn.py:315" if int8 else "vtpu/ops/decode_attn.py:196",
@@ -793,9 +818,10 @@ def main() -> int:
                check_paged_tp(gen, log, int8=False), check_paged_tp(gen, log, int8=True)]
     for kern in kernels:
         log(f"{kern['name']} on {card}: kernel {kern['ms']:.4f} ms, plain "
-            f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']:.4f} ms, bound "
-            f"{kern['bound_ms']:.4f} ms ({kern['bound_by']}); host enqueue "
-            f"{kern['host_ms']:.4f} ms per wrapper call")
+            f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']:.4f} ms (kernel/library "
+            f"{kern['ms'] / kern['library_ms']:.2f}x), bound {kern['bound_ms']:.4f} ms "
+            f"({kern['bound_by']}, {100 * kern['bound_ms'] / kern['ms']:.0f}% of it); host "
+            f"enqueue {kern['host_ms']:.4f} ms per wrapper call")
     from vtpu_torch.models import ModelConfig, init_params
 
     # weights depend on the widths only: one seeded set serves both KV types

@@ -14,9 +14,9 @@ import torch
 from vtpu_torch.ops import _build
 from vtpu_torch.ops.attention import flash_attention, flash_attention_ref
 from vtpu_torch.ops.decode_attn import (
-    decode_attention, decode_attention_ref, paged_decode_attention,
+    DENSE_TILE, decode_attention, decode_attention_ref, dense_split_plan, paged_decode_attention,
     paged_decode_attention_int8kv, paged_decode_attention_int8kv_ref,
-    paged_decode_attention_ref,
+    paged_decode_attention_ref, split_tiles,
 )
 from vtpu_torch.parallel import TpMesh, head_shard
 
@@ -57,6 +57,21 @@ def test_flash_kernel_matches_plain(dev, shape):
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert _build.launches()["flash_attention"] == before + 1
+    assert _err(got, flash_attention_ref(q, k, v)) <= 2e-2
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 1000, 1024])
+def test_flash_kernel_seq_lens_and_head_dims(dev, s, dh):
+    """Ragged and whole 128-key tiles at every head dim. Batch 3 x 8 heads
+    takes 64-row q tiles up to S = 129 (fewer 128-row tiles than SMs) and
+    128-row tiles at S = 1000 and 1024, so both block shapes run."""
+    gen = torch.Generator(device=dev).manual_seed(s * 1000 + dh)
+    q, k, v = (torch.randn((3, s, 8, dh), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
     assert _err(got, flash_attention_ref(q, k, v)) <= 2e-2
 
 
@@ -125,15 +140,26 @@ def test_paged_int8_kernel_matches_plain(dev, dtype, case):
 
 @pytest.mark.parametrize("kv", ["native", "int8"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", ["ragged_t4", "flat_t1", "multi_tile", "bucket"])
+@pytest.mark.parametrize("case", ["ragged_t4", "flat_t1", "multi_tile", "bucket",
+                                  "first_split_only", "ragged_t16"])
 def test_dense_decode_kernel_matches_plain(dev, dtype, kv, case):
     """decode_attention's kernel against its plain version: ragged T=4,
-    [B] lengths at T=1, a long multi-tile window and a bucket that bounds
-    the reads below S (keys past it hold garbage that must not be read)."""
+    [B] lengths at T=1, a long multi-tile window, a bucket that bounds the
+    reads below S (keys past it hold garbage that must not be read), rows
+    whose keys all lie in the first of 16 splits (every later split empty;
+    one row has no key at all and must give 0), and a ragged T=16 verify
+    chunk."""
     rng = np.random.RandomState(4)
     b, h, dh, bucket = 2, 4, 128, 0
     if case == "ragged_t4":
         t, s, lens = 4, 256, [[5, 6, 7, 8], [200, 201, 202, 203]]
+    elif case == "first_split_only":
+        t, s, lens = 1, 1024, [[50], [0]]
+        n_split = dense_split_plan(b, h, s)
+        assert n_split > 2 and 50 <= len(split_tiles(-(-s // DENSE_TILE), n_split, 0)) * DENSE_TILE
+    elif case == "ragged_t16":
+        t, s = 16, 512
+        lens = [list(range(5, 21)), list(range(400, 416))]
     elif case == "flat_t1":
         t, s, lens = 1, 256, [5, 200]
     elif case == "multi_tile":
@@ -163,6 +189,8 @@ def test_dense_decode_kernel_matches_plain(dev, dtype, kv, case):
     want = decode_attention_ref(q, k, v, kv_len, ks, vs, bucket=bucket)
     assert torch.isfinite(got.float()).all()
     assert _err(got, want) <= _tol(dtype)
+    if case == "first_split_only":
+        assert not got[1].float().abs().any()
 
 
 @pytest.mark.parametrize("tp", [2, 4])

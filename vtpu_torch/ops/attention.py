@@ -108,17 +108,20 @@ def paged_causal_attention_int8kv(q: torch.Tensor, kq_pool: torch.Tensor,
         gather_kv_pages(vq_pool, table), gather_kv_pages(v_scale_pool, table), kv_len=kv_len)
 
 
-# q rows and keys per tile: the CUDA kernel's BQ and BK
-FLASH_BLOCK = 64
+# keys per K/V tile of the CUDA kernel (its BK), and the plain version's q
+# tile: a row's visited key tiles are those up to its own diagonal tile
+# whatever the kernel's q tile (128 or 64 rows), so the arithmetic is the same
+FLASH_BLOCK = 128
 _FLASH_DH = (32, 64, 128)
 _flash_fn = None
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the flash kernel: 64-row q tiles, 64-key
-    tiles up to the causal diagonal, online softmax in f32, P rounded to the
-    input dtype before P.V. Any S (the last tiles are ragged)."""
+    """Plain PyTorch version of the flash kernel: FLASH_BLOCK-row q tiles,
+    FLASH_BLOCK-key tiles up to the causal diagonal, online softmax in f32, P
+    rounded to the input dtype before P.V. Any S (the last tiles are
+    ragged)."""
     b, s, h, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     qh = q.float().permute(0, 2, 1, 3)
@@ -163,8 +166,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Causal self-attention for prefill. q, k, v: [B, S, H, Dh], any S.
 
-    On a CUDA tensor this launches the Hopper kernel (bfloat16, tensor
-    cores; q/k/v read in place through their strides, which must be
+    On a CUDA tensor this launches the Hopper kernel (bfloat16, wgmma with
+    TMA loads; q/k/v read in place through their strides, which must be
     multiples of 8 elements with a unit head_dim stride) or raises; on a
     CPU tensor it runs the plain version ``flash_attention_ref``."""
     if q.device.type == "cpu":

@@ -42,7 +42,13 @@ PAGED_ATTN_ROUTES = ("kernel", "gather")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_T = 16  # queries per row per call the kernels take
-DENSE_TILE = 64  # keys per tile of the dense kernel (DENSE_TILE in decode_attention.cu)
+DENSE_TILE = 32  # keys per tile of the dense kernel (DENSE_TILE in decode_attention.cu)
+# the dense kernel's split plan: at least SPLIT_BLOCKS blocks (one resident
+# wave at four blocks per SM of the H100's 132) and no split longer than
+# SPLIT_MAX_TILES tiles (a long split is a long serial walk for one block),
+# chosen on the H100 by hack/torch_decode_split_sweep.py (PERF.md §6)
+SPLIT_BLOCKS = 4 * 132
+SPLIT_MAX_TILES = 14
 _fns: dict = {}  # C symbol -> bound ctypes function, set at first launch
 
 
@@ -87,13 +93,14 @@ def _check_scales(k_scale, v_scale) -> bool:
     return k_scale is not None
 
 
-def _online_softmax(q: torch.Tensor, kv_len: torch.Tensor, tiles) -> torch.Tensor:
+def _online_partial(q: torch.Tensor, kv_len: torch.Tensor, tiles):
     """The plain tile walk shared by the plain versions: q [B, T, H, Dh],
     kv_len [B, T]; ``tiles`` yields (first key position, k, v, k_scale,
     v_scale) with k, v [B, n, H, Dh] and scales [B, n, H] or None. f32
     max/denominator/accumulator; masked scores selected to -1e30 and their p
     to exactly 0; k_scale on the scores before the mask, v_scale on p after
-    the denominator; P cast to q's dtype before P.V."""
+    the denominator; P cast to q's dtype before P.V. Returns the unnormalised
+    partial (m, l [B, H, T], acc [B, H, T, Dh])."""
     b, t, h, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     qf = q.float().permute(0, 2, 1, 3)  # [B, H, T, Dh]
@@ -118,8 +125,29 @@ def _online_softmax(q: torch.Tensor, kv_len: torch.Tensor, tiles) -> torch.Tenso
             p = p * vst.permute(0, 2, 1)[:, :, None, :]
         acc = acc * alpha[..., None] + p.to(q.dtype).float() @ vt
         m = m_new
-    out = torch.where(l[..., None] > 0, acc / l[..., None].clamp_min(1e-30), 0.0)
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    return m, l, acc
+
+
+def _combine(parts: list, dtype: torch.dtype) -> torch.Tensor:
+    """The splits' partials ``(m, l, acc)`` of ``_online_partial`` into the
+    output [B, T, H, Dh]: each live split (l > 0) weighted by exp(m_i - max
+    m), divided by the combined l; a (row, query) with no live split gives 0.
+    With one split the weight is exp(0) = 1, so this is acc / l exactly."""
+    m = torch.stack([p[0] for p in parts])
+    l = torch.stack([p[1] for p in parts])
+    acc = torch.stack([p[2] for p in parts])
+    live = l > 0
+    top = torch.where(live, m, _NEG_INF).amax(dim=0)
+    w = torch.where(live, torch.exp(m - top), 0.0)
+    lsum = (l * w).sum(dim=0)
+    num = (acc * w[..., None]).sum(dim=0)
+    out = torch.where(lsum[..., None] > 0, num / lsum[..., None].clamp_min(1e-30), 0.0)
+    return out.permute(0, 2, 1, 3).to(dtype)
+
+
+def _online_softmax(q: torch.Tensor, kv_len: torch.Tensor, tiles) -> torch.Tensor:
+    """One walk over every tile (no split): ``_online_partial`` normalised."""
+    return _combine([_online_partial(q, kv_len, tiles)], q.dtype)
 
 
 def _paged_ref(q, k_pool, v_pool, table, kv_len, layer, k_scale_pool=None,
@@ -305,24 +333,46 @@ def _dense_args(q, k, kv_len, bucket):
     return _norm_kv_len(kv_len, q.shape[1]), bucket
 
 
+def dense_split_plan(b: int, h: int, bucket: int) -> int:
+    """How many blocks the dense kernel splits each (row, head)'s key range
+    [0, bucket) across. A function of B, H and the bucket only (the lengths
+    live on the device): enough splits for B x H x n_split to reach
+    SPLIT_BLOCKS and for no split to walk more than SPLIT_MAX_TILES
+    DENSE_TILE-key tiles, but at most half the bucket's tiles, so that with
+    ``split_tiles``'s balanced ranges every split walks two tiles or more."""
+    n_tiles = -(-bucket // DENSE_TILE)
+    want = max(-(-SPLIT_BLOCKS // max(1, b * h)), -(-n_tiles // SPLIT_MAX_TILES))
+    return max(1, min(want, n_tiles // 2))
+
+
+def split_tiles(n_tiles: int, n_split: int, i: int) -> range:
+    """The tiles split i of ``n_split`` walks, as the kernel cuts them:
+    [i * n_tiles // n_split, (i + 1) * n_tiles // n_split)."""
+    return range(i * n_tiles // n_split, (i + 1) * n_tiles // n_split)
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
                          v_scale: Optional[torch.Tensor] = None,
                          bucket: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the dense kernel: walk the cache's first
-    ``bucket`` keys in DENSE_TILE-key tiles with the online softmax of
-    ``_online_softmax``. Same arguments as ``decode_attention``."""
+    """Plain PyTorch version of the dense kernel: the cache's first
+    ``bucket`` keys cut as ``dense_split_plan`` cuts them, each split walked
+    in DENSE_TILE-key tiles with the online softmax of ``_online_partial``,
+    the splits' partials then combined as the kernel's second pass combines
+    them. Same arguments as ``decode_attention``."""
     _check_scales(k_scale, v_scale)
     kv_len, bucket = _dense_args(q, k, kv_len, bucket)
+    n_split = dense_split_plan(q.shape[0], q.shape[2], bucket)
+    n_tiles = -(-bucket // DENSE_TILE)
 
-    def tiles():
-        for k0 in range(0, bucket, DENSE_TILE):
-            k1 = min(k0 + DENSE_TILE, bucket)
+    def tiles(i):
+        for j in split_tiles(n_tiles, n_split, i):
+            k0, k1 = j * DENSE_TILE, min((j + 1) * DENSE_TILE, bucket)
             yield (k0, k[:, k0:k1], v[:, k0:k1],
                    None if k_scale is None else k_scale[:, k0:k1],
                    None if v_scale is None else v_scale[:, k0:k1])
 
-    return _online_softmax(q, kv_len, tiles())
+    return _combine([_online_partial(q, kv_len, tiles(i)) for i in range(n_split)], q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -356,14 +406,23 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"scales must be float32 {tuple(k.shape[:3])}, got "
                              f"{sc.dtype} {tuple(sc.shape)}")
     _check_launch(name, q, kv_len, (k, v), scales)
+    if dh % 8:
+        raise ValueError(f"{name} needs head_dim % 8 == 0, got {dh}")
     out = torch.empty_like(q)
+    n_split = dense_split_plan(b, h, bucket)
+    part_acc = part_ml = None
+    if n_split > 1:  # the splits' f32 partials, combined by the kernel's second launch
+        part_acc = torch.empty((n_split, b, t, h, dh), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((n_split, b, t, h, 2), dtype=torch.float32, device=q.device)
     fn = _kernel("decode_attention", "vtpu_decode_attention",
-                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              k_scale.data_ptr() if scaled else None, v_scale.data_ptr() if scaled else None,
-             kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], int(scaled), b, t, h, dh,
-             k.shape[1], bucket, 1.0 / math.sqrt(dh),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             kv_len.data_ptr(), out.data_ptr(),
+             None if part_acc is None else part_acc.data_ptr(),
+             None if part_ml is None else part_ml.data_ptr(),
+             _DTYPES[q.dtype], int(scaled), b, t, h, dh, k.shape[1], bucket, n_split,
+             1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
     _build.LAUNCHES[name] += 1
     _build.check(err, name)
     return out
