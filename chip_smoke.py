@@ -9,13 +9,15 @@ Phases, any failure exits nonzero:
    started together);
 2. every kernel against its plain PyTorch version at its path's shapes
    plus ragged cases (flash also at S = 1 and 1000; the dense decode kernel
-   also at a bucket below S and with every row's keys in its first split),
-   with kernel, plain and library times, their ratio, and the least time
-   the card could take for the same work; flash is timed at the serving
-   shape and at a one-row admission, the dense decode kernel at the study's
-   four T=1 cells; the paged kernels (bf16, int8) also on each tp=2 head
-   shard of the serving tick, against their plain versions and the head
-   slice of the full-pool call;
+   also at a bucket below S and with every row's keys in its first split;
+   the paged kernels at the serving tick and a ragged T=4 copy-on-write
+   chunk over pages of 128, 16 and 48 keys, the null block poisoned), with
+   kernel, plain and library times, their ratio, the least time the card
+   could take for the same work, and each kernel's tile and split count;
+   flash is timed at the serving shape and at a one-row admission, the
+   dense decode kernel at the study's four T=1 cells; the paged kernels
+   (bf16, int8) also on each tp=2 head shard, against their plain versions
+   and, bit for bit, the head slice of the full-pool call;
 3. the paths, each with every launch count set to 0 just before it and
    read just after:
    a. the main path: the flagship ModelConfig served by ServingEngine on a
@@ -141,7 +143,7 @@ def check_flash(gen, log) -> dict:
     entry's numbers are the serving shape's."""
     import torch.nn.functional as F
 
-    from vtpu_torch.ops.attention import flash_attention, flash_attention_ref
+    from vtpu_torch.ops.attention import FLASH_BLOCK, flash_attention, flash_attention_ref
 
     errs = []
     for shape in [(4, 1024, 8, 128), (2, 200, 8, 128), (2, 1, 8, 128), (1, 1000, 8, 128)]:
@@ -180,14 +182,15 @@ def check_flash(gen, log) -> dict:
             "replaces": "vtpu/ops/attention.py:210", "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-            "host_ms": top["host_ms"], "shapes": [shapes[4], shapes[1]]}
+            "host_ms": top["host_ms"], "shapes": [shapes[4], shapes[1]],
+            "tile": FLASH_BLOCK, "n_split": None}
 
 
 def serving_tick(wp: int, page: int):
     """The page table and lengths of a decode tick at the serving shape: 4
-    slots, prompts of 600..1024 plus generated tokens, private pages,
-    null-padded rows. Returns (table [4, wp] int32, kv_len [4, 1] int32,
-    the lengths)."""
+    slots, prompts of 600..1024 plus generated tokens (every row ending
+    inside a 32-key tile), private pages, null-padded rows. Returns (table
+    [4, wp] int32, kv_len [4, 1] int32, the lengths)."""
     table = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
     lens1 = [1040, 700, 613, 1024]
     nxt = 1
@@ -199,64 +202,121 @@ def serving_tick(wp: int, page: int):
     return table, kv1, lens1
 
 
-def check_paged(gen, log) -> dict:
+def cow_chunk(wp: int, page: int):
+    """A verify-shaped chunk: T = 4, ragged lengths (5-8 keys in one row,
+    ~1000 in another, so most of a row's splits are empty), rows 0 and 1
+    sharing their leading (prefix) pages and diverging at a copied boundary
+    page. Returns (table [4, wp] int32, kv_len [4, 4] int32)."""
+    lens = [[300, 301, 302, 303], [290, 291, 292, 293], [5, 6, 7, 8], [1000, 1001, 1002, 1003]]
+    n = [-(-row[-1] // page) for row in lens]
+    shared = min(n[0], n[1]) - 1
+    rows = [list(range(1, n[0] + 1))]
+    nxt = n[0] + 1
+    rows.append(rows[0][:shared] + list(range(nxt, nxt + n[1] - shared)))
+    nxt += n[1] - shared
+    for k in n[2:]:
+        rows.append(list(range(nxt, nxt + k)))
+        nxt += k
+    table = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
+    for r, ids in enumerate(rows):
+        table[r, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    return table, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+# pages the paged kernels are held at besides the serving pool's 128: one
+# 16-key tile a page, and three (48 is no multiple of the 32-key tile)
+EDGE_PAGES = (16, 48)
+
+
+def paged_pools(gen, n_layers: int, page: int, h: int, int8: bool) -> tuple[list, int]:
+    """Pools of the serving pool's size in tokens (41 blocks of 128) for
+    ``page``: [k, v] bf16, or [kq, k_scale, vq, v_scale] for int8, every
+    plane's null block holding garbage that must never be observed; and the
+    window in pages (max_seq 1280)."""
+    wp = -(-FLAGSHIP["max_seq"] // page)
+    shape = (n_layers, -(-41 * 128 // page), page, h, 128)
+    if int8:
+        pools = [rand_int8(gen, shape), rand_scales(gen, shape[:4]),
+                 rand_int8(gen, shape), rand_scales(gen, shape[:4])]
+        for x, val in zip(pools, (127, 1e3, -127, 1e3)):
+            x[:, 0] = val
+    else:
+        pools = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2)]
+        pools[0][:, 0], pools[1][:, 0] = 1e3, -1e3
+    return pools, wp
+
+
+def check_paged(gen, log, int8: bool) -> dict:
+    """The paged kernel (bf16, or int8 with scale pools) against its plain
+    version at the serving tick and the ragged copy-on-write chunk, on the
+    serving pool (page 128, first and last plane) and on pools of pages 16
+    and 48, the null block poisoned in each; then kernel, plain and library
+    (gather + SDPA) times at the serving tick."""
     import torch.nn.functional as F
 
     from vtpu_torch.ops.attention import gather_kv_pages
-    from vtpu_torch.ops.decode_attn import paged_decode_attention, paged_decode_attention_ref
+    from vtpu_torch.ops.decode_attn import (
+        paged_decode_attention, paged_decode_attention_int8kv,
+        paged_decode_attention_int8kv_ref, paged_decode_attention_ref, paged_split_plan,
+        paged_tile,
+    )
 
-    n_layers, nb, page, h, dh, wp = 12, 41, 128, 8, 128, 10
-    kp = torch.randn((n_layers, nb, page, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    vp = torch.randn((n_layers, nb, page, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    kp[:, 0] = 1e3  # the null block holds garbage that must never be observed
-    vp[:, 0] = -1e3
-    table, kv1, lens1 = serving_tick(wp, page)
-    q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    # verify-shaped chunk: T = 4, ragged lengths, two rows sharing their
-    # leading (prefix) blocks and diverging at a copied boundary block
-    cow = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
-    cow[0, :3] = torch.tensor([1, 2, 3], dtype=torch.int32)
-    cow[1, :3] = torch.tensor([1, 2, 4], dtype=torch.int32)
-    cow[2, :1] = 5
-    cow[3, :8] = torch.arange(6, 14, dtype=torch.int32)
-    kv4 = torch.tensor([[300, 301, 302, 303], [290, 291, 292, 293], [5, 6, 7, 8],
-                        [1000, 1001, 1002, 1003]], dtype=torch.int32, device="cuda")
-    q4 = torch.randn((4, 4, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    if int8:
+        name, fn, ref = ("paged_decode_attention_int8kv", paged_decode_attention_int8kv,
+                         paged_decode_attention_int8kv_ref)
+    else:
+        name, fn, ref = "paged_decode_attention", paged_decode_attention, \
+            paged_decode_attention_ref
+    n_layers, page, h, dh = 12, 128, 8, 128
     errs = []
-    for q, tab, kvl, what in [(q1, table, kv1, "T=1"), (q4, cow, kv4, "T=4 ragged COW")]:
-        for layer in (0, n_layers - 1):
-            got = paged_decode_attention(q, kp, vp, tab, kvl, layer)
-            torch.cuda.synchronize()
-            err = max_err(got, paged_decode_attention_ref(q, kp, vp, tab, kvl, layer))
-            log(f"paged_decode_attention {what} layer {layer}: max_abs_err {err:.3e} "
-                f"(atol {ATOL})")
-            if not err <= ATOL:
-                raise AssertionError(
-                    f"paged_decode_attention disagrees with its plain version: {err}")
-            errs.append(err)
+    for pg in (page,) + EDGE_PAGES:
+        pools, wp = paged_pools(gen, n_layers if pg == page else 2, pg, h, int8)
+        (table, kv1, _), (cow, kv4) = serving_tick(wp, pg), cow_chunk(wp, pg)
+        for tab, kvl, what in [(table, kv1, "T=1 tick"), (cow, kv4, "T=4 ragged COW")]:
+            q = torch.randn((4, kvl.shape[1], h, dh), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            for layer in (0, pools[0].shape[0] - 1):
+                got = fn(q, *pools, tab, kvl, layer)
+                torch.cuda.synchronize()
+                err = max_err(got, ref(q, *pools, tab, kvl, layer))
+                log(f"{name} page {pg} {what} layer {layer} ({paged_split_plan(4, h, wp, pg)} "
+                    f"splits of {paged_tile(pg)}-key tiles): max_abs_err {err:.3e} "
+                    f"(atol {ATOL})")
+                if not (err <= ATOL and bool(torch.isfinite(got.float()).all())):
+                    raise AssertionError(f"{name} disagrees with its plain version: {err}")
+                errs.append(err)
+        if pg == page:
+            serving = pools, wp, table, kv1
     # timing: one decode tick's call per layer, cycling the 12 planes so
     # consecutive calls read different pool memory, as the trunk does
-    ms, host = time_ms(
-        lambda i: paged_decode_attention(q1, kp, vp, table, kv1, i % n_layers), 60)
-    plain, _ = time_ms(lambda i: paged_decode_attention_ref(q1, kp, vp, table, kv1,
-                                                             i % n_layers), 12, hold=False)
+    pools, wp, table, kv1 = serving
+    q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    ms, host = time_ms(lambda i: fn(q1, *pools, table, kv1, i % n_layers), 60)
+    plain, _ = time_ms(lambda i: ref(q1, *pools, table, kv1, i % n_layers), 12, hold=False)
     mask = (torch.arange(wp * page, device="cuda")[None, :] < kv1)[:, None, None]  # [B,1,1,W]
 
     def library(i):
-        k = gather_kv_pages(kp[i % n_layers], table)
-        v = gather_kv_pages(vp[i % n_layers], table)
+        l = i % n_layers
+        if int8:
+            k = dequant(gather_kv_pages(pools[0][l], table), gather_kv_pages(pools[1][l], table))
+            v = dequant(gather_kv_pages(pools[2][l], table), gather_kv_pages(pools[3][l], table))
+        else:
+            k, v = gather_kv_pages(pools[0][l], table), gather_kv_pages(pools[1][l], table)
         return F.scaled_dot_product_attention(q1.transpose(1, 2), k.transpose(1, 2),
                                               v.transpose(1, 2), attn_mask=mask)
 
-    lib, _ = time_ms(library, 60)
-    keys = sum(lens1)
-    nbytes = keys * h * dh * 2 * 2 + 2 * q1.numel() * 2 + table.numel() * 4 + kv1.numel() * 4
+    # int8: ~12 small ops per call, fewer calls, so the held launch queue never fills
+    lib, _ = time_ms(library, 20 if int8 else 60)
+    keys = int(kv1.sum())
+    per_key = h * dh * 2 * (1 if int8 else 2) + (h * 4 * 2 if int8 else 0)
+    nbytes = keys * per_key + 2 * q1.numel() * 2 + table.numel() * 4 + kv1.numel() * 4
     bms, by = bound_ms(nbytes, 4 * keys * h * dh)
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "vtpu_torch/csrc/paged_decode_attention.cu",
-            "replaces": "vtpu/ops/decode_attn.py:347", "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib, "host_ms": host}
+    return {"name": name, "route": "cuda", "source": "vtpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": "vtpu/ops/decode_attn.py:435" if int8 else "vtpu/ops/decode_attn.py:347",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib, "host_ms": host,
+            "tile": paged_tile(page), "n_split": paged_split_plan(4, h, wp, page)}
 
 
 def rand_int8(gen, shape) -> torch.Tensor:
@@ -272,128 +332,68 @@ def dequant(xq: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     return (xq.float() * sc[..., None]).to(torch.bfloat16)
 
 
-def check_paged_int8(gen, log) -> dict:
-    import torch.nn.functional as F
-
-    from vtpu_torch.ops.attention import gather_kv_pages
-    from vtpu_torch.ops.decode_attn import (
-        paged_decode_attention_int8kv, paged_decode_attention_int8kv_ref,
-    )
-
-    n_layers, nb, page, h, dh, wp = 12, 41, 128, 8, 128, 10
-    shape = (n_layers, nb, page, h, dh)
-    kq, vq = rand_int8(gen, shape), rand_int8(gen, shape)
-    ks, vs = rand_scales(gen, shape[:4]), rand_scales(gen, shape[:4])
-    # the null block's values and scales hold garbage that must never be observed
-    kq[:, 0], vq[:, 0], ks[:, 0], vs[:, 0] = 127, -127, 1e3, 1e3
-    # the serving tick and the ragged copy-on-write chunk of check_paged
-    table, kv1, lens1 = serving_tick(wp, page)
-    q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    cow = torch.zeros((4, wp), dtype=torch.int32, device="cuda")
-    cow[0, :3] = torch.tensor([1, 2, 3], dtype=torch.int32)
-    cow[1, :3] = torch.tensor([1, 2, 4], dtype=torch.int32)
-    cow[2, :1] = 5
-    cow[3, :8] = torch.arange(6, 14, dtype=torch.int32)
-    kv4 = torch.tensor([[300, 301, 302, 303], [290, 291, 292, 293], [5, 6, 7, 8],
-                        [1000, 1001, 1002, 1003]], dtype=torch.int32, device="cuda")
-    q4 = torch.randn((4, 4, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    errs = []
-    for q, tab, kvl, what in [(q1, table, kv1, "T=1"), (q4, cow, kv4, "T=4 ragged COW")]:
-        for layer in (0, n_layers - 1):
-            args = (q, kq, ks, vq, vs, tab, kvl, layer)
-            got = paged_decode_attention_int8kv(*args)
-            torch.cuda.synchronize()
-            err = max_err(got, paged_decode_attention_int8kv_ref(*args))
-            log(f"paged_decode_attention_int8kv {what} layer {layer}: max_abs_err {err:.3e} "
-                f"(atol {ATOL})")
-            if not (err <= ATOL and bool(torch.isfinite(got.float()).all())):
-                raise AssertionError(
-                    f"paged_decode_attention_int8kv disagrees with its plain version: {err}")
-            errs.append(err)
-    ms, host = time_ms(lambda i: paged_decode_attention_int8kv(
-        q1, kq, ks, vq, vs, table, kv1, i % n_layers), 60)
-    plain, _ = time_ms(lambda i: paged_decode_attention_int8kv_ref(
-        q1, kq, ks, vq, vs, table, kv1, i % n_layers), 12, hold=False)
-    mask = (torch.arange(wp * page, device="cuda")[None, :] < kv1)[:, None, None]
-
-    def library(i):
-        l = i % n_layers
-        k = dequant(gather_kv_pages(kq[l], table), gather_kv_pages(ks[l], table))
-        v = dequant(gather_kv_pages(vq[l], table), gather_kv_pages(vs[l], table))
-        return F.scaled_dot_product_attention(q1.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), attn_mask=mask)
-
-    # ~12 small ops per call: fewer calls, so the held launch queue never fills
-    lib, _ = time_ms(library, 20)
-    keys = sum(lens1)
-    nbytes = (keys * h * dh * 1 * 2 + keys * h * 4 * 2 + 2 * q1.numel() * 2
-              + table.numel() * 4 + kv1.numel() * 4)
-    bms, by = bound_ms(nbytes, 4 * keys * h * dh)
-    return {"name": "paged_decode_attention_int8kv", "route": "cuda",
-            "source": "vtpu_torch/csrc/paged_decode_attention.cu",
-            "replaces": "vtpu/ops/decode_attn.py:435", "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib, "host_ms": host}
-
-
 def check_paged_tp(gen, log, int8: bool) -> dict:
     """Row 4, the paged kernel on one rank's head shard (the reference's
-    ``_shard_body``), in one process: the serving tick's pool (bf16, or
-    int8 with scale pools) and q split on heads into TP head shards; each
-    shard's call with a mesh against its plain version (within ATOL) and
-    against the head slice of the full-pool call (blocks are per (row,
-    head), so the two must be bitwise equal); then kernel, plain and library
-    times at the head-local shape."""
+    ``_shard_body``), in one process: the pools of check_paged (bf16, or
+    int8 with scale pools; pages 128, 16 and 48) and q split on heads into
+    TP head shards; each shard's call with a mesh, at the serving tick and
+    the ragged copy-on-write chunk, against its plain version (within ATOL)
+    and against the head slice of the full-pool call (a mesh call takes the
+    split plan of the full head count, so the two must be bitwise equal);
+    then kernel, plain and library times at the head-local serving tick."""
     import torch.nn.functional as F
 
     from vtpu_torch.ops.attention import gather_kv_pages
     from vtpu_torch.ops.decode_attn import (
         paged_decode_attention, paged_decode_attention_int8kv,
-        paged_decode_attention_int8kv_ref, paged_decode_attention_ref,
+        paged_decode_attention_int8kv_ref, paged_decode_attention_ref, paged_split_plan,
+        paged_tile,
     )
     from vtpu_torch.parallel import TpMesh, head_shard
 
-    n_layers, nb, page, h, dh, wp = 12, 41, 128, 8, 128, 10
-    shape = (n_layers, nb, page, h, dh)
     if int8:
         name, fn, ref = ("paged_decode_attention_int8kv_tp", paged_decode_attention_int8kv,
                          paged_decode_attention_int8kv_ref)
-        pools = [rand_int8(gen, shape), rand_scales(gen, shape[:4]),
-                 rand_int8(gen, shape), rand_scales(gen, shape[:4])]
         axes = (-2, -1, -2, -1)
-        for x, val in zip(pools, (127, 1e3, -127, 1e3)):
-            x[:, 0] = val  # the null block's garbage: never observable
     else:
         name, fn, ref = "paged_decode_attention_tp", paged_decode_attention, \
             paged_decode_attention_ref
-        pools = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                 for _ in range(2)]
         axes = (-2, -2)
-        pools[0][:, 0], pools[1][:, 0] = 1e3, -1e3
-    table, kv1, lens1 = serving_tick(wp, page)
-    q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    n_layers, page, h, dh = 12, 128, 8, 128
     meshes = [TpMesh(rank=r, size=TP, device=torch.device("cuda")) for r in range(TP)]
-    shards = [[head_shard(x, ax, m) for x, ax in zip([q1] + pools, (-2,) + axes)]
-              for m in meshes]
     errs, diffs = [], []
-    for layer in (0, n_layers - 1):
-        whole = fn(q1, *pools, table, kv1, layer)
-        for m, (q, *ps) in zip(meshes, shards):
-            got = fn(q, *ps, table, kv1, layer, mesh=m)
-            torch.cuda.synchronize()
-            err = max_err(got, ref(q, *ps, table, kv1, layer))
-            diff = max_err(got, head_shard(whole, -2, m))
-            log(f"{name} rank {m.rank} of {TP} layer {layer}: max_abs_err {err:.3e} "
-                f"(atol {ATOL}), max diff from the full-pool call's head slice {diff:.3e} "
-                "(must be 0)")
-            if not (err <= ATOL and diff == 0 and bool(torch.isfinite(got.float()).all())):
-                raise AssertionError(f"{name} disagrees: {err} against its plain version, "
-                                     f"{diff} against the full-pool call")
-            errs.append(err)
-            diffs.append(diff)
-    q, *ps = shards[0]
+    for pg in (page,) + EDGE_PAGES:
+        pools, wp = paged_pools(gen, n_layers if pg == page else 2, pg, h, int8)
+        shards = [[head_shard(x, ax, m) for x, ax in zip(pools, axes)] for m in meshes]
+        (table, kv1, _), (cow, kv4) = serving_tick(wp, pg), cow_chunk(wp, pg)
+        for tab, kvl, what in [(table, kv1, "T=1 tick"), (cow, kv4, "T=4 ragged COW")]:
+            q = torch.randn((4, kvl.shape[1], h, dh), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            for layer in (0, pools[0].shape[0] - 1):
+                whole = fn(q, *pools, tab, kvl, layer)
+                for m, ps in zip(meshes, shards):
+                    qs = head_shard(q, -2, m)
+                    got = fn(qs, *ps, tab, kvl, layer, mesh=m)
+                    torch.cuda.synchronize()
+                    err = max_err(got, ref(qs, *ps, tab, kvl, layer, mesh=m))
+                    diff = max_err(got, head_shard(whole, -2, m))
+                    log(f"{name} page {pg} {what} rank {m.rank} of {TP} layer {layer}: "
+                        f"max_abs_err {err:.3e} (atol {ATOL}), max diff from the full-pool "
+                        f"call's head slice {diff:.3e} (must be 0)")
+                    if not (err <= ATOL and diff == 0
+                            and bool(torch.isfinite(got.float()).all())):
+                        raise AssertionError(f"{name} disagrees: {err} against its plain "
+                                             f"version, {diff} against the full-pool call")
+                    errs.append(err)
+                    diffs.append(diff)
+        if pg == page:
+            serving = shards[0], wp, table, kv1
+    ps, wp, table, kv1 = serving
+    q = head_shard(torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16),
+                   -2, meshes[0])
     ms, host = time_ms(lambda i: fn(q, *ps, table, kv1, i % n_layers, mesh=meshes[0]), 60)
-    plain, _ = time_ms(lambda i: ref(q, *ps, table, kv1, i % n_layers), 12, hold=False)
+    plain, _ = time_ms(lambda i: ref(q, *ps, table, kv1, i % n_layers, mesh=meshes[0]), 12,
+                       hold=False)
     mask = (torch.arange(wp * page, device="cuda")[None, :] < kv1)[:, None, None]
 
     def library(i):
@@ -407,7 +407,7 @@ def check_paged_tp(gen, log, int8: bool) -> dict:
                                               v.transpose(1, 2), attn_mask=mask)
 
     lib, _ = time_ms(library, 20 if int8 else 60)
-    keys, hl = sum(lens1), h // TP
+    keys, hl = int(kv1.sum()), h // TP
     per_key = hl * dh * 2 * (1 if int8 else 2) + (hl * 4 * 2 if int8 else 0)
     nbytes = keys * per_key + 2 * q.numel() * 2 + table.numel() * 4 + kv1.numel() * 4
     bms, by = bound_ms(nbytes, 4 * keys * hl * dh)
@@ -415,7 +415,8 @@ def check_paged_tp(gen, log, int8: bool) -> dict:
             "source": "vtpu_torch/csrc/paged_decode_attention.cu",
             "replaces": "vtpu/ops/decode_attn.py:559", "max_abs_err": max(errs),
             "max_diff_from_full_pool": max(diffs), "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib, "host_ms": host}
+            "bound_ms": bms, "bound_by": by, "library_ms": lib, "host_ms": host,
+            "tile": paged_tile(page), "n_split": paged_split_plan(4, h, wp, page)}
 
 
 def study_inputs(gen, b: int, s: int, t: int, int8: bool, copies: int = 1) -> list[dict]:
@@ -445,7 +446,7 @@ def check_decode(gen, log, int8: bool) -> dict:
     import torch.nn.functional as F
 
     from vtpu_torch.ops.decode_attn import (
-        decode_attention, decode_attention_ref, dense_split_plan,
+        DENSE_TILE, decode_attention, decode_attention_ref, dense_split_plan,
     )
 
     name = "decode_attention_int8kv" if int8 else "decode_attention"
@@ -504,7 +505,8 @@ def check_decode(gen, log, int8: bool) -> dict:
             "replaces": "vtpu/ops/decode_attn.py:315" if int8 else "vtpu/ops/decode_attn.py:196",
             "max_abs_err": max(errs), "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": top["library_ms"], "host_ms": top["host_ms"], "cells": cells}
+            "library_ms": top["library_ms"], "host_ms": top["host_ms"], "cells": cells,
+            "tile": DENSE_TILE, "n_split": dense_split_plan(top["batch"], STUDY_H, top["window"])}
 
 
 def study_path(gen, log) -> dict:
@@ -619,14 +621,16 @@ def profile_wave(eng, prompts) -> dict | None:
     by_name: dict[str, float] = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+            # the template arguments name a walk's tile source: keep them
+            name = evt.name.replace("(anonymous namespace)::", "")[:80]
+            by_name[name] = by_name.get(name, 0.0) + evt.time_range.elapsed_us()
     if not by_name:
         return None
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / (wall * 1e3),
-            "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}
+            "top_kernels_ms": [[name, us / 1e3] for name, us in top]}
 
 
 def serving_path(log, card: str, params, kv_int8: bool) -> dict:
@@ -813,11 +817,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [check_flash(gen, log), check_paged(gen, log), check_paged_int8(gen, log),
+    kernels = [check_flash(gen, log), check_paged(gen, log, int8=False),
+               check_paged(gen, log, int8=True),
                check_decode(gen, log, int8=False), check_decode(gen, log, int8=True),
                check_paged_tp(gen, log, int8=False), check_paged_tp(gen, log, int8=True)]
     for kern in kernels:
-        log(f"{kern['name']} on {card}: kernel {kern['ms']:.4f} ms, plain "
+        log(f"{kern['name']} on {card} (tile {kern['tile']}, {kern['n_split']} splits): kernel "
+            f"{kern['ms']:.4f} ms, plain "
             f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']:.4f} ms (kernel/library "
             f"{kern['ms'] / kern['library_ms']:.2f}x), bound {kern['bound_ms']:.4f} ms "
             f"({kern['bound_by']}, {100 * kern['bound_ms'] / kern['ms']:.0f}% of it); host "
@@ -856,7 +862,7 @@ def main() -> int:
                        "builds": {k: v["seconds"] for k, v in builds.items()},
                        "kernels": kernels, **runs}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "tile", "n_split")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

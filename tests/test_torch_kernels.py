@@ -11,12 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from vtpu_torch.ops import _build
+from vtpu_torch.ops import _build, decode_attn
 from vtpu_torch.ops.attention import flash_attention, flash_attention_ref
 from vtpu_torch.ops.decode_attn import (
     DENSE_TILE, decode_attention, decode_attention_ref, dense_split_plan, paged_decode_attention,
     paged_decode_attention_int8kv, paged_decode_attention_int8kv_ref,
-    paged_decode_attention_ref, split_tiles,
+    paged_decode_attention_ref, paged_split_plan, split_tiles,
 )
 from vtpu_torch.parallel import TpMesh, head_shard
 
@@ -87,46 +87,73 @@ def test_flash_kernel_reads_strided_views(dev):
         flash_attention(q.float(), k.float(), v.float())
 
 
+PAGED_CASES = ["flat_t1", "ragged_t3", "poisoned_null", "mid_tile", "one_split"]
+
+
+def _paged_lens(case: str, page: int):
+    """(T, kv_len rows) of a paged case over the table [[1, 2, 0, 0], [3, 4,
+    5, 0], [6, 7, 8, 1]]: lengths scale with the page, so every page size
+    walks the same pages. mid_tile ends every row inside a tile (past the
+    first page's tiles at page 48); one_split is flat_t1 under a plan of
+    one split."""
+    if case in ("flat_t1", "one_split"):
+        return 1, [[5], [2 * page + 1], [4 * page]]
+    if case == "ragged_t3":
+        return 3, [[page + 1, page + 2, page + 3], [2 * page + 6, 2 * page + 7, 2 * page + 8],
+                   [4 * page - 2, 4 * page - 1, 4 * page]]
+    if case == "mid_tile":
+        return 1, [[7], [page + 9], [3 * page + 13]]
+    return 1, [[3], [page + 4], [3 * page + 2]]  # poisoned_null
+
+
+def _paged_plan(monkeypatch, case: str, page: int) -> None:
+    if case == "one_split":  # the walk of one block over the whole window
+        monkeypatch.setattr(decode_attn, "SPLIT_BLOCKS", 1)
+        assert paged_split_plan(3, 4, 4, page) == 1
+    else:
+        assert paged_split_plan(3, 4, 4, page) > 1
+
+
+@pytest.mark.parametrize("page", [16, 48])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", ["flat_t1", "ragged_t3", "poisoned_null"])
-def test_paged_kernel_matches_plain(dev, dtype, case):
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernel_matches_plain(dev, monkeypatch, dtype, case, page):
+    """Pages of 16 keys (one tile each) and of 48 (three 16-key tiles: no
+    tile crosses a page), every row ending in a tile's middle, the null
+    block poisoned, and a plan of one split."""
+    _paged_plan(monkeypatch, case, page)
     rng = np.random.RandomState(2)
-    kp = torch.from_numpy(rng.randn(3, 9, 16, 4, 128).astype(np.float32)).to(dev, dtype)
-    vp = torch.from_numpy(rng.randn(3, 9, 16, 4, 128).astype(np.float32)).to(dev, dtype)
+    kp = torch.from_numpy(rng.randn(3, 9, page, 4, 128).astype(np.float32)).to(dev, dtype)
+    vp = torch.from_numpy(rng.randn(3, 9, page, 4, 128).astype(np.float32)).to(dev, dtype)
     table = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 8, 1]], dtype=torch.int32,
                          device=dev)
-    if case == "flat_t1":
-        t, lens = 1, [[5], [33], [64]]
-    elif case == "ragged_t3":
-        t, lens = 3, [[17, 18, 19], [38, 39, 40], [62, 63, 64]]
-    else:
+    if case == "poisoned_null":
         kp[:, 0], vp[:, 0] = 1e3, -1e3
-        t, lens = 1, [[3], [20], [50]]
+    t, lens = _paged_lens(case, page)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     q = torch.from_numpy(rng.randn(3, t, 4, 128).astype(np.float32)).to(dev, dtype)
     for layer in (0, 2):
         got = paged_decode_attention(q, kp, vp, table, kv_len, layer)
         torch.cuda.synchronize()
         want = paged_decode_attention_ref(q, kp, vp, table, kv_len, layer)
+        assert torch.isfinite(got.float()).all()
         assert _err(got, want) <= (2e-2 if dtype == torch.bfloat16 else 2e-5)
 
 
+@pytest.mark.parametrize("page", [16, 48])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", ["flat_t1", "ragged_t3", "poisoned_null"])
-def test_paged_int8_kernel_matches_plain(dev, dtype, case):
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_int8_kernel_matches_plain(dev, monkeypatch, dtype, case, page):
+    _paged_plan(monkeypatch, case, page)
     rng = np.random.RandomState(3)
-    shape = (3, 9, 16, 4, 128)
+    shape = (3, 9, page, 4, 128)
     kq, vq = _int8(rng, shape, dev), _int8(rng, shape, dev)
     ks, vs = _scales(rng, shape[:4], dev), _scales(rng, shape[:4], dev)
     table = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 8, 1]], dtype=torch.int32,
                          device=dev)
-    if case == "flat_t1":
-        t, lens = 1, [[5], [33], [64]]
-    elif case == "ragged_t3":
-        t, lens = 3, [[17, 18, 19], [38, 39, 40], [62, 63, 64]]
-    else:  # the null block's values and scales: never observable
+    if case == "poisoned_null":  # the null block's values and scales: never observable
         kq[:, 0], vq[:, 0], ks[:, 0], vs[:, 0] = 127, -127, 1e3, 1e3
-        t, lens = 1, [[3], [20], [50]]
+    t, lens = _paged_lens(case, page)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     q = torch.from_numpy(rng.randn(3, t, 4, 128).astype(np.float32)).to(dev, dtype)
     for layer in (0, 2):
@@ -135,6 +162,7 @@ def test_paged_int8_kernel_matches_plain(dev, dtype, case):
         torch.cuda.synchronize()
         assert _build.launches()["paged_decode_attention_int8kv"] == before + 1
         want = paged_decode_attention_int8kv_ref(q, kq, ks, vq, vs, table, kv_len, layer)
+        assert torch.isfinite(got.float()).all()
         assert _err(got, want) <= _tol(dtype)
 
 
@@ -198,9 +226,10 @@ def test_dense_decode_kernel_matches_plain(dev, dtype, kv, case):
 def test_head_local_paged_kernel_matches_full_pool_head_slice(dev, kv, tp):
     """The paged kernels under a tp mesh (the reference's ``_shard_body``):
     each rank's call on its head shard of q and the pools (scale pools too)
-    equals the head slice of the full-pool kernel's output. Blocks are per
-    (row, head), so the two run the same arithmetic: held bitwise. Launches
-    count under the _tp names."""
+    equals the head slice of the full-pool kernel's output. A (row, head)'s
+    arithmetic depends only on its tiles and the split plan, and a mesh
+    call takes the plan of the full head count, so the two run the same
+    arithmetic: held bitwise. Launches count under the _tp names."""
     rng = np.random.RandomState(5)
     shape = (3, 9, 16, 8, 128)
     table = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 8, 1]], dtype=torch.int32,

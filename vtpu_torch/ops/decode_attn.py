@@ -10,9 +10,12 @@ or int8 with [B, S, H] scales) bounded to a read bucket; like the
 reference's, it is on no serving path (the study surface). Each wraps a
 hand-written Hopper kernel in vtpu_torch/csrc (paged_decode_attention.cu,
 decode_attention.cu) and has its plain version beside it (``*_ref``): the
-same tile-by-tile online softmax in PyTorch. A wrapper takes the plain
-version only for CPU tensors; for a CUDA tensor it launches the kernel or
-raises.
+same split plan, tile walk, online softmax and combine in PyTorch. Every
+kernel cuts each (row, head)'s keys across blocks by a plan taken from
+shapes alone (``paged_split_plan``, ``dense_split_plan``) and merges the
+splits in a second launch; one wrapper call counts one launch. A wrapper
+takes the plain version only for CPU tensors; for a CUDA tensor it launches
+the kernel or raises.
 
 int8 scales apply after the products exactly as the reference's
 ``_attend_head`` places them: k_scale on the scores before the mask, max and
@@ -43,10 +46,14 @@ PAGED_ATTN_ROUTES = ("kernel", "gather")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_T = 16  # queries per row per call the kernels take
 DENSE_TILE = 32  # keys per tile of the dense kernel (DENSE_TILE in decode_attention.cu)
-# the dense kernel's split plan: at least SPLIT_BLOCKS blocks (one resident
-# wave at four blocks per SM of the H100's 132) and no split longer than
-# SPLIT_MAX_TILES tiles (a long split is a long serial walk for one block),
-# chosen on the H100 by hack/torch_decode_split_sweep.py (PERF.md §6)
+# keys per tile of the paged kernels where the page allows (PAGED_TILE in
+# paged_decode_attention.cu): gcd(page, PAGED_TILE), so no tile leaves its page
+PAGED_TILE = 32
+# the split plan of both kernels: no more blocks than SPLIT_BLOCKS (one
+# resident wave at four blocks per SM of the H100's 132, what a 32-key
+# tile's ring allows) and no split longer than SPLIT_MAX_TILES tiles (a long
+# split is a long serial walk for one block), chosen on the H100 by
+# hack/torch_decode_split_sweep.py (PERF.md §6)
 SPLIT_BLOCKS = 4 * 132
 SPLIT_MAX_TILES = 14
 _fns: dict = {}  # C symbol -> bound ctypes function, set at first launch
@@ -145,44 +152,89 @@ def _combine(parts: list, dtype: torch.dtype) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).to(dtype)
 
 
-def _online_softmax(q: torch.Tensor, kv_len: torch.Tensor, tiles) -> torch.Tensor:
-    """One walk over every tile (no split): ``_online_partial`` normalised."""
-    return _combine([_online_partial(q, kv_len, tiles)], q.dtype)
+def paged_tile(page: int) -> int:
+    """Keys per tile of the paged kernels at this page size: every tile lies
+    inside one page."""
+    return math.gcd(page, PAGED_TILE)
+
+
+def _split_plan(bh: int, n_tiles: int) -> int:
+    """The split rule of both kernels, over a key range of ``n_tiles`` tiles
+    and B x H (row, head) pairs: as many splits as B x H x n_split <=
+    SPLIT_BLOCKS allows (blocks past one resident wave wait for a second),
+    more only where a split would walk more than SPLIT_MAX_TILES tiles, and
+    at most half the tiles, so that with ``split_tiles``'s balanced ranges
+    every split walks two tiles or more."""
+    want = max(SPLIT_BLOCKS // max(1, bh), -(-n_tiles // SPLIT_MAX_TILES))
+    return max(1, min(want, n_tiles // 2))
+
+
+def paged_split_plan(b: int, h: int, wp: int, page: int) -> int:
+    """How many blocks the paged kernels split each (row, head)'s window of
+    ``wp`` pages across: ``_split_plan`` over the window's
+    ``wp * page / paged_tile(page)`` tiles. A function of B, H, the window
+    and the page only (the lengths live on the device). Under a tp mesh the
+    wrappers pass the full head count, so a rank's head-local call runs the
+    plan, and so the arithmetic, of the full-pool call."""
+    return _split_plan(b * h, wp * (page // paged_tile(page)))
+
+
+def split_tiles(n_tiles: int, n_split: int, i: int) -> range:
+    """The tiles split i of ``n_split`` walks, as the kernels cut them:
+    [i * n_tiles // n_split, (i + 1) * n_tiles // n_split)."""
+    return range(i * n_tiles // n_split, (i + 1) * n_tiles // n_split)
+
+
+def _heads(q: torch.Tensor, mesh) -> int:
+    """The head count the split plan is taken over: the full model's under a
+    mesh (q holds n_heads / tp of them)."""
+    return q.shape[2] * (1 if mesh is None else mesh.size)
 
 
 def _paged_ref(q, k_pool, v_pool, table, kv_len, layer, k_scale_pool=None,
-               v_scale_pool=None) -> torch.Tensor:
+               v_scale_pool=None, mesh=None) -> torch.Tensor:
     kv_len = _norm_kv_len(kv_len, q.shape[1])
     _check_pool(q, k_pool, table)
-    page = k_pool.shape[2]
+    nb, page = k_pool.shape[1:3]
+    tile, wp = paged_tile(page), table.shape[1]
+    per_page = page // tile
+    n_tiles = wp * per_page
+    n_split = paged_split_plan(q.shape[0], _heads(q, mesh), wp, page)
+    # an id outside the pool reads the null block 0, as in the kernels
+    table = torch.where((table >= 0) & (table < nb), table, 0)
 
-    def tiles():
-        for j in range(table.shape[1]):
-            blk = table[:, j]
-            yield (j * page, k_pool[layer, blk], v_pool[layer, blk],
-                   None if k_scale_pool is None else k_scale_pool[layer, blk],
-                   None if v_scale_pool is None else v_scale_pool[layer, blk])
+    def tiles(i):
+        for j in split_tiles(n_tiles, n_split, i):
+            blk, r0 = table[:, j // per_page], (j % per_page) * tile
+            rows = slice(r0, r0 + tile)
+            yield (j * tile, k_pool[layer, blk, rows], v_pool[layer, blk, rows],
+                   None if k_scale_pool is None else k_scale_pool[layer, blk, rows],
+                   None if v_scale_pool is None else v_scale_pool[layer, blk, rows])
 
-    return _online_softmax(q, kv_len, tiles())
+    return _combine([_online_partial(q, kv_len, tiles(i)) for i in range(n_split)], q.dtype)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, table: torch.Tensor,
-                               kv_len: torch.Tensor, layer: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the paged kernel: walk the table page by page
-    with the online softmax of ``_online_softmax``. Same arguments as
+                               kv_len: torch.Tensor, layer: int = 0, mesh=None) -> torch.Tensor:
+    """Plain PyTorch version of the paged kernel: the window's sub-page
+    tiles cut as ``paged_split_plan`` cuts them, each split walked with the
+    online softmax of ``_online_partial``, the splits' partials then
+    combined as the kernel's second launch combines them. Same arguments as
     ``paged_decode_attention``."""
-    return _paged_ref(q, k_pool, v_pool, table, kv_len, layer)
+    return _paged_ref(q, k_pool, v_pool, table, kv_len, layer, mesh=mesh)
 
 
 def paged_decode_attention_int8kv_ref(q: torch.Tensor, kq_pool: torch.Tensor,
                                       k_scale_pool: torch.Tensor, vq_pool: torch.Tensor,
                                       v_scale_pool: torch.Tensor, table: torch.Tensor,
-                                      kv_len: torch.Tensor, layer: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the int8 paged kernel: the same page walk
+                                      kv_len: torch.Tensor, layer: int = 0,
+                                      mesh=None) -> torch.Tensor:
+    """Plain PyTorch version of the int8 paged kernel: the same split walk
     with the scales placed as in the reference's ``_attend_head``. Same
     arguments as ``paged_decode_attention_int8kv``."""
-    return _paged_ref(q, kq_pool, vq_pool, table, kv_len, layer, k_scale_pool, v_scale_pool)
+    return _paged_ref(q, kq_pool, vq_pool, table, kv_len, layer, k_scale_pool, v_scale_pool,
+                      mesh)
 
 
 def _kernel(lib: str, sym: str, argtypes: list):
@@ -252,6 +304,29 @@ def _check_head_shard(q: torch.Tensor, pools: tuple, mesh) -> None:
             f"{h} and pool heads {[p.shape[3] for p in pools]}")
 
 
+def _partials(n_split: int, q: torch.Tensor):
+    """The splits' f32 partials [n_split, B, T, H, Dh] and [n_split, B, T, H,
+    2], combined by a kernel's second launch; none for one split."""
+    if n_split == 1:
+        return None, None
+    b, t, h, dh = q.shape
+    return (torch.empty((n_split, b, t, h, dh), dtype=torch.float32, device=q.device),
+            torch.empty((n_split, b, t, h, 2), dtype=torch.float32, device=q.device))
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _paged_partials(q: torch.Tensor, pool: torch.Tensor, table: torch.Tensor, mesh):
+    """(n_split, part_acc, part_ml) of one paged call: the plan of the full
+    head count under a mesh, and its scratch."""
+    if q.shape[3] % 8:
+        raise ValueError(f"the paged kernels need head_dim % 8 == 0, got {q.shape[3]}")
+    n_split = paged_split_plan(q.shape[0], _heads(q, mesh), table.shape[1], pool.shape[2])
+    return (n_split, *_partials(n_split, q))
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, table: torch.Tensor,
                            kv_len: torch.Tensor, layer: int = 0, mesh=None) -> torch.Tensor:
@@ -266,24 +341,26 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``mesh`` (a TpMesh) is the counterpart of the reference's shard_map
     ``_shard_body``: q and the pools are this rank's head shard (H = n_heads
     / tp), tables and lengths replicated, and the same kernel walks the
-    head-local pool with no collective. Its launches count under
-    ``paged_decode_attention_tp``."""
+    head-local pool with no collective, under the split plan of the full
+    head count: each rank's output is the head slice of the full-pool call,
+    bit for bit. Its launches count under ``paged_decode_attention_tp``."""
     t = q.shape[1]
     kv_len = _norm_kv_len(kv_len, t)
     _check_pool(q, k_pool, table)
     _check_head_shard(q, (k_pool, v_pool), mesh)
     if q.device.type == "cpu":
-        return paged_decode_attention_ref(q, k_pool, v_pool, table, kv_len, layer)
+        return paged_decode_attention_ref(q, k_pool, v_pool, table, kv_len, layer, mesh)
     name = "paged_decode_attention"
     layer = _check_paged(name, q, k_pool, v_pool, table, kv_len, layer, q.dtype)
     b, _, h, dh = q.shape
     out = torch.empty_like(q)
+    n_split, part_acc, part_ml = _paged_partials(q, k_pool, table, mesh)
     fn = _kernel(name, "vtpu_paged_decode_attention",
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-             kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, t, h, dh,
-             k_pool.shape[1], k_pool.shape[2], table.shape[1], layer, 1.0 / math.sqrt(dh),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             kv_len.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml), _DTYPES[q.dtype],
+             b, t, h, dh, k_pool.shape[1], k_pool.shape[2], table.shape[1], layer, n_split,
+             1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
     _build.LAUNCHES[name if mesh is None else f"{name}_tp"] += 1
     _build.check(err, name)
     return out
@@ -307,18 +384,19 @@ def paged_decode_attention_int8kv(q: torch.Tensor, kq_pool: torch.Tensor,
     _check_head_shard(q, (kq_pool, vq_pool), mesh)
     if q.device.type == "cpu":
         return paged_decode_attention_int8kv_ref(q, kq_pool, k_scale_pool, vq_pool,
-                                                 v_scale_pool, table, kv_len, layer)
+                                                 v_scale_pool, table, kv_len, layer, mesh)
     name = "paged_decode_attention_int8kv"
     layer = _check_paged(name, q, kq_pool, vq_pool, table, kv_len, layer, torch.int8,
                          (k_scale_pool, v_scale_pool))
     b, _, h, dh = q.shape
     out = torch.empty_like(q)
+    n_split, part_acc, part_ml = _paged_partials(q, kq_pool, table, mesh)
     fn = _kernel("paged_decode_attention", "vtpu_paged_decode_attention_int8kv",
-                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), kq_pool.data_ptr(), k_scale_pool.data_ptr(), vq_pool.data_ptr(),
              v_scale_pool.data_ptr(), table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], b, t, h, dh, kq_pool.shape[1], kq_pool.shape[2],
-             table.shape[1], layer, 1.0 / math.sqrt(dh),
+             _ptr(part_acc), _ptr(part_ml), _DTYPES[q.dtype], b, t, h, dh, kq_pool.shape[1],
+             kq_pool.shape[2], table.shape[1], layer, n_split, 1.0 / math.sqrt(dh),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.LAUNCHES[name if mesh is None else f"{name}_tp"] += 1
     _build.check(err, name)
@@ -335,20 +413,9 @@ def _dense_args(q, k, kv_len, bucket):
 
 def dense_split_plan(b: int, h: int, bucket: int) -> int:
     """How many blocks the dense kernel splits each (row, head)'s key range
-    [0, bucket) across. A function of B, H and the bucket only (the lengths
-    live on the device): enough splits for B x H x n_split to reach
-    SPLIT_BLOCKS and for no split to walk more than SPLIT_MAX_TILES
-    DENSE_TILE-key tiles, but at most half the bucket's tiles, so that with
-    ``split_tiles``'s balanced ranges every split walks two tiles or more."""
-    n_tiles = -(-bucket // DENSE_TILE)
-    want = max(-(-SPLIT_BLOCKS // max(1, b * h)), -(-n_tiles // SPLIT_MAX_TILES))
-    return max(1, min(want, n_tiles // 2))
-
-
-def split_tiles(n_tiles: int, n_split: int, i: int) -> range:
-    """The tiles split i of ``n_split`` walks, as the kernel cuts them:
-    [i * n_tiles // n_split, (i + 1) * n_tiles // n_split)."""
-    return range(i * n_tiles // n_split, (i + 1) * n_tiles // n_split)
+    [0, bucket) across: ``_split_plan`` over the bucket's DENSE_TILE-key
+    tiles. A function of B, H and the bucket only."""
+    return _split_plan(b * h, -(-bucket // DENSE_TILE))
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -410,17 +477,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name} needs head_dim % 8 == 0, got {dh}")
     out = torch.empty_like(q)
     n_split = dense_split_plan(b, h, bucket)
-    part_acc = part_ml = None
-    if n_split > 1:  # the splits' f32 partials, combined by the kernel's second launch
-        part_acc = torch.empty((n_split, b, t, h, dh), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((n_split, b, t, h, 2), dtype=torch.float32, device=q.device)
+    part_acc, part_ml = _partials(n_split, q)
     fn = _kernel("decode_attention", "vtpu_decode_attention",
                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              k_scale.data_ptr() if scaled else None, v_scale.data_ptr() if scaled else None,
-             kv_len.data_ptr(), out.data_ptr(),
-             None if part_acc is None else part_acc.data_ptr(),
-             None if part_ml is None else part_ml.data_ptr(),
+             kv_len.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml),
              _DTYPES[q.dtype], int(scaled), b, t, h, dh, k.shape[1], bucket, n_split,
              1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
     _build.LAUNCHES[name] += 1
