@@ -21,21 +21,31 @@ Phases, any failure exits nonzero:
 3. the paths, each with every launch count set to 0 just before it and
    read just after:
    a. the main path: the flagship ModelConfig served by ServingEngine on a
-      paged bf16 pool, six requests streamed, greedy streams checked
-      against the port's plain trunk (use_kernels=False) under a
-      logit-margin rule, and launch counts showing both kernels ran; then
-      one more wave under torch.profiler for the device's busy share;
+      paged bf16 pool with the default ServingConfig loop (pipelined, its
+      decode step replayed from CUDA graphs captured under
+      set_sync_debug_mode("error")), six requests streamed, greedy streams
+      checked against the port's plain trunk (use_kernels=False) under a
+      logit-margin rule, launch counts showing both kernels ran (graph
+      replays included: paged launches = 12 x decode ticks); then one more
+      wave under torch.profiler for the device's busy share;
    b. the int8 serving path: the same model and wave with kv_int8=True,
       every decode tick through the int8 paged kernel, streams checked
       against the plain int8 trunk;
-   c. the dense decode study: decode_attention over the study's four T=1
+   c. the loop comparison: the same model with 128 new tokens a request,
+      the wave served by the synchronous eager loop and by the pipelined
+      loop on graphs, interleaved, three times each, bf16 and int8 KV:
+      tokens/s, TTFT p50, host_ms_per_tick and the tick phases per loop
+      with their spread, the device busy share of one profiled wave each,
+      streams held against the plain trunk;
+   d. the dense decode study: decode_attention over the study's four T=1
       cells in bf16 and in int8;
-   d. tensor-parallel serving: two spawned ranks (NCCL, one card each,
+   e. tensor-parallel serving: two spawned ranks (NCCL, one card each,
       where there are two cards; else gloo, both on card 0) serve the
-      main path's wave with bf16 and then int8 KV, every decode tick
-      through the head-local paged kernel on each rank, streams checked
-      against the plain trunk of the same KV type; given four cards, four
-      ranks over NCCL serve the same waves after them;
+      main path's wave with bf16 and then int8 KV on the pipelined loop
+      (eager: no graphs under a mesh), every decode tick through the
+      head-local paged kernel on each rank, streams checked against the
+      plain trunk of the same KV type; given four cards, four ranks over
+      NCCL serve the same waves after them;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -69,6 +79,9 @@ ATOL = 2e-2
 # allowed for
 MARGIN = 0.05
 SEED = 0
+# new tokens a request in the loop comparison, and its repeats per loop
+COMPARE_TOKENS = 128
+REPEATS = 3
 # the flagship serving model of bench.py (bench_scale, TPU branch)
 FLAGSHIP = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=12, d_ff=4096, max_seq=1280,
                 head_dim=128)
@@ -635,9 +648,11 @@ def profile_wave(eng, prompts) -> dict | None:
 
 def serving_path(log, card: str, params, kv_int8: bool) -> dict:
     """Serve six requests on the flagship model over a paged pool, bf16 or
-    int8 KV, with every launch count set to 0 just before the counted wave
-    and read just after. The bf16 run (the main path) streams one more wave
-    under the profiler."""
+    int8 KV, on the default ServingConfig loop (pipelined, on CUDA graphs),
+    with every launch count set to 0 just before the counted wave and read
+    just after. The bf16 run (the main path) streams one more wave under
+    the profiler. The plain trunk's references run COMPARE_TOKENS steps, so
+    the loop comparison and the TP paths reuse them."""
     from vtpu_torch.models import ModelConfig
     from vtpu_torch.ops import _build
     from vtpu_torch.serving import ServingConfig, ServingEngine
@@ -650,22 +665,30 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
     new_tokens = 16
     eng = ServingEngine(params, cfg, ServingConfig(
         slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens, kv_page=128))
+    graphs = eng.decode_graphs
+    if graphs is None or not eng.stats()["pipelined"]:
+        raise AssertionError(f"the {what} does not run the pipelined loop on CUDA graphs")
+    log(f"{what}: {len(graphs.keys())} decode graphs captured under "
+        f"set_sync_debug_mode('error') (kv bucket, route, KV type): {graphs.keys()}")
     prompts = wave_prompts(cfg.vocab)
     eng.start()
     try:
         # warm-up request: CUDA/cuBLAS initialisation stays out of the run
         stream_all(eng, [prompts[0]])
         base = eng.stats()
+        replays = graphs.replays
         _build.reset_launches()
         recs, wall = stream_all(eng, prompts)
         launches = _build.launches()
         after = eng.stats()
+        replays = graphs.replays - replays
         prof = None if kv_int8 else profile_wave(eng, prompts)
     finally:
         eng.stop()
     if eng.loop_error is not None:
         raise AssertionError(f"serving loop failed: {eng.loop_error!r}")
     ticks = after["decode_ticks"] - base["decode_ticks"]
+    pipelined = after["pipelined_ticks"] - base["pipelined_ticks"]
     fetches = after["tick_fetches"] - base["tick_fetches"]
     gets_per_tick = fetches / ticks if ticks else None
     for rec in recs:
@@ -674,6 +697,9 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
                                  f"{len(rec['toks'])} of {new_tokens} tokens")
     if gets_per_tick != 1.0:
         raise AssertionError(f"device_gets_per_tick {gets_per_tick} != 1.0")
+    if replays != ticks or pipelined <= 0:
+        raise AssertionError(f"{ticks} decode ticks but {replays} graph replays and "
+                             f"{pipelined} pipelined ticks")
     if launches["flash_attention"] <= 0:
         raise AssertionError(f"the {what} launched no flash_attention kernel")
     if launches[paged] != cfg.n_layers * ticks or launches[other] != 0:
@@ -685,14 +711,14 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
         raise AssertionError("paged pool not fully free after the run")
 
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)  # kv_int8 kept
-    refs = [reference_stream(params, plain_cfg, prompt, new_tokens) for prompt in prompts]
+    refs = [reference_stream(params, plain_cfg, prompt, COMPARE_TOKENS) for prompt in prompts]
     compared, ties = check_streams([rec["toks"] for rec in recs], refs, "engine")
     ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
     total = sum(len(rec["toks"]) for rec in recs)
     log(f"{what} on {card}: {len(prompts)} requests, {total} tokens in {wall:.3f} s "
         f"({total / wall:.1f} tokens/s), TTFT p50 {ttft[len(ttft) // 2]:.1f} ms "
-        f"max {ttft[-1]:.1f} ms; decode ticks {ticks}, device_gets_per_tick "
-        f"{gets_per_tick}; launches {launches}")
+        f"max {ttft[-1]:.1f} ms; decode ticks {ticks} ({pipelined} pipelined, {replays} "
+        f"graph replays), device_gets_per_tick {gets_per_tick}; launches {launches}")
     log(f"{what} streams vs plain {'int8 ' if kv_int8 else ''}trunk: {compared} tokens "
         f"compared equal, {ties} streams cut at a top-1/top-2 margin < {MARGIN}")
     if prof is None and not kv_int8:
@@ -701,14 +727,122 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
         log(f"profiled wave on {card}: wall {prof['wall_ms']:.1f} ms, device busy "
             f"{prof['device_busy_ms']:.1f} ms ({100 * prof['device_busy_share']:.1f}%); "
             "by kernel: " + "; ".join(f"{n} {ms:.2f} ms" for n, ms in prof["top_kernels_ms"]))
-    return {"launches": launches, "decode_ticks": ticks, "tokens": total,
+    return {"launches": launches, "decode_ticks": ticks, "pipelined_ticks": pipelined,
+            "graph_replays": replays, "tokens": total,
             "wall_s": wall, "tokens_per_s": total / wall, "ttft_ms": ttft,
             "device_gets_per_tick": gets_per_tick, "compared_tokens": compared,
             "margin_cuts": ties,
             "prefill_batch_hist": after["prefill_batch_hist"],
             "kv_bucket_hist": after["kv_bucket_hist"],
+            "tick_phase_ms": after["tick_phase_ms"],
             "paged_attn_kernel_ticks": after["paged_attn_kernel_ticks"]
             - base["paged_attn_kernel_ticks"], "profiled_wave": prof, "refs": refs}
+
+
+PHASES = ("admission", "dispatch", "fetch", "deliver")
+
+
+def measured_wave(eng, prompts, refs, what: str) -> dict:
+    """One wave of the loop comparison: its streams held against the plain
+    trunk, and its figures from the engine's own counters (the tick phases
+    as this wave's mean ms per sample, from the profiler's totals)."""
+    before = eng.stats()
+    recs, wall = stream_all(eng, prompts)
+    after = eng.stats()
+    for rec in recs:
+        if rec.get("status") != "OK" or len(rec["toks"]) != COMPARE_TOKENS:
+            raise AssertionError(f"{what}: a stream ended {rec.get('status')} after "
+                                 f"{len(rec['toks'])} of {COMPARE_TOKENS} tokens")
+    compared, ties = check_streams([rec["toks"] for rec in recs], refs, what)
+    phases = {}
+    for p in PHASES:
+        a, b = after["tick_phase_ms"][p], before["tick_phase_ms"][p]
+        n = a["count"] - b["count"]
+        phases[p] = (a["total_ms"] - b["total_ms"]) / n if n else 0.0
+    ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
+    total = sum(len(rec["toks"]) for rec in recs)
+    ticks = after["decode_ticks"] - before["decode_ticks"]
+    return {"tokens_per_s": total / wall, "ttft_p50_ms": ttft[len(ttft) // 2],
+            "host_ms_per_tick": after["host_ms_per_tick"], "phase_ms": phases,
+            "wall_s": wall, "decode_ticks": ticks,
+            "pipelined_ticks": after["pipelined_ticks"] - before["pipelined_ticks"],
+            "gets_per_tick": (after["tick_fetches"] - before["tick_fetches"]) / ticks,
+            "compared_tokens": compared, "margin_cuts": ties}
+
+
+def spread(vals: list) -> str:
+    vals = sorted(vals)
+    return f"{vals[len(vals) // 2]:.3f} [{vals[0]:.3f}, {vals[-1]:.3f}]"
+
+
+def loop_comparison(log, card: str, params, kv_int8: bool, refs: list) -> dict:
+    """The flagship wave at COMPARE_TOKENS new tokens a request, served by
+    the synchronous eager loop and by the pipelined loop on graphs,
+    interleaved REPEATS times each (one engine per loop, both warmed by one
+    request); then one profiled wave per loop. Streams are held against
+    the plain trunk (``refs``) under the margin rule."""
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True, kv_int8=kv_int8)
+    kv = "int8" if kv_int8 else "bf16"
+    serving = ServingConfig(slots=4, prefill_buckets=(1024,), kv_page=128,
+                            max_new_tokens=COMPARE_TOKENS)
+    engines = {"sync": ServingEngine(params, cfg, dataclasses.replace(
+                   serving, pipeline_decode=False)),
+               "pipelined": ServingEngine(params, cfg, serving)}
+    if engines["sync"].decode_graphs is not None or engines["pipelined"].decode_graphs is None:
+        raise AssertionError("the synchronous loop must run eagerly and the pipelined "
+                             "loop on graphs")
+    prompts = wave_prompts(cfg.vocab)
+    waves: dict = {name: [] for name in engines}
+    profiles = {}
+    for eng in engines.values():
+        eng.start()
+    try:
+        for eng in engines.values():
+            stream_all(eng, [prompts[0]])
+        for r in range(REPEATS):
+            for name in (("sync", "pipelined") if r % 2 == 0 else ("pipelined", "sync")):
+                waves[name].append(measured_wave(engines[name], prompts, refs,
+                                                 f"{kv} {name} loop"))
+        for name, eng in engines.items():
+            profiles[name] = profile_wave(eng, prompts)
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    out = {}
+    for name, eng in engines.items():
+        if eng.loop_error is not None:
+            raise AssertionError(f"{kv} {name} loop failed: {eng.loop_error!r}")
+        ws, prof = waves[name], profiles[name]
+        if any(w["gets_per_tick"] != 1.0 for w in ws):
+            raise AssertionError(f"{kv} {name} loop: device_gets_per_tick != 1.0")
+        if name == "pipelined" and any(w["pipelined_ticks"] <= 0 for w in ws):
+            raise AssertionError(f"{kv} pipelined loop dispatched no tick ahead")
+        # the profiler slows the host, so its wave's wall time overstates
+        # the idle share; its device time over the median unprofiled wave's
+        # wall is the other end of the range
+        wall_ms = sorted(w["wall_s"] for w in ws)[len(ws) // 2] * 1e3
+        busy = ("not measured" if prof is None else
+                f"{100 * prof['device_busy_share']:.1f}% ({prof['device_busy_ms']:.1f} of "
+                f"{prof['wall_ms']:.1f} ms), {100 * prof['device_busy_ms'] / wall_ms:.1f}% of "
+                f"the median unprofiled wave's {wall_ms:.1f} ms")
+        log(f"loop comparison {kv} {name} on {card}, {REPEATS} waves of {len(prompts)} x "
+            f"{COMPARE_TOKENS} tokens, median [min, max]: tokens/s "
+            f"{spread([w['tokens_per_s'] for w in ws])}; TTFT p50 ms "
+            f"{spread([w['ttft_p50_ms'] for w in ws])}; host_ms_per_tick "
+            f"{spread([w['host_ms_per_tick'] for w in ws])}; phase ms/sample "
+            + ", ".join(f"{p} {spread([w['phase_ms'][p] for w in ws])}" for p in PHASES)
+            + f"; decode ticks {[w['decode_ticks'] for w in ws]} (pipelined "
+            f"{[w['pipelined_ticks'] for w in ws]}); profiled wave device busy {busy}; "
+            f"streams: {sum(w['compared_tokens'] for w in ws)} tokens equal to the plain "
+            f"trunk, {sum(w['margin_cuts'] for w in ws)} cut at a margin < {MARGIN}")
+        if prof is not None:
+            log(f"loop comparison {kv} {name} profiled wave by kernel: " + "; ".join(
+                f"{n} {ms:.2f} ms" for n, ms in prof["top_kernels_ms"]))
+        out[name] = {"waves": ws, "profiled_wave": prof}
+    return out
 
 
 def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
@@ -760,9 +894,10 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
             if status != "OK" or len(toks) != new_tokens:
                 raise AssertionError(f"tp={tp} {kv} stream ended {status} after {len(toks)} of "
                                      f"{new_tokens} tokens")
-        if st["device_gets_per_tick"] != 1.0 or st["tp"] != tp:
+        if st["device_gets_per_tick"] != 1.0 or st["tp"] != tp or st["pipelined_ticks"] <= 0:
             raise AssertionError(f"tp={tp} {kv}: device_gets_per_tick "
-                                 f"{st['device_gets_per_tick']}, tp {st['tp']}")
+                                 f"{st['device_gets_per_tick']}, tp {st['tp']}, pipelined "
+                                 f"ticks {st['pipelined_ticks']}")
         if st["kv_pool_free"] != st["kv_pool_blocks"]:
             raise AssertionError(f"tp={tp} {kv}: paged pool not fully free after the run")
         for rank, res in enumerate(r[i] for r in ranks):
@@ -779,12 +914,14 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
         total = sum(len(t) for t in lead["streams"])
         log(f"tp={tp} {kv} serving on {card} ({how}): {len(prompts)} requests, {total} tokens in "
             f"{lead['wall_s']:.3f} s ({total / lead['wall_s']:.1f} tokens/s); decode ticks "
-            f"{ticks}; per rank {tp_name} "
+            f"{ticks} ({st['pipelined_ticks']} pipelined, eager); per rank {tp_name} "
             f"{[r[i]['launches'][tp_name] for r in ranks]}, KV plane {pool}")
         log(f"tp={tp} {kv} streams vs plain {kv} trunk: {compared} tokens compared equal, "
             f"{ties} streams cut at a top-1/top-2 margin < {MARGIN}")
         out[kv] = {"backend": backend, "devices": devices, "ranks": [r[i] for r in ranks],
-                   "decode_ticks": ticks, "tokens": total, "wall_s": lead["wall_s"],
+                   "decode_ticks": ticks, "pipelined_ticks": st["pipelined_ticks"],
+                   "tick_phase_ms": st["tick_phase_ms"], "tokens": total,
+                   "wall_s": lead["wall_s"],
                    "tokens_per_s": total / lead["wall_s"], "launches": lead["launches"],
                    "compared_tokens": compared, "margin_cuts": ties}
     return out
@@ -833,11 +970,13 @@ def main() -> int:
     # weights depend on the widths only: one seeded set serves both KV types
     params = init_params(SEED, ModelConfig(**FLAGSHIP, dtype=torch.bfloat16))
     runs = {"main_path": serving_path(log, card, params, kv_int8=False),
-            "int8_serving_path": serving_path(log, card, params, kv_int8=True),
-            "study_path": study_path(gen, log)}
+            "int8_serving_path": serving_path(log, card, params, kv_int8=True)}
+    refs = {"bf16": runs["main_path"].pop("refs"), "int8": runs["int8_serving_path"].pop("refs")}
+    runs["loop_comparison"] = {kv: loop_comparison(log, card, params, kv == "int8", refs[kv])
+                               for kv in ("bf16", "int8")}
+    runs["study_path"] = study_path(gen, log)
     del params
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one
-    refs = {"bf16": runs["main_path"].pop("refs"), "int8": runs["int8_serving_path"].pop("refs")}
     for tp in (TP, 4):
         if tp == TP or torch.cuda.device_count() >= tp:
             out = tp_serving_paths(log, card, refs, tp)
@@ -848,6 +987,12 @@ def main() -> int:
         f"{bf16['ttft_ms'][len(bf16['ttft_ms']) // 2]:.1f} ms; int8 KV "
         f"{int8['tokens_per_s']:.1f} tokens/s, TTFT p50 "
         f"{int8['ttft_ms'][len(int8['ttft_ms']) // 2]:.1f} ms")
+    for kv, cmp in runs["loop_comparison"].items():
+        med = {name: sorted(w["tokens_per_s"] for w in cmp[name]["waves"])[REPEATS // 2]
+               for name in cmp}
+        log(f"loop comparison {kv} on {card}: median tokens/s pipelined on graphs "
+            f"{med['pipelined']:.1f}, synchronous eager {med['sync']:.1f} "
+            f"({med['pipelined'] / med['sync']:.2f}x)")
     # each kernel's launches come from the path that runs it
     path_of = {"flash_attention": "main_path", "paged_decode_attention": "main_path",
                "paged_decode_attention_int8kv": "int8_serving_path",

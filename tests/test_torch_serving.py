@@ -288,6 +288,13 @@ def test_engine_cancel_and_stop_release_everything(weights):
     ("pipeline_decode", True), ("async_admission", False)])
 def test_unported_serving_fields_raise(weights, field, value):
     _, tp = weights
+    if field == "pipeline_decode":
+        # ported since the pipelined-loop slice: an explicit True is served
+        # (tests/test_torch_pipeline.py holds the loop itself)
+        eng = ServingEngine(tp, CFG, ServingConfig(prefill_buckets=(8,), **{field: value}),
+                            device="cpu")
+        assert eng.stats()["pipelined"] is True
+        return
     with pytest.raises(NotImplementedError, match=field):
         ServingEngine(tp, CFG, ServingConfig(**{field: value}), device="cpu")
 

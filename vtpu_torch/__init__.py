@@ -9,6 +9,6 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 
-from vtpu_torch import models, ops, parallel, serving  # noqa: F401
+from vtpu_torch import models, obs, ops, parallel, serving  # noqa: F401
 
-__all__ = ["models", "ops", "parallel", "serving"]
+__all__ = ["models", "obs", "ops", "parallel", "serving"]

@@ -101,18 +101,26 @@ def kv_keys(cache: dict) -> tuple[str, ...]:
     return ("k", "v", "k_scale", "v_scale") if "k_scale" in cache else ("k", "v")
 
 
-def store_kv(cache: dict, l: int, idx: tuple, k: torch.Tensor, v: torch.Tensor) -> None:
+def store_kv(cache: dict, l: int, idx: tuple, k: torch.Tensor, v: torch.Tensor,
+             keep: Optional[torch.Tensor] = None) -> None:
     """Write [N, H, Dh] k/v rows at plane ``l``, index ``idx`` of every KV
     plane of ``cache`` in place: as they are, or quantized with their scales
-    written beside them for an int8 cache."""
-    if "k_scale" not in cache:
-        cache["k"][(l, *idx)] = k
-        cache["v"][(l, *idx)] = v
-        return
-    for key, x in (("k", k), ("v", v)):
-        xq, sc = quantize_kv(x)
-        cache[key][(l, *idx)] = xq
-        cache[f"{key}_scale"][(l, *idx)] = sc
+    written beside them for an int8 cache. With ``keep`` ([N] bool) a row
+    whose flag is False writes back what its target already holds, so it
+    changes no plane: the drop needs no host read of the flags, and the
+    write keeps a static shape."""
+    if "k_scale" in cache:
+        writes = []
+        for key, x in (("k", k), ("v", v)):
+            xq, sc = quantize_kv(x)
+            writes += [(key, xq), (f"{key}_scale", sc)]
+    else:
+        writes = [("k", k), ("v", v)]
+    for key, x in writes:
+        plane, at = cache[key], (l, *idx)
+        if keep is not None:
+            x = torch.where(keep.view((-1,) + (1,) * (x.dim() - 1)), x, plane[at])
+        plane[at] = x
 
 
 def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:

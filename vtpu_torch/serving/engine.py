@@ -1,28 +1,41 @@
 """Continuous-batching serving engine over the dense transformer.
 
-Counterpart of vtpu/serving/engine.py, first slice: a fixed pool of B cache
-slots (dense ring or paged block pool), bucketed batched admission with the
-first tokens sampled on the device, and the synchronous sampled decode tick
-with ONE host fetch per tick. Requests join and leave slots without any
-shape changing; inactive slots compute but their writes are dropped.
+Counterpart of vtpu/serving/engine.py: a fixed pool of B cache slots
+(dense ring or paged block pool), bucketed batched admission with the first
+tokens sampled on the device, and the sampled decode tick with ONE
+device->host fetch per tick, on one of the reference's two device-sampled
+loops: the one-tick-deep pipelined loop (the default, as in the reference)
+or the synchronous loop (``pipeline_decode=False``). On one CUDA card the
+pipelined loop replays its decode step from CUDA graphs (serving/graphs.py).
+Requests join and leave slots without any shape changing; inactive slots
+compute but their writes are dropped. The request trace and the tick-phase
+profiler (vtpu_torch/obs) record what the loop does, host-side only.
 
-What this slice does not port raises instead of being ignored: every
-``ServingConfig`` field named in ``_UNPORTED`` must stay at its default,
-``pipeline_decode=True`` and ``async_admission=False`` are refused, as are
-``ModelConfig.kv_int8="auto"`` and a custom ``sample=`` callable. Prefix
-registration is a later slice. ``kv_int8=True`` serves int8 KV: dense or
-paged int8 planes with f32 scale planes beside them, written quantized at
-every KV write site here. ``mesh=`` (a vtpu_torch.parallel.TpMesh) serves
-tensor-parallel over torch.distributed: see ``ServingEngine`` for how the
-ranks split the work.
+What the port has not reached raises instead of being ignored: every
+``ServingConfig`` field named in ``_UNPORTED`` must stay at its default, and
+``async_admission=False``, ``ModelConfig.kv_int8="auto"`` and a custom
+``sample=`` callable are refused. Prefix registration is a later slice.
+``kv_int8=True`` serves int8 KV: dense or paged int8 planes with f32 scale
+planes beside them, written quantized at every KV write site here.
+``mesh=`` (a vtpu_torch.parallel.TpMesh) serves tensor-parallel over
+torch.distributed: see ``ServingEngine`` for how the ranks split the work.
 
 Writes the reference drops. JAX's ``.at[...].set(..., mode="drop")`` lets an
 out-of-range block id or position vanish (inactive lanes, positions past the
 context wall, a retired slot's stale table row). A torch ``index_put_``
-with such an index raises on the CPU and asserts on the device, so the step
-functions here select the kept rows first (``active & (len < max_seq)``)
-and write only those. A paged pool is never read-modified-written: a stale
-row may name blocks the allocator has handed to another slot.
+with such an index raises on the CPU and asserts on the device, and picking
+the kept rows on the host would read the device every tick. So a dropped
+row is sent to a target of its own (the null block 0 of a paged pool,
+which every reader masks; its own clipped position in a dense cache) and
+writes back what that target holds. A paged pool is never written through
+a dropped row's table entry: a stale row may name blocks the allocator has
+handed to another slot.
+
+Host<->device traffic of the loop. Host values reach the device through
+pinned memory with non-blocking copies, and the tick's tokens come back
+through a copy staged into pinned memory right after the tick and waited
+for at delivery: a copy from or to pageable memory would make the host wait
+for the whole stream, and so, on the pipelined loop, for the tick in flight.
 """
 
 from __future__ import annotations
@@ -43,11 +56,14 @@ from vtpu_torch.device import resolve_device
 from vtpu_torch.models.transformer import (
     ModelConfig, Params, decode_layer_loop, kv_bytes_per_token, kv_keys, prefill, store_kv,
 )
+from vtpu_torch.obs import RequestTrace, TickProfiler, pct
+from vtpu_torch.obs.trace import TERMINAL_CODES
 from vtpu_torch.ops import _build
 from vtpu_torch.ops.decode_attn import paged_attn_route
 from vtpu_torch.serving.adapters import (
     TransformerSlotModel, batched_admission_step, sampled_decode_step,
 )
+from vtpu_torch.serving.graphs import DecodeGraphs
 
 log = logging.getLogger(__name__)
 
@@ -82,7 +98,8 @@ class ServingConfig:
     top_p: float = 1.0
     sampling_seed: int = 0
     logprobs: bool = False
-    # None/False: the synchronous tick loop; True (pipelined) is a later slice
+    # None (auto) and True: the one-tick-deep pipelined loop (device sampling
+    # is always on here and speculation is not ported); False: synchronous
     pipeline_decode: Optional[bool] = None
     # same-bucket prompts coalesce into one [N, bucket] admission dispatch,
     # N the largest size here that fits the free slots (1 always included)
@@ -102,6 +119,8 @@ class ServingConfig:
     kv_swap: Optional[int] = None
     kv_swap_stage_blocks: int = 8
     kv_swap_recompute_tokens: int = 0
+    # request-trace ring capacity in events; 0 turns the ring off (the
+    # latency percentiles in stats() stay live)
     trace_events: int = 16384
     disagg: Optional[Any] = None
     decode_loop_k: Optional[int] = None
@@ -121,10 +140,10 @@ class ServingConfig:
 _UNPORTED = (
     "decode_unroll", "spec_tokens", "spec_ngram", "spec_min_mean",
     "spec_cooloff_ticks", "prefill_chunk", "logprobs", "kv_swap",
-    "kv_swap_stage_blocks", "kv_swap_recompute_tokens", "trace_events",
-    "disagg", "decode_loop_k", "loop_policy", "shed_queue_depth",
-    "shed_policy", "fetch_watchdog_ms", "fetch_watchdog_recover_ms",
-    "worker_retry_limit", "worker_retry_backoff_ms", "faults", "duty_supplier",
+    "kv_swap_stage_blocks", "kv_swap_recompute_tokens", "disagg", "decode_loop_k",
+    "loop_policy", "shed_queue_depth", "shed_policy", "fetch_watchdog_ms",
+    "fetch_watchdog_recover_ms", "worker_retry_limit", "worker_retry_backoff_ms",
+    "faults", "duty_supplier",
 )
 
 
@@ -137,10 +156,6 @@ def _check_ported(serving: ServingConfig, cfg: ModelConfig, sample) -> None:
             raise NotImplementedError(
                 f"ServingConfig.{f.name}={getattr(serving, f.name)!r} is not "
                 "ported to vtpu_torch yet; leave it at its default")
-    if serving.pipeline_decode:
-        raise NotImplementedError(
-            "ServingConfig.pipeline_decode=True is not ported to vtpu_torch "
-            "yet; this slice runs the synchronous tick loop")
     if serving.async_admission is False:
         raise NotImplementedError(
             "ServingConfig.async_admission=False (the serial admission path) "
@@ -363,32 +378,37 @@ def batched_decode_step(params: Params, cfg: ModelConfig, cache: dict, tokens: t
     """One decode tick for the whole slot pool: each active slot writes its
     new KV at ITS OWN length (dense: (l, slot, len); paged: (l, table[slot,
     len // page], len % page)) and advances by one. Inactive slots compute
-    but write nothing, and neither does a slot at the context wall: the
-    kept rows are selected up front (one small device read per tick) so no
-    out-of-range or stale-table write reaches any plane (an int8 cache's
-    scales included). ``kv_bucket`` bounds
-    the attention reads (0 = max_seq); ``paged_attn`` picks the paged read
+    but write nothing, and neither does a slot at the context wall: such a
+    row is redirected (paged: to the null block 0, since a retired slot's
+    stale table row may name blocks another slot now owns; dense: to its
+    own position, clipped to the cache) and writes back what its target
+    holds, so no plane changes (an int8 cache's scales included). Nothing
+    here reads the device from the host, and every shape is static: the
+    step can be captured in a CUDA graph. ``kv_bucket`` bounds the
+    attention reads (0 = max_seq); ``paged_attn`` picks the paged read
     route; under ``mesh`` params and cache are the rank's shards (the
     table and lengths are whole, so the kept rows are the same on every
-    rank). Updates the cache in place; returns (logits [B, vocab], cache)."""
+    rank). Updates the cache in place, the lengths included; returns
+    (logits [B, vocab], cache)."""
     lens = cache["len"]
-    rows = torch.nonzero(active & (lens < cfg.max_seq)).squeeze(1)
-    pos = lens[rows].long()
+    keep = active & (lens < cfg.max_seq)
+    pos = torch.clamp(lens, max=cfg.max_seq - 1).long()
+    rows = torch.arange(lens.shape[0], device=lens.device)
     if "table" in cache:
         page = cache["k"].shape[2]
-        blk = cache["table"][rows, pos // page].long()
-        off = pos % page
-        idx = (blk, off)
+        blk = torch.where(keep, cache["table"][rows, pos // page].long(), 0)
+        idx = (blk, pos % page)
     else:
         idx = (rows, pos)
 
     def write_kv(l, kv, k, v):
-        store_kv(kv, l, idx, k[rows, 0], v[rows, 0])  # int8: values and scales
+        store_kv(kv, l, idx, k[:, 0], v[:, 0], keep=keep)  # int8: values and scales
         return kv
 
     logits, new_kv = decode_layer_loop(params, cfg, cache, tokens, kv_bucket, write_kv,
                                        ffn_fn=ffn_fn, paged_attn=paged_attn, mesh=mesh)
-    return logits, {**new_kv, "len": torch.where(active, lens + 1, lens)}
+    lens.add_(active.to(lens.dtype))
+    return logits, {**new_kv, "len": lens}
 
 
 def _scatter_prefill_pages(cache: dict, seq_cache: dict, logits: torch.Tensor,
@@ -460,6 +480,14 @@ class ServingEngine:
     covers the longest live sequence, fetch the sampled tokens (and any
     admission first tokens) in ONE device-to-host copy, deliver, retire.
 
+    Which loop runs is ``pipeline_decode`` resolved as the reference
+    resolves it: None (auto) and True run the pipelined loop, since
+    sampling is always on the device here and speculation is not ported;
+    False runs the synchronous loop. On one CUDA card (no mesh) the
+    pipelined loop replays the decode step from CUDA graphs captured when
+    the engine is built, one per kv bucket (``decode_graphs``); under a
+    mesh and on the CPU it runs the step eagerly.
+
     Tensor-parallel serving (``mesh``, a vtpu_torch.parallel.TpMesh) is a
     leader/worker split over torch.distributed, one process per rank.
     Rank 0 builds this engine (``params`` its shard, ``shard_params``) and
@@ -474,7 +502,11 @@ class ServingEngine:
     adapter call (the reservation's ``state["table"][slot]`` and
     ``state["len"][slot]``) reach every rank before the step that reads
     them. Then every rank runs the same step on its head shard, with the
-    all-reduces in the trunk. ``stop()`` sends the workers their stop."""
+    all-reduces in the trunk. Over gloo that broadcast stages rank 0's
+    device tensors through host memory, one device->host copy per call,
+    which waits for the stream: the pipelined loop then overlaps nothing
+    (it is not counted as a fetch). ``stop()`` sends the workers their
+    stop."""
 
     def __init__(self, params: Params, cfg: ModelConfig,
                  serving: ServingConfig = ServingConfig(), device=None, sample=None,
@@ -509,6 +541,11 @@ class ServingEngine:
             self.model, serving.temperature, serving.top_k, serving.top_p)
         self._admit_step = batched_admission_step(
             self.model, serving.temperature, serving.top_k, serving.top_p)
+        # the reference's resolution (engine.py: pipelining needs device
+        # sampling, always on here, and no speculation, not ported): auto
+        # (None) pipelines, an explicit True is served, False is synchronous
+        pipeline = serving.pipeline_decode
+        self._pipeline = True if pipeline is None else bool(pipeline)
         self._admit_sizes = tuple(sorted(
             {n for n in serving.prefill_batch_sizes if 1 <= n <= b} | {1}))
         # [B] device buffer of admission first tokens not yet fed to a tick,
@@ -550,25 +587,48 @@ class ServingEngine:
         self._pending_firsts: list[dict] = []
         self._stats = {
             "generated_tokens": 0, "decode_ticks": 0, "admissions": 0,
-            # every loop device->host read goes through _fetch: tick_fetches
+            # every loop device->host read goes through _collect: tick_fetches
             # carry a decode tick (admission first tokens ride along),
             # admission_fetches are an idle engine's first-token fetches
             "device_gets": 0, "bytes_fetched": 0,
             "tick_fetches": 0, "admission_fetches": 0,
+            # blocking per-admission syncs: none on the batched admission
+            # path, the only one ported
+            "admission_syncs": 0,
             "prefill_batch_hist": [0] * (max(self._admit_sizes) + 1),
+            # decode ticks dispatched while the previous tick was in flight
+            "pipelined_ticks": 0,
             "kv_bucket_hist": {},
             "paged_attn_kernel_ticks": 0, "paged_attn_gather_ticks": 0,
             "pool_blocked_admissions": 0,
         }
+        # host-side observability (vtpu_torch/obs): the request-lifecycle
+        # ring with the ITL/TTFT/queue-wait reservoirs, and the tick-phase
+        # profiler that attributes host_ms_per_tick. Nothing here can add a
+        # device sync. _itl_last[slot]: when the slot's last token was
+        # delivered (None until its first token, whose gap is TTFT)
+        self.trace = RequestTrace(capacity=serving.trace_events)
+        self._prof = TickProfiler()
+        self._itl_last: list[Optional[float]] = [None] * b
+        self._host_ms_ema: Optional[float] = None
+        self._admission_ms_ema: Optional[float] = None
         self._req_ctr = itertools.count()
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # an exception that ended the loop (its streams were ended CANCELLED)
         self.loop_error: Optional[BaseException] = None
+        self.decode_graphs: Optional[DecodeGraphs] = None
         if self.device.type == "cuda":
             # build the kernels now, not at their first use inside the loop
             _build.build_all()
+            if self._pipeline and mesh is None:
+                self.decode_graphs = DecodeGraphs(
+                    self._decode_sampled, self.params, self.state, self._gens,
+                    self._kv_buckets if self._use_kv_buckets else (0,),
+                    paged_attn=self._paged_attn, sampled=serving.temperature > 0.0)
+        # the decode step both loops dispatch: graph replays or the eager step
+        self._step = self.decode_graphs or self._decode_sampled
 
     # ------------------------------------------------------------------ API
 
@@ -591,12 +651,13 @@ class ServingEngine:
         req = Request(tokens=tokens, max_new_tokens=budget)
         req.rid = next(self._req_ctr)
         req.t_submit_ns = time.monotonic_ns()
+        self.trace.record("submit", req.rid, -1, n)
         self._pending.put(req)
         self._wake.set()
         if self._stop.is_set():
             # raced with stop(): an extra terminal is harmless, a missing one
             # hangs the client
-            req.finish(Status.CANCELLED)
+            self._end_stream(req, Status.CANCELLED)
         return req
 
     def start(self) -> None:
@@ -604,8 +665,9 @@ class ServingEngine:
         self._thread.start()
 
     def stop(self) -> None:
-        """End the loop, end every stream, and under a mesh stop the
-        workers (after the loop's last step, which holds the adapter)."""
+        """End the loop (a pipelined tick still in flight is delivered
+        first), end every stream, and under a mesh stop the workers (after
+        the loop's last step, which holds the adapter)."""
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
@@ -617,6 +679,12 @@ class ServingEngine:
             self._drain_all()
         self.model.stop_workers()
 
+    @property
+    def tick_profile(self) -> TickProfiler:
+        """The tick-phase profiler (vtpu_torch/obs/tickprof): the per-phase
+        histograms behind stats()['tick_phase_ms']."""
+        return self._prof
+
     def stats(self) -> dict:
         s = dict(self._stats)
         s["prefill_batch_hist"] = list(s["prefill_batch_hist"])
@@ -624,6 +692,38 @@ class ServingEngine:
         ticks = s["decode_ticks"]
         s["device_gets_per_tick"] = round(s["tick_fetches"] / ticks, 4) if ticks else None
         s["bytes_fetched_per_tick"] = round(s["bytes_fetched"] / ticks, 1) if ticks else None
+        # host ms per tick (EMA of dispatch + delivery host work) and per
+        # tick head (admission), as the reference reports them
+        s["host_ms_per_tick"] = (round(self._host_ms_ema, 4)
+                                 if self._host_ms_ema is not None else None)
+        s["admission_stall_ms"] = (round(self._admission_ms_ema, 4)
+                                   if self._admission_ms_ema is not None else None)
+        # span telemetry is a view over the trace's reservoirs
+        for samples, keys in (
+                (self.trace.itl_gaps(), ((0.5, "itl_p50_ms"), (0.99, "itl_p99_ms"))),
+                (self.trace.ttft_samples(), ((0.5, "ttft_p50_ms"), (0.95, "ttft_p95_ms"),
+                                             (0.99, "ttft_p99_ms"))),
+                (self.trace.queue_wait_samples(), ((0.5, "queue_wait_p50_ms"),
+                                                   (0.99, "queue_wait_p99_ms"))),
+                (self.trace.prefill_exec_samples(), ((0.5, "prefill_exec_p50_ms"),
+                                                     (0.99, "prefill_exec_p99_ms")))):
+            vals = sorted(samples)
+            for q, key in keys:
+                v = pct(vals, q)
+                s[key] = round(v * 1e3, 3) if v is not None else None
+        s["trace_enabled"] = self.trace.enabled
+        s["trace_events_recorded"] = self.trace.events_recorded
+        s["trace_events_dropped"] = self.trace.events_dropped
+        s["trace_ring_capacity"] = self.trace.capacity if self.trace.enabled else 0
+        s["trace_ring_utilization"] = (
+            round(min(self.trace.events_recorded, self.trace.capacity) / self.trace.capacity, 4)
+            if self.trace.enabled else None)
+        # where host_ms_per_tick goes: admission head, dispatch, fetch,
+        # deliver (swap_drain stays empty: the port has no swap tier)
+        s["tick_phase_ms"] = self._prof.snapshot()
+        s["device_sampling"] = True
+        s["pipelined"] = self._pipeline
+        s["batched_admission"] = True
         s["active_slots"] = sum(r is not None for r in self._slot_req)
         s["queued"] = self._pending.qsize() + len(self._waiting)
         s["paged"] = self._paged
@@ -649,7 +749,8 @@ class ServingEngine:
         else:
             s["kv_pool_blocks"] = s["kv_pool_free"] = None
             s["kv_pool_used"] = s["kv_pool_used_hwm"] = None
-        # process-wide kernel launch counts (the wrappers' counters)
+        # process-wide kernel launch counts (the wrappers' counters; a graph
+        # replay adds the launches its capture recorded)
         s["flash_launches"] = _build.LAUNCHES["flash_attention"]
         s["paged_attn_launches"] = _build.LAUNCHES["paged_decode_attention"]
         s["paged_attn_int8kv_launches"] = _build.LAUNCHES["paged_decode_attention_int8kv"]
@@ -661,28 +762,35 @@ class ServingEngine:
 
     # ----------------------------------------------------------- lifecycle
 
+    def _end_stream(self, req: Request, status: str, slot: int = -1) -> None:
+        """Deliver *req*'s typed terminal exactly once, with one trace
+        retire carrying the terminal code."""
+        if req.finish(status):
+            self.trace.record("retire", req.rid, slot, TERMINAL_CODES.get(status, 0))
+
     def _drain_all(self) -> None:
         """Terminal for everyone still holding a Request: occupied slots
         (CANCELLED — the engine abandoned them), waiters and submissions."""
         for slot in range(len(self._slot_req)):
             self._retire(slot, status=Status.CANCELLED)
         for req in self._waiting:
-            req.finish(req._abort or Status.CANCELLED)
+            self._end_stream(req, req._abort or Status.CANCELLED)
         self._waiting.clear()
         while True:
             try:
                 req = self._pending.get_nowait()
             except queue.Empty:
                 break
-            req.finish(req._abort or Status.CANCELLED)
+            self._end_stream(req, req._abort or Status.CANCELLED)
 
     def _retire(self, slot: int, status: Optional[str] = None) -> None:
         req = self._slot_req[slot]
         if req is not None:
-            req.finish(status or req._abort or Status.OK)
+            self._end_stream(req, status or req._abort or Status.OK, slot)
         self._slot_req[slot] = None
         self._slot_budget[slot] = 0
         self._slot_len[slot] = 0
+        self._itl_last[slot] = None
         self._admit_mask[slot] = False
         # the device table row stays stale: inactive reads are masked and
         # writes are dropped, and the next reservation overwrites it
@@ -703,6 +811,16 @@ class ServingEngine:
         raise ValueError(f"prompt length {n} exceeds the largest usable bucket "
                          f"{self._prefill_buckets[-1]}")
 
+    def _upload(self, values, dtype: torch.dtype) -> torch.Tensor:
+        """Host values (a list or numpy array) as a tensor on the engine's
+        device, without a host wait: on CUDA through pinned memory and a
+        non-blocking copy, which the caching host allocator keeps alive
+        until the copy is done."""
+        x = torch.as_tensor(values, dtype=dtype)
+        if self.device.type != "cuda":
+            return x.to(self.device)
+        return x.pin_memory().to(self.device, non_blocking=True)
+
     def _reserve_paged(self, slot: int, req: Request) -> bool:
         """Map every page this request can touch (prompt + its token budget)
         and set the slot's device table row. False with nothing reserved
@@ -718,7 +836,7 @@ class ServingEngine:
         self._slot_blocks[slot] = blocks
         row = np.zeros((self._max_pages,), np.int32)
         row[:len(blocks)] = blocks
-        self.state["table"][slot] = torch.from_numpy(row).to(self.device)
+        self.state["table"][slot] = self._upload(row, torch.int32)
         self.state["len"][slot] = 0
         return True
 
@@ -734,7 +852,7 @@ class ServingEngine:
             head = self._waiting.head()
             if head.cancelled:
                 self._waiting.popleft()
-                head.finish(head._abort or Status.CANCELLED)
+                self._end_stream(head, head._abort or Status.CANCELLED)
                 continue
             bucket = self._bucket(int(head.tokens.shape[0]))
             cap = min(len(free), max(self._admit_sizes))
@@ -761,10 +879,10 @@ class ServingEngine:
                 for j in range(m, ok):
                     self._free_slot_blocks(free[j])
                 batch = batch[:m]
-            now = time.monotonic_ns()
             for req in batch:
                 self._waiting.remove(req)
-                req.t_depart_ns = now
+                req.t_depart_ns = time.monotonic_ns()
+                self.trace.record("queue_depart", req.rid)
             slots = [free.pop(0) for _ in batch]
             self._admit_batch(slots, batch, bucket)
             budget -= len(batch) * bucket
@@ -780,10 +898,9 @@ class ServingEngine:
         padded = np.zeros((len(reqs), bucket), np.int32)
         for i, req in enumerate(reqs):
             padded[i, :lens[i]] = req.tokens
-        dev = self.device
         tok, self._admit_buf, self.state = self._admit_step(
-            self.params, self.state, self._admit_buf, torch.from_numpy(padded).to(dev),
-            torch.tensor(slots, device=dev), torch.tensor(lens, device=dev),
+            self.params, self.state, self._admit_buf, self._upload(padded, torch.int32),
+            self._upload(slots, torch.long), self._upload(lens, torch.long),
             [self._gens[s] for s in slots])
         rows = []
         for i, (slot, req) in enumerate(zip(slots, reqs)):
@@ -799,28 +916,89 @@ class ServingEngine:
         self._slot_req[slot] = req
         self._slot_budget[slot] = min(req.max_new_tokens, self.cfg.max_seq - n) - 1
         self._slot_len[slot] = n
+        self._itl_last[slot] = None
         self._stats["admissions"] += 1
+        self._note_admit(req, slot, n)
 
     # ------------------------------------------------------------ delivery
 
-    def _fetch(self, arrays: list, kind: str = "tick") -> list[np.ndarray]:
-        """The loop's ONLY device->host read: the arrays go over in one copy.
-        Counted so stats() can show device_gets_per_tick == 1.0."""
+    def _stage(self, arrays: list, kind: str = "tick") -> dict:
+        """Enqueue the one device->host copy of ``arrays`` (int32, joined
+        into one buffer) without waiting for it: on CUDA into pinned memory
+        with an event behind it. Staged right after the work that produces
+        the arrays, the copy waits for that work only, not for what the
+        stream runs after it."""
+        flat = torch.cat([a.reshape(-1) for a in arrays])
+        done = None
+        if flat.device.type == "cuda":
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            flat = host
+        return {"host": flat, "done": done, "sizes": [a.numel() for a in arrays],
+                "kind": kind}
+
+    def _collect(self, staged: dict) -> list[np.ndarray]:
+        """The loop's ONLY device->host read: wait for a staged copy and
+        split it. Counted so stats() can show device_gets_per_tick == 1.0;
+        the wait is the tick's fetch phase (on the pipelined loop, the time
+        the host waits for the tick in flight)."""
         self._stats["device_gets"] += 1
-        self._stats["tick_fetches" if kind == "tick" else "admission_fetches"] += 1
-        flat = torch.cat([a.reshape(-1) for a in arrays]).cpu().numpy()
+        self._stats["tick_fetches" if staged["kind"] == "tick" else "admission_fetches"] += 1
+        t0 = time.perf_counter()
+        if staged["done"] is not None:
+            staged["done"].synchronize()
+        flat = staged["host"].numpy()
+        self._prof.note("fetch", time.perf_counter() - t0)
         self._stats["bytes_fetched"] += flat.nbytes
         out, at = [], 0
-        for a in arrays:
-            out.append(flat[at:at + a.numel()])
-            at += a.numel()
+        for n in staged["sizes"]:
+            out.append(flat[at:at + n])
+            at += n
         return out
+
+    def _note_host_ms(self, seconds: float) -> None:
+        ms = seconds * 1e3
+        self._host_ms_ema = ms if self._host_ms_ema is None else 0.9 * self._host_ms_ema + 0.1 * ms
+
+    def _note_admission_ms(self, seconds: float) -> None:
+        ms = seconds * 1e3
+        self._admission_ms_ema = (ms if self._admission_ms_ema is None
+                                  else 0.9 * self._admission_ms_ema + 0.1 * ms)
+
+    def _note_itl(self, slot: int, now: float) -> None:
+        """One inter-token gap for *slot* into the trace's reservoir (the
+        first token after admission only stamps the clock: that interval
+        is TTFT)."""
+        last = self._itl_last[slot]
+        if last is not None:
+            self.trace.note_itl(now - last)
+        self._itl_last[slot] = now
+
+    def _note_admit(self, req: Request, slot: int, n: int) -> None:
+        """The 'admit' event plus the queue-wait sample (submit -> slot)."""
+        now_ns = time.monotonic_ns()
+        self.trace.record("admit", req.rid, slot, n)
+        if req.t_submit_ns:
+            self.trace.note_queue_wait((now_ns - req.t_submit_ns) / 1e9)
+
+    def _note_first_token(self, req: Request, slot: int) -> None:
+        """The 'first_token' event, its TTFT sample and the prefill
+        execution part of it (queue departure -> first token)."""
+        now_ns = time.monotonic_ns()
+        self.trace.record("first_token", req.rid, slot)
+        if req.t_submit_ns:
+            self.trace.note_ttft((now_ns - req.t_submit_ns) / 1e9)
+        dep = req.t_depart_ns or req.t_submit_ns
+        if dep:
+            self.trace.note_prefill_exec((now_ns - dep) / 1e9)
 
     def _deliver_firsts(self, firsts: list[dict], fetched: Optional[list] = None) -> None:
         """Deliver admission first tokens; with ``fetched`` None this is an
         idle engine's own batched fetch."""
         if fetched is None:
-            fetched = self._fetch([f["tokens"] for f in firsts], kind="admission")
+            fetched = self._collect(self._stage([f["tokens"] for f in firsts], "admission"))
         for f, arr in zip(firsts, fetched):
             for slot, req, idx in f["rows"]:
                 if req is not self._slot_req[slot]:
@@ -833,28 +1011,44 @@ class ServingEngine:
     def _emit_first(self, slot: int, tok: int) -> None:
         req = self._slot_req[slot]
         self._tokens[slot] = tok
+        self._itl_last[slot] = time.perf_counter()
+        self._note_first_token(req, slot)
         req.delivered += 1
         req.out.put(tok)
         self._stats["generated_tokens"] += 1
         if self._slot_budget[slot] <= 0 or tok == self.serving.eos_token:
             self._retire(slot)
 
-    def _deliver(self, tick: dict, firsts: list[dict]) -> None:
-        """One fetch for the tick's tokens and this pass's first tokens,
-        then host bookkeeping. ``tick["reqs"]`` snapshots each slot's
-        request at dispatch; a slot whose occupant changed drops its token."""
-        toks, *first_arrs = self._fetch([tick["tokens"]] + [f["tokens"] for f in firsts])
+    def _deliver(self, tick: dict, extra_host_s: float = 0.0,
+                 firsts: Optional[list] = None) -> None:
+        """One fetch for the tick's tokens and this pass's first tokens
+        (staged by the loop, or here), then host bookkeeping.
+        ``extra_host_s`` is the pass's dispatch-side host time, folded into
+        the same host_ms_per_tick sample. ``tick["reqs"]`` snapshots each
+        slot's request at dispatch; a slot whose occupant changed since
+        (retired, cancelled or recycled) drops its token: that is what makes
+        the pipelined loop's one-tick lookahead safe."""
+        firsts = firsts or []
+        staged = tick.get("staged") or self._stage(
+            [tick["tokens"]] + [f["tokens"] for f in firsts])
+        toks, *first_arrs = self._collect(staged)
+        t0 = time.perf_counter()
         if firsts:
             self._deliver_firsts(firsts, fetched=first_arrs)
+        now = time.perf_counter()
         for slot, req in enumerate(tick["reqs"]):
             if req is None or req is not self._slot_req[slot]:
                 continue
-            self._emit(slot, int(toks[slot]))
+            self._emit(slot, int(toks[slot]), now)
+        self._prof.note("deliver", time.perf_counter() - t0)
+        self._note_host_ms(extra_host_s + time.perf_counter() - t0)
 
-    def _emit(self, slot: int, tok: int) -> None:
+    def _emit(self, slot: int, tok: int, now: Optional[float] = None) -> None:
         req = self._slot_req[slot]
         self._tokens[slot] = tok
         self._slot_len[slot] += 1  # the device length advanced at dispatch
+        self._note_itl(slot, now if now is not None else time.perf_counter())
+        self.trace.record("token", req.rid, slot)
         req.delivered += 1
         req.out.put(tok)
         self._stats["generated_tokens"] += 1
@@ -872,11 +1066,21 @@ class ServingEngine:
             self._stats["paged_attn_kernel_ticks" if route == "kernel"
                         else "paged_attn_gather_ticks"] += 1
 
+    def _kv_bucket(self, need: int) -> int:
+        """The read window of a tick whose longest row needs ``need`` keys:
+        the smallest kv bucket covering it (0 = max_seq with buckets off)."""
+        if not self._use_kv_buckets:
+            return 0
+        return next((bkt for bkt in self._kv_buckets if bkt >= need), self.cfg.max_seq)
+
     # ---------------------------------------------------------------- loop
 
     def _loop(self) -> None:
         try:
-            self._loop_sync()
+            if self._pipeline:
+                self._loop_pipelined()
+            else:
+                self._loop_sync()
         except Exception as exc:  # the loop thread's boundary: report, end streams
             self.loop_error = exc
             log.exception("serving loop failed; ending every stream")
@@ -887,6 +1091,7 @@ class ServingEngine:
         """Drain submissions into the waiting line, admit into free slots
         under the prompt budget (bypassed while nothing decodes), retire
         cancelled slots. Returns whether anything was admitted."""
+        t0 = time.perf_counter()
         while True:
             try:
                 self._waiting.append(self._pending.get_nowait())
@@ -899,6 +1104,9 @@ class ServingEngine:
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.cancelled:
                 self._retire(slot)
+        dt = time.perf_counter() - t0
+        self._note_admission_ms(dt)
+        self._prof.note("admission", dt)
         return admitted
 
     def _idle_wait(self, admitted: bool) -> None:
@@ -909,9 +1117,9 @@ class ServingEngine:
 
     def _loop_sync(self) -> None:
         """Synchronous tick loop: tick head, one decode dispatch, one fetch,
-        delivery, repeat."""
+        delivery, repeat. Still one device->host read per tick; only the
+        overlap of the pipelined loop is missing."""
         b = self.serving.slots
-        dev = self.device
         while not self._stop.is_set():
             admitted = self._tick_head()
             firsts, self._pending_firsts = self._pending_firsts, []
@@ -922,20 +1130,128 @@ class ServingEngine:
                 else:
                     self._idle_wait(admitted)
                 continue
-            tokens = torch.tensor(self._tokens, dtype=torch.int32, device=dev)
+            t_disp = time.perf_counter()
+            tokens = self._upload(self._tokens, torch.int32)
             fresh = [self._admit_mask[i] for i in range(b)]
             if any(fresh):
                 # freshly admitted slots feed their device-resident first token
-                tokens = torch.where(torch.tensor(fresh, device=dev), self._admit_buf, tokens)
+                tokens = torch.where(self._upload(fresh, torch.bool), self._admit_buf, tokens)
                 self._admit_mask = [False] * b
-            active = torch.tensor([r is not None for r in self._slot_req], device=dev)
-            kv_bucket = 0
-            if self._use_kv_buckets:
-                need = 1 + max(self._slot_len[i] for i in active_slots)
-                kv_bucket = next((bkt for bkt in self._kv_buckets if bkt >= need),
-                                 self.cfg.max_seq)
+            active = self._upload([r is not None for r in self._slot_req], torch.bool)
+            kv_bucket = self._kv_bucket(1 + max(self._slot_len[i] for i in active_slots))
             self._note_kv_window(kv_bucket)
-            tok_d, self.state = self._decode_sampled(
+            tok_d, self.state = self._step(
                 self.params, self.state, tokens, active, self._gens, kv_bucket)
             self._stats["decode_ticks"] += 1
-            self._deliver({"tokens": tok_d, "reqs": list(self._slot_req)}, firsts)
+            tick = {"tokens": tok_d, "reqs": list(self._slot_req),
+                    "staged": self._stage([tok_d] + [f["tokens"] for f in firsts])}
+            disp_s = time.perf_counter() - t_disp
+            self._prof.note("dispatch", disp_s)
+            self._deliver(tick, extra_host_s=disp_s, firsts=firsts)
+
+    def _loop_pipelined(self) -> None:
+        """One-tick-deep decode pipeline (the reference's
+        ``_loop_pipelined``):
+
+            dispatch tick t+1 -> the device starts on it behind tick t
+            deliver tick t    -> ONE wait for t's staged copy, then Python
+                                 bookkeeping, WHILE the device runs t+1
+
+        Tick t+1's token inputs are tick t's sampled tokens, still on the
+        device: no host round-trip sits between consecutive ticks. The host
+        runs one tick behind, so slot lifecycle needs care:
+
+        - budget exhaustion is PREDICTED at dispatch: a slot whose in-flight
+          token spends its last budget is left out of the new tick (it
+          retires at delivery), so the device length never runs past the
+          budget wall;
+        - eos is not predictable: an eos at t wastes one slot-tick of
+          device work at t+1, and _deliver's identity check drops the
+          orphaned token (the slot's next admission overwrites the
+          over-advanced cache row and length);
+        - a slot admitted after t's dispatch joins at t+1, its first token
+          merged in from ``_admit_buf`` on the device;
+        - the read window covers the DEVICE length (the host mirror lags
+          one tick for slots fed from the tick in flight);
+        - on stop, a tick still in flight is delivered.
+
+        The copy of tick t's tokens (with this pass's admission first
+        tokens) is staged before tick t+1 is dispatched, so delivering t
+        waits for t and not for t+1."""
+        b = self.serving.slots
+        inflight: Optional[dict] = None
+        # the [B] active mask changes only on admit/retire: cache the device
+        # tensor keyed on the dispatch set
+        active = None
+        active_key: Optional[tuple] = None
+        while not self._stop.is_set():
+            admitted = self._tick_head()
+            firsts, self._pending_firsts = self._pending_firsts, []
+            t_disp = time.perf_counter()
+            # fed[i]: slot i's next token is the in-flight tick's sample for
+            # the same request
+            fed = [inflight is not None and inflight["reqs"][i] is not None
+                   and inflight["reqs"][i] is self._slot_req[i] for i in range(b)]
+            dispatch = [i for i in range(b) if self._slot_req[i] is not None
+                        and self._slot_budget[i] - (1 if fed[i] else 0) > 0]
+            staged_firsts = None
+            if inflight is not None:
+                inflight["staged"] = self._stage(
+                    [inflight["tokens"]] + [f["tokens"] for f in firsts])
+            elif firsts:
+                staged_firsts = self._stage([f["tokens"] for f in firsts], kind="admission")
+            new_inflight = None
+            disp_s = 0.0
+            if dispatch:
+                live = set(dispatch)
+                if inflight is not None and all(fed[i] for i in dispatch):
+                    # steady state: feed the in-flight tokens straight back
+                    tokens = inflight["tokens"]
+                elif inflight is None:
+                    tokens = self._upload(self._tokens, torch.int32)
+                else:
+                    tokens = torch.where(self._upload(fed, torch.bool), inflight["tokens"],
+                                         self._upload(self._tokens, torch.int32))
+                over = [i for i in dispatch if self._admit_mask[i]]
+                if over:
+                    # freshly admitted slots: first tokens still on the device
+                    tokens = torch.where(self._upload([i in over for i in range(b)], torch.bool),
+                                         self._admit_buf, tokens)
+                    for i in over:
+                        self._admit_mask[i] = False
+                if active_key != tuple(dispatch):
+                    active = self._upload([i in live for i in range(b)], torch.bool)
+                    active_key = tuple(dispatch)
+                kv_bucket = self._kv_bucket(
+                    1 + max(self._slot_len[i] + (1 if fed[i] else 0) for i in dispatch))
+                self._note_kv_window(kv_bucket)
+                tok_d, self.state = self._step(
+                    self.params, self.state, tokens, active, self._gens, kv_bucket)
+                self._stats["decode_ticks"] += 1
+                if inflight is not None:
+                    self._stats["pipelined_ticks"] += 1
+                new_inflight = {"tokens": tok_d,
+                                "reqs": [self._slot_req[i] if i in live else None
+                                         for i in range(b)]}
+                disp_s = time.perf_counter() - t_disp
+                self._prof.note("dispatch", disp_s)
+            if not dispatch and inflight is None:
+                if firsts:
+                    # admissions whose every request spends its whole budget
+                    # on the first token: deliver (and retire) them now
+                    self._deliver_firsts(firsts, fetched=self._collect(staged_firsts))
+                else:
+                    self._idle_wait(admitted)
+                continue
+            if inflight is not None:
+                self._deliver(inflight, extra_host_s=disp_s, firsts=firsts)
+            elif firsts:
+                # no tick in flight to ride on (the engine was idle): the
+                # first tokens' own fetch, staged ahead of the new tick
+                self._deliver_firsts(firsts, fetched=self._collect(staged_firsts))
+            inflight = new_inflight
+        if inflight is not None:
+            # stop() landed between dispatch and delivery: the tick's tokens
+            # are computed, so deliver them (and device_gets stays equal to
+            # decode_ticks)
+            self._deliver(inflight)
