@@ -23,11 +23,12 @@ Phases, any failure exits nonzero:
    a. the main path: the flagship ModelConfig served by ServingEngine on a
       paged bf16 pool with the default ServingConfig loop (pipelined, its
       decode step replayed from CUDA graphs captured under
-      set_sync_debug_mode("error")), six requests streamed, greedy streams
-      checked against the port's plain trunk (use_kernels=False) under a
-      logit-margin rule, launch counts showing both kernels ran (graph
-      replays included: paged launches = 12 x decode ticks); then one more
-      wave under torch.profiler for the device's busy share;
+      set_sync_debug_mode("error")) and logprobs=True, six requests
+      streamed, greedy streams checked against the port's plain trunk
+      (use_kernels=False) under a logit-margin rule and each logprob against
+      log_softmax of its logits, launch counts showing both kernels ran
+      (graph replays included: paged launches = 12 x decode ticks); then
+      one more wave under torch.profiler for the device's busy share;
    b. the int8 serving path: the same model and wave with kv_int8=True,
       every decode tick through the int8 paged kernel, streams checked
       against the plain int8 trunk;
@@ -37,9 +38,22 @@ Phases, any failure exits nonzero:
       tokens/s, TTFT p50, host_ms_per_tick and the tick phases per loop
       with their spread, the device busy share of one profiled wave each,
       streams held against the plain trunk;
-   d. the dense decode study: decode_attention over the study's four T=1
+   d. the host-sampler wave: the main path's wave with a custom sample=
+      callable and async_admission=False, on the synchronous host-sampling
+      loop (one [4, vocab] logits fetch a tick, one blocking first-token
+      fetch an admission), its tokens/s beside the main path's;
+   e. chunked + prefix: the flagship model with prefill_chunk=256 on the
+      pipelined loop on graphs, a registered 512-token prefix under four
+      suffixes, two prompts past the 1024 bucket, one empty suffix: streams
+      against the plain trunk over the full prompt, the shared blocks'
+      refcounts and the pool's use, prefill_chunks, graph replays and paged
+      launches per tick, the state tensors' addresses, the pool fully free
+      after unregister; TTFT with and without the prefix and of the
+      chunked prompts over three interleaved rounds; one int8 wave of the
+      prefixed requests;
+   f. the dense decode study: decode_attention over the study's four T=1
       cells in bf16 and in int8;
-   e. tensor-parallel serving: two spawned ranks (NCCL, one card each,
+   g. tensor-parallel serving: two spawned ranks (NCCL, one card each,
       where there are two cards; else gloo, both on card 0) serve the
       main path's wave with bf16 and then int8 KV on the pipelined loop
       (eager: no graphs under a mesh), every decode tick through the
@@ -78,6 +92,9 @@ ATOL = 2e-2
 # head's absmax on one element), smaller than the bf16 noise already
 # allowed for
 MARGIN = 0.05
+# a logprob against log_softmax of the plain trunk's logits: the same bf16
+# noise the margin rule allows for, on a log-probability
+LOGPROB_TOL = 0.05
 SEED = 0
 # new tokens a request in the loop comparison, and its repeats per loop
 COMPARE_TOKENS = 128
@@ -548,9 +565,10 @@ def study_path(gen, log) -> dict:
     return {"launches": launches}
 
 
-def reference_stream(params, cfg, prompt: np.ndarray, steps: int):
+def reference_stream(params, cfg, prompt: np.ndarray, steps: int, logprobs: list = None):
     """Greedy stream of the port's plain trunk with each step's top-1/top-2
-    logit margin."""
+    logit margin; with ``logprobs`` (a list) each step's log_softmax of its
+    greedy token is appended there."""
     from vtpu_torch.models import decode_step, prefill
 
     toks = torch.from_numpy(prompt[None]).cuda()
@@ -563,6 +581,8 @@ def reference_stream(params, cfg, prompt: np.ndarray, steps: int):
         top = torch.topk(row, 2).values
         margins.append(float(top[0] - top[1]))
         out.append(int(torch.argmax(row)))
+        if logprobs is not None:
+            logprobs.append(float(torch.log_softmax(row.float(), dim=-1)[out[-1]]))
         if i + 1 < steps:
             logits, cache = decode_step(
                 params, cfg, cache, torch.tensor([out[-1]], dtype=torch.int32, device="cuda"))
@@ -594,9 +614,23 @@ def check_streams(streams: list, refs: list, what: str) -> tuple[int, int]:
     return compared, ties
 
 
-def stream_all(eng, prompts) -> tuple[list[dict], float]:
-    """Submit every prompt at once; a reader thread per request records its
-    tokens and first-token time. Returns (records, wall seconds)."""
+def equal_run(streams: list, refs: list) -> int:
+    """Tokens each stream shares with its plain-trunk reference before their
+    first difference, summed: the margin rule stops at a small margin even
+    where the tokens still agree, this counts on to the real divergence."""
+    total = 0
+    for toks, (ref, _) in zip(streams, refs):
+        n = 0
+        while n < min(len(toks), len(ref)) and toks[n] == ref[n]:
+            n += 1
+        total += n
+    return total
+
+
+def stream_all(eng, prompts, prefix=None) -> tuple[list[dict], float]:
+    """Submit every prompt at once (after the registered ``prefix``, if
+    given); a reader thread per request records its tokens, logprobs and
+    first-token time. Returns (records, wall seconds)."""
     recs = [{"toks": []} for _ in prompts]
 
     def read(req, rec):
@@ -604,12 +638,13 @@ def stream_all(eng, prompts) -> tuple[list[dict], float]:
             rec.setdefault("first", time.perf_counter())
             rec["toks"].append(tok)
         rec["status"] = req.status
+        rec["logprobs"] = list(req.logprobs)
 
     t0 = time.perf_counter()
     threads = []
     for prompt, rec in zip(prompts, recs):
         rec["submit"] = time.perf_counter()
-        req = eng.submit(prompt)
+        req = eng.submit(prompt, prefix=prefix)
         th = threading.Thread(target=read, args=(req, rec), daemon=True)
         th.start()
         threads.append(th)
@@ -650,9 +685,11 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
     """Serve six requests on the flagship model over a paged pool, bf16 or
     int8 KV, on the default ServingConfig loop (pipelined, on CUDA graphs),
     with every launch count set to 0 just before the counted wave and read
-    just after. The bf16 run (the main path) streams one more wave under
-    the profiler. The plain trunk's references run COMPARE_TOKENS steps, so
-    the loop comparison and the TP paths reuse them."""
+    just after. The bf16 run (the main path) streams logprobs too (one more
+    output of every decode graph), each held against log_softmax of the
+    plain trunk's logits, and then one more wave under the profiler. The
+    plain trunk's references run COMPARE_TOKENS steps, so the loop
+    comparison and the TP paths reuse them."""
     from vtpu_torch.models import ModelConfig
     from vtpu_torch.ops import _build
     from vtpu_torch.serving import ServingConfig, ServingEngine
@@ -664,7 +701,8 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
         paged, other = other, paged
     new_tokens = 16
     eng = ServingEngine(params, cfg, ServingConfig(
-        slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens, kv_page=128))
+        slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens, kv_page=128,
+        logprobs=not kv_int8))
     graphs = eng.decode_graphs
     if graphs is None or not eng.stats()["pipelined"]:
         raise AssertionError(f"the {what} does not run the pipelined loop on CUDA graphs")
@@ -711,8 +749,13 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
         raise AssertionError("paged pool not fully free after the run")
 
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)  # kv_int8 kept
-    refs = [reference_stream(params, plain_cfg, prompt, COMPARE_TOKENS) for prompt in prompts]
+    ref_lps = [[] for _ in prompts]
+    refs = [reference_stream(params, plain_cfg, prompt, COMPARE_TOKENS, lps)
+            for prompt, lps in zip(prompts, ref_lps)]
     compared, ties = check_streams([rec["toks"] for rec in recs], refs, "engine")
+    lp_err = lp_n = 0
+    if not kv_int8:
+        lp_err, lp_n = check_logprobs(recs, refs, ref_lps, what)
     ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
     total = sum(len(rec["toks"]) for rec in recs)
     log(f"{what} on {card}: {len(prompts)} requests, {total} tokens in {wall:.3f} s "
@@ -721,6 +764,9 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
         f"graph replays), device_gets_per_tick {gets_per_tick}; launches {launches}")
     log(f"{what} streams vs plain {'int8 ' if kv_int8 else ''}trunk: {compared} tokens "
         f"compared equal, {ties} streams cut at a top-1/top-2 margin < {MARGIN}")
+    if not kv_int8:
+        log(f"{what} logprobs: one per decoded token in every stream; {lp_n} held against "
+            f"log_softmax of the plain trunk, max abs diff {lp_err:.2e} (limit {LOGPROB_TOL})")
     if prof is None and not kv_int8:
         log("profiled wave: the profiler recorded no device activity (not measured)")
     elif prof is not None:
@@ -731,12 +777,35 @@ def serving_path(log, card: str, params, kv_int8: bool) -> dict:
             "graph_replays": replays, "tokens": total,
             "wall_s": wall, "tokens_per_s": total / wall, "ttft_ms": ttft,
             "device_gets_per_tick": gets_per_tick, "compared_tokens": compared,
-            "margin_cuts": ties,
+            "margin_cuts": ties, "logprob_max_err": lp_err, "logprobs_compared": lp_n,
             "prefill_batch_hist": after["prefill_batch_hist"],
             "kv_bucket_hist": after["kv_bucket_hist"],
             "tick_phase_ms": after["tick_phase_ms"],
             "paged_attn_kernel_ticks": after["paged_attn_kernel_ticks"]
             - base["paged_attn_kernel_ticks"], "profiled_wave": prof, "refs": refs}
+
+
+def check_logprobs(recs: list, refs: list, ref_lps: list, what: str) -> tuple[float, int]:
+    """Each stream's logprobs: one per decoded token (the first token, sampled
+    at admission, has none), each within LOGPROB_TOL of log_softmax of the
+    plain trunk's logits at its step, up to the stream's first step whose
+    top-1/top-2 margin is below MARGIN. Returns (max abs diff, logprobs
+    compared)."""
+    worst, n = 0.0, 0
+    for rec, (_, margins), lps in zip(recs, refs, ref_lps):
+        if len(rec["logprobs"]) != len(rec["toks"]) - 1:
+            raise AssertionError(f"{what}: {len(rec['logprobs'])} logprobs for "
+                                 f"{len(rec['toks'])} tokens")
+        for j, lp in enumerate(rec["logprobs"]):
+            step = j + 1
+            if min(margins[:step + 1]) < MARGIN:
+                break
+            err = abs(lp - lps[step])
+            if not err <= LOGPROB_TOL:
+                raise AssertionError(f"{what}: logprob {lp} at step {step} vs plain trunk "
+                                     f"{lps[step]}")
+            worst, n = max(worst, err), n + 1
+    return worst, n
 
 
 PHASES = ("admission", "dispatch", "fetch", "deliver")
@@ -843,6 +912,292 @@ def loop_comparison(log, card: str, params, kv_int8: bool, refs: list) -> dict:
                 f"{n} {ms:.2f} ms" for n, ms in prof["top_kernels_ms"]))
         out[name] = {"waves": ws, "profiled_wave": prof}
     return out
+
+
+def argmax_sampler(row: np.ndarray) -> int:
+    """The host-sampler wave's custom sampler: the greedy token of one
+    fetched [vocab] f32 row."""
+    return int(np.argmax(row))
+
+
+def host_sampler_path(log, card: str, params, refs: list, device_tps: float) -> dict:
+    """The main path's wave with a custom ``sample=`` callable and
+    ``async_admission=False``: the synchronous host-sampling loop (eager, no
+    graph), one fetch of the [4, vocab] f32 logits a tick, one blocking
+    first-token fetch an admission. Streams held against the plain trunk
+    (``refs``); its tokens/s printed beside the device-sampling main
+    path's (``device_tps``), the cost of the host path."""
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.ops import _build
+    from vtpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    new_tokens = 16
+    eng = ServingEngine(params, cfg, ServingConfig(
+        slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens, kv_page=128,
+        async_admission=False), sample=argmax_sampler)
+    st = eng.stats()
+    if eng.decode_graphs is not None or st["pipelined"] or st["device_sampling"]:
+        raise AssertionError("a custom sampler must run the synchronous host-sampling loop")
+    prompts = wave_prompts(cfg.vocab)
+    eng.start()
+    try:
+        stream_all(eng, [prompts[0]])
+        base = eng.stats()
+        _build.reset_launches()
+        recs, wall = stream_all(eng, prompts)
+        launches = _build.launches()
+        after = eng.stats()
+    finally:
+        eng.stop()
+    if eng.loop_error is not None:
+        raise AssertionError(f"host-sampler loop failed: {eng.loop_error!r}")
+    ticks = after["decode_ticks"] - base["decode_ticks"]
+    fetches = after["tick_fetches"] - base["tick_fetches"]
+    syncs = after["admission_syncs"] - base["admission_syncs"]
+    admissions = after["admissions"] - base["admissions"]
+    fetched = after["bytes_fetched"] - base["bytes_fetched"]
+    for rec in recs:
+        if rec.get("status") != "OK" or len(rec["toks"]) != new_tokens:
+            raise AssertionError(f"host-sampler stream ended {rec.get('status')} after "
+                                 f"{len(rec['toks'])} of {new_tokens} tokens")
+    if fetches != ticks or not syncs == admissions == len(prompts):
+        raise AssertionError(f"host-sampler wave: {fetches} fetches over {ticks} ticks, "
+                             f"{syncs} admission syncs over {admissions} admissions")
+    if fetched != ticks * 4 * cfg.vocab * 4:
+        raise AssertionError(f"host-sampler wave fetched {fetched} bytes over {ticks} ticks")
+    if (launches["paged_decode_attention"] != cfg.n_layers * ticks
+            or launches["flash_attention"] <= 0):
+        raise AssertionError(f"host-sampler wave launches {launches} over {ticks} ticks")
+    compared, ties = check_streams([rec["toks"] for rec in recs], refs, "host-sampler")
+    total = sum(len(rec["toks"]) for rec in recs)
+    ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
+    log(f"host-sampler wave on {card}: {len(prompts)} requests, {total} tokens in {wall:.3f} s "
+        f"({total / wall:.1f} tokens/s; device-sampling main path on graphs "
+        f"{device_tps:.1f} tokens/s, host path {total / wall / device_tps:.2f}x), TTFT p50 "
+        f"{ttft[len(ttft) // 2]:.1f} ms; {ticks} ticks, {fetches} fetches of "
+        f"{fetched // max(ticks, 1)} bytes, {syncs} admission syncs; host_ms_per_tick "
+        f"{after['host_ms_per_tick']}; streams: {compared} tokens equal to the plain trunk, "
+        f"{ties} cut at a margin < {MARGIN}; launches {launches}")
+    return {"launches": launches, "decode_ticks": ticks, "tokens": total, "wall_s": wall,
+            "tokens_per_s": total / wall, "device_sampling_tokens_per_s": device_tps,
+            "ttft_ms": ttft, "admission_syncs": syncs, "bytes_fetched_per_tick": fetched / ticks,
+            "host_ms_per_tick": after["host_ms_per_tick"], "compared_tokens": compared,
+            "margin_cuts": ties}
+
+
+# the chunked + prefix phase: a tenant's 512-token system prompt, four
+# suffixes, two prompts past the 1024 bucket, and one empty suffix
+PREFIX_LEN = 512
+SUFFIX_LENS = (64, 180, 290, 400)
+LONG_LENS = (1100, 1250)
+CHUNK = 256
+
+
+def chunked_prefix_prompts(vocab: int):
+    """(prefix, suffixes, long prompts) of the chunked + prefix phase from
+    SEED."""
+    rs = np.random.RandomState(SEED + 1)
+    prefix = rs.randint(0, vocab, (PREFIX_LEN,)).astype(np.int32)
+    sufs = [rs.randint(0, vocab, (n,)).astype(np.int32) for n in SUFFIX_LENS]
+    longs = [rs.randint(0, vocab, (n,)).astype(np.int32) for n in LONG_LENS]
+    return prefix, sufs, longs
+
+
+def chunked_prefix_path(log, card: str, params) -> dict:
+    """Chunked prefill and a shared prefix on the flagship model at full
+    width and depth, pipelined on graphs: a 512-token prefix registered
+    (built into pool blocks on the loop thread), four prefixed requests (a
+    snapshot at the first decode dispatch with all four live reads the
+    shared blocks' refcounts and the pool's use), two prompts of 1100 and
+    1250 tokens (five 256-token chunks each), one empty suffix; each wave's
+    streams held against the plain trunk over the full prompt, the counted
+    run's chunks, graph replays and paged launches against what the prompts
+    imply, every state tensor's address held over the phase. Then three
+    interleaved timing rounds (prefixed wave, the same full prompts
+    unregistered, the long prompts), the prefix unregistered with the pool
+    fully free, and one int8 wave of the prefixed requests."""
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.ops import _build
+    from vtpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    serving = ServingConfig(slots=4, prefill_buckets=(1024,), prefill_chunk=CHUNK, kv_page=128,
+                            max_new_tokens=16)
+    prefix, sufs, longs = chunked_prefix_prompts(cfg.vocab)
+    fulls = [np.concatenate([prefix, s]) for s in sufs]
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    refs = {"prefixed": [reference_stream(params, plain, p, 16) for p in fulls],
+            "long": [reference_stream(params, plain, p, 16) for p in longs],
+            "empty": [reference_stream(params, plain, prefix, 16)]}
+    eng = ServingEngine(params, cfg, serving)
+    if eng.decode_graphs is None:
+        raise AssertionError("the chunked + prefix phase must run the pipelined loop on graphs")
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    snaps: list = []
+    step = eng._step
+
+    def snapshot_step(*args):
+        # on the loop thread, at a decode dispatch: the bookkeeping is settled
+        live = [r for r in eng._slot_req if r is not None]
+        if not snaps and len(live) == 4 and all(r.prefix is not None for r in live):
+            blocks = eng._prefixes[live[0].prefix]["blocks"]
+            snaps.append({"refs": [eng._alloc.refcount(b) for b in blocks],
+                          "used": eng._n_blocks - 1 - eng._alloc.free_blocks,
+                          "shared": sum(eng._slot_shared)})
+        return step(*args)
+
+    eng._step = snapshot_step
+    chunk_s: list = []
+    chunk_fn = eng._prefill_chunk
+
+    def timed_chunk(*args, **kw):
+        t0 = time.perf_counter()
+        out = chunk_fn(*args, **kw)
+        chunk_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._prefill_chunk = timed_chunk
+    eng.start()
+    waves: dict = {"prefixed": [], "unregistered": [], "long": []}
+    try:
+        t0 = time.perf_counter()
+        pid = eng.register_prefix(prefix)
+        register_ms = (time.perf_counter() - t0) * 1e3
+        # warm-up: one request of each kind
+        stream_all(eng, [sufs[0]], prefix=pid)
+        stream_all(eng, [fulls[0]])
+        stream_all(eng, [longs[0]])
+        base = eng.stats()
+        replays = eng.decode_graphs.replays
+        _build.reset_launches()
+        recs = {"prefixed": stream_all(eng, sufs, prefix=pid)[0],
+                "long": stream_all(eng, longs)[0],
+                "empty": stream_all(eng, [np.zeros((0,), np.int32)], prefix=pid)[0]}
+        launches = _build.launches()
+        counted = eng.stats()
+        replays = eng.decode_graphs.replays - replays
+        chunk_s.clear()
+        for r in range(REPEATS):
+            kinds = ("prefixed", "unregistered", "long")
+            for kind in (kinds if r % 2 == 0 else kinds[::-1]):
+                if kind == "prefixed":
+                    got, _ = stream_all(eng, sufs, prefix=pid)
+                elif kind == "unregistered":
+                    got, _ = stream_all(eng, fulls)
+                else:
+                    got, _ = stream_all(eng, longs)
+                check_streams([rec["toks"] for rec in got],
+                              refs["long" if kind == "long" else "prefixed"], f"{kind} wave")
+                ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in got)
+                waves[kind].append(ttft[len(ttft) // 2])
+        timed = eng.stats()
+        eng.unregister_prefix(pid)
+        drained = eng.stats()
+    finally:
+        eng.stop()
+    if eng.loop_error is not None:
+        raise AssertionError(f"chunked + prefix loop failed: {eng.loop_error!r}")
+    compared = ties = same = 0
+    for kind, rs in recs.items():
+        for rec in rs:
+            if rec.get("status") != "OK" or len(rec["toks"]) != 16:
+                raise AssertionError(f"{kind} stream ended {rec.get('status')} after "
+                                     f"{len(rec['toks'])} tokens")
+        c, t = check_streams([rec["toks"] for rec in rs], refs[kind], f"{kind} wave")
+        compared, ties = compared + c, ties + t
+        same += equal_run([rec["toks"] for rec in rs], refs[kind])
+    if not snaps:
+        raise AssertionError("no decode dispatch had the four prefixed requests live")
+    snap = snaps[0]
+    full_pages = PREFIX_LEN // 128
+    need = sum(-(-(len(f) + 16) // 128) for f in fulls)
+    if snap["refs"] != [1 + 4] * full_pages or snap["shared"] != 4 * full_pages:
+        raise AssertionError(f"prefix block refcounts {snap['refs']} (expected "
+                             f"{[5] * full_pages}), shared {snap['shared']}")
+    if snap["used"] != need - 3 * full_pages:
+        raise AssertionError(f"pool used {snap['used']} blocks with the prefix shared, "
+                             f"expected {need} - 3 x {full_pages}")
+    chunks = counted["prefill_chunks"] - base["prefill_chunks"]
+    want_chunks = sum(-(-len(s) // CHUNK) for s in sufs) + sum(-(-len(p) // CHUNK) for p in longs)
+    ticks = counted["decode_ticks"] - base["decode_ticks"]
+    if chunks != want_chunks:
+        raise AssertionError(f"prefill_chunks {chunks}, the prompts imply {want_chunks}")
+    if replays != ticks or launches["paged_decode_attention"] != cfg.n_layers * ticks:
+        raise AssertionError(f"{ticks} decode ticks, {replays} graph replays, paged launches "
+                             f"{launches['paged_decode_attention']}")
+    if {k: x.data_ptr() for k, x in eng.state.items()} != ptrs:
+        raise AssertionError("a state tensor moved during the chunked + prefix phase")
+    if drained["kv_pool_free"] != drained["kv_pool_blocks"] or drained["registered_prefixes"]:
+        raise AssertionError(f"after unregister: {drained['kv_pool_free']} of "
+                             f"{drained['kv_pool_blocks']} blocks free")
+    hits = counted["prefix_hits"] - base["prefix_hits"]
+    log(f"chunked + prefix on {card}: prefix of {PREFIX_LEN} registered in {register_ms:.1f} ms; "
+        f"counted run {len(sufs)} prefixed + {len(longs)} long + 1 empty-suffix requests: "
+        f"prefill_chunks {chunks} (implied {want_chunks}), prefix hits {hits}, decode ticks "
+        f"{ticks} = graph replays {replays}, paged launches "
+        f"{launches['paged_decode_attention']} = {cfg.n_layers} x ticks, flash "
+        f"{launches['flash_attention']}; with 4 sharers live: prefix block refcounts "
+        f"{snap['refs']}, pool used {snap['used']} blocks against {need} unshared "
+        f"(saving 3 x {full_pages}); after unregister {drained['kv_pool_free']} of "
+        f"{drained['kv_pool_blocks']} blocks free; state tensors in place; streams: "
+        f"{compared} tokens equal to the plain trunk over the full prompt, {ties} cut at a "
+        f"margin < {MARGIN}; {same} of {16 * sum(map(len, recs.values()))} tokens equal "
+        "before each stream's first difference")
+    chunk_ms = sorted(x * 1e3 for x in chunk_s)
+    log(f"chunked + prefix timing on {card}, {REPEATS} interleaved rounds, median [min, max] of "
+        f"each wave's TTFT p50 ms: prefixed {spread(waves['prefixed'])}, same full prompts "
+        f"unregistered {spread(waves['unregistered'])}, chunked {LONG_LENS} "
+        f"{spread(waves['long'])}; chunk dispatch host ms {spread(chunk_ms)} over "
+        f"{len(chunk_ms)} chunks; stats() prefill_exec_p50_ms {timed['prefill_exec_p50_ms']}, "
+        f"queue_wait_p50_ms {timed['queue_wait_p50_ms']}, ttft_p50_ms {timed['ttft_p50_ms']}")
+    int8 = chunked_prefix_int8(log, card, params, serving, prefix, sufs, fulls)
+    return {"launches": launches, "decode_ticks": ticks, "graph_replays": replays,
+            "prefill_chunks": chunks, "prefix_hits": hits, "snapshot": snap,
+            "unshared_blocks": need, "register_ms": register_ms,
+            "ttft_p50_ms": waves, "chunk_dispatch_ms": chunk_ms,
+            "prefill_exec_p50_ms": timed["prefill_exec_p50_ms"],
+            "compared_tokens": compared, "margin_cuts": ties, "equal_run_tokens": same,
+            "int8": int8}
+
+
+def chunked_prefix_int8(log, card: str, params, serving, prefix, sufs, fulls) -> dict:
+    """One wave of the four prefixed requests with int8 KV: the prefix's
+    quantized planes shared from the pool; streams against the plain int8
+    trunk over the full prompts."""
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.ops import _build
+    from vtpu_torch.serving import ServingEngine
+
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True, kv_int8=True)
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    refs = [reference_stream(params, plain, p, 16) for p in fulls]
+    eng = ServingEngine(params, cfg, serving)
+    eng.start()
+    try:
+        pid = eng.register_prefix(prefix)
+        _build.reset_launches()
+        recs, _ = stream_all(eng, sufs, prefix=pid)
+        launches = _build.launches()
+        st = eng.stats()
+        eng.unregister_prefix(pid)
+    finally:
+        eng.stop()
+    if eng.loop_error is not None:
+        raise AssertionError(f"int8 chunked + prefix loop failed: {eng.loop_error!r}")
+    for rec in recs:
+        if rec.get("status") != "OK" or len(rec["toks"]) != 16:
+            raise AssertionError(f"int8 prefixed stream ended {rec.get('status')}")
+    compared, ties = check_streams([rec["toks"] for rec in recs], refs, "int8 prefixed wave")
+    same = equal_run([rec["toks"] for rec in recs], refs)
+    if launches["paged_decode_attention_int8kv"] != cfg.n_layers * st["decode_ticks"]:
+        raise AssertionError(f"int8 prefixed wave launches {launches}")
+    log(f"chunked + prefix int8 on {card}: {len(sufs)} prefixed requests, prefix hits "
+        f"{st['prefix_hits']}, boundary copies {st['prefix_cow_copies']}; streams: {compared} "
+        f"tokens equal to the plain int8 trunk over the full prompt, {ties} cut at a margin "
+        f"< {MARGIN}; {same} of {16 * len(recs)} equal before each stream's first difference")
+    return {"launches": launches, "compared_tokens": compared, "margin_cuts": ties,
+            "equal_run_tokens": same}
 
 
 def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
@@ -974,6 +1329,9 @@ def main() -> int:
     refs = {"bf16": runs["main_path"].pop("refs"), "int8": runs["int8_serving_path"].pop("refs")}
     runs["loop_comparison"] = {kv: loop_comparison(log, card, params, kv == "int8", refs[kv])
                                for kv in ("bf16", "int8")}
+    runs["host_sampler_path"] = host_sampler_path(log, card, params, refs["bf16"],
+                                                  runs["main_path"]["tokens_per_s"])
+    runs["chunked_prefix_path"] = chunked_prefix_path(log, card, params)
     runs["study_path"] = study_path(gen, log)
     del params
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one

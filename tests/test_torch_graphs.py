@@ -14,7 +14,10 @@ captured (the capture runs under ``set_sync_debug_mode("error")``) and
 nothing falls back to the eager step; the engine's pipelined loop on
 graphs streams what its synchronous eager loop streams, greedy and seeded
 temperature sampling alike, with paged launches = n_layers x decode
-ticks."""
+ticks; a logprobs step's replay equals its eager step (tokens and
+logprobs) bit for bit; chunked and prefixed admissions between replays
+leave the streams equal to the eager loop's and every state tensor at its
+address."""
 
 import ctypes
 
@@ -224,3 +227,77 @@ def test_engine_graphs_stream_what_the_eager_loop_streams(dev, kv, page, tempera
     assert st["device_gets_per_tick"] == 1.0
     name = "paged_decode_attention_int8kv" if kv == "int8" else "paged_decode_attention"
     assert launches[name] == (cfg.n_layers * st["decode_ticks"] if page else 0)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9], ids=["greedy", "temperature"])
+@pytest.mark.parametrize("page", [PAGE, None], ids=["paged", "dense"])
+def test_logprobs_replay_equals_eager_step(dev, page, temperature):
+    """A logprobs engine's step records the logprobs as one more graph
+    output: a replay gives the eager step's tokens and logprobs bit for bit,
+    and the state it leaves."""
+    cfg = _cfg("bf16")
+    params = init_params(0, cfg, device=dev)
+    model = TransformerSlotModel(params, cfg, kv_page=page, device=dev)
+    eager_state = _admitted_state(model, params, page)
+    graph_state = {k: x.clone() for k, x in eager_state.items()}
+    step = sampled_decode_step(model, temperature, 16, 1.0, logprobs=True)
+    gens_e = [torch.Generator(device=dev).manual_seed(i) for i in range(4)]
+    gens_g = [torch.Generator(device=dev).manual_seed(i) for i in range(4)]
+    graphs = DecodeGraphs(step, params, graph_state, gens_g, (128, 256),
+                          sampled=temperature > 0.0)
+    active = torch.tensor([True, True, True, False], device=dev)
+    tok_e = tok_g = torch.tensor([3, 4, 5, 0], dtype=torch.int32, device=dev)
+    for bucket in (128, 256, 256):
+        (tok_e, lp_e), eager_state = step(params, eager_state, tok_e, active, gens_e, bucket)
+        (tok_g, lp_g), graph_state = graphs(params, graph_state, tok_g, active, gens_g, bucket)
+        torch.cuda.synchronize()
+        assert torch.equal(tok_e, tok_g) and torch.equal(lp_e, lp_g)
+        assert lp_g.dtype == torch.float32 and bool((lp_g[:3] <= 0).all())
+        for key in eager_state:
+            assert torch.equal(graph_state[key], eager_state[key]), key
+    assert graphs.replays == 3
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("page", [PAGE, None], ids=["paged", "dense"])
+def test_chunked_and_prefixed_admissions_between_replays(dev, kv, page):
+    """Prompts past the 64 bucket (chunks of 32) and two prefixed suffixes
+    admit while the other slots decode: on the pipelined loop their chunks
+    and the prefix's install or block share run between graph replays, and
+    the streams equal the synchronous eager loop's. Every state tensor keeps
+    its address, graph replays equal decode ticks, and paged launches are
+    n_layers x decode ticks."""
+    cfg = _cfg(kv)
+    params = init_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(1, DIMS["vocab"], (n,), generator=gen).numpy()
+               for n in (9, 150, 33, 200)]
+    prefix = torch.randint(1, DIMS["vocab"], (40,), generator=gen).numpy()
+    suffixes = [torch.randint(1, DIMS["vocab"], (n,), generator=gen).numpy() for n in (20, 0)]
+    got = {}
+    for name, pipeline in (("graphs", None), ("eager", False)):
+        eng = ServingEngine(params, cfg, ServingConfig(
+            slots=4, prefill_buckets=(64,), max_new_tokens=NEW, kv_page=page,
+            prefill_chunk=32, pipeline_decode=pipeline))
+        ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+        pid = eng.register_prefix(prefix)
+        reqs = ([eng.submit(p) for p in prompts]
+                + [eng.submit(s, prefix=pid) for s in suffixes])
+        _build.reset_launches()
+        eng.start()
+        try:
+            outs = [list(r.stream()) for r in reqs]
+        finally:
+            eng.stop()
+        assert eng.loop_error is None
+        assert [r.status for r in reqs] == [Status.OK] * len(reqs)
+        st = eng.stats()
+        assert st["prefill_chunks"] == 5 + 7 + 1 and st["prefix_hits"] == 2
+        assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs
+        name_k = "paged_decode_attention_int8kv" if kv == "int8" else "paged_decode_attention"
+        assert _build.launches()[name_k] == (cfg.n_layers * st["decode_ticks"] if page else 0)
+        if pipeline is None:
+            assert eng.decode_graphs.replays == st["decode_ticks"]
+        got[name] = outs
+    assert got["graphs"] == got["eager"]
+    assert all(len(o) == NEW for o in got["graphs"])

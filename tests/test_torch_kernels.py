@@ -277,3 +277,39 @@ def test_decode_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         paged_decode_attention_int8kv(q16, pool, spool, pool, spool, table, lens, layer=1)
     with pytest.raises(ValueError, match="scale pools must be float32"):
         paged_decode_attention_int8kv(q16, pool, spool[..., :1], pool, spool, table, lens)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_wrappers_refuse_more_than_16_queries(dev, kv):
+    """The paged kernels take T <= 16 queries a row. A T = 17 call raises
+    before any launch, and a 64-token prefill chunk over a paged pool
+    (chunked_prefill_into_slot with explicit block ids, kernels on)
+    attends over its dense view: no paged launch at all."""
+    from vtpu_torch.models import ModelConfig, init_paged_kv_cache, init_params
+    from vtpu_torch.serving.engine import chunked_prefill_into_slot
+
+    page, h, dh = 16, 2, 128
+    q = torch.zeros((1, 17, h, dh), dtype=torch.bfloat16, device=dev)
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    lens = torch.full((1, 17), 5, dtype=torch.int32, device=dev)
+    before = _build.launches()
+    if kv == "int8":
+        pool = torch.zeros((1, 3, page, h, dh), dtype=torch.int8, device=dev)
+        sc = torch.ones((1, 3, page, h), device=dev)
+        with pytest.raises(ValueError, match="T=17"):
+            paged_decode_attention_int8kv(q, pool, sc, pool, sc, table, lens)
+    else:
+        pool = torch.zeros((1, 3, page, h, dh), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="T=17"):
+            paged_decode_attention(q, pool, pool, table, lens)
+    cfg = ModelConfig(vocab=256, d_model=256, n_heads=h, n_layers=2, d_ff=512, max_seq=128,
+                      head_dim=dh, dtype=torch.bfloat16, use_kernels=True, kv_int8=kv == "int8")
+    params = init_params(0, cfg, device=dev)
+    cache = init_paged_kv_cache(cfg, 2, page, 9, device=dev)
+    chunk = torch.randint(1, 256, (1, 64), dtype=torch.int32, device=dev)
+    ids = torch.tensor([3, 1, 4, 2, 0, 0, 0, 0], dtype=torch.int32, device=dev)
+    logits, cache = chunked_prefill_into_slot(params, cfg, cache, chunk, 0, 0, 64,
+                                              kv_bucket=128, block_ids=ids)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all()) and int(cache["len"][0]) == 64
+    assert _build.launches() == before

@@ -318,10 +318,16 @@ def test_tp2_world_serves_both_loops(weights, prompts, refs, tmp_path):
     """One tp=2 gloo world (the spawn-and-join pattern of
     tests/test_torch_tp.py) serves the paged wave on the pipelined loop
     (eager under a mesh) and on the synchronous loop: both stream the
-    single-device greedy streams, f32 and int8 KV."""
+    single-device greedy streams, f32 and int8 KV. Two more f32 runs in the
+    same world show the sampling API's options served under the mesh:
+    logprobs with serial admission and decode_unroll=False on the pipelined
+    loop (logprobs equal to the single-device engine's), and a custom
+    sampler on the host-sampling loop."""
     _, tree, _ = weights
     kinds = [(kv, pipeline) for kv in CFGS for pipeline in (None, False)]
     runs = [(CFGS[kv], _serving("paged", pipeline_decode=pipeline)) for kv, pipeline in kinds]
+    api = _serving("paged", logprobs=True, async_admission=False, decode_unroll=False)
+    runs += [(CFGS["f32"], api), (CFGS["f32"], _serving("paged"), np.argmax)]
     box: dict = {}
 
     def world():
@@ -351,3 +357,16 @@ def test_tp2_world_serves_both_loops(weights, prompts, refs, tmp_path):
         assert st["pipelined"] is (pipeline is None)
         assert (st["pipelined_ticks"] > 0) == (pipeline is None)
     assert lead[0]["streams"] == lead[1]["streams"] and lead[2]["streams"] == lead[3]["streams"]
+    served, hosted = lead[4], lead[5]
+    assert served["streams"] == hosted["streams"] == lead[0]["streams"]
+    assert served["statuses"] == hosted["statuses"] == [Status.OK] * 3
+    assert served["stats"]["batched_admission"] is False
+    assert served["stats"]["admission_syncs"] == 3 and served["stats"]["pipelined"]
+    assert hosted["stats"]["device_sampling"] is False and not hosted["stats"]["pipelined"]
+    assert hosted["stats"]["device_gets_per_tick"] == 1.0
+    single = _port(weights, "f32", api)
+    sreqs, souts, _ = _run(single, prompts[:3])
+    assert souts == served["streams"]
+    for lps, req in zip(served["logprobs"], sreqs):
+        assert len(lps) == NEW - 1
+        np.testing.assert_allclose(lps, req.logprobs, atol=1e-4, rtol=0)

@@ -295,6 +295,27 @@ def test_unported_serving_fields_raise(weights, field, value):
                             device="cpu")
         assert eng.stats()["pipelined"] is True
         return
+    if field in ("prefill_chunk", "logprobs", "async_admission"):
+        # ported since the chunked-prefill and sampling-API slice: the value
+        # is served (tests/test_torch_chunked.py, tests/test_torch_sampling_api.py
+        # hold the features against the reference)
+        eng = ServingEngine(tp, CFG, ServingConfig(
+            slots=2, prefill_buckets=(8,), max_new_tokens=3, **{field: value}), device="cpu")
+        req = eng.submit(np.arange(1, 21 if field == "prefill_chunk" else 6))
+        eng.start()
+        try:
+            out = list(req.stream())
+        finally:
+            eng.stop()
+        st = eng.stats()
+        assert len(out) == 3 and req.status == Status.OK
+        if field == "prefill_chunk":
+            assert st["prefill_chunks"] == 3  # 20 tokens past the 8 bucket, chunks of 8
+        elif field == "logprobs":
+            assert len(req.logprobs) == 2 and all(lp <= 0.0 for lp in req.logprobs)
+        else:
+            assert st["batched_admission"] is False and st["admission_syncs"] == 1
+        return
     with pytest.raises(NotImplementedError, match=field):
         ServingEngine(tp, CFG, ServingConfig(**{field: value}), device="cpu")
 
@@ -305,8 +326,20 @@ def test_unported_model_options_raise(weights):
     cfg8 = ModelConfig(**DIMS, dtype=torch.float32, kv_int8="auto")
     with pytest.raises(NotImplementedError, match="kv_int8"):
         ServingEngine(tp, cfg8, ServingConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sample="):
-        ServingEngine(tp, CFG, ServingConfig(), device="cpu", sample=lambda row: 0)
+    # a custom sample= callable is ported since the sampling-API slice: it is
+    # served on the synchronous host-sampling loop
+    eng = ServingEngine(tp, CFG, ServingConfig(slots=1, prefill_buckets=(8,),
+                                               max_new_tokens=3), device="cpu",
+                        sample=lambda row: 0)
+    req = eng.submit(np.arange(1, 6))
+    eng.start()
+    try:
+        assert list(req.stream()) == [0, 0, 0]
+    finally:
+        eng.stop()
+    st = eng.stats()
+    assert st["device_sampling"] is False and st["pipelined"] is False
+    assert st["device_gets_per_tick"] == 1.0
 
 
 def test_default_device_is_cuda_and_never_falls_back(weights):

@@ -101,9 +101,10 @@ def kv_keys(cache: dict) -> tuple[str, ...]:
     return ("k", "v", "k_scale", "v_scale") if "k_scale" in cache else ("k", "v")
 
 
-def store_kv(cache: dict, l: int, idx: tuple, k: torch.Tensor, v: torch.Tensor,
+def store_kv(cache: dict, l, idx: tuple, k: torch.Tensor, v: torch.Tensor,
              keep: Optional[torch.Tensor] = None) -> None:
-    """Write [N, H, Dh] k/v rows at plane ``l``, index ``idx`` of every KV
+    """Write [N, H, Dh] k/v rows at plane ``l`` (a layer, or a slice of
+    them with k/v carrying that axis), index ``idx`` of every KV
     plane of ``cache`` in place: as they are, or quantized with their scales
     written beside them for an int8 cache. With ``keep`` ([N] bool) a row
     whose flag is False writes back what its target already holds, so it
@@ -192,22 +193,32 @@ def kv_bytes_per_token(cfg) -> int:
 
 
 def sample_tokens(logits: torch.Tensor, gens: list, temperature: float = 0.0,
-                  top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+                  top_k: int = 0, top_p: float = 1.0, return_logprobs: bool = False):
     """Batched on-device sampling: [B, vocab] logits -> [B] int32 tokens.
 
     temperature 0 is greedy: argmax, the first index on ties. Otherwise
     temperature scaling, an optional top-k cut, an optional nucleus cut
     (the top-1 token always survives), then exact categorical sampling by
     the Gumbel-max trick with row b's noise drawn from ``gens[b]`` — one
-    generator per slot, so one slot's stream never depends on another's."""
+    generator per slot, so one slot's stream never depends on another's.
+
+    ``return_logprobs``: return (tokens, logprobs [B] f32), log p(token)
+    under the FINAL distribution: the filtered, temperature-scaled logits,
+    or the raw logits under greedy."""
     if temperature <= 0.0:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    x = filter_logits(logits, temperature, top_k, top_p)
-    v = x.shape[-1]
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.stack([torch.rand(v, generator=g, device=x.device) for g in gens])
-    gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-    return torch.argmax(x + gumbel, dim=-1).to(torch.int32)
+        tok = torch.argmax(logits, dim=-1)
+        x = logits.float()
+    else:
+        x = filter_logits(logits, temperature, top_k, top_p)
+        v = x.shape[-1]
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.stack([torch.rand(v, generator=g, device=x.device) for g in gens])
+        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+        tok = torch.argmax(x + gumbel, dim=-1)
+    if not return_logprobs:
+        return tok.to(torch.int32)
+    lp = torch.log_softmax(x, dim=-1).gather(-1, tok[:, None])[:, 0]
+    return tok.to(torch.int32), lp
 
 
 def filter_logits(logits: torch.Tensor, temperature: float, top_k: int,
@@ -288,16 +299,32 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cos, sin = _rope_tables(cfg.max_seq, cfg.head_dim, str(dev))
     positions = torch.arange(s, device=dev).expand(b, s)
     x = params["embed"][tokens].to(cfg.dtype)
-    cache = init_kv_cache(cfg, b, device=dev, mesh=mesh)
+    ks, vs = [], []
     for l in range(cfg.n_layers):
         x, (k, v) = transformer_layer(cfg, _layer(params, l), x, cos, sin, positions, mesh)
-        store_kv(cache, l, (slice(None), slice(0, s)), k, v)
+        ks.append(k)
+        vs.append(v)
+    cache = fill_kv_cache(init_kv_cache(cfg, b, device=dev, mesh=mesh), torch.stack(ks),
+                          torch.stack(vs))
+    del ks, vs
     x = rms_norm(x, params["final_norm"])
     if logits_at is not None:
         x = x[torch.arange(b, device=dev), logits_at]
     logits = (x @ params["embed"].T).float()
     cache["len"].fill_(s)
     return logits, cache
+
+
+def fill_kv_cache(cache: dict[str, torch.Tensor], ks: torch.Tensor,
+                  vs: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Write freshly computed [L, B, S, H, Dh] KV into the leading S
+    positions of a (possibly int8) cache, in place: in the cache's dtype,
+    or quantized with their scales beside them. The prefill fill site.
+    Returns the cache."""
+    if "k_scale" not in cache:
+        ks, vs = ks.to(cache["k"].dtype), vs.to(cache["v"].dtype)
+    store_kv(cache, slice(None), (slice(None), slice(0, ks.shape[2])), ks, vs)
+    return cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: dict[str, torch.Tensor],

@@ -6,12 +6,15 @@ latency reservoirs are the reference's, field for field. The engine records
 a request's lifecycle as structured events in a preallocated ring and the
 spans are derived offline:
 
-    submit -> queue_depart -> admit -> first_token -> token* -> retire
+    submit -> queue_depart -> [prefill_chunk*] -> admit -> first_token
+        -> token* -> retire
 
 The vocabulary is the reference's whole vocabulary. Kinds of features the
-port has not reached (prefill_chunk, park, evict, swap_out, swap_in,
-fault_recompute, resume, the disaggregation, fault and migration events) are
-kept so a trace reads the same in both packages; the port never records them.
+port has not reached (park, evict, swap_out, swap_in, fault_recompute,
+resume, the disaggregation and migration events) are kept so a trace reads
+the same in both packages; the port never records them. It records
+prefill_chunk for each chunk of a chunked or prefixed admission and fault
+for a request a contained failure ended.
 
 Recording cost is the contract: one ``itertools.count`` bump (atomic under
 the GIL), one ``time.monotonic_ns`` stamp, one tuple, one list-slot store.

@@ -84,6 +84,13 @@ def _norm_kv_len(kv_len: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def _check_pool(q: torch.Tensor, pool: torch.Tensor, table: torch.Tensor) -> None:
+    if q.shape[1] > _MAX_T:
+        # on every device, so a chunk that would reach the kernel on the
+        # card fails the same way on the CPU
+        raise ValueError(
+            f"the paged kernels take at most {_MAX_T} queries a row (a decode tick "
+            f"or a verify chunk), got T={q.shape[1]}: a prefill chunk attends over a "
+            "dense view of its window, never through the paged kernel")
     if pool.dim() != 5:
         raise ValueError(
             f"expected the WHOLE pool [L, n_blocks, page, H, Dh], got rank "

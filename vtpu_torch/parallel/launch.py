@@ -150,17 +150,18 @@ def _load_weights(weights, cfg, mesh):
     return params_from_numpy(weights, cfg, device=mesh.device, mesh=mesh)
 
 
-def _serve_wave(mesh, params, cfg, serving, prompts: Sequence, new_tokens: int) -> dict:
+def _serve_wave(mesh, params, cfg, serving, prompts: Sequence, new_tokens: int,
+                sample=None) -> dict:
     """One engine's life on every rank: rank 0 serves ``prompts``, all
     submitted at once, and stops the workers; the others follow it. Every
     rank's dict holds the shape of its KV plane ``kv_shape``; rank 0's adds
-    ``streams``, ``statuses``, ``stats`` and ``wall_s``."""
+    ``streams``, ``logprobs``, ``statuses``, ``stats`` and ``wall_s``."""
     from vtpu_torch.serving import ServingEngine
 
     if mesh.rank != 0:
         state = serve_worker(params, cfg, serving, mesh)
         return {"kv_shape": list(state["k"].shape)}
-    eng = ServingEngine(params, cfg, serving, mesh=mesh)
+    eng = ServingEngine(params, cfg, serving, mesh=mesh, sample=sample)
     eng.start()
     try:
         t0 = time.perf_counter()
@@ -172,14 +173,16 @@ def _serve_wave(mesh, params, cfg, serving, prompts: Sequence, new_tokens: int) 
     if eng.loop_error is not None:
         raise RuntimeError(f"rank 0's serving loop failed: {eng.loop_error!r}")
     return {"kv_shape": list(eng.state["k"].shape), "streams": streams,
+            "logprobs": [list(r.logprobs) for r in reqs],
             "statuses": [r.status for r in reqs], "stats": eng.stats(), "wall_s": wall}
 
 
 def serve_requests(mesh, weights, runs: Sequence, prompts: Sequence, new_tokens: int,
                    warmup: bool = False) -> list[dict]:
     """Rank entry: serve ``prompts`` once per ``(ModelConfig,
-    ServingConfig)`` of ``runs``, ``new_tokens`` each, all submitted at
-    once. Rank 0 drives a ServingEngine; the other ranks run serve_worker.
+    ServingConfig)`` or ``(ModelConfig, ServingConfig, sample)`` of
+    ``runs`` (``sample`` a picklable custom sampler, for rank 0's engine),
+    ``new_tokens`` each, all submitted at once. Rank 0 drives a ServingEngine; the other ranks run serve_worker.
     With ``warmup`` one prompt is served first by an engine of its own, so
     the counted wave's engine, stats and launch counts see none of it.
     Launch counts are set to 0 on every rank just before the counted
@@ -187,14 +190,15 @@ def serve_requests(mesh, weights, runs: Sequence, prompts: Sequence, new_tokens:
 
     Returns one dict per run. Every rank's holds ``launches`` and the
     shape of its KV plane ``kv_shape``; rank 0's adds ``streams``,
-    ``statuses``, ``stats`` and ``wall_s`` (the counted wave)."""
+    ``logprobs``, ``statuses``, ``stats`` and ``wall_s`` (the counted wave)."""
     done = []
-    for cfg, serving in runs:
+    for cfg, serving, *rest in runs:
+        sample = rest[0] if rest else None
         params = _load_weights(weights, cfg, mesh)
         if warmup:
-            _serve_wave(mesh, params, cfg, serving, prompts[:1], new_tokens)
+            _serve_wave(mesh, params, cfg, serving, prompts[:1], new_tokens, sample)
         _build.reset_launches()
-        res = _serve_wave(mesh, params, cfg, serving, prompts, new_tokens)
+        res = _serve_wave(mesh, params, cfg, serving, prompts, new_tokens, sample)
         res["launches"] = _build.launches()
         done.append(res)
     return done

@@ -10,8 +10,13 @@ Contract (all shapes static; per-slot state is data, never shape):
   prefill_into_slots(params, state, padded[N, bucket], slots[N], true_lens[N])
       -> (last_logits [N, vocab], state)
   decode_step(params, state, tokens[B], active[B], kv_bucket) -> (logits, state)
+  prefill_chunk_into_slot(params, state, chunk[1, C], slot, offset, new_len,
+                          kv_bucket, block_ids=None) -> (logits [1, C, vocab], state)
 
 The state is updated in place; the returned dict is the one to keep.
+``prefill_chunk_into_slot`` with an explicit ``block_ids`` row and the slot
+count as ``slot`` (whose length write is dropped) is the slot-less prefill
+that builds a shared prefix into fresh pool blocks.
 
 Under a tensor-parallel mesh rank 0's adapter leads and every other
 rank's follows it (``follow``, run in a loop by
@@ -41,17 +46,20 @@ _HEADER = 3
 _MIRRORED = ("table", "len")
 
 
-def sampled_decode_step(model: Any, temperature: float, top_k: int, top_p: float):
+def sampled_decode_step(model: Any, temperature: float, top_k: int, top_p: float,
+                        logprobs: bool = False):
     """Compose a slot model's decode_step with the on-device sampler:
 
         (params, state, tokens[B], active[B], gens[B], kv_bucket)
             -> (next_tokens [B] int32, state)
 
-    A tick hands the host [B] int32 tokens, never [B, vocab] logits."""
+    With ``logprobs`` the first element is the pair (next_tokens [B] int32,
+    logprobs [B] f32): log p(token) under the sampled distribution. A tick
+    hands the host [B] tokens (and logprobs), never [B, vocab] logits."""
 
     def step(params, state, tokens, active, gens, kv_bucket):
         logits, state = model.decode_step(params, state, tokens, active, kv_bucket)
-        return sample_tokens(logits, gens, temperature, top_k, top_p), state
+        return sample_tokens(logits, gens, temperature, top_k, top_p, logprobs), state
 
     return step
 
@@ -153,6 +161,20 @@ class TransformerSlotModel:
         with self._lock:
             self._announce(_OP_DECODE, (kv_bucket,), (tokens, active), state)
             return self._decode(params, state, tokens, active, kv_bucket)
+
+    def prefill_chunk_into_slot(self, params, state, chunk, slot, offset, new_len,
+                                kv_bucket=0, block_ids=None):
+        """One [1, C] prompt chunk into *slot* at ``offset`` (engine.py's
+        ``chunked_prefill_into_slot``). One device only: the rank-0
+        broadcast protocol has no chunk op yet."""
+        if self._drives():
+            raise NotImplementedError(
+                "chunked prefill under a tensor-parallel mesh= is not ported to "
+                "vtpu_torch: the rank-0 broadcast protocol has no chunk op")
+        from vtpu_torch.serving.engine import chunked_prefill_into_slot
+
+        return chunked_prefill_into_slot(params, self.cfg, state, chunk, slot, offset,
+                                         new_len, kv_bucket=kv_bucket, block_ids=block_ids)
 
     def stop_workers(self) -> None:
         """Rank 0: tell the other ranks to leave ``follow`` (once). A no-op

@@ -2,23 +2,35 @@
 
 Counterpart of vtpu/serving/engine.py: a fixed pool of B cache slots
 (dense ring or paged block pool), bucketed batched admission with the first
-tokens sampled on the device, and the sampled decode tick with ONE
-device->host fetch per tick, on one of the reference's two device-sampled
-loops: the one-tick-deep pipelined loop (the default, as in the reference)
-or the synchronous loop (``pipeline_decode=False``). On one CUDA card the
+tokens sampled on the device (or the serial path, ``async_admission=False``:
+one prompt a dispatch and a blocking first-token fetch), chunked prefill for
+prompts past the largest bucket (``prefill_chunk``) and registered shared
+prefixes (``register_prefix`` / ``submit(prefix=)``), and the sampled decode
+tick with ONE device->host fetch per tick (tokens, and their logprobs with
+``logprobs=True``), on one of the reference's two device-sampled loops: the
+one-tick-deep pipelined loop (the default, as in the reference) or the
+synchronous loop (``pipeline_decode=False``). On one CUDA card the
 pipelined loop replays its decode step from CUDA graphs (serving/graphs.py).
-Requests join and leave slots without any shape changing; inactive slots
-compute but their writes are dropped. The request trace and the tick-phase
-profiler (vtpu_torch/obs) record what the loop does, host-side only.
+A custom ``sample=`` callable runs the reference's host path: the
+synchronous loop fetches the [B, vocab] logits once a tick and calls the
+callable per live row. Requests join and leave slots without any shape
+changing; inactive slots compute but their writes are dropped. The request
+trace and the tick-phase profiler (vtpu_torch/obs) record what the loop
+does, host-side only.
 
 What the port has not reached raises instead of being ignored: every
-``ServingConfig`` field named in ``_UNPORTED`` must stay at its default, and
-``async_admission=False``, ``ModelConfig.kv_int8="auto"`` and a custom
-``sample=`` callable are refused. Prefix registration is a later slice.
-``kv_int8=True`` serves int8 KV: dense or paged int8 planes with f32 scale
-planes beside them, written quantized at every KV write site here.
-``mesh=`` (a vtpu_torch.parallel.TpMesh) serves tensor-parallel over
-torch.distributed: see ``ServingEngine`` for how the ranks split the work.
+``ServingConfig`` field named in ``_UNPORTED`` must stay at its default,
+``ModelConfig.kv_int8="auto"`` is refused, and so are chunked prefill and
+prefix registration under a mesh. ``kv_int8=True`` serves int8 KV: dense or
+paged int8 planes with f32 scale planes beside them, written quantized at
+every KV write site here. ``mesh=`` (a vtpu_torch.parallel.TpMesh) serves
+tensor-parallel over torch.distributed: see ``ServingEngine`` for how the
+ranks split the work.
+
+Every write into the engine's state (a chunk's KV, a prefix install, a
+copy-on-write block, a table row, a length) goes into the state's own
+tensors in place: the CUDA graphs of the pipelined loop hold their
+addresses, so a replaced tensor would leave a replay reading stale KV.
 
 Writes the reference drops. JAX's ``.at[...].set(..., mode="drop")`` lets an
 out-of-range block id or position vanish (inactive lanes, positions past the
@@ -54,7 +66,8 @@ import torch
 
 from vtpu_torch.device import resolve_device
 from vtpu_torch.models.transformer import (
-    ModelConfig, Params, decode_layer_loop, kv_bytes_per_token, kv_keys, prefill, store_kv,
+    ModelConfig, Params, decode_layer_loop, init_kv_cache, kv_bytes_per_token, kv_keys, prefill,
+    sample_tokens, spec_verify_loop, store_kv,
 )
 from vtpu_torch.obs import RequestTrace, TickProfiler, pct
 from vtpu_torch.obs.trace import TERMINAL_CODES
@@ -75,7 +88,11 @@ class ServingConfig:
     at their defaults in this port until their slice lands. Ported beside
     these fields: int8 KV (``ModelConfig.kv_int8=True``) and
     tensor-parallel serving (``ServingEngine(..., mesh=)``), dense or
-    paged, on either paged route."""
+    paged, on either paged route.
+
+    ``decode_unroll`` only chooses how XLA lowers the reference's layer
+    loop (unrolled or a fori_loop); the port's layer loop is a Python loop,
+    always unrolled, so None, True and False serve the same computation."""
 
     slots: int = 4  # concurrent sequences (the decode batch)
     prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024)
@@ -84,11 +101,14 @@ class ServingConfig:
     # bounded KV read window per tick: None (auto) and True bucket the
     # window to the longest live sequence; False reads max_seq every tick
     kv_read_buckets: Optional[bool] = None
-    decode_unroll: Optional[bool] = None
+    decode_unroll: Optional[bool] = None  # accepted; see the docstring
     spec_tokens: int = 0
     spec_ngram: int = 3
     spec_min_mean: float = 1.25
     spec_cooloff_ticks: int = 64
+    # prompts past the largest bucket (and prefixed suffixes) admit in
+    # [1, C] chunks, one a loop pass between decode ticks; must divide
+    # max_seq. None: no chunking
     prefill_chunk: Optional[int] = None
     # on-device sampling: temperature 0 is greedy; otherwise Gumbel-max over
     # the temperature/top-k/top-p filtered logits, one generator per slot
@@ -97,14 +117,19 @@ class ServingConfig:
     top_k: int = 0
     top_p: float = 1.0
     sampling_seed: int = 0
+    # stream log p(token) of every decoded token into Request.logprobs
+    # (device sampling only)
     logprobs: bool = False
-    # None (auto) and True: the one-tick-deep pipelined loop (device sampling
-    # is always on here and speculation is not ported); False: synchronous
+    # None (auto): the one-tick-deep pipelined loop with device sampling,
+    # the synchronous loop with a custom sample= callable; True pipelines
+    # (and raises with a custom sampler); False: synchronous
     pipeline_decode: Optional[bool] = None
     # same-bucket prompts coalesce into one [N, bucket] admission dispatch,
     # N the largest size here that fits the free slots (1 always included)
     prefill_batch_sizes: tuple[int, ...] = (1, 2, 4, 8)
-    # None/True: batched admission (the only admission path of this slice)
+    # None (auto): batched admission with device sampling, the serial path
+    # with a custom sampler; True: batched (raises with a custom sampler);
+    # False: serial, one [1, bucket] dispatch and a blocking first-token fetch
     async_admission: Optional[bool] = None
     # per-tick admission budget in prompt tokens, bypassed while nothing
     # decodes; 0 = uncapped
@@ -138,8 +163,7 @@ class ServingConfig:
 # fields whose features are later slices of the port: a non-default value
 # raises NotImplementedError naming the field
 _UNPORTED = (
-    "decode_unroll", "spec_tokens", "spec_ngram", "spec_min_mean",
-    "spec_cooloff_ticks", "prefill_chunk", "logprobs", "kv_swap",
+    "spec_tokens", "spec_ngram", "spec_min_mean", "spec_cooloff_ticks", "kv_swap",
     "kv_swap_stage_blocks", "kv_swap_recompute_tokens", "disagg", "decode_loop_k",
     "loop_policy", "shed_queue_depth", "shed_policy", "fetch_watchdog_ms",
     "fetch_watchdog_recover_ms", "worker_retry_limit", "worker_retry_backoff_ms",
@@ -147,27 +171,27 @@ _UNPORTED = (
 )
 
 
-def _check_ported(serving: ServingConfig, cfg: ModelConfig, sample) -> None:
+def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
     """Refuse what this port has not reached. Every other combination is
-    ported, under a tensor-parallel ``mesh`` as on one device: the mesh
-    itself is checked by the adapter (``_validate_serving_mesh``)."""
+    ported, under a tensor-parallel ``mesh`` as on one device, except
+    chunked prefill (and so prefix registration), whose rank-0 broadcast
+    op is a later slice: the mesh itself is checked by the adapter
+    (``_validate_serving_mesh``)."""
     for f in dataclasses.fields(ServingConfig):
         if f.name in _UNPORTED and getattr(serving, f.name) != f.default:
             raise NotImplementedError(
                 f"ServingConfig.{f.name}={getattr(serving, f.name)!r} is not "
                 "ported to vtpu_torch yet; leave it at its default")
-    if serving.async_admission is False:
-        raise NotImplementedError(
-            "ServingConfig.async_admission=False (the serial admission path) "
-            "is not ported to vtpu_torch")
     if isinstance(getattr(cfg, "kv_int8", False), str):
         raise NotImplementedError(
             f"ModelConfig.kv_int8={cfg.kv_int8!r} is not ported to vtpu_torch: the "
             "reference resolves 'auto' with a router measured on a TPU (v5e), and "
             "an H100 router needs an H100 measurement; pass True or False")
-    if sample is not None:
+    if mesh is not None and serving.prefill_chunk:
         raise NotImplementedError(
-            "a custom sample= callable is not ported to vtpu_torch yet")
+            f"ServingConfig.prefill_chunk={serving.prefill_chunk} under a tensor-parallel "
+            "mesh= is not ported to vtpu_torch: the rank-0 broadcast protocol has no "
+            "chunk op yet; serve chunked prefill and prefixes on one device")
 
 
 class BlockAllocator:
@@ -334,14 +358,19 @@ class Terminal:
 @dataclasses.dataclass(eq=False)
 class Request:
     # eq=False: requests compare by identity (the lifecycle checks use `is`)
-    tokens: Any  # [S] int32 numpy prompt
+    tokens: Any  # [S] int32 numpy prompt (the suffix when ``prefix`` is set)
     max_new_tokens: int = 0
+    prefix: Optional[int] = None  # registered prefix id (register_prefix)
     rid: int = -1  # engine-unique id assigned by submit()
     t_submit_ns: int = 0
     t_depart_ns: int = 0  # left the waiting line (admitted)
     out: "queue.Queue" = dataclasses.field(default_factory=queue.Queue)
     status: Optional[str] = None
     delivered: int = 0  # tokens put on the stream
+    # log p(token) per decoded token when ServingConfig.logprobs is on (the
+    # first token, sampled at admission, has none), appended before the
+    # token is put on the stream
+    logprobs: list = dataclasses.field(default_factory=list)
     _abort: Optional[str] = dataclasses.field(default=None, repr=False)
     _final_lock: Any = dataclasses.field(default_factory=threading.Lock, repr=False)
 
@@ -468,6 +497,79 @@ def prefill_into_slots(params: Params, cfg: ModelConfig, cache: dict, tokens: to
     return logits[torch.arange(tokens.shape[0], device=logits.device), true_lens - 1], cache
 
 
+def pad_to_chunks(tokens, n: int, c: int) -> torch.Tensor:
+    """Right-pad an [n] prompt with zeros to a host [1, ceil(n/c)*c] int32
+    chunk grid (the one padding contract every chunked path shares; pads
+    above the true length are masked by the ragged reads and overwritten
+    before use)."""
+    out = torch.zeros((1, -(-n // c) * c), dtype=torch.int32)
+    out[0, :n] = torch.as_tensor(np.asarray(tokens, dtype=np.int32)[:n])
+    return out
+
+
+def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
+                              chunk: torch.Tensor, slot: int, offset: int, new_len: int,
+                              kv_bucket: int = 0, block_ids: Optional[torch.Tensor] = None):
+    """One [1, C] prompt chunk written into *slot* at positions
+    offset..offset+C-1, through THE decode trunk (``spec_verify_loop``) at
+    T = C: a chunk is a verify pass whose draft is known-correct prompt. One
+    chunk size serves any prompt length, and a C-token chunk bounds how
+    long one admission dispatch holds the decode loop's live streams.
+
+    The trunk runs on a single-row DENSE view ``[L, 1, bucket]`` with no
+    page table, so its attention is the plain ragged-mask route and a chunk
+    never reaches a paged kernel (those take T <= 16). ``kv_bucket`` (0 =
+    max_seq) bounds the view and the reads; it must cover offset + C.
+    - Dense cache: the view is the slot's own row ``cache[:, slot:slot+1,
+      :bucket]``, so the chunk's KV lands in the cache in place.
+    - Paged pool (``block_ids``, [Wp = bucket // page] block ids, padded
+      with the null block 0): the window's pages are gathered into the
+      view, the trunk writes there, and only the page span the chunk can
+      touch, ceil(C/page) + 1 pages from a start page clamped so the span
+      stays in the window, scatters back (a chunk's pool traffic is O(C);
+      a clamp only rewrites pages with their own content). Padding and
+      junk pages land on the null block. Passing the blocks explicitly is
+      what lets a prefix build prefill fresh blocks with no slot: ``slot``
+      may then be the slot count, and the length write is dropped.
+    An int8 cache quantizes the chunk's KV into its scale planes. Pads in
+    the final chunk write junk KV above ``new_len``, masked by the length
+    and overwritten before any query reads them. ``new_len`` is the slot's
+    length after this chunk. Every write is in place. Returns (logits [1,
+    C, vocab] f32, cache)."""
+    c = chunk.shape[1]
+    bucket = kv_bucket or cfg.max_seq
+    if offset + c > bucket:
+        raise ValueError(f"chunk [{offset}, {offset + c}) runs past its read window {bucket}")
+    keys = kv_keys(cache)
+    dev = chunk.device
+    if block_ids is not None:
+        page = cache["k"].shape[2]
+        wp = bucket // page
+        ids = torch.as_tensor(block_ids, device=dev).long()
+        view = {key: cache[key][:, ids].reshape(
+            (cache[key].shape[0], 1, wp * page) + tuple(cache[key].shape[3:])) for key in keys}
+    else:
+        view = {key: cache[key][:, slot:slot + 1, :bucket] for key in keys}
+    view["len"] = torch.full((1,), offset, dtype=torch.int32, device=dev)
+
+    def write_kv(l, kv, k, v):
+        store_kv(kv, l, (slice(None), slice(offset, offset + c)), k, v)
+        return kv
+
+    logits, new_view = spec_verify_loop(params, cfg, view, chunk, bucket, write_kv)
+    if block_ids is not None:
+        span = min(-(-c // page) + 1, wp)
+        p0 = min(offset // page, wp - span)
+        ids_w = ids[p0:p0 + span]
+        for key in keys:
+            pool = cache[key]
+            pages = new_view[key].reshape((pool.shape[0], wp, page) + tuple(pool.shape[3:]))
+            pool[:, ids_w] = pages[:, p0:p0 + span]
+    if slot < cache["len"].shape[0]:
+        cache["len"][slot] = new_len
+    return logits, cache
+
+
 class ServingEngine:
     """Continuous-batching loop: admit -> prefill -> joint decode -> stream.
 
@@ -481,12 +583,27 @@ class ServingEngine:
     admission first tokens) in ONE device-to-host copy, deliver, retire.
 
     Which loop runs is ``pipeline_decode`` resolved as the reference
-    resolves it: None (auto) and True run the pipelined loop, since
-    sampling is always on the device here and speculation is not ported;
-    False runs the synchronous loop. On one CUDA card (no mesh) the
-    pipelined loop replays the decode step from CUDA graphs captured when
-    the engine is built, one per kv bucket (``decode_graphs``); under a
-    mesh and on the CPU it runs the step eagerly.
+    resolves it (speculation is not ported): None (auto) runs the
+    pipelined loop when sampling is on the device and the synchronous loop
+    with a custom ``sample=`` callable, True the pipelined loop (a custom
+    sampler raises), False the synchronous loop. On one CUDA card (no mesh)
+    the pipelined loop replays the decode step from CUDA graphs captured
+    when the engine is built, one per kv bucket (``decode_graphs``); under
+    a mesh and on the CPU it runs the step eagerly. ``sample(row)`` is
+    called with one fetched numpy [vocab] f32 logits row (the first token's
+    at admission, then each decode tick's) and returns the token id; it
+    runs on the loop thread, and an exception in it faults that request
+    alone.
+
+    Chunked admission (``prefill_chunk``): a prompt past the largest bucket
+    or the suffix of a prefixed request parks in its slot and advances one
+    [1, C] chunk a loop pass, sharing ``prefill_budget`` with bucketed
+    admission, so live streams decode between chunks. Its first token is
+    sampled on the device from the last chunk's logits (or fetched at once
+    on the serial path). ``register_prefix`` prefills a shared prompt once:
+    a paged pool maps its full pages read-only into every prefixed slot and
+    copies only the partial boundary page; a dense cache copies the
+    prefix's KV into the slot.
 
     Tensor-parallel serving (``mesh``, a vtpu_torch.parallel.TpMesh) is a
     leader/worker split over torch.distributed, one process per rank.
@@ -511,7 +628,7 @@ class ServingEngine:
     def __init__(self, params: Params, cfg: ModelConfig,
                  serving: ServingConfig = ServingConfig(), device=None, sample=None,
                  mesh=None):
-        _check_ported(serving, cfg, sample)
+        _check_ported(serving, cfg, mesh)
         if mesh is not None:
             if mesh.rank != 0:
                 raise ValueError(
@@ -537,15 +654,40 @@ class ServingEngine:
         # admitted slot's stream too); greedy never touches them
         self._gens = [torch.Generator(device=self.device).manual_seed(
             serving.sampling_seed * 65537 + i) for i in range(b)]
-        self._decode_sampled = sampled_decode_step(
-            self.model, serving.temperature, serving.top_k, serving.top_p)
+        # a custom sampler keeps the reference's host path: the tick returns
+        # [B, vocab] logits, fetched once, and the callable runs per row
+        self.sample = sample
+        self._device_sampling = sample is None
+        if not self._device_sampling and serving.logprobs:
+            raise ValueError("logprobs=True requires the device sampler; it is not "
+                             "available with a custom sample= callable")
+        self._logprobs = bool(serving.logprobs)
+        if self._device_sampling:
+            self._decode_sampled = sampled_decode_step(
+                self.model, serving.temperature, serving.top_k, serving.top_p,
+                self._logprobs)
+            self._decode = None
+        else:
+            self._decode_sampled = None
+            self._decode = self.model.decode_step
         self._admit_step = batched_admission_step(
             self.model, serving.temperature, serving.top_k, serving.top_p)
-        # the reference's resolution (engine.py: pipelining needs device
-        # sampling, always on here, and no speculation, not ported): auto
-        # (None) pipelines, an explicit True is served, False is synchronous
+        # the reference's resolution (pipelining needs device sampling, and
+        # speculation is not ported): auto (None) pipelines with device
+        # sampling, an explicit True that cannot be honoured raises, False
+        # is synchronous
         pipeline = serving.pipeline_decode
-        self._pipeline = True if pipeline is None else bool(pipeline)
+        if pipeline and not self._device_sampling:
+            raise ValueError("pipeline_decode=True requires device sampling (no custom "
+                             "sample= callable)")
+        self._pipeline = (True if pipeline is None else bool(pipeline)) and self._device_sampling
+        # batched admission samples first tokens on the device: a custom
+        # sampler admits serially, one blocking first-token fetch each
+        if serving.async_admission and not self._device_sampling:
+            raise ValueError("async_admission=True requires device sampling (no custom "
+                             "sample= callable)")
+        self._async_admission = (self._device_sampling if serving.async_admission is None
+                                 else bool(serving.async_admission))
         self._admit_sizes = tuple(sorted(
             {n for n in serving.prefill_batch_sizes if 1 <= n <= b} | {1}))
         # [B] device buffer of admission first tokens not yet fed to a tick,
@@ -560,10 +702,21 @@ class ServingEngine:
         if not self._prefill_buckets:
             raise ValueError(f"no prefill bucket fits max_seq={ctx}: "
                              f"{serving.prefill_buckets}")
-        if serving.prefill_budget and serving.prefill_budget < max(self._prefill_buckets):
-            raise ValueError(
-                f"prefill_budget {serving.prefill_budget} is below the largest "
-                f"admission unit {max(self._prefill_buckets)} (largest bucket)")
+        chunk = serving.prefill_chunk
+        if chunk and ctx % chunk:
+            # a final chunk straddling the context wall would run past the cache
+            raise ValueError(f"prefill_chunk {chunk} must divide max_context {ctx}")
+        self._chunk = chunk or None
+        self._prefill_chunk = self.model.prefill_chunk_into_slot if self._chunk else None
+        if serving.prefill_budget:
+            # every admission unit must fit one tick's budget: a prompt of
+            # the largest bucket, and a prefill chunk
+            floor = max(max(self._prefill_buckets), self._chunk or 0)
+            if serving.prefill_budget < floor:
+                raise ValueError(
+                    f"prefill_budget {serving.prefill_budget} is below the largest "
+                    f"admission unit {floor} (largest bucket"
+                    + (f" / prefill chunk {self._chunk}" if self._chunk else "") + ")")
         if self._paged:
             for bkt in self._prefill_buckets:
                 if bkt % self._page:
@@ -576,6 +729,23 @@ class ServingEngine:
             self._n_blocks = 0
             self._alloc = None
         self._slot_blocks: list[list[int]] = [[] for _ in range(b)]
+        # leading blocks of each slot's table row that are shared prefix
+        # mappings (their refcounts are held elsewhere too)
+        self._slot_shared = [0] * b
+        # slots mid-chunked-admission: slot -> {req, padded, n, off, base};
+        # the loop advances one chunk per slot a pass, between decode ticks
+        self._admitting: dict[int, dict] = {}
+        # rotating lead among admitting slots under a prefill budget
+        self._adm_rr = 0
+        # registered prefixes: id -> {len, pad, last_logits, and blocks
+        # (paged) or buffers (dense)}; the lock makes a lookup and
+        # its block share atomic against unregister_prefix
+        self._prefixes: dict[int, dict] = {}
+        self._prefix_lock = threading.Lock()
+        self._next_prefix_id = 0
+        # paged prefix builds write the pool, so they run on the loop
+        # thread: register_prefix parks a work item here and waits
+        self._prefix_work: "queue.Queue[dict]" = queue.Queue()
         self._pending: "queue.Queue[Request]" = queue.Queue()
         self._waiting = WaitQueue()
         self._slot_req: list[Optional[Request]] = [None] * b
@@ -592,9 +762,18 @@ class ServingEngine:
             # admission_fetches are an idle engine's first-token fetches
             "device_gets": 0, "bytes_fetched": 0,
             "tick_fetches": 0, "admission_fetches": 0,
-            # blocking per-admission syncs: none on the batched admission
-            # path, the only one ported
+            # blocking per-admission first-token fetches: the serial path's
+            # (async_admission=False or a custom sampler), none when batched
             "admission_syncs": 0,
+            "prefill_chunks": 0,
+            # prefix reuse: hits are admissions that reused a registered
+            # prefix (a paged share or a dense install), misses prefixed
+            # requests whose prefix was unregistered before admission;
+            # install copies are dense per-slot copies, shared blocks the
+            # pool blocks mapped read-only, cow copies the boundary blocks
+            "prefix_hits": 0, "prefix_misses": 0, "prefix_install_copies": 0,
+            "prefix_blocks_shared": 0, "prefix_cow_copies": 0,
+            "faulted_requests": 0,
             "prefill_batch_hist": [0] * (max(self._admit_sizes) + 1),
             # decode ticks dispatched while the previous tick was in flight
             "pipelined_ticks": 0,
@@ -627,28 +806,185 @@ class ServingEngine:
                     self._decode_sampled, self.params, self.state, self._gens,
                     self._kv_buckets if self._use_kv_buckets else (0,),
                     paged_attn=self._paged_attn, sampled=serving.temperature > 0.0)
-        # the decode step both loops dispatch: graph replays or the eager step
+        # the sampled decode step both loops dispatch (graph replays or the
+        # eager step); None on the host-sampler path, which calls _decode
         self._step = self.decode_graphs or self._decode_sampled
 
     # ------------------------------------------------------------------ API
 
-    def submit(self, tokens, max_new_tokens: int = 0) -> Request:
+    def register_prefix(self, tokens) -> int:
+        """Prefill a shared prompt prefix ONCE and return its id; a submit
+        with ``prefix=id`` passes only the suffix, which admits in chunks
+        from the prefix's offset, so the prefix's prefill is paid at
+        registration, not per request. Requires ``prefill_chunk``.
+
+        Paged: the prefix chunk-prefills into fresh pool blocks, which
+        admissions map read-only; the build writes the pool, so once the
+        loop runs it runs there (this call waits for it), and before
+        ``start()`` it runs here. Dense: it builds into a cache of its own
+        and keeps the KV of its padded length, [L, 1, ceil(n/C)*C, H, Dh] a
+        plane, which admissions copy into their slot."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "register_prefix under a tensor-parallel mesh= is not ported to vtpu_torch: "
+                "it needs chunked prefill, whose rank-0 broadcast op is a later slice")
+        if not self._chunk:
+            raise ValueError("register_prefix requires prefill_chunk")
+        tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
+        n, c = int(tokens.shape[0]), self._chunk
+        if n < 1 or n > self.cfg.max_seq - c:
+            # at least one suffix chunk must fit after the prefix
+            raise ValueError(f"prefix length {n} leaves no room for a suffix")
+        padded = pad_to_chunks(tokens, n, c)
+        if self._paged:
+            if self._thread is not None and self._thread.is_alive():
+                item = {"padded": padded, "n": n, "done": threading.Event(),
+                        "entry": None, "error": None}
+                self._prefix_work.put(item)
+                self._wake.set()
+                while not item["done"].wait(0.1):
+                    if self._stop.is_set() or not self._thread.is_alive():
+                        # flagged first: a build still running releases its
+                        # blocks itself; one that finished just now is
+                        # released here
+                        item["abandoned"] = True
+                        if item["done"].is_set() and item["entry"] is not None:
+                            self._alloc.release(item["entry"]["blocks"])
+                            item["entry"] = None
+                        raise RuntimeError("engine stopped during register_prefix")
+                if item["error"] is not None:
+                    raise item["error"]
+                entry = item["entry"]
+            else:
+                entry = self._build_prefix_paged(padded, n)
+        else:
+            entry = self._build_prefix_dense(padded, n)
+        with self._prefix_lock:
+            pid = self._next_prefix_id
+            self._next_prefix_id += 1
+            self._prefixes[pid] = entry
+        return pid
+
+    def _run_chunks(self, padded: torch.Tensor, n: int, state: dict, slot: int,
+                    blocks: Optional[list] = None) -> torch.Tensor:
+        """Chunk-prefill a whole padded prefix into ``state`` (the slot
+        sentinel with explicit ``blocks`` for a pool); returns its last
+        true position's logits [vocab]."""
+        c, pad = self._chunk, padded.shape[1]
+        logits = None
+        for off in range(0, pad, c):
+            kv_bucket = self._chunk_bucket(off + c)
+            ids = None
+            if blocks is not None:
+                row = np.zeros((kv_bucket // self._page,), np.int32)
+                m = min(len(blocks), row.shape[0])
+                row[:m] = blocks[:m]
+                ids = self._upload(row, torch.int32)
+            logits, state = self._prefill_chunk(
+                self.params, state, self._upload(padded[:, off:off + c], torch.int32), slot,
+                off, min(off + c, n), kv_bucket=kv_bucket, block_ids=ids)
+        return logits[0, (n - 1) - (pad - c)]
+
+    def _build_prefix_paged(self, padded: torch.Tensor, n: int) -> dict:
+        """Chunk-prefill a prefix into freshly allocated pool blocks (its
+        one compute and write; admissions map them, never copy). Runs on
+        the thread that owns the pool: the loop, or the caller before
+        ``start()``. The slot count as the slot drops the length write."""
+        pad = padded.shape[1]
+        pages = -(-pad // self._page)
+        blocks = self._alloc.alloc(pages)
+        if blocks is None:
+            # an admin op fails loudly rather than wait behind tenant traffic
+            raise RuntimeError(f"kv pool exhausted: prefix needs {pages} blocks, "
+                               f"{self._alloc.free_blocks} free")
+        try:
+            last = self._run_chunks(padded, n, self.state, self.serving.slots, blocks)
+        except Exception:
+            self._alloc.release(blocks)  # no entry will ever reference them
+            raise
+        return {"blocks": blocks, "len": n, "pad": pad, "last_logits": last}
+
+    def _build_prefix_dense(self, padded: torch.Tensor, n: int) -> dict:
+        """Chunk-prefill a prefix into a one-row cache of its own (never the
+        serving state, so any thread may build) and keep its padded
+        length's KV."""
+        scratch = init_kv_cache(self.cfg, 1, device=self.device)
+        last = self._run_chunks(padded, n, scratch, 0)
+        pad = padded.shape[1]
+        buffers = {key: scratch[key][:, 0, :pad].clone() for key in kv_keys(scratch)}
+        return {"buffers": buffers, "len": n, "pad": pad, "last_logits": last}
+
+    def _drain_prefix_work(self) -> None:
+        """Run queued paged prefix builds on the loop thread, the pool's
+        one writer. Each stalls live streams for its ceil(pad / C) chunks."""
+        while True:
+            try:
+                item = self._prefix_work.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                item["entry"] = self._build_prefix_paged(item["padded"], item["n"])
+            except Exception as exc:  # raised on the registering caller's thread
+                item["error"] = exc
+            if item.get("abandoned") and item["entry"] is not None:
+                self._alloc.release(item["entry"]["blocks"])
+                item["entry"] = None
+            item["done"].set()
+
+    def unregister_prefix(self, pid: int) -> None:
+        """Drop a registered prefix. Paged: the registry's hold on its
+        blocks is released under the prefix lock (an admission's lookup and
+        share run under it too); blocks mapped into live slots stay until
+        those slots retire. A request submitted against ``pid`` but not yet
+        admitted ends FAULTED; the loop keeps serving."""
+        with self._prefix_lock:
+            entry = self._prefixes.pop(pid, None)
+            if entry is None:
+                raise ValueError(f"unknown prefix id {pid}")
+            if self._paged:
+                self._alloc.release(entry["blocks"])
+
+    def submit(self, tokens, max_new_tokens: int = 0, prefix: Optional[int] = None) -> Request:
+        """Queue a prompt (with ``prefix``: the suffix after a registered
+        prefix, possibly empty). A prompt nothing can admit raises here, to
+        its submitter."""
         if self._stop.is_set():
             raise RuntimeError("ServingEngine is stopped")
         tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
         n = int(tokens.shape[0])
-        if n == 0:
-            raise ValueError("empty prompt (prefix registration is not ported)")
-        self._bucket(n)  # oversized prompts raise to the submitter
+        if n == 0 and prefix is None:
+            raise ValueError("empty prompt requires a prefix")
         budget = max_new_tokens or self.serving.max_new_tokens
+        ctx = self.cfg.max_seq
+        if prefix is not None:
+            entry = self._prefixes.get(prefix)
+            if entry is None:
+                raise ValueError(f"unknown prefix id {prefix}")
+            end = entry["len"] + (-(-n // self._chunk) * self._chunk if n else 0)
+            if end > ctx:
+                raise ValueError(f"prefix {entry['len']} + padded suffix exceeds "
+                                 f"max_context {ctx}")
+        else:
+            self._bucket(n)  # oversized prompts raise to the submitter
         if self._paged:
-            need = -(-max(n + min(budget, max(self.cfg.max_seq - n, 0)), 1) // self._page)
-            if need > self._n_blocks - 1:
+            # worst-case private pages: a request that could never admit
+            # would block the head of the line forever
+            base = pinned = 0
+            if prefix is not None:
+                base = entry["len"]
+                # while it waits its prefix stays registered, so the
+                # prefix's pages are never free for it
+                pinned = -(-entry["pad"] // self._page)
+            total = base + n
+            need = -(-max(total + min(budget, max(ctx - total, 0)), 1) // self._page)
+            need -= base // self._page
+            if need > self._n_blocks - 1 - pinned:
                 raise ValueError(
-                    f"request needs {need} KV blocks at worst case but the pool "
-                    f"only has {self._n_blocks - 1}; raise kv_pool_blocks or "
-                    "lower max_new_tokens")
-        req = Request(tokens=tokens, max_new_tokens=budget)
+                    f"request needs {need} private KV blocks at worst case but the pool "
+                    f"only has {self._n_blocks - 1}"
+                    + (f" ({pinned} pinned by its prefix)" if pinned else "")
+                    + "; raise kv_pool_blocks or lower max_new_tokens")
+        req = Request(tokens=tokens, max_new_tokens=budget, prefix=prefix)
         req.rid = next(self._req_ctr)
         req.t_submit_ns = time.monotonic_ns()
         self.trace.record("submit", req.rid, -1, n)
@@ -721,11 +1057,16 @@ class ServingEngine:
         # where host_ms_per_tick goes: admission head, dispatch, fetch,
         # deliver (swap_drain stays empty: the port has no swap tier)
         s["tick_phase_ms"] = self._prof.snapshot()
-        s["device_sampling"] = True
+        s["device_sampling"] = self._device_sampling
         s["pipelined"] = self._pipeline
-        s["batched_admission"] = True
+        s["batched_admission"] = self._async_admission
         s["active_slots"] = sum(r is not None for r in self._slot_req)
+        s["admitting_slots"] = len(self._admitting)
         s["queued"] = self._pending.qsize() + len(self._waiting)
+        s["registered_prefixes"] = len(self._prefixes)
+        # pool blocks live slots map as shared prefix pages (a gauge from
+        # the slots' own bookkeeping)
+        s["prefix_shared_blocks"] = sum(self._slot_shared)
         s["paged"] = self._paged
         s["kv_page"] = self._page
         # under a mesh every rank holds n_heads / tp heads of the cache or
@@ -770,9 +1111,22 @@ class ServingEngine:
 
     def _drain_all(self) -> None:
         """Terminal for everyone still holding a Request: occupied slots
-        (CANCELLED — the engine abandoned them), waiters and submissions."""
+        (CANCELLED — the engine abandoned them), admissions mid-chunk,
+        waiters and submissions; a caller waiting in register_prefix gets
+        an error."""
         for slot in range(len(self._slot_req)):
             self._retire(slot, status=Status.CANCELLED)
+        for slot, adm in list(self._admitting.items()):
+            self._end_stream(adm["req"], adm["req"]._abort or Status.CANCELLED, slot)
+            self._free_slot_blocks(slot)
+        self._admitting.clear()
+        while True:
+            try:
+                item = self._prefix_work.get_nowait()
+            except queue.Empty:
+                break
+            item["error"] = RuntimeError("engine stopped")
+            item["done"].set()
         for req in self._waiting:
             self._end_stream(req, req._abort or Status.CANCELLED)
         self._waiting.clear()
@@ -797,19 +1151,46 @@ class ServingEngine:
         self._free_slot_blocks(slot)
 
     def _free_slot_blocks(self, slot: int) -> None:
+        """Drop the slot's mappings (shared prefix blocks free only when the
+        registry and every other slot have let go too)."""
         if self._paged and self._slot_blocks[slot]:
             self._alloc.release(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
+        self._slot_shared[slot] = 0
+
+    def _contain_fault(self, slot: int) -> None:
+        """An exception escaped ONE request's path (a custom sampler, a
+        delivery): retire that slot FAULTED and release what it held; the
+        loop and every other stream go on."""
+        req = self._slot_req[slot]
+        self._stats["faulted_requests"] += 1
+        if req is not None:
+            self.trace.record("fault", req.rid, slot)
+        log.exception("request %s faulted in slot %d; containing",
+                      getattr(req, "rid", None), slot)
+        self._retire(slot, status=Status.FAULTED)
 
     # ----------------------------------------------------------- admission
 
-    def _bucket(self, n: int) -> int:
-        """Smallest prefill bucket covering *n*; raises past the largest."""
+    def _bucket(self, n: int) -> Optional[int]:
+        """Smallest prefill bucket covering *n*, or None when the prompt
+        admits in chunks instead (past every bucket, chunking on). Raises
+        for a prompt nothing can admit."""
         for bkt in self._prefill_buckets:
             if n <= bkt:
                 return bkt
+        ctx = self.cfg.max_seq
+        if self._chunk and n <= ctx:
+            return None
         raise ValueError(f"prompt length {n} exceeds the largest usable bucket "
-                         f"{self._prefill_buckets[-1]}")
+                         f"{self._prefill_buckets[-1]}"
+                         + (f" (chunked prefill caps at max_context {ctx})"
+                            if self._chunk else ""))
+
+    def _chunk_bucket(self, need: int) -> int:
+        """The read window of a chunk ending at ``need``: the smallest kv
+        bucket covering it (buckets on or off)."""
+        return next((bkt for bkt in self._kv_buckets if bkt >= need), self.cfg.max_seq)
 
     def _upload(self, values, dtype: torch.dtype) -> torch.Tensor:
         """Host values (a list or numpy array) as a tensor on the engine's
@@ -822,45 +1203,106 @@ class ServingEngine:
         return x.pin_memory().to(self.device, non_blocking=True)
 
     def _reserve_paged(self, slot: int, req: Request) -> bool:
-        """Map every page this request can touch (prompt + its token budget)
-        and set the slot's device table row. False with nothing reserved
-        when the free list can't cover it: the request stays waiting and a
-        later retire unblocks it (backpressure, never an error)."""
-        n = int(req.tokens.shape[0])
-        budget = min(req.max_new_tokens, self.cfg.max_seq - n)
-        need = -(-max(n + max(budget, 0), 1) // self._page)
-        blocks = self._alloc.alloc(need)
-        if blocks is None:
+        """Map every page this request can touch (prefix + prompt + its token
+        budget) and set the slot's device table row and base length. A
+        prefixed request maps the prefix's full pages read-only (``share``,
+        no device copy) and copies only a partial boundary page into a
+        private block, which its suffix and decode writes would otherwise
+        scribble into pages other slots read. False with nothing reserved
+        when the free list can't cover the private pages: the request stays
+        waiting and a later retire unblocks it (backpressure, never an
+        error)."""
+        if req.prefix is None:
+            return self._reserve_paged_locked(slot, req, None)
+        # the lookup, the share and the copy-on-write source read are
+        # atomic against unregister_prefix, whose release takes this lock
+        with self._prefix_lock:
+            entry = self._prefixes.get(req.prefix)
+            if entry is None:
+                return True  # unregistered: _admit faults it, no pages
+            ok = self._reserve_paged_locked(slot, req, entry)
+        if ok:
+            self._stats["prefix_hits"] += 1  # a paged hit is the share itself
+        return ok
+
+    def _reserve_paged_locked(self, slot: int, req: Request, entry: Optional[dict]) -> bool:
+        page = self._page
+        base = entry["len"] if entry is not None else 0
+        total = base + int(req.tokens.shape[0])
+        budget = min(req.max_new_tokens, self.cfg.max_seq - total)
+        full = base // page  # whole prefix pages, shared as they are
+        need_priv = -(-max(total + max(budget, 0), 1) // page) - full
+        shared = entry["blocks"][:full] if entry is not None else []
+        priv = self._alloc.alloc(need_priv) if need_priv > 0 else []
+        if priv is None:
             self._stats["pool_blocked_admissions"] += 1
             return False
+        if shared:
+            self._alloc.share(shared)
+            self._stats["prefix_blocks_shared"] += len(shared)
+        if base % page:
+            # copy-on-write: logical page `full` starts as a copy of the
+            # prefix's boundary block, every layer and plane, in place
+            src, dst = entry["blocks"][full], priv[0]
+            for key in kv_keys(self.state):
+                self.state[key][:, dst].copy_(self.state[key][:, src])
+            self._stats["prefix_cow_copies"] += 1
+        blocks = list(shared) + priv
         self._slot_blocks[slot] = blocks
+        self._slot_shared[slot] = len(shared)
         row = np.zeros((self._max_pages,), np.int32)
         row[:len(blocks)] = blocks
         self.state["table"][slot] = self._upload(row, torch.int32)
-        self.state["len"][slot] = 0
+        self.state["len"][slot] = base
         return True
+
+    def _install_prefix(self, slot: int, entry: dict) -> None:
+        """Dense: copy a registered prefix's KV into *slot*'s leading
+        positions and set its length, in place. Takes the caller's captured
+        entry (a second lookup would reopen the unregister race)."""
+        for key, buf in entry["buffers"].items():
+            self.state[key][:, slot, :buf.shape[1]].copy_(buf)
+        self.state["len"][slot] = entry["len"]
 
     def _admit_waiting(self, budget: float) -> tuple[bool, float]:
         """Fill free slots from the waiting line under the per-tick prompt
         budget. FIFO at the head; same-bucket prompts coalesce from anywhere
         in the line into one [N, bucket] dispatch, N the largest admission
-        size that fits. Nothing younger jumps a head blocked on budget or
+        size that fits (batched admission). Prefixed and chunked requests
+        take their slot and pay the budget chunk by chunk
+        (``_advance_admissions``); the serial path admits one bucketed
+        prompt at a time. Nothing younger jumps a head blocked on budget or
         pool. Returns (any admission happened, remaining budget)."""
         admitted = False
-        free = [i for i in range(self.serving.slots) if self._slot_req[i] is None]
+        free = [i for i in range(self.serving.slots)
+                if self._slot_req[i] is None and i not in self._admitting]
         while self._waiting and free:
             head = self._waiting.head()
             if head.cancelled:
                 self._waiting.popleft()
                 self._end_stream(head, head._abort or Status.CANCELLED)
                 continue
-            bucket = self._bucket(int(head.tokens.shape[0]))
+            bucket = (None if head.prefix is not None
+                      else self._bucket(int(head.tokens.shape[0])))
+            if bucket is None or not self._async_admission:
+                if bucket is not None and bucket > budget:
+                    break
+                if self._paged and not self._reserve_paged(free[0], head):
+                    break  # pool exhausted: the head waits (backpressure)
+                self._waiting.popleft()
+                head.t_depart_ns = time.monotonic_ns()
+                self.trace.record("queue_depart", head.rid, free[0])
+                self._admit(free.pop(0), head)
+                if bucket is not None:
+                    budget -= bucket
+                admitted = True
+                continue
             cap = min(len(free), max(self._admit_sizes))
             group = [head]
             for req in self._waiting:
                 if len(group) >= cap:
                     break
-                if (req is not head and not req.cancelled
+                if (req is not head and not req.cancelled and req.prefix is None
                         and self._bucket(int(req.tokens.shape[0])) == bucket):
                     group.append(req)
             fit = [s for s in self._admit_sizes if s <= len(group) and s * bucket <= budget]
@@ -888,6 +1330,150 @@ class ServingEngine:
             budget -= len(batch) * bucket
             admitted = True
         return admitted, budget
+
+    def _admit(self, slot: int, req: Request) -> None:
+        """Admit ONE request into *slot*: a prefixed or chunked prompt parks
+        in ``_admitting`` (its chunks advance one a loop pass); a bucketed
+        prompt here is the serial path, one [1, bucket] prefill dispatch
+        and a blocking first-token fetch."""
+        n = int(req.tokens.shape[0])
+        if req.prefix is not None:
+            entry = self._prefixes.get(req.prefix)
+            if entry is None:
+                # unregister_prefix raced this submit: fault this request
+                # alone (pages reserved for it go straight back)
+                log.warning("request %s references unregistered prefix %s; retiring it "
+                            "unserved", req.rid, req.prefix)
+                self._free_slot_blocks(slot)
+                self._stats["prefix_misses"] += 1
+                self._stats["faulted_requests"] += 1
+                self.trace.record("fault", req.rid, slot)
+                self._end_stream(req, Status.FAULTED, slot)
+                return
+            if not self._paged:
+                # paged slots mapped the prefix at reservation (no copy)
+                self._install_prefix(slot, entry)
+                self._stats["prefix_install_copies"] += 1
+                self._stats["prefix_hits"] += 1
+            base = entry["len"]
+            if n == 0:
+                # no suffix: the first token comes from the prefix's logits
+                self._first_from(slot, req, entry["last_logits"], base)
+                return
+            self._admitting[slot] = {"req": req, "padded": pad_to_chunks(req.tokens, n, self._chunk),
+                                     "n": base + n, "off": 0, "base": base}
+            return
+        bucket = self._bucket(n)
+        if bucket is None:
+            # chunked prefill is incremental: live streams decode between
+            # this prompt's chunks
+            self._admitting[slot] = {"req": req, "padded": pad_to_chunks(req.tokens, n, self._chunk),
+                                     "n": n, "off": 0, "base": 0}
+            return
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = req.tokens
+        logits, self.state = self.model.prefill_into_slot(
+            self.params, self.state, self._upload(padded, torch.int32), slot, n)
+        self._stats["prefill_batch_hist"][1] += 1
+        self._finish_admit(slot, req, self._sample_first(logits, slot), n)
+
+    def _first_from(self, slot: int, req: Request, logits_row: torch.Tensor, n: int) -> None:
+        """The first token of a single-row admission (a prefix's stored
+        logits, a final chunk's last row): sampled on the device into the
+        first-token buffer (batched admission), or fetched at once (the
+        serial path)."""
+        if not self._async_admission:
+            self._finish_admit(slot, req, self._sample_first(logits_row, slot), n)
+            return
+        tok = self._sample_row(logits_row, slot)
+        self._begin_slot(slot, req, n)
+        self._admit_buf[slot:slot + 1].copy_(tok)
+        self._admit_mask[slot] = True
+        self._pending_firsts.append({"tokens": tok, "rows": [(slot, req, 0)]})
+
+    def _advance_admissions(self, budget: float) -> float:
+        """One prefill chunk per mid-admission slot, then back to the decode
+        tick, sharing the per-tick prompt budget with bucketed admission;
+        the lead rotates so no admitting slot starves under the budget. The
+        final chunk completes the admission. An exception faults that
+        request alone."""
+        order = sorted(self._admitting)
+        if len(order) > 1:
+            lead = self._adm_rr % len(order)
+            order = order[lead:] + order[:lead]
+        self._adm_rr += 1
+        c = self._chunk
+        for slot in order:
+            adm = self._admitting[slot]
+            req, n, off, base = adm["req"], adm["n"], adm["off"], adm["base"]
+            if req.cancelled:
+                del self._admitting[slot]
+                self._free_slot_blocks(slot)
+                self._end_stream(req, req._abort or Status.CANCELLED, slot)
+                continue
+            if c > budget:
+                break  # the rest advance next pass
+            try:
+                # off indexes the (suffix-)padded prompt; the cache offset
+                # is past the prefix
+                kv_bucket = self._chunk_bucket(base + off + c)
+                ids = None
+                if self._paged:
+                    row = np.zeros((kv_bucket // self._page,), np.int32)
+                    blocks = self._slot_blocks[slot]
+                    m = min(len(blocks), row.shape[0])
+                    row[:m] = blocks[:m]
+                    ids = self._upload(row, torch.int32)
+                logits, self.state = self._prefill_chunk(
+                    self.params, self.state, self._upload(adm["padded"][:, off:off + c], torch.int32),
+                    slot, base + off, min(base + off + c, n), kv_bucket=kv_bucket, block_ids=ids)
+                adm["off"] = off + c
+                budget -= c
+                self._stats["prefill_chunks"] += 1
+                self.trace.record("prefill_chunk", req.rid, slot, c)
+                pad = adm["padded"].shape[1]
+                if adm["off"] >= pad:
+                    del self._admitting[slot]
+                    self._first_from(slot, req, logits[0, (n - base - 1) - (pad - c)], n)
+            except Exception:
+                self._admitting.pop(slot, None)
+                self._stats["faulted_requests"] += 1
+                self.trace.record("fault", req.rid, slot)
+                log.exception("request %s faulted mid-admission in slot %d; containing",
+                              req.rid, slot)
+                self._free_slot_blocks(slot)
+                self._slot_req[slot] = None
+                self._end_stream(req, Status.FAULTED, slot)
+        return budget
+
+    def _sample_first(self, logits_row: torch.Tensor, slot: int) -> int:
+        """The serial path's first token: the custom sampler on the fetched
+        [vocab] row, or the device sampler on the slot's generator, then a
+        blocking one-row fetch. Counted as an admission sync (batched
+        admission exists to keep this at zero)."""
+        self._stats["admission_syncs"] += 1
+        if not self._device_sampling:
+            return int(self.sample(logits_row.float().cpu().numpy()))
+        return int(self._sample_row(logits_row, slot).cpu()[0])
+
+    def _sample_row(self, logits_row: torch.Tensor, slot: int) -> torch.Tensor:
+        """One admission's first token from its [vocab] logits, sampled on
+        the device from the slot's generator: a [1] int32 tensor."""
+        return sample_tokens(logits_row[None], [self._gens[slot]], self.serving.temperature,
+                             self.serving.top_k, self.serving.top_p)
+
+    def _finish_admit(self, slot: int, req: Request, first: int, n: int) -> None:
+        """Slot bookkeeping and delivery of a serial admission's first
+        token, already on the host."""
+        self._begin_slot(slot, req, n)
+        self._tokens[slot] = first
+        self._itl_last[slot] = time.perf_counter()
+        self._note_first_token(req, slot)
+        req.delivered += 1
+        req.out.put(first)
+        self._stats["generated_tokens"] += 1
+        if self._slot_budget[slot] <= 0 or first == self.serving.eos_token:
+            self._retire(slot)
 
     def _admit_batch(self, slots: list[int], reqs: list[Request], bucket: int) -> None:
         """One [N, bucket] prefill dispatch that installs N prompts' KV and
@@ -1019,10 +1605,18 @@ class ServingEngine:
         if self._slot_budget[slot] <= 0 or tok == self.serving.eos_token:
             self._retire(slot)
 
+    def _tick_arrays(self, tick: dict) -> list:
+        """A tick's arrays for the one staged copy: its tokens, and with
+        logprobs the [B] f32 logprobs bit-cast to int32 so they join the
+        same buffer."""
+        if tick["logprobs"] is None:
+            return [tick["tokens"]]
+        return [tick["tokens"], tick["logprobs"].view(torch.int32)]
+
     def _deliver(self, tick: dict, extra_host_s: float = 0.0,
                  firsts: Optional[list] = None) -> None:
-        """One fetch for the tick's tokens and this pass's first tokens
-        (staged by the loop, or here), then host bookkeeping.
+        """One fetch for the tick's tokens (and logprobs) and this pass's
+        first tokens (staged by the loop, or here), then host bookkeeping.
         ``extra_host_s`` is the pass's dispatch-side host time, folded into
         the same host_ms_per_tick sample. ``tick["reqs"]`` snapshots each
         slot's request at dispatch; a slot whose occupant changed since
@@ -1030,25 +1624,33 @@ class ServingEngine:
         the pipelined loop's one-tick lookahead safe."""
         firsts = firsts or []
         staged = tick.get("staged") or self._stage(
-            [tick["tokens"]] + [f["tokens"] for f in firsts])
-        toks, *first_arrs = self._collect(staged)
+            self._tick_arrays(tick) + [f["tokens"] for f in firsts])
+        toks, *rest = self._collect(staged)
+        lps = rest.pop(0).view(np.float32) if tick["logprobs"] is not None else None
         t0 = time.perf_counter()
         if firsts:
-            self._deliver_firsts(firsts, fetched=first_arrs)
+            self._deliver_firsts(firsts, fetched=rest)
         now = time.perf_counter()
         for slot, req in enumerate(tick["reqs"]):
             if req is None or req is not self._slot_req[slot]:
                 continue
-            self._emit(slot, int(toks[slot]), now)
+            self._emit(slot, int(toks[slot]), None if lps is None else float(lps[slot]), now)
         self._prof.note("deliver", time.perf_counter() - t0)
         self._note_host_ms(extra_host_s + time.perf_counter() - t0)
 
-    def _emit(self, slot: int, tok: int, now: Optional[float] = None) -> None:
+    def _emit(self, slot: int, tok: int, lp: Optional[float] = None,
+              now: Optional[float] = None) -> None:
+        """One delivered decode token: the one implementation behind the
+        device-sampled delivery and the host-sampler path."""
         req = self._slot_req[slot]
         self._tokens[slot] = tok
         self._slot_len[slot] += 1  # the device length advanced at dispatch
         self._note_itl(slot, now if now is not None else time.perf_counter())
         self.trace.record("token", req.rid, slot)
+        # the logprob goes in before the token: the put wakes the client,
+        # which may read logprobs[-1] for this token at once
+        if lp is not None:
+            req.logprobs.append(lp)
         req.delivered += 1
         req.out.put(tok)
         self._stats["generated_tokens"] += 1
@@ -1088,10 +1690,14 @@ class ServingEngine:
             self._drain_all()
 
     def _tick_head(self) -> bool:
-        """Drain submissions into the waiting line, admit into free slots
-        under the prompt budget (bypassed while nothing decodes), retire
-        cancelled slots. Returns whether anything was admitted."""
+        """Run queued paged prefix builds, drain submissions into the
+        waiting line, advance chunked admissions, then admit into free
+        slots, all under one prompt budget (bypassed while nothing decodes;
+        chunks in flight spend first), and retire cancelled slots. Returns
+        whether anything was admitted."""
         t0 = time.perf_counter()
+        if self._paged:
+            self._drain_prefix_work()
         while True:
             try:
                 self._waiting.append(self._pending.get_nowait())
@@ -1100,6 +1706,7 @@ class ServingEngine:
         decoding = any(r is not None for r in self._slot_req)
         budget = (float(self.serving.prefill_budget)
                   if self.serving.prefill_budget and decoding else float("inf"))
+        budget = self._advance_admissions(budget)
         admitted, _ = self._admit_waiting(budget)
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.cancelled:
@@ -1110,7 +1717,9 @@ class ServingEngine:
         return admitted
 
     def _idle_wait(self, admitted: bool) -> None:
-        if admitted:
+        """Nothing to decode or deliver: wait briefly for a submission,
+        unless admissions are mid-chunk or one just landed."""
+        if admitted or self._admitting:
             return
         if self._wake.wait(timeout=0.05):
             self._wake.clear()
@@ -1118,7 +1727,9 @@ class ServingEngine:
     def _loop_sync(self) -> None:
         """Synchronous tick loop: tick head, one decode dispatch, one fetch,
         delivery, repeat. Still one device->host read per tick; only the
-        overlap of the pipelined loop is missing."""
+        overlap of the pipelined loop is missing. With a custom sampler the
+        tick returns [B, vocab] logits: that fetch is the tick's one, and
+        the callable runs on each live row."""
         b = self.serving.slots
         while not self._stop.is_set():
             admitted = self._tick_head()
@@ -1140,14 +1751,44 @@ class ServingEngine:
             active = self._upload([r is not None for r in self._slot_req], torch.bool)
             kv_bucket = self._kv_bucket(1 + max(self._slot_len[i] for i in active_slots))
             self._note_kv_window(kv_bucket)
-            tok_d, self.state = self._step(
+            if not self._device_sampling:
+                self._host_sampled_tick(tokens, active, kv_bucket, active_slots, t_disp)
+                continue
+            out, self.state = self._step(
                 self.params, self.state, tokens, active, self._gens, kv_bucket)
             self._stats["decode_ticks"] += 1
-            tick = {"tokens": tok_d, "reqs": list(self._slot_req),
-                    "staged": self._stage([tok_d] + [f["tokens"] for f in firsts])}
+            tick = self._tick(out, list(self._slot_req))
+            tick["staged"] = self._stage(self._tick_arrays(tick) + [f["tokens"] for f in firsts])
             disp_s = time.perf_counter() - t_disp
             self._prof.note("dispatch", disp_s)
             self._deliver(tick, extra_host_s=disp_s, firsts=firsts)
+
+    def _tick(self, out, reqs: list) -> dict:
+        """A dispatched tick: the sampled step's output (the tokens, or the
+        tokens and their logprobs) and each slot's request at dispatch."""
+        tok, lp = out if self._logprobs else (out, None)
+        return {"tokens": tok, "logprobs": lp, "reqs": reqs}
+
+    def _host_sampled_tick(self, tokens, active, kv_bucket: int, active_slots: list,
+                           t_disp: float) -> None:
+        """The host-sampler tick: the decode step's [B, vocab] f32 logits,
+        fetched in the tick's one staged copy, and the custom sampler on
+        each live row (an exception in it faults that request alone)."""
+        logits, self.state = self._decode(self.params, self.state, tokens, active, kv_bucket)
+        self._stats["decode_ticks"] += 1
+        staged = self._stage([logits.float()])
+        disp_s = time.perf_counter() - t_disp
+        self._prof.note("dispatch", disp_s)
+        (flat,) = self._collect(staged)
+        rows = flat.reshape(len(self._slot_req), -1)
+        t0 = time.perf_counter()
+        for slot in active_slots:
+            try:
+                self._emit(slot, int(self.sample(rows[slot])))
+            except Exception:
+                self._contain_fault(slot)
+        self._prof.note("deliver", time.perf_counter() - t0)
+        self._note_host_ms(disp_s + time.perf_counter() - t0)
 
     def _loop_pipelined(self) -> None:
         """One-tick-deep decode pipeline (the reference's
@@ -1197,7 +1838,7 @@ class ServingEngine:
             staged_firsts = None
             if inflight is not None:
                 inflight["staged"] = self._stage(
-                    [inflight["tokens"]] + [f["tokens"] for f in firsts])
+                    self._tick_arrays(inflight) + [f["tokens"] for f in firsts])
             elif firsts:
                 staged_firsts = self._stage([f["tokens"] for f in firsts], kind="admission")
             new_inflight = None
@@ -1225,14 +1866,13 @@ class ServingEngine:
                 kv_bucket = self._kv_bucket(
                     1 + max(self._slot_len[i] + (1 if fed[i] else 0) for i in dispatch))
                 self._note_kv_window(kv_bucket)
-                tok_d, self.state = self._step(
+                out, self.state = self._step(
                     self.params, self.state, tokens, active, self._gens, kv_bucket)
                 self._stats["decode_ticks"] += 1
                 if inflight is not None:
                     self._stats["pipelined_ticks"] += 1
-                new_inflight = {"tokens": tok_d,
-                                "reqs": [self._slot_req[i] if i in live else None
-                                         for i in range(b)]}
+                new_inflight = self._tick(out, [self._slot_req[i] if i in live else None
+                                                for i in range(b)])
                 disp_s = time.perf_counter() - t_disp
                 self._prof.note("dispatch", disp_s)
             if not dispatch and inflight is None:

@@ -14,8 +14,9 @@ What a graph holds fixed, and why that is sound here:
   change (the engine's own writes into the table and lengths are in place
   too);
 - the token and active-mask buffers, copied into before each replay;
-- the output: each replay returns a copy, since the next replay overwrites
-  the graph's own buffer;
+- the output (the sampled tokens, or the tokens and their logprobs for a
+  logprobs engine): each replay returns a copy, since the next replay
+  overwrites the graph's own buffers;
 - the split partials of the paged kernels and every other temporary,
   allocated inside the capture from the graph's own memory pool, which
   lives as long as the graph (no two graphs share a pool);
@@ -47,7 +48,8 @@ from vtpu_torch.ops.decode_attn import paged_attn_route
 
 class DecodeGraphs:
     """The engine's decode step, ``step(params, state, tokens[B], active[B],
-    gens[B], kv_bucket) -> (tokens [B] int32, state)``, captured once per kv
+    gens[B], kv_bucket) -> (out, state)``, ``out`` the tokens [B] int32 or
+    the pair (tokens, logprobs [B] f32), captured once per kv
     bucket for one engine's params, state and generators, and called with
     the same signature.
 
@@ -150,4 +152,7 @@ class DecodeGraphs:
         for k, n in entry["launches"].items():
             _build.LAUNCHES[k] += n
         self.replays += 1
-        return entry["out"].clone(), state
+        out = entry["out"]
+        if isinstance(out, tuple):
+            return tuple(x.clone() for x in out), state
+        return out.clone(), state
