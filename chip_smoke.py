@@ -11,10 +11,12 @@ Phases, any failure exits nonzero:
    plus ragged cases (flash also at S = 1 and 1000; the dense decode kernel
    also at a bucket below S and with every row's keys in its first split;
    the paged kernels at the serving tick and a ragged T=4 copy-on-write
-   chunk over pages of 128, 16 and 48 keys, the null block poisoned), with
+   chunk over pages of 128, 16 and 48 keys, the null block poisoned, and at
+   the verify shape T=5 on the serving pool), with
    kernel, plain and library times, their ratio, the least time the card
    could take for the same work, and each kernel's tile and split count;
    flash is timed at the serving shape and at a one-row admission, the
+   paged kernels at the serving tick and the verify shape, the
    dense decode kernel at the study's four T=1 cells; the paged kernels
    (bf16, int8) also on each tp=2 head shard, against their plain versions
    and, bit for bit, the head slice of the full-pool call;
@@ -53,7 +55,21 @@ Phases, any failure exits nonzero:
       prefixed requests;
    f. the dense decode study: decode_attention over the study's four T=1
       cells in bf16 and in int8;
-   g. tensor-parallel serving: two spawned ranks (NCCL, one card each,
+   g. device loop + speculation: the flagship with 128 new tokens a
+      request on four loops, each on engines whose every decode step
+      replays from graphs captured when the engine is built: the pipelined
+      per-tick loop, decode_loop_k=8, spec_tokens=4 (synchronous loop) and
+      both (fused), interleaved, three waves each; then one profiled wave
+      per loop, the fused and pipelined loops on periodic prompts (a
+      24-token segment tiled), one fused wave with an AdaptiveLoopPolicy (a
+      graph per depth) and one with int8 KV (both speculating on every
+      flush, spec_min_mean 0): streams against the plain
+      trunk, graph replays against flushes or ticks, paged launches = 12 x
+      inner ticks, no capture while serving, spec_emitted against the
+      tokens speculation delivered, the pool free, every state tensor in
+      place; tokens/s, TTFT, host ms a token, device busy share, acceptance,
+      graphs and the memory they reserve per loop;
+   h. tensor-parallel serving: two spawned ranks (NCCL, one card each,
       where there are two cards; else gloo, both on card 0) serve the
       main path's wave with bf16 and then int8 KV on the pipelined loop
       (eager: no graphs under a mesh), every decode tick through the
@@ -319,33 +335,61 @@ def check_paged(gen, log, int8: bool) -> dict:
         if pg == page:
             serving = pools, wp, table, kv1
     # timing: one decode tick's call per layer, cycling the 12 planes so
-    # consecutive calls read different pool memory, as the trunk does
+    # consecutive calls read different pool memory, as the trunk does; then
+    # the same at the verify shape of the device loop + speculation phase
+    # (spec_tokens 4: T = 5 queries a row, each row's five positions ending
+    # at the serving tick's lengths), held against the plain version first
     pools, wp, table, kv1 = serving
-    q1 = torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    ms, host = time_ms(lambda i: fn(q1, *pools, table, kv1, i % n_layers), 60)
-    plain, _ = time_ms(lambda i: ref(q1, *pools, table, kv1, i % n_layers), 12, hold=False)
-    mask = (torch.arange(wp * page, device="cuda")[None, :] < kv1)[:, None, None]  # [B,1,1,W]
+    shapes = []
+    for t in (1, SPEC_K + 1):
+        kvl = (kv1 - (t - 1) + torch.arange(t, dtype=torch.int32, device="cuda")[None, :]
+               ).contiguous()
+        q = torch.randn((4, t, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+        err = 0.0
+        if t > 1:
+            for layer in (0, n_layers - 1):
+                got = fn(q, *pools, table, kvl, layer)
+                torch.cuda.synchronize()
+                err = max(err, max_err(got, ref(q, *pools, table, kvl, layer)))
+            log(f"{name} page {page} verify T={t} on the serving pool: max_abs_err {err:.3e} "
+                f"(atol {ATOL})")
+            if not err <= ATOL:
+                raise AssertionError(f"{name} disagrees with its plain version at T={t}: {err}")
+            errs.append(err)
+        ms, host = time_ms(lambda i: fn(q, *pools, table, kvl, i % n_layers), 60)
+        plain, _ = time_ms(lambda i: ref(q, *pools, table, kvl, i % n_layers), 12, hold=False)
+        # [B, 1, T, W]: query i of row b sees the keys below kv_len[b, i]
+        mask = (torch.arange(wp * page, device="cuda")[None, None, :] < kvl[:, :, None])[:, None]
 
-    def library(i):
-        l = i % n_layers
-        if int8:
-            k = dequant(gather_kv_pages(pools[0][l], table), gather_kv_pages(pools[1][l], table))
-            v = dequant(gather_kv_pages(pools[2][l], table), gather_kv_pages(pools[3][l], table))
-        else:
-            k, v = gather_kv_pages(pools[0][l], table), gather_kv_pages(pools[1][l], table)
-        return F.scaled_dot_product_attention(q1.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), attn_mask=mask)
+        def library(i):
+            l = i % n_layers
+            if int8:
+                k = dequant(gather_kv_pages(pools[0][l], table),
+                            gather_kv_pages(pools[1][l], table))
+                v = dequant(gather_kv_pages(pools[2][l], table),
+                            gather_kv_pages(pools[3][l], table))
+            else:
+                k, v = gather_kv_pages(pools[0][l], table), gather_kv_pages(pools[1][l], table)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), attn_mask=mask)
 
-    # int8: ~12 small ops per call, fewer calls, so the held launch queue never fills
-    lib, _ = time_ms(library, 20 if int8 else 60)
-    keys = int(kv1.sum())
-    per_key = h * dh * 2 * (1 if int8 else 2) + (h * 4 * 2 if int8 else 0)
-    nbytes = keys * per_key + 2 * q1.numel() * 2 + table.numel() * 4 + kv1.numel() * 4
-    bms, by = bound_ms(nbytes, 4 * keys * h * dh)
+        # int8: ~12 small ops per call, fewer calls, so the held launch queue never fills
+        lib, _ = time_ms(library, 20 if int8 else 60)
+        keys = int(kvl[:, -1].sum())  # each row's keys read once
+        per_key = h * dh * 2 * (1 if int8 else 2) + (h * 4 * 2 if int8 else 0)
+        nbytes = keys * per_key + 2 * q.numel() * 2 + table.numel() * 4 + kvl.numel() * 4
+        bms, by = bound_ms(nbytes, 4 * int(kvl.sum()) * h * dh)
+        shapes.append({"shape": [4, t, h, dh], "ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bms, "bound_by": by, "host_ms": host, "max_abs_err": err})
+        log(f"{name} T={t} q [4, {t}, {h}, {dh}] on the serving pool: kernel {ms:.4f} ms, "
+            f"gather + SDPA {lib:.4f} ms (kernel/library {ms / lib:.2f}x), plain {plain:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+    top = shapes[0]
     return {"name": name, "route": "cuda", "source": "vtpu_torch/csrc/paged_decode_attention.cu",
             "replaces": "vtpu/ops/decode_attn.py:435" if int8 else "vtpu/ops/decode_attn.py:347",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib, "host_ms": host,
+            "max_abs_err": max(errs), "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "host_ms": top["host_ms"], "shapes": shapes,
             "tile": paged_tile(page), "n_split": paged_split_plan(4, h, wp, page)}
 
 
@@ -1200,6 +1244,320 @@ def chunked_prefix_int8(log, card: str, params, serving, prefix, sufs, fulls) ->
             "equal_run_tokens": same}
 
 
+# the device loop + speculation phase: the flush depth, the draft length,
+# and the segment length of its periodic prompts
+LOOP_K = 8
+SPEC_K = 4
+PERIOD = 24
+# the phase's loops: ServingConfig fields over the loop comparison's config
+LOOPS = {"pipelined": {}, "device_loop": {"decode_loop_k": LOOP_K},
+         "spec": {"spec_tokens": SPEC_K},
+         "fused": {"decode_loop_k": LOOP_K, "spec_tokens": SPEC_K}}
+
+
+def periodic_prompts(vocab: int) -> list[np.ndarray]:
+    """Six prompts of 600-1024 tokens, each a random PERIOD-token segment
+    tiled: text whose drafts find matches (a random-weight model's own
+    text says nothing about acceptance on real text)."""
+    rs = np.random.RandomState(SEED + 2)
+    out = []
+    for n in rs.randint(600, 1025, 6):
+        seg = rs.randint(0, vocab, (PERIOD,))
+        out.append(np.tile(seg, -(-int(n) // PERIOD))[:int(n)].astype(np.int32))
+    return out
+
+
+def settle(eng) -> None:
+    """Return once the engine's loop has made a pass with nothing to do: a
+    client's stream can end (its terminal is put at retirement) while the
+    loop is still inside that delivery, before the delivery's counters
+    move, so counters are read only after this. Installs an event on the
+    loop's idle wait at first use."""
+    ev = getattr(eng, "_idle_seen", None)
+    if ev is None:
+        ev = eng._idle_seen = threading.Event()
+        idle = eng._idle_wait
+
+        def seen(*a, **kw):
+            ev.set()
+            return idle(*a, **kw)
+
+        eng._idle_wait = seen
+    ev.clear()
+    if not ev.wait(timeout=60):
+        raise AssertionError("the serving loop did not go idle within 60 s")
+
+
+def spec_token_counter(eng) -> dict:
+    """Count the tokens delivered by speculation (the synchronous loop's
+    verify ticks and the fused flushes) from the engine's own generated
+    count around each delivery, to hold against stats()["spec_emitted"]."""
+    box = {"tokens": 0}
+    for name in ("_spec_tick", "_deliver_fused_flush"):
+        fn = getattr(eng, name)
+
+        def counted(*a, _fn=fn, **kw):
+            before = eng._stats["generated_tokens"]
+            out = _fn(*a, **kw)
+            box["tokens"] += eng._stats["generated_tokens"] - before
+            return out
+
+        setattr(eng, name, counted)
+    return box
+
+
+def graph_pool_bytes() -> int:
+    """Bytes of the allocator's segments that belong to CUDA graphs' private
+    memory pools (every pool but the default one)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def build_engine(params, cfg, serving) -> tuple:
+    """(engine, {"reserved": torch.cuda.memory_reserved() after the build
+    less before it (cached blocks released first; the allocator may place
+    the state in segments it holds already), "graphs": bytes of the graph
+    pools the build added, "state": bytes of the engine's KV state})."""
+    from vtpu_torch.serving import ServingEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before, pools = torch.cuda.memory_reserved(), graph_pool_bytes()
+    eng = ServingEngine(params, cfg, serving)
+    torch.cuda.synchronize()
+    state = sum(x.numel() * x.element_size() for x in eng.state.values())
+    return eng, {"reserved": torch.cuda.memory_reserved() - before,
+                 "graphs": graph_pool_bytes() - pools, "state": state}
+
+
+def profiled_ticks(eng, prompts) -> tuple:
+    """One profiled wave (profile_wave) and the inner ticks it ran: its
+    device ms per inner tick, or None where the profiler saw no device
+    activity."""
+    settle(eng)
+    before = eng.stats()
+    prof = profile_wave(eng, prompts)
+    settle(eng)
+    after = eng.stats()
+    inner = sum(after[k] - before[k] for k in ("decode_ticks", "spec_ticks"))
+    return prof, (None if prof is None else prof["device_busy_ms"] / inner), inner
+
+
+def loop_wave(eng, prompts, refs, what: str, spec_box: dict, new_tokens: int) -> dict:
+    """One counted wave of a loop: every launch count set to 0 just before
+    it and read just after; streams against the plain trunk (``refs``)
+    under the margin rule; graph replays against the dispatches the
+    counters imply, paged launches = 12 x inner ticks, no graph captured,
+    the pool fully free, spec_emitted equal to the tokens speculation
+    delivered. Returns its figures."""
+    from vtpu_torch.ops import _build
+
+    settle(eng)
+    replays = [g.replays for g in eng._graph_sets()]
+    spec0 = spec_box["tokens"]
+    before = eng.stats()
+    _build.reset_launches()
+    recs, wall = stream_all(eng, prompts)
+    settle(eng)
+    launches = _build.launches()
+    after = eng.stats()
+    d = {k: after[k] - before[k] for k in (
+        "decode_ticks", "spec_ticks", "loop_flushes", "fused_flushes", "spec_emitted",
+        "spec_slot_ticks", "tick_fetches", "generated_tokens", "admissions", "loop_early_exits")}
+    for rec in recs:
+        if rec.get("status") != "OK" or len(rec["toks"]) != new_tokens:
+            raise AssertionError(f"{what}: a stream ended {rec.get('status')} after "
+                                 f"{len(rec['toks'])} of {new_tokens} tokens")
+    compared, ties = check_streams([rec["toks"] for rec in recs], refs, what)
+    inner = d["decode_ticks"] + d["spec_ticks"]
+    paged = ("paged_decode_attention_int8kv" if "k_scale" in eng.state
+             else "paged_decode_attention")
+    others = {k: n for k, n in launches.items() if k not in (paged, "flash_attention") and n}
+    if launches[paged] != FLAGSHIP["n_layers"] * inner or others:
+        raise AssertionError(f"{what}: {paged} launched {launches[paged]} times over {inner} "
+                             f"inner ticks (expected {FLAGSHIP['n_layers']} each), others {others}")
+    played = sum(g.replays for g in eng._graph_sets()) - sum(replays)
+    dispatches = d["loop_flushes"] if eng._loop_k else inner
+    if played != dispatches:
+        raise AssertionError(f"{what}: {played} graph replays for {dispatches} dispatches")
+    if eng.spec_graphs is not None and eng.spec_graphs.replays - replays[
+            eng._graph_sets().index(eng.spec_graphs)] != d["spec_ticks"]:
+        raise AssertionError(f"{what}: verify replays differ from its {d['spec_ticks']} ticks")
+    if after["graphs_captured"] != before["graphs_captured"]:
+        raise AssertionError(f"{what}: a graph was captured while serving")
+    if after["kv_pool_free"] != after["kv_pool_blocks"]:
+        raise AssertionError(f"{what}: paged pool not fully free after the wave")
+    if spec_box["tokens"] - spec0 != d["spec_emitted"]:
+        raise AssertionError(f"{what}: spec_emitted {d['spec_emitted']}, speculation delivered "
+                             f"{spec_box['tokens'] - spec0} tokens")
+    ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
+    total = sum(len(rec["toks"]) for rec in recs)
+    return {"tokens_per_s": total / wall, "ttft_p50_ms": ttft[len(ttft) // 2],
+            "ttft_ms": ttft, "wall_s": wall, "tokens": total,
+            "host_ms_per_token": after["host_ms_per_token"],
+            "host_ms_per_tick": after["host_ms_per_tick"], "inner_ticks": inner,
+            "graph_replays": played, "paged_launches": launches[paged],
+            "paged_launches_verify": FLAGSHIP["n_layers"] * d["spec_ticks"],
+            "mean_emitted_per_spec_tick": (d["spec_emitted"] / d["spec_slot_ticks"]
+                                           if d["spec_slot_ticks"] else None),
+            "fused_k_hist": [a - b for a, b in zip(after["fused_k_hist"],
+                                                   before["fused_k_hist"])],
+            "compared_tokens": compared,
+            "margin_cuts": ties, **d}
+
+
+def device_loop_spec_path(log, card: str, params, refs: dict) -> dict:
+    """The multi-tick device loop and speculation at the flagship's full
+    width and depth, every decode step replayed from graphs captured when
+    its engine is built. Four loops over the loop comparison's wave (six
+    prompts of 600-1024 tokens, COMPARE_TOKENS new tokens each) on engines
+    of their own, interleaved, one warm-up then REPEATS waves each: the
+    pipelined per-tick loop, decode_loop_k=LOOP_K, spec_tokens=SPEC_K on
+    the synchronous loop, and both (fused). Then one profiled wave per
+    loop for the device busy share, the fused and pipelined loops on
+    periodic prompts, one fused wave with an AdaptiveLoopPolicy (a graph
+    per depth) and one with int8 KV, both speculating on every flush
+    (spec_min_mean 0). Each counted wave is held by
+    ``loop_wave``; every state tensor keeps its address over the phase."""
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.serving import ServingConfig
+    from vtpu_torch.serving.shed import AdaptiveLoopPolicy
+
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    base = ServingConfig(slots=4, prefill_buckets=(1024,), kv_page=128,
+                         max_new_tokens=COMPARE_TOKENS)
+    prompts = wave_prompts(cfg.vocab)
+    engines, memory, ptrs, boxes = {}, {}, {}, {}
+    for name, kw in LOOPS.items():
+        engines[name], memory[name] = build_engine(params, cfg, dataclasses.replace(base, **kw))
+        eng = engines[name]
+        ptrs[name] = {k: x.data_ptr() for k, x in eng.state.items()}
+        boxes[name] = spec_token_counter(eng)
+    waves: dict = {name: [] for name in engines}
+    profiles = {}
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    periodic = periodic_prompts(cfg.vocab)
+    periodic_refs = [reference_stream(params, plain, p, COMPARE_TOKENS) for p in periodic]
+    extra = {}
+    for eng in engines.values():
+        eng.start()
+    try:
+        for eng in engines.values():
+            stream_all(eng, [prompts[0]])
+        order = list(engines)
+        for r in range(REPEATS):
+            for name in order[r % len(order):] + order[:r % len(order)]:
+                waves[name].append(loop_wave(engines[name], prompts, refs["bf16"],
+                                             f"{name} loop", boxes[name], COMPARE_TOKENS))
+        for name, eng in engines.items():
+            profiles[name] = profiled_ticks(eng, prompts)
+        for name in ("pipelined", "fused"):
+            extra[f"{name}_periodic"] = loop_wave(engines[name], periodic, periodic_refs,
+                                                  f"{name} loop, periodic prompts", boxes[name],
+                                                  COMPARE_TOKENS)
+            # every inner tick of these waves is one kind: a decode tick
+            # (pipelined) or, while the fused loop accepts, a verify tick
+            _, extra[f"{name}_periodic"]["device_ms_per_inner_tick"], _ = profiled_ticks(
+                engines[name], periodic)
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    for name, eng in engines.items():
+        if eng.loop_error is not None:
+            raise AssertionError(f"{name} loop failed: {eng.loop_error!r}")
+        if {k: x.data_ptr() for k, x in eng.state.items()} != ptrs[name]:
+            raise AssertionError(f"{name} loop: a state tensor moved during the phase")
+    graphs = {name: eng.stats()["graphs_captured"] for name, eng in engines.items()}
+    del engines
+    torch.cuda.empty_cache()
+    # one fused wave with a LoopPolicy (a graph per depth), one with int8
+    # KV; speculation never pauses in these two (spec_min_mean 0), so on
+    # this random text, where the acceptance EMA sits below the default
+    # 1.25, their flushes still verify: the policy's depths replay their
+    # graphs and the int8 kernel runs at T = 5
+    for name, kw, c, wave_refs in (
+            ("fused_policy", dict(loop_policy=AdaptiveLoopPolicy()), cfg, refs["bf16"]),
+            ("fused_int8", {}, dataclasses.replace(cfg, kv_int8=True), refs["int8"])):
+        eng, memory[name] = build_engine(params, c, dataclasses.replace(
+            base, **LOOPS["fused"], spec_min_mean=0.0, **kw))
+        ptr = {k: x.data_ptr() for k, x in eng.state.items()}
+        box = spec_token_counter(eng)
+        graphs[name] = eng.stats()["graphs_captured"]
+        eng.start()
+        try:
+            stream_all(eng, [prompts[0]])
+            extra[name] = loop_wave(eng, prompts, wave_refs, f"{name} loop", box,
+                                    COMPARE_TOKENS)
+        finally:
+            eng.stop()
+        if eng.loop_error is not None:
+            raise AssertionError(f"{name} loop failed: {eng.loop_error!r}")
+        if {k: x.data_ptr() for k, x in eng.state.items()} != ptr:
+            raise AssertionError(f"{name} loop: a state tensor moved")
+        del eng
+        torch.cuda.empty_cache()
+    if graphs != {"pipelined": 2, "device_loop": 2, "spec": 4, "fused": 4,
+                  "fused_policy": 2 * (LOOP_K + 1), "fused_int8": 4}:
+        raise AssertionError(f"graphs captured per engine: {graphs}")
+    out = {}
+    for name, ws in waves.items():
+        prof, tick_ms, prof_ticks = profiles[name]
+        wall_ms = sorted(w["wall_s"] for w in ws)[len(ws) // 2] * 1e3
+        busy = (None if prof is None else prof["device_busy_ms"] / wall_ms)
+        spec = [w["mean_emitted_per_spec_tick"] for w in ws if w["mean_emitted_per_spec_tick"]]
+        log(f"device loop + speculation, {name} on {card}, {REPEATS} waves of {len(prompts)} x "
+            f"{COMPARE_TOKENS} tokens, median [min, max]: tokens/s "
+            f"{spread([w['tokens_per_s'] for w in ws])}; TTFT p50 ms "
+            f"{spread([w['ttft_p50_ms'] for w in ws])}; host ms a token "
+            f"{spread([w['host_ms_per_token'] for w in ws])}; device busy of the median "
+            f"unprofiled wave {'not measured' if busy is None else f'{100 * busy:.1f}%'} "
+            f"(profiled: {'not measured' if tick_ms is None else f'{tick_ms:.3f}'} device ms "
+            f"over each of {prof_ticks} inner ticks); "
+            f"mean emitted per spec tick {spread(spec) if spec else None}; fused_k_hist "
+            f"{[w['fused_k_hist'] for w in ws]}; inner ticks {[w['inner_ticks'] for w in ws]}, graph "
+            f"replays {[w['graph_replays'] for w in ws]}, paged launches "
+            f"{[w['paged_launches'] for w in ws]} (T = {SPEC_K + 1}: "
+            f"{[w['paged_launches_verify'] for w in ws]}); {graphs[name]} graphs in "
+            f"{memory[name]['graphs'] / 2**20:.1f} MiB of graph pools (state "
+            f"{memory[name]['state'] / 2**20:.1f} MiB; memory_reserved grew "
+            f"{memory[name]['reserved'] / 2**20:.1f} MiB); streams: "
+            f"{sum(w['compared_tokens'] for w in ws)} tokens equal to the plain trunk, "
+            f"{sum(w['margin_cuts'] for w in ws)} cut at a margin < {MARGIN}")
+        if prof is not None:
+            log(f"device loop + speculation, {name} profiled wave by kernel: " + "; ".join(
+                f"{n} {ms:.2f} ms" for n, ms in prof["top_kernels_ms"]))
+        out[name] = {"waves": ws, "profiled_wave": prof, "device_busy_share": busy,
+                     "device_ms_per_inner_tick": tick_ms,
+                     "graphs": graphs[name], "memory": memory[name]}
+    for name, w in extra.items():
+        log(f"device loop + speculation, {name} on {card}: {w['tokens_per_s']:.1f} tokens/s, "
+            f"TTFT p50 {w['ttft_p50_ms']:.1f} ms, host ms a token {w['host_ms_per_token']}, "
+            f"mean emitted per spec tick {w['mean_emitted_per_spec_tick']}, fused_k_hist "
+            f"{w['fused_k_hist']}, inner ticks {w['inner_ticks']} = graph replays' ticks "
+            f"({w['graph_replays']} replays), paged launches {w['paged_launches']}; "
+            + (f"device ms per inner tick (profiled) {w['device_ms_per_inner_tick']}; "
+               if "device_ms_per_inner_tick" in w else "")
+            + (f"{graphs[name]} graphs in {memory[name]['graphs'] / 2**20:.1f} MiB of graph pools "
+               f"(state {memory[name]['state'] / 2**20:.1f} MiB; memory_reserved grew "
+               f"{memory[name]['reserved'] / 2**20:.1f} MiB); " if name in graphs else "")
+            + f"streams: {w['compared_tokens']} tokens equal to the plain trunk, "
+            f"{w['margin_cuts']} cut at a margin < {MARGIN}")
+        out[name] = {"wave": w, **({"graphs": graphs[name], "memory": memory[name]}
+                                   if name in graphs else {})}
+    med = {name: sorted(w["tokens_per_s"] for w in out[name]["waves"])[REPEATS // 2]
+           for name in LOOPS}
+    log(f"device loop + speculation on {card}: median tokens/s " + ", ".join(
+        f"{name} {v:.1f} ({v / med['pipelined']:.2f}x)" for name, v in med.items())
+        + f"; periodic prompts: fused {extra['fused_periodic']['tokens_per_s']:.1f}, pipelined "
+        f"{extra['pipelined_periodic']['tokens_per_s']:.1f}")
+    verify = [w["paged_launches_verify"] for name in ("spec", "fused")
+              for w in out[name]["waves"]]
+    out["launches"] = {"paged_decode_attention_verify": sum(verify),
+                       "paged_decode_attention_int8kv_verify":
+                           extra["fused_int8"]["paged_launches_verify"]}
+    return out
+
+
 def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
     """Tensor-parallel serving: ``tp`` ranks, spawned, serve the main path's
     wave on the flagship model, once with bf16 and once with int8 KV, each
@@ -1332,6 +1690,7 @@ def main() -> int:
     runs["host_sampler_path"] = host_sampler_path(log, card, params, refs["bf16"],
                                                   runs["main_path"]["tokens_per_s"])
     runs["chunked_prefix_path"] = chunked_prefix_path(log, card, params)
+    runs["device_loop_spec_path"] = device_loop_spec_path(log, card, params, refs)
     runs["study_path"] = study_path(gen, log)
     del params
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one

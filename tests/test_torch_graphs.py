@@ -17,18 +17,26 @@ temperature sampling alike, with paged launches = n_layers x decode
 ticks; a logprobs step's replay equals its eager step (tokens and
 logprobs) bit for bit; chunked and prefixed admissions between replays
 leave the streams equal to the eager loop's and every state tensor at its
-address."""
+address; a k-tick flush's replay equals k eager ticks (greedy and under
+temperature, logprobs included), a verify tick's and a fused flush's
+replays their eager steps, bit for bit; and the engine's multi-tick,
+speculating and fused loops serve on graphs captured at construction
+only, their streams held against the plain trunk."""
 
 import ctypes
+import functools
 
+import numpy as np
 import pytest
 import torch
 
-from vtpu_torch.models import ModelConfig, init_params
+from vtpu_torch.models import LOOP_PAD_TOKEN, ModelConfig, init_params
 from vtpu_torch.ops import _build
 from vtpu_torch.ops.decode_attn import paged_decode_attention, paged_split_plan
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status, TransformerSlotModel
-from vtpu_torch.serving.adapters import sampled_decode_step
+from vtpu_torch.serving.adapters import (
+    fused_spec_decode_step, multi_tick_decode_step, sampled_decode_step, verify_step,
+)
 from vtpu_torch.serving.graphs import DecodeGraphs
 
 pytestmark = pytest.mark.cuda
@@ -301,3 +309,205 @@ def test_chunked_and_prefixed_admissions_between_replays(dev, kv, page):
         got[name] = outs
     assert got["graphs"] == got["eager"]
     assert all(len(o) == NEW for o in got["graphs"])
+
+
+def _flush_inputs(dev):
+    """Tokens, the active mask and caps of a flush over _admitted_state's
+    slots: slot 1 stops at its cap of 2 inside the flush, slot 3 is idle."""
+    return (torch.tensor([3, 4, 5, 0], dtype=torch.int32, device=dev),
+            torch.tensor([True, True, True, False], device=dev),
+            torch.tensor([4, 2, 4, 0], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9], ids=["greedy", "temperature"])
+@pytest.mark.parametrize("page", [PAGE, None], ids=["paged", "dense"])
+def test_flush_replay_equals_k_eager_ticks(dev, page, temperature):
+    """A 4-tick flush (decode_loop_k) captured as one graph: each replay
+    gives, bit for bit, the tokens, counts, carry and logprobs of four
+    eager sampled ticks of the port on generators with the same seeds (a
+    lane leaves the eager ticks after its cap, as it freezes in the
+    flush), and the same caches and lengths; the capture records one paged
+    launch a layer a tick."""
+    cfg = _cfg("bf16")
+    params = init_params(0, cfg, device=dev)
+    model = TransformerSlotModel(params, cfg, kv_page=page, device=dev)
+    eager_state = _admitted_state(model, params, page)
+    graph_state = {k: x.clone() for k, x in eager_state.items()}
+    k = 4
+    flush = multi_tick_decode_step(model, temperature, 16, 1.0, True, k, -1)
+    tick = sampled_decode_step(model, temperature, 16, 1.0, logprobs=True)
+    gens_e = [torch.Generator(device=dev).manual_seed(i) for i in range(4)]
+    gens_g = [torch.Generator(device=dev).manual_seed(i) for i in range(4)]
+    b = 4
+    inputs = (((b,), torch.int32), ((b,), torch.bool), ((b,), torch.int32))
+    graphs = DecodeGraphs(flush, params, graph_state, gens_g, (128, 256), inputs=inputs,
+                          sampled=temperature > 0.0)
+    if page is not None:
+        assert graphs.launches(256) == {"paged_decode_attention": k * cfg.n_layers}
+    tokens, active, cap = _flush_inputs(dev)
+    for bucket in (128, 256):
+        (out, cnt, carry, lps), graph_state = graphs(params, graph_state, tokens, active, cap,
+                                                     gens_g, bucket)
+        tok, want, want_lps = tokens, [[] for _ in range(b)], [[] for _ in range(b)]
+        caps = cap.tolist()
+        for i in range(k):
+            act = torch.tensor([bool(active[s]) and i < caps[s] for s in range(b)], device=dev)
+            (nxt, lp), eager_state = tick(params, eager_state, tok, act, gens_e, bucket)
+            for s in range(b):
+                if act[s]:
+                    want[s].append(int(nxt[s]))
+                    want_lps[s].append(float(lp[s]))
+            tok = torch.where(act, nxt, tok)
+        torch.cuda.synchronize()
+        assert cnt.tolist() == [len(w) for w in want] == [4, 2, 4, 0]
+        for s in range(b):
+            assert out[s, :cnt[s]].tolist() == want[s]
+            assert lps[s, :cnt[s]].tolist() == want_lps[s]
+            assert (out[s, cnt[s]:] == LOOP_PAD_TOKEN).all()
+        assert carry.tolist()[:3] == [w[-1] for w in want[:3]]
+        for key in eager_state:
+            assert torch.equal(graph_state[key], eager_state[key]), key
+        tokens = carry
+    assert graphs.replays == 2
+
+
+@pytest.mark.parametrize("page", [PAGE, None], ids=["paged", "dense"])
+def test_verify_replay_equals_eager_verify(dev, page):
+    """The verify tick of spec_tokens 4 (T = 5) captured with the draft and
+    caps as static buffers: a replay gives the eager step's pred and count
+    and leaves the same caches and lengths, bit for bit; it launches the
+    paged kernel once a layer (T = 5 <= 16 under auto)."""
+    cfg = _cfg("bf16")
+    params = init_params(0, cfg, device=dev)
+    model = TransformerSlotModel(params, cfg, kv_page=page, device=dev)
+    eager_state = _admitted_state(model, params, page)
+    graph_state = {k: x.clone() for k, x in eager_state.items()}
+    step = verify_step(model)
+    gens = [torch.Generator(device=dev).manual_seed(i) for i in range(4)]
+    b, t = 4, 5
+    inputs = (((b, t), torch.int32), ((b,), torch.bool), ((b,), torch.int32))
+    graphs = DecodeGraphs(step, params, graph_state, gens, (128, 256), inputs=inputs, t=t)
+    if page is not None:
+        assert graphs.launches(128) == {"paged_decode_attention": cfg.n_layers}
+        assert all(key[1] == "kernel" for key in graphs.keys())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    active = torch.tensor([True, True, True, False], device=dev)
+    cap = torch.tensor([5, 2, 5, 0], dtype=torch.int32, device=dev)
+    for bucket in (128, 256):
+        draft = torch.randint(1, DIMS["vocab"], (b, t), generator=gen, device=dev,
+                              dtype=torch.int32)
+        (pe, ce), eager_state = step(params, eager_state, draft, active, cap, gens, bucket)
+        (pg, cg), graph_state = graphs(params, graph_state, draft, active, cap, gens, bucket)
+        torch.cuda.synchronize()
+        assert torch.equal(pe, pg) and torch.equal(ce, cg)
+        assert cg[3] == 0 and 1 <= cg[1] <= 2
+        for key in eager_state:
+            assert torch.equal(graph_state[key], eager_state[key]), key
+
+
+@pytest.mark.parametrize("page", [PAGE, None], ids=["paged", "dense"])
+def test_fused_replay_equals_eager_fused_step(dev, page):
+    """A fused speculation flush (4 inner verify ticks of spec_tokens 3)
+    captured at depths 4 and 2: each replay equals the eager fused step at
+    that depth bit for bit (token cube, counts, carry, caches)."""
+    cfg = _cfg("bf16")
+    params = init_params(0, cfg, device=dev)
+    model = TransformerSlotModel(params, cfg, kv_page=page, device=dev)
+    eager_state = _admitted_state(model, params, page)
+    graph_state = {k: x.clone() for k, x in eager_state.items()}
+    step = fused_spec_decode_step(model, 4, 3, -1, 3)
+    gens = [torch.Generator(device=dev).manual_seed(i) for i in range(4)]
+    b, w = 4, 32
+    inputs = (((b,), torch.int32), ((b,), torch.bool), ((b,), torch.int32),
+              ((b, w), torch.int32), ((b,), torch.int32))
+    graphs = {k: DecodeGraphs(functools.partial(step, k_dyn=k), params, graph_state, gens,
+                              (256,), inputs=inputs, t=4) for k in (4, 2)}
+    tokens, active, cap = _flush_inputs(dev)
+    cap = torch.tensor([16, 3, 16, 0], dtype=torch.int32, device=dev)
+    hist = torch.zeros((b, w), dtype=torch.int32, device=dev)
+    hist[:, -8:] = torch.tensor([5, 6, 7, 8, 5, 6, 7, 8], dtype=torch.int32, device=dev)
+    hlen = torch.tensor([8, 8, 8, 0], dtype=torch.int32, device=dev)
+    for k in (4, 2):
+        (oe, ce, re), eager_state = step(params, eager_state, tokens, active, cap, hist, hlen,
+                                         gens, 256, k_dyn=k)
+        (og, cg, rg), graph_state = graphs[k](params, graph_state, tokens, active, cap, hist,
+                                              hlen, gens, 256)
+        torch.cuda.synchronize()
+        assert torch.equal(oe, og) and torch.equal(ce, cg) and torch.equal(re, rg)
+        assert int(cg[1].sum()) <= 3 and (cg[:, k:] == 0).all()
+        for key in eager_state:
+            assert torch.equal(graph_state[key], eager_state[key]), key
+
+
+def _plain_stream(params, cfg, prompt, steps):
+    """The port's plain trunk (no kernel) greedy stream with each step's
+    top-1/top-2 logit margin."""
+    import dataclasses
+
+    from vtpu_torch.models import decode_step, prefill
+
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    logits, cache = prefill(params, plain, torch.from_numpy(prompt[None]).to(params["embed"].device))
+    row, out, margins = logits[0, -1], [], []
+    for _ in range(steps):
+        top = torch.topk(row.float(), 2).values
+        margins.append(float(top[0] - top[1]))
+        out.append(int(torch.argmax(row)))
+        logits, cache = decode_step(params, plain, cache, torch.tensor(
+            [out[-1]], dtype=torch.int32, device=row.device))
+        row = logits[0]
+    return out, margins
+
+
+@pytest.mark.parametrize("loop", ["device_loop", "spec", "fused", "fused_policy"])
+def test_engine_loops_replay_their_graphs(dev, loop):
+    """The multi-tick loop, unfused and fused speculation (with a LoopPolicy:
+    one graph per depth) serve four prompts on graphs captured when the
+    engine was built, none while serving: replays equal flushes (or verify
+    and plain ticks), paged launches are n_layers x inner ticks, every
+    state tensor keeps its address, and the streams equal the plain trunk's
+    greedy stream up to a top-1/top-2 margin below 0.05 (bf16)."""
+    from vtpu_torch.serving.shed import AdaptiveLoopPolicy
+
+    cfg = _cfg("bf16")
+    params = init_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(1, DIMS["vocab"], (n,), generator=gen).numpy()
+               for n in (9, 64, 33)] + [np.tile(np.arange(1, 7, dtype=np.int32), 6)]
+    kw = {"device_loop": dict(decode_loop_k=4), "spec": dict(spec_tokens=3),
+          "fused": dict(decode_loop_k=4, spec_tokens=3),
+          "fused_policy": dict(decode_loop_k=4, spec_tokens=3,
+                               loop_policy=AdaptiveLoopPolicy())}[loop]
+    eng = ServingEngine(params, cfg, ServingConfig(slots=4, prefill_buckets=(64,),
+                                                   max_new_tokens=NEW, kv_page=PAGE, **kw))
+    captured = eng.stats()["graphs_captured"]
+    assert captured == {"device_loop": 2, "spec": 4, "fused": 4, "fused_policy": 10}[loop]
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    reqs = [eng.submit(p) for p in prompts]
+    _build.reset_launches()
+    eng.start()
+    try:
+        outs = [list(r.stream()) for r in reqs]
+    finally:
+        eng.stop()
+    assert eng.loop_error is None and [r.status for r in reqs] == [Status.OK] * 4
+    st = eng.stats()
+    assert st["graphs_captured"] == captured
+    assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs
+    replays = sum(g.replays for g in eng._graph_sets())
+    inner = st["decode_ticks"] + st["spec_ticks"]
+    assert _build.launches()["paged_decode_attention"] == cfg.n_layers * inner
+    if loop == "device_loop":
+        assert replays == eng.loop_graphs.replays == st["loop_flushes"] > 0
+    elif loop == "spec":
+        assert eng.spec_graphs.replays == st["spec_ticks"] > 0
+        assert eng.decode_graphs.replays == st["decode_ticks"]
+    else:
+        assert replays == st["loop_flushes"] and st["fused_flushes"] > 0
+    for out, prompt in zip(outs, prompts):
+        assert len(out) == NEW
+        want, margins = _plain_stream(params, cfg, prompt, NEW)
+        for got, ref, m in zip(out, want, margins):
+            if m < 0.05:
+                break
+            assert got == ref

@@ -87,7 +87,7 @@ def test_flash_kernel_reads_strided_views(dev):
         flash_attention(q.float(), k.float(), v.float())
 
 
-PAGED_CASES = ["flat_t1", "ragged_t3", "poisoned_null", "mid_tile", "one_split"]
+PAGED_CASES = ["flat_t1", "ragged_t3", "poisoned_null", "mid_tile", "one_split", "verify_t5"]
 
 
 def _paged_lens(case: str, page: int):
@@ -95,9 +95,13 @@ def _paged_lens(case: str, page: int):
     5, 0], [6, 7, 8, 1]]: lengths scale with the page, so every page size
     walks the same pages. mid_tile ends every row inside a tile (past the
     first page's tiles at page 48); one_split is flat_t1 under a plan of
-    one split."""
+    one split; verify_t5 is a speculation verify chunk (spec_tokens 4), one
+    row crossing a page boundary inside the chunk."""
     if case in ("flat_t1", "one_split"):
         return 1, [[5], [2 * page + 1], [4 * page]]
+    if case == "verify_t5":
+        return 5, [[page - 1 + i for i in range(5)], [2 * page + 3 + i for i in range(5)],
+                   [4 * page - 4 + i for i in range(5)]]
     if case == "ragged_t3":
         return 3, [[page + 1, page + 2, page + 3], [2 * page + 6, 2 * page + 7, 2 * page + 8],
                    [4 * page - 2, 4 * page - 1, 4 * page]]

@@ -295,6 +295,23 @@ def test_unported_serving_fields_raise(weights, field, value):
                             device="cpu")
         assert eng.stats()["pipelined"] is True
         return
+    if field in ("spec_tokens", "decode_loop_k"):
+        # ported since the device-loop and speculation slice: a short greedy
+        # stream is served on the speculating or the multi-tick loop
+        # (tests/test_torch_spec.py, tests/test_torch_device_loop.py hold
+        # them against the reference)
+        eng = ServingEngine(tp, CFG, ServingConfig(
+            slots=2, prefill_buckets=(8,), max_new_tokens=6, **{field: value}), device="cpu")
+        req = eng.submit(np.asarray([5, 6, 7, 5, 6, 7], np.int32))
+        eng.start()
+        try:
+            out = list(req.stream())
+        finally:
+            eng.stop()
+        st = eng.stats()
+        assert len(out) == 6 and req.status == Status.OK
+        assert st["spec_ticks" if field == "spec_tokens" else "loop_flushes"] > 0
+        return
     if field in ("prefill_chunk", "logprobs", "async_admission"):
         # ported since the chunked-prefill and sampling-API slice: the value
         # is served (tests/test_torch_chunked.py, tests/test_torch_sampling_api.py

@@ -241,6 +241,165 @@ def filter_logits(logits: torch.Tensor, temperature: float, top_k: int,
     return x
 
 
+# What a multi-tick flush writes in its frozen lanes' token columns: sampled
+# ids are >= 0, so -1 is never a real token (the host trusts the counts; the
+# sentinel keeps the [B, k] matrix self-describing)
+LOOP_PAD_TOKEN = -1
+
+
+def multi_tick_decode(decode_fn, sample_fn, k: int, eos_token: int, logprobs: bool, state,
+                      tokens: torch.Tensor, active: torch.Tensor, gens: list,
+                      cap: torch.Tensor):
+    """``k`` decode ticks in one call with the sampled token fed back on the
+    device: inner tick i's token is inner tick i+1's input and never visits
+    the host. The serving engine's multi-tick loop (``decode_loop_k``) runs
+    this as one flush; on a CUDA card it replays from one graph.
+
+    ``decode_fn(state, tokens [B], active [B]) -> (logits [B, vocab],
+    state)`` is one tick of the trunk; ``sample_fn(logits, gens) -> (tok
+    [B] int32, logprobs [B] f32 or None)`` the on-device sampler, drawing
+    once a tick from each slot's generator.
+
+    Per-slot early exit: a lane freezes the inner tick after it emits its
+    cap'th token (``cap`` [B] int32, its remaining budget) or
+    ``eos_token``. Its active flag goes False, so later inner ticks drop
+    its KV writes like any inactive slot's and its length stops advancing;
+    its output columns hold LOOP_PAD_TOKEN. Paged write addresses come
+    from the advancing device length, so nothing is read back between
+    inner ticks: the call can be captured.
+
+    Returns (out [B, k] int32, counts [B] int32, carry [B] int32, lps
+    [B, k] f32 or None, state): ``out[b, :counts[b]]`` are slot b's tokens
+    this flush, ``carry`` each slot's last sampled token, the next flush's
+    input, still on the device."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    out = torch.full((b, k), LOOP_PAD_TOKEN, dtype=torch.int32, device=dev)
+    lps = torch.zeros((b, k), dtype=torch.float32, device=dev) if logprobs else None
+    bud0 = torch.where(active, cap.clamp_min(0), 0).to(torch.int32)
+    bud, tok, act = bud0, tokens, active
+    for i in range(k):
+        logits, state = decode_fn(state, tok, act)
+        nxt, lp = sample_fn(logits, gens)
+        out[:, i] = torch.where(act, nxt, LOOP_PAD_TOKEN)
+        if logprobs:
+            lps[:, i] = torch.where(act, lp, 0.0)
+        bud = bud - act.to(torch.int32)
+        # the emitted token is the lane's next input; after a freeze the
+        # lane is masked, so the stale value is never observed
+        tok = torch.where(act, nxt, tok)
+        act = act & (bud > 0) & (nxt != eos_token)
+    return out, bud0 - bud, tok, lps, state
+
+
+def ngram_draft(hist: torch.Tensor, hist_len: torch.Tensor, k: int,
+                max_ngram: int) -> torch.Tensor:
+    """On-device n-gram draft over a right-aligned token window.
+
+    ``hist`` [B, W] int32 holds each slot's most recent tokens packed at the
+    right edge (``hist[:, W-1]`` is the pending token the next tick
+    conditions on) and ``hist_len`` [B] counts the real trailing entries.
+    For each slot: the most recent earlier occurrence of the longest
+    matching suffix n-gram (n = max_ngram down to 1), and the ``k`` tokens
+    that followed it; as the host's ``lookup_draft`` does, a match whose
+    full k-token continuation fits the window beats a more recent one
+    whose continuation runs off the edge (on a periodic stream the most
+    recent match abuts the suffix and would propose one real token plus
+    zeros). Slots with no match propose zeros: under greedy verification
+    the draft moves only the acceptance rate, never the stream.
+
+    Fixed-shape masked arithmetic over [B, W] (``torch.gather`` for the
+    continuation, a masked ``amax`` for the most recent start): no host
+    read, no shape that depends on the data, so it runs inside a captured
+    flush. Longer n-grams overwrite shorter ones, so the longest wins."""
+    b, w = hist.shape
+    dev = hist.device
+    draft = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    hist_len = hist_len.long()
+    first_real = (w - torch.clamp(hist_len, max=w))[:, None]
+    for n in range(1, max_ngram + 1):
+        m = w - n  # candidate starts 0..m-1 (the suffix itself excluded)
+        if m < 1:
+            break
+        tail = hist[:, w - n:]
+        eq = torch.ones((b, m), dtype=torch.bool, device=dev)
+        for j in range(n):
+            eq = eq & (hist[:, j:m + j] == tail[:, j:j + 1])
+        starts = torch.arange(m, device=dev)[None, :]
+        # a candidate is real only inside the slot's valid tail, and a
+        # suffix match needs n + 1 real tokens
+        ok = eq & (starts >= first_real) & (hist_len >= n + 1)[:, None]
+        full = ok & (starts + n + k <= w)
+        wfull = torch.where(full, starts, -1).amax(dim=1)
+        wany = torch.where(ok, starts, -1).amax(dim=1)
+        wstar = torch.where(wfull >= 0, wfull, wany)
+        idx = wstar[:, None] + n + torch.arange(k, device=dev)[None, :]
+        cont = torch.where(idx < w, torch.gather(hist, 1, idx.clamp(0, w - 1)), 0)
+        draft = torch.where((wstar >= 0)[:, None], cont.to(torch.int32), draft)
+    return draft
+
+
+def multi_tick_spec_decode(spec_fn, k: int, spec_tokens: int, ngram: int, eos_token: int,
+                           state, tokens: torch.Tensor, active: torch.Tensor,
+                           cap: torch.Tensor, hist: torch.Tensor, hist_len: torch.Tensor,
+                           k_dyn: Optional[int] = None):
+    """Fused speculation: draft and verify as the body of the multi-tick
+    loop, so one flush runs up to ``k`` verify ticks of up to
+    ``spec_tokens + 1`` tokens each.
+
+    Each inner tick drafts on the device (the pending token plus an
+    ``ngram_draft`` continuation from the slot's window, carried through
+    the loop) and runs one greedy verify chunk through ``spec_fn(state,
+    draft [B, T], active, budget) -> (pred [B, T], count [B], state)``
+    (``batched_spec_step``: T = spec_tokens + 1 positions, the accepted
+    prefix plus the bonus token counted against the remaining budget).
+    The accepted run shifts into the right-aligned window (frozen lanes
+    count 0, so theirs stays), the last accepted token is the next tick's
+    pending token, and a lane freezes when its budget reaches 0 or an
+    accepted position is ``eos_token``. Greedy verification emits the
+    model's own argmax at every accepted position, so the stream equals
+    plain greedy decode for any draft.
+
+    ``k_dyn`` (a Python int, clamped to [0, k]; None = k) is how many inner
+    ticks this call runs: the output keeps the static ``k`` columns, and
+    the ticks not run hold LOOP_PAD_TOKEN and zero counts. A captured
+    graph has a fixed loop count, so the engine captures one graph per
+    k_dyn it may dispatch.
+
+    Returns (out [B, k, spec_tokens+1] int32, counts [B, k] int32, carry
+    [B] int32, state): ``out[b, i, :counts[b, i]]`` are slot b's tokens of
+    inner tick i."""
+    b = tokens.shape[0]
+    t = spec_tokens + 1
+    w = hist.shape[1]
+    dev = tokens.device
+    out = torch.full((b, k, t), LOOP_PAD_TOKEN, dtype=torch.int32, device=dev)
+    cnts = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    bud = torch.where(active, cap.clamp_min(0), 0).to(torch.int32)
+    tok, act, hlen = tokens, active, hist_len
+    steps = torch.arange(t, device=dev)
+    window = torch.arange(w, device=dev)[None, :]
+    for i in range(k if k_dyn is None else max(0, min(int(k_dyn), k))):
+        cont = ngram_draft(hist, hlen, spec_tokens, ngram)
+        draft = torch.cat([tok[:, None], cont], dim=1)
+        pred, count, state = spec_fn(state, draft, act, bud)
+        accepted = steps[None, :] < count[:, None]
+        out[:, i] = torch.where(accepted, pred, LOOP_PAD_TOKEN)
+        cnts[:, i] = count
+        bud = bud - count
+        # an eos freezes the lane after the tick that accepted it (the host
+        # truncates the delivered run at the eos)
+        hit = (accepted & (pred == eos_token)).any(dim=1)
+        # shift the accepted run into the window: a no-op at count 0
+        hist = torch.gather(torch.cat([hist, pred], dim=1), 1,
+                            count.long()[:, None] + window)
+        hlen = torch.clamp(hlen + count, max=w)
+        last = torch.gather(pred, 1, (count.long() - 1).clamp(0, t - 1)[:, None])[:, 0]
+        tok = torch.where(act & (count > 0), last, tok)
+        act = act & (bud > 0) & ~hit
+    return out, cnts, tok, state
+
+
 @functools.lru_cache(maxsize=8)
 def _rope_tables(max_seq: int, head_dim: int, device: str):
     # read-only tables, one per (shape, device): decode ticks reuse them
@@ -366,7 +525,7 @@ def spec_verify_loop(params: Params, cfg: ModelConfig, cache: dict[str, torch.Te
     Paged pools ("table" in cache) read either through the paged kernel
     (the whole pool plus the layer index, walking the table in place) or
     through the gather route, resolved by ``paged_attn_route(paged_attn,
-    window, device)``. Both share the masking and null-block contracts. An
+    window, device, T)`` (auto sends T > 16 to gather). Both share the masking and null-block contracts. An
     int8 cache (k_scale/v_scale present) takes the int8 twin of each route.
     Under ``mesh`` the cache is the rank's head shard, the paged kernel runs
     head-local (the reference's ``_shard_body``) and the layer's partial
@@ -383,7 +542,7 @@ def spec_verify_loop(params: Params, cfg: ModelConfig, cache: dict[str, torch.Te
     if table is not None:
         page = cache["k"].shape[2]
         table_w = table[:, : bucket // page].contiguous()
-        use_kernel = paged_attn_route(paged_attn, bucket, dev) == "kernel"
+        use_kernel = paged_attn_route(paged_attn, bucket, dev, t) == "kernel"
     steps = torch.arange(t, device=dev, dtype=torch.int32)
     # a slot near the context wall still computes, but its out-of-range
     # rows are never written (write_kv drops them) nor emitted; the clip

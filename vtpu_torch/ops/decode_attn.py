@@ -59,19 +59,31 @@ SPLIT_MAX_TILES = 14
 _fns: dict = {}  # C symbol -> bound ctypes function, set at first launch
 
 
-def paged_attn_route(override: Optional[str], window: int, device) -> str:
-    """Resolve the paged decode-attention route for one dispatch.
+def paged_attn_route(override: Optional[str], window: int, device, t: int = 1) -> str:
+    """Resolve the paged decode-attention route for one dispatch of ``t``
+    queries a row (1 for a decode tick, K+1 for a verify chunk).
 
     ``override`` "kernel" or "gather" forces a route; anything else but None
     raises. None (auto) is "kernel" on CUDA and "gather" elsewhere, at every
     ``window`` (the read window in tokens) and for bf16 and int8 pools: no
-    floor has been measured on the card yet, so none applies."""
+    floor has been measured on the card yet, so none applies. The one
+    exception is the kernels' shape: they take at most 16 queries a row, so
+    auto sends a wider verify chunk (``spec_tokens`` > 15) to the gather
+    route, and a forced "kernel" at such a ``t`` raises. That is a limit of
+    the kernel's shape, not a speed floor."""
     if override is not None:
         if override not in PAGED_ATTN_ROUTES:
             raise ValueError(
                 f"paged_attn must be one of {PAGED_ATTN_ROUTES} or None "
                 f"(auto), got {override!r}")
+        if override == "kernel" and t > _MAX_T:
+            raise ValueError(
+                f"paged_attn='kernel' cannot serve T={t} queries a row: the paged kernels "
+                f"take at most {_MAX_T} (spec_tokens + 1 <= {_MAX_T}); leave paged_attn "
+                "to auto, which reads a wider verify chunk through the gather route")
         return override
+    if t > _MAX_T:
+        return "gather"
     return "kernel" if torch.device(device).type == "cuda" else "gather"
 
 

@@ -12,6 +12,8 @@ Contract (all shapes static; per-slot state is data, never shape):
   decode_step(params, state, tokens[B], active[B], kv_bucket) -> (logits, state)
   prefill_chunk_into_slot(params, state, chunk[1, C], slot, offset, new_len,
                           kv_bucket, block_ids=None) -> (logits [1, C, vocab], state)
+  spec_step(params, state, draft[B, T], active[B], cap[B], kv_bucket)
+      -> (pred [B, T], count [B], state)
 
 The state is updated in place; the returned dict is the one to keep.
 ``prefill_chunk_into_slot`` with an explicit ``block_ids`` row and the slot
@@ -33,7 +35,8 @@ import torch
 
 from vtpu_torch.device import resolve_device
 from vtpu_torch.models.transformer import (
-    init_kv_cache, init_paged_kv_cache, kv_quantized, prefill, sample_tokens,
+    init_kv_cache, init_paged_kv_cache, kv_quantized, multi_tick_decode,
+    multi_tick_spec_decode, prefill, sample_tokens,
 )
 from vtpu_torch.ops.decode_attn import PAGED_ATTN_ROUTES
 from vtpu_torch.parallel.collectives import broadcast_
@@ -60,6 +63,81 @@ def sampled_decode_step(model: Any, temperature: float, top_k: int, top_p: float
     def step(params, state, tokens, active, gens, kv_bucket):
         logits, state = model.decode_step(params, state, tokens, active, kv_bucket)
         return sample_tokens(logits, gens, temperature, top_k, top_p, logprobs), state
+
+    return step
+
+
+def multi_tick_decode_step(model: Any, temperature: float, top_k: int, top_p: float,
+                           logprobs: bool, k: int, eos_token: int):
+    """Compose a slot model's decode_step with the on-device sampler into a
+    k-tick flush (models.transformer.multi_tick_decode):
+
+        (params, state, tokens[B], active[B], cap[B], gens[B], kv_bucket)
+            -> ((out [B, k] int32, counts [B] int32, carry [B] int32,
+                 logprobs [B, k] f32 or None), state)
+
+    The loop body is the unchanged decode step, so a flush is token-equal
+    to k single ticks, and the sampler draws from each slot's generator
+    once an inner tick, k times a flush, as k eager ticks would. ``cap`` is
+    each slot's remaining budget clamped to k (its early-exit wall);
+    ``eos_token`` freezes a slot the tick after it samples it."""
+
+    def step(params, state, tokens, active, cap, gens, kv_bucket):
+        def decode(st, tok, act):
+            return model.decode_step(params, st, tok, act, kv_bucket)
+
+        def sample(logits, gens):
+            out = sample_tokens(logits, gens, temperature, top_k, top_p, logprobs)
+            return out if logprobs else (out, None)
+
+        out, counts, carry, lps, state = multi_tick_decode(
+            decode, sample, k, eos_token, logprobs, state, tokens, active, gens, cap)
+        return (out, counts, carry, lps), state
+
+    return step
+
+
+def verify_step(model: Any):
+    """A slot model's spec_step in the engine's step signature:
+
+        (params, state, draft[B, T], active[B], cap[B], gens, kv_bucket)
+            -> ((pred [B, T] int32, count [B] int32), state)
+
+    the synchronous loop's verify tick (greedy: ``gens`` is unused)."""
+
+    def step(params, state, draft, active, cap, gens, kv_bucket):
+        pred, count, state = model.spec_step(params, state, draft, active, cap, kv_bucket)
+        return (pred, count), state
+
+    return step
+
+
+def fused_spec_decode_step(model: Any, k: int, spec_tokens: int, eos_token: int, ngram: int):
+    """Compose a slot model's spec_step (the ``batched_spec_step`` verify
+    trunk) with the on-device n-gram draft into a fused speculation flush
+    (models.transformer.multi_tick_spec_decode):
+
+        (params, state, tokens[B], active[B], cap[B], hist[B, W],
+         hist_len[B], gens, kv_bucket, k_dyn=None)
+            -> ((out [B, k, spec_tokens+1] int32, counts [B, k] int32,
+                 carry [B] int32), state)
+
+    The inner body is the unchanged spec_step, so a fused flush is
+    token-equal to k host-drafted verify ticks, and greedy verification
+    makes both token-equal to plain greedy decode. ``hist``/``hist_len``
+    are each slot's recent tokens (right-aligned) for the draft; ``cap``
+    the remaining budgets; ``k_dyn`` the inner ticks this call runs (a
+    LoopPolicy's pick; the output keeps k columns). Speculation is greedy
+    only: ``gens`` is accepted for a uniform step signature and unused."""
+
+    def step(params, state, tokens, active, cap, hist, hist_len, gens, kv_bucket, k_dyn=None):
+        def spec(st, draft, act, bud):
+            return model.spec_step(params, st, draft, act, bud, kv_bucket)
+
+        out, counts, carry, state = multi_tick_spec_decode(
+            spec, k, spec_tokens, ngram, eos_token, state, tokens, active, cap, hist,
+            hist_len, k_dyn)
+        return (out, counts, carry), state
 
     return step
 
@@ -161,6 +239,19 @@ class TransformerSlotModel:
         with self._lock:
             self._announce(_OP_DECODE, (kv_bucket,), (tokens, active), state)
             return self._decode(params, state, tokens, active, kv_bucket)
+
+    def spec_step(self, params, state, draft, active, cap, kv_bucket):
+        """One verify tick over a [B, T] draft (engine.py's
+        ``batched_spec_step``): (pred [B, T], count [B], state). One device
+        only: the rank-0 broadcast protocol has no verify op yet."""
+        if self._drives():
+            raise NotImplementedError(
+                "speculation under a tensor-parallel mesh= is not ported to vtpu_torch: "
+                "the rank-0 broadcast protocol has no verify op")
+        from vtpu_torch.serving.engine import batched_spec_step
+
+        return batched_spec_step(params, self.cfg, state, draft, active, cap,
+                                 kv_bucket=kv_bucket, paged_attn=self.paged_attn)
 
     def prefill_chunk_into_slot(self, params, state, chunk, slot, offset, new_len,
                                 kv_bucket=0, block_ids=None):

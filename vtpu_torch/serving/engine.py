@@ -7,21 +7,25 @@ one prompt a dispatch and a blocking first-token fetch), chunked prefill for
 prompts past the largest bucket (``prefill_chunk``) and registered shared
 prefixes (``register_prefix`` / ``submit(prefix=)``), and the sampled decode
 tick with ONE device->host fetch per tick (tokens, and their logprobs with
-``logprobs=True``), on one of the reference's two device-sampled loops: the
-one-tick-deep pipelined loop (the default, as in the reference) or the
-synchronous loop (``pipeline_decode=False``). On one CUDA card the
-pipelined loop replays its decode step from CUDA graphs (serving/graphs.py).
-A custom ``sample=`` callable runs the reference's host path: the
-synchronous loop fetches the [B, vocab] logits once a tick and calls the
-callable per live row. Requests join and leave slots without any shape
+``logprobs=True``), on one of the reference's device-sampled loops: the
+one-tick-deep pipelined loop (the default, as in the reference), the
+synchronous loop (``pipeline_decode=False``), the multi-tick device loop
+(``decode_loop_k``: k ticks a dispatch, one fetch a flush), speculation
+(``spec_tokens``: prompt-lookup drafts verified K+1 positions a tick on the
+synchronous loop) and, with both, fused speculation (draft and verify
+inside the flush, its depth picked by a ``LoopPolicy``). On one CUDA card
+each loop replays its steps from CUDA graphs (serving/graphs.py). A custom
+``sample=`` callable runs the reference's host path: the synchronous loop
+fetches the [B, vocab] logits once a tick and calls the callable per live
+row. Requests join and leave slots without any shape
 changing; inactive slots compute but their writes are dropped. The request
 trace and the tick-phase profiler (vtpu_torch/obs) record what the loop
 does, host-side only.
 
 What the port has not reached raises instead of being ignored: every
 ``ServingConfig`` field named in ``_UNPORTED`` must stay at its default,
-``ModelConfig.kv_int8="auto"`` is refused, and so are chunked prefill and
-prefix registration under a mesh. ``kv_int8=True`` serves int8 KV: dense or
+``ModelConfig.kv_int8="auto"`` is refused, and so are chunked prefill,
+prefix registration, speculation and the multi-tick loop under a mesh. ``kv_int8=True`` serves int8 KV: dense or
 paged int8 planes with f32 scale planes beside them, written quantized at
 every KV write site here. ``mesh=`` (a vtpu_torch.parallel.TpMesh) serves
 tensor-parallel over torch.distributed: see ``ServingEngine`` for how the
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import itertools
 import logging
 import queue
@@ -74,9 +79,11 @@ from vtpu_torch.obs.trace import TERMINAL_CODES
 from vtpu_torch.ops import _build
 from vtpu_torch.ops.decode_attn import paged_attn_route
 from vtpu_torch.serving.adapters import (
-    TransformerSlotModel, batched_admission_step, sampled_decode_step,
+    TransformerSlotModel, batched_admission_step, fused_spec_decode_step,
+    multi_tick_decode_step, sampled_decode_step, verify_step,
 )
 from vtpu_torch.serving.graphs import DecodeGraphs
+from vtpu_torch.serving.shed import EngineSignals, load_loop_policy
 
 log = logging.getLogger(__name__)
 
@@ -92,7 +99,11 @@ class ServingConfig:
 
     ``decode_unroll`` only chooses how XLA lowers the reference's layer
     loop (unrolled or a fori_loop); the port's layer loop is a Python loop,
-    always unrolled, so None, True and False serve the same computation."""
+    always unrolled, so None, True and False serve the same computation.
+
+    Speculation and the multi-tick loop are served on one device; under a
+    tensor-parallel mesh their six fields raise (the rank-0 broadcast
+    protocol has no verify and no flush op yet)."""
 
     slots: int = 4  # concurrent sequences (the decode batch)
     prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024)
@@ -102,8 +113,17 @@ class ServingConfig:
     # window to the longest live sequence; False reads max_seq every tick
     kv_read_buckets: Optional[bool] = None
     decode_unroll: Optional[bool] = None  # accepted; see the docstring
+    # speculative decoding: draft length K (0 = off). Drafts continue the
+    # most recent earlier occurrence of the stream's last (up to)
+    # spec_ngram tokens; one verify tick checks K+1 positions and emits
+    # 1..K+1 tokens. Greedy only: a custom sampler, temperature > 0 or
+    # logprobs disable it (stats()["spec_disabled_reason"] says which). A
+    # tick where no slot finds a draft runs the plain decode step
     spec_tokens: int = 0
     spec_ngram: int = 3
+    # drafting pauses while the EMA of tokens emitted per (slot, verify
+    # tick) sits below this (0 = always speculate), and re-probes after
+    # spec_cooloff_ticks plain ticks
     spec_min_mean: float = 1.25
     spec_cooloff_ticks: int = 64
     # prompts past the largest bucket (and prefixed suffixes) admit in
@@ -148,7 +168,14 @@ class ServingConfig:
     # latency percentiles in stats() stay live)
     trace_events: int = 16384
     disagg: Optional[Any] = None
+    # k decode ticks a dispatch with the sampled token fed back on the
+    # device, one fetch a flush (None and 1: one tick a dispatch). Needs
+    # device sampling. With spec_tokens the flush drafts and verifies on
+    # the device (fused speculation)
     decode_loop_k: Optional[int] = None
+    # the fused flush's depth: None = decode_loop_k every flush; else a
+    # LoopPolicy (serving/shed.py; instance, class or "module:attr") that
+    # picks it per flush, up to decode_loop_k. Requires the fused loop
     loop_policy: Optional[Any] = None
     shed_queue_depth: int = 0
     shed_policy: Optional[Any] = None
@@ -163,25 +190,33 @@ class ServingConfig:
 # fields whose features are later slices of the port: a non-default value
 # raises NotImplementedError naming the field
 _UNPORTED = (
-    "spec_tokens", "spec_ngram", "spec_min_mean", "spec_cooloff_ticks", "kv_swap",
-    "kv_swap_stage_blocks", "kv_swap_recompute_tokens", "disagg", "decode_loop_k",
-    "loop_policy", "shed_queue_depth", "shed_policy", "fetch_watchdog_ms",
-    "fetch_watchdog_recover_ms", "worker_retry_limit", "worker_retry_backoff_ms",
-    "faults", "duty_supplier",
+    "kv_swap", "kv_swap_stage_blocks", "kv_swap_recompute_tokens", "disagg",
+    "shed_queue_depth", "shed_policy", "fetch_watchdog_ms", "fetch_watchdog_recover_ms",
+    "worker_retry_limit", "worker_retry_backoff_ms", "faults", "duty_supplier",
 )
+# served on one device only: under a mesh a non-default value raises (the
+# rank-0 broadcast protocol has no verify op and no flush op yet)
+_ONE_DEVICE = ("spec_tokens", "spec_ngram", "spec_min_mean", "spec_cooloff_ticks",
+               "decode_loop_k", "loop_policy")
 
 
 def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
     """Refuse what this port has not reached. Every other combination is
     ported, under a tensor-parallel ``mesh`` as on one device, except
-    chunked prefill (and so prefix registration), whose rank-0 broadcast
-    op is a later slice: the mesh itself is checked by the adapter
-    (``_validate_serving_mesh``)."""
+    chunked prefill (and so prefix registration), speculation and the
+    multi-tick loop, whose rank-0 broadcast ops are a later slice: the mesh
+    itself is checked by the adapter (``_validate_serving_mesh``)."""
     for f in dataclasses.fields(ServingConfig):
         if f.name in _UNPORTED and getattr(serving, f.name) != f.default:
             raise NotImplementedError(
                 f"ServingConfig.{f.name}={getattr(serving, f.name)!r} is not "
                 "ported to vtpu_torch yet; leave it at its default")
+        if mesh is not None and f.name in _ONE_DEVICE and getattr(serving, f.name) != f.default:
+            raise NotImplementedError(
+                f"ServingConfig.{f.name}={getattr(serving, f.name)!r} under a tensor-parallel "
+                "mesh= is not ported to vtpu_torch: the rank-0 broadcast protocol has no "
+                "verify op and no flush op yet; serve speculation and decode_loop_k on one "
+                "device")
     if isinstance(getattr(cfg, "kv_int8", False), str):
         raise NotImplementedError(
             f"ModelConfig.kv_int8={cfg.kv_int8!r} is not ported to vtpu_torch: the "
@@ -440,6 +475,68 @@ def batched_decode_step(params: Params, cfg: ModelConfig, cache: dict, tokens: t
     return logits, {**new_kv, "len": lens}
 
 
+def batched_spec_step(params: Params, cfg: ModelConfig, cache: dict, draft: torch.Tensor,
+                      active: torch.Tensor, cap: torch.Tensor, kv_bucket: int = 0, ffn_fn=None,
+                      paged_attn=None, mesh=None):
+    """One speculative tick for the slot pool: verify a [B, T] draft chunk
+    (column 0 is each slot's pending token, columns 1..T-1 the guessed
+    continuation) through ``spec_verify_loop`` and accept greedily.
+
+    Returns (pred [B, T] int32, count [B] int32, cache): ``pred[b,
+    :count[b]]`` are the tokens slot b emits (the verified draft prefix is
+    the model's own argmax there), ``count`` = leading matches + 1 (the
+    first disagreeing argmax is the bonus token, so a tick never emits
+    less than a plain one), capped by ``cap`` (the remaining budget) and 0
+    on inactive rows. The length grows by count IN PLACE; rejected
+    positions keep stale KV above it, overwritten by the next chunk before
+    any query reads them.
+
+    Dropped writes (inactive rows, positions at or past the context wall)
+    write back what their target holds, as in ``batched_decode_step``, but
+    a chunk writes T positions a row, and an ``index_put_`` whose indices
+    repeat has no defined winner on CUDA: a dropped position must never
+    share its target with a kept one. Dense: a dropped position goes to
+    its row's position len - 1, below every kept write of the row (an
+    active row holds its prompt, so len >= 1 whenever one of its positions
+    is dropped). Paged: to the null block 0. A kept position past the
+    slot's reservation maps, through the null-padded table row, to block 0
+    as well, which no reader unmasks. The reference drops these writes
+    with an out-of-range index instead.
+
+    The paged read route is resolved at T = draft width: the kernel under
+    auto for T <= 16, the gather route past it. Nothing here reads the
+    device from the host: the step can be captured."""
+    b, t = draft.shape
+    lens = cache["len"]
+    dev = draft.device
+    pos = lens[:, None].long() + torch.arange(t, device=dev)[None, :]  # [B, T]
+    keep = active[:, None] & (pos < cfg.max_seq)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, t)
+    if "table" in cache:
+        page = cache["k"].shape[2]
+        table = cache["table"]
+        blocks = torch.gather(table, 1, torch.clamp(pos // page, max=table.shape[1] - 1))
+        idx = (torch.where(keep, blocks.long(), 0).reshape(-1), (pos % page).reshape(-1))
+    else:
+        drop = torch.clamp(lens.long() - 1, min=0)[:, None].expand(b, t)
+        idx = (rows.reshape(-1), torch.where(keep, pos, drop).reshape(-1))
+    flat_keep = keep.reshape(-1)
+
+    def write_kv(l, kv, k, v):
+        store_kv(kv, l, idx, k.reshape((b * t,) + k.shape[2:]),
+                 v.reshape((b * t,) + v.shape[2:]), keep=flat_keep)
+        return kv
+
+    logits, new_kv = spec_verify_loop(params, cfg, cache, draft, kv_bucket, write_kv,
+                                      ffn_fn=ffn_fn, paged_attn=paged_attn, mesh=mesh)
+    pred = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, T]
+    match = (draft[:, 1:] == pred[:, :-1]).to(torch.int32)
+    accepted = torch.cumprod(match, dim=1).sum(dim=1)  # leading matches
+    count = torch.where(active, torch.minimum(accepted + 1, cap.long()), 0).to(torch.int32)
+    lens.copy_(torch.clamp(lens + count, max=cfg.max_seq))
+    return pred, count, {**new_kv, "len": lens}
+
+
 def _scatter_prefill_pages(cache: dict, seq_cache: dict, logits: torch.Tensor,
                            slots: torch.Tensor, true_lens: torch.Tensor, s: int):
     """Install N freshly prefilled rows into a PAGED pool: the dense
@@ -505,6 +602,30 @@ def pad_to_chunks(tokens, n: int, c: int) -> torch.Tensor:
     out = torch.zeros((1, -(-n // c) * c), dtype=torch.int32)
     out[0, :n] = torch.as_tensor(np.asarray(tokens, dtype=np.int32)[:n])
     return out
+
+
+def lookup_draft(history: list, k: int, max_ngram: int) -> Optional[list]:
+    """Prompt-lookup drafting: continue the most recent earlier occurrence
+    of the longest tail n-gram (<= max_ngram) of the history. Within one
+    n, a match with a FULL k-token continuation beats a more recent match
+    whose continuation runs off the end of the history (on a periodic
+    stream the most recent occurrence sits flush against the suffix and
+    would propose one real token plus zero padding). Returns k tokens
+    (zero-padded when only a partial match exists) or None when nothing
+    matches. A host scan per tick over Python ints."""
+    for n in range(min(max_ngram, len(history) - 1), 0, -1):
+        tail = history[-n:]
+        partial = None
+        for i in range(len(history) - n - 1, -1, -1):
+            if history[i:i + n] == tail:
+                cont = history[i + n:i + n + k]
+                if len(cont) == k:
+                    return cont
+                if cont and partial is None:
+                    partial = cont + [0] * (k - len(cont))
+        if partial is not None:
+            return partial
+    return None
 
 
 def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
@@ -662,6 +783,29 @@ class ServingEngine:
             raise ValueError("logprobs=True requires the device sampler; it is not "
                              "available with a custom sample= callable")
         self._logprobs = bool(serving.logprobs)
+        # speculation verifies against argmax, so it is sound only under
+        # greedy device sampling; a verify tick returns ids only, so
+        # logprobs streaming forces plain ticks; a model without spec_step
+        # cannot speculate. Requested but dropped: the reason is a stats()
+        # gauge and a one-time trace event
+        self._spec_tokens = (serving.spec_tokens
+                             if sample is None and serving.temperature <= 0.0
+                             and not serving.logprobs and hasattr(self.model, "spec_step")
+                             else 0)
+        self._spec_disabled_reason: Optional[str] = None
+        if serving.spec_tokens and not self._spec_tokens:
+            if sample is not None:
+                self._spec_disabled_reason = (
+                    "custom sample= callable (verification is greedy-only)")
+            elif serving.temperature > 0.0:
+                self._spec_disabled_reason = (
+                    f"temperature={serving.temperature} (verification is greedy-only)")
+            elif serving.logprobs:
+                self._spec_disabled_reason = (
+                    "logprobs streaming (verify ticks return ids only)")
+            else:
+                self._spec_disabled_reason = (
+                    f"model adapter {type(self.model).__name__} has no spec_step")
         if self._device_sampling:
             self._decode_sampled = sampled_decode_step(
                 self.model, serving.temperature, serving.top_k, serving.top_p,
@@ -672,21 +816,70 @@ class ServingEngine:
             self._decode = self.model.decode_step
         self._admit_step = batched_admission_step(
             self.model, serving.temperature, serving.top_k, serving.top_p)
-        # the reference's resolution (pipelining needs device sampling, and
-        # speculation is not ported): auto (None) pipelines with device
-        # sampling, an explicit True that cannot be honoured raises, False
-        # is synchronous
+        # the reference's resolution: pipelining needs device sampling and
+        # no active speculation (a spec tick drafts from the host history,
+        # so it must see the previous token before dispatching). Auto
+        # (None) pipelines when it can, an explicit True that cannot be
+        # honoured raises, False is synchronous
         pipeline = serving.pipeline_decode
-        if pipeline and not self._device_sampling:
+        if pipeline and (not self._device_sampling or self._spec_tokens):
             raise ValueError("pipeline_decode=True requires device sampling (no custom "
-                             "sample= callable)")
-        self._pipeline = (True if pipeline is None else bool(pipeline)) and self._device_sampling
+                             "sample= callable) and no active speculation")
+        self._pipeline = ((True if pipeline is None else bool(pipeline))
+                          and self._device_sampling and not self._spec_tokens)
+        # the multi-tick device loop: k ticks a dispatch, refused only with
+        # a custom sampler (it needs host logits every tick); k = 1 is the
+        # classic loop, bit-identical to None
+        loop_k = serving.decode_loop_k
+        if loop_k is not None and loop_k < 1:
+            raise ValueError(f"decode_loop_k must be >= 1 (or None), got {loop_k}")
+        if loop_k is not None and loop_k > 1 and not self._device_sampling:
+            raise ValueError(
+                f"decode_loop_k={loop_k} requires device sampling: a custom sample= callable "
+                "consumes host logits every tick, the per-token host round trip the device "
+                "loop removes; drop sample= or set decode_loop_k=None")
+        self._loop_k = loop_k if loop_k is not None and loop_k > 1 else None
+        self._decode_loop = (multi_tick_decode_step(
+            self.model, serving.temperature, serving.top_k, serving.top_p, self._logprobs,
+            self._loop_k, serving.eos_token) if self._loop_k else None)
+        # both knobs: draft and verify fuse into the flush; while the
+        # acceptance EMA cools off the plain flush (_decode_loop) runs
+        self._fused_spec = bool(self._loop_k and self._spec_tokens)
+        if serving.loop_policy is not None and not self._fused_spec:
+            raise ValueError(
+                "loop_policy requires the fused device loop (decode_loop_k > 1 AND active "
+                "spec_tokens): the policy sizes the fused flush window; got "
+                f"decode_loop_k={serving.decode_loop_k}, spec_tokens={serving.spec_tokens}"
+                + (f" (speculation disabled: {self._spec_disabled_reason})"
+                   if self._spec_disabled_reason else ""))
+        # resolved here: a bad "module:attr" fails the constructor, not the loop
+        self._loop_policy = (load_loop_policy(serving.loop_policy)
+                             if serving.loop_policy is not None else None)
+        # the fused draft window: the deepest n-gram match plus its continuation
+        self._hist_window = (max(32, 2 * serving.spec_ngram + serving.spec_tokens + 2)
+                             if self._fused_spec else 0)
+        self._decode_fused = (fused_spec_decode_step(
+            self.model, self._loop_k, self._spec_tokens, serving.eos_token,
+            serving.spec_ngram) if self._fused_spec else None)
+        # the host-drafted verify tick of the synchronous loop (a fused
+        # engine verifies inside its flush)
+        self._spec = (verify_step(self.model) if self._spec_tokens and not self._fused_spec
+                      else None)
+        if self._spec_tokens and self._paged:
+            # a forced kernel route cannot read a verify chunk past 16 queries
+            paged_attn_route(self._paged_attn, cfg.max_seq, self.device, self._spec_tokens + 1)
+        # monotonic_ns of the last flush delivery: the floor of the next
+        # flush's interpolated per-token stamps
+        self._last_flush_ns = 0
         # batched admission samples first tokens on the device: a custom
-        # sampler admits serially, one blocking first-token fetch each
-        if serving.async_admission and not self._device_sampling:
+        # sampler admits serially, one blocking first-token fetch each, and
+        # so does speculation (its draft history needs the first token on
+        # the host)
+        can_async = self._device_sampling and not self._spec_tokens
+        if serving.async_admission and not can_async:
             raise ValueError("async_admission=True requires device sampling (no custom "
-                             "sample= callable)")
-        self._async_admission = (self._device_sampling if serving.async_admission is None
+                             "sample= callable) and no active speculation")
+        self._async_admission = (can_async if serving.async_admission is None
                                  else bool(serving.async_admission))
         self._admit_sizes = tuple(sorted(
             {n for n in serving.prefill_batch_sizes if 1 <= n <= b} | {1}))
@@ -780,13 +973,35 @@ class ServingEngine:
             "kv_bucket_hist": {},
             "paged_attn_kernel_ticks": 0, "paged_attn_gather_ticks": 0,
             "pool_blocked_admissions": 0,
+            # speculation: verify ticks (inner ticks on the fused loop), the
+            # slot participations and tokens they delivered, and the
+            # histogram of delivered tokens per (slot, verify tick)
+            "spec_ticks": 0, "spec_slot_ticks": 0, "spec_emitted": 0,
+            "spec_emitted_hist": [0] * (serving.spec_tokens + 2),
+            # the multi-tick loop: flushes (decode_ticks counts their inner
+            # ticks, k a flush) and slots that froze inside one (budget or
+            # eos); fused flushes (cooloff fallbacks are the difference) and
+            # the depth each ran, as a histogram index
+            "loop_flushes": 0, "loop_early_exits": 0, "fused_flushes": 0,
+            "fused_k_hist": [0] * ((self._loop_k or 0) + 1),
         }
+        # per-slot token history (prompt + emitted) feeding prompt-lookup
+        # drafts; kept only while speculation is on
+        self._history: list[list[int]] = [[] for _ in range(b)]
+        # the acceptance EMA starts a little above breakeven, so a losing
+        # probe cools off within a few ticks
+        self._spec_ema = self._spec_probe_ema()
+        self._spec_cooloff = 0
         # host-side observability (vtpu_torch/obs): the request-lifecycle
         # ring with the ITL/TTFT/queue-wait reservoirs, and the tick-phase
         # profiler that attributes host_ms_per_tick. Nothing here can add a
         # device sync. _itl_last[slot]: when the slot's last token was
         # delivered (None until its first token, whose gap is TTFT)
         self.trace = RequestTrace(capacity=serving.trace_events)
+        if self._spec_disabled_reason is not None:
+            # one event (val: the requested draft length): the trace shows
+            # why the configured speculation never ran
+            self.trace.record("spec_disabled", -1, -1, serving.spec_tokens)
         self._prof = TickProfiler()
         self._itl_last: list[Optional[float]] = [None] * b
         self._host_ms_ema: Optional[float] = None
@@ -797,18 +1012,67 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
         # an exception that ended the loop (its streams were ended CANCELLED)
         self.loop_error: Optional[BaseException] = None
+        # CUDA graphs of the steps this engine's loop dispatches (one card,
+        # no mesh), every one captured here and none while serving: the
+        # single tick (pipelined loop; the fallback tick of unfused
+        # speculation), the k-tick flush (device loop; the cooloff flush of
+        # fused speculation), the verify tick, and the fused flush at each
+        # depth the LoopPolicy may pick (only decode_loop_k without one)
         self.decode_graphs: Optional[DecodeGraphs] = None
+        self.loop_graphs: Optional[DecodeGraphs] = None
+        self.spec_graphs: Optional[DecodeGraphs] = None
+        self.fused_graphs: dict[int, DecodeGraphs] = {}
+        fused_ks = (range(1, self._loop_k + 1) if self._loop_policy is not None
+                    else (self._loop_k,)) if self._fused_spec else ()
         if self.device.type == "cuda":
             # build the kernels now, not at their first use inside the loop
             _build.build_all()
-            if self._pipeline and mesh is None:
-                self.decode_graphs = DecodeGraphs(
-                    self._decode_sampled, self.params, self.state, self._gens,
-                    self._kv_buckets if self._use_kv_buckets else (0,),
-                    paged_attn=self._paged_attn, sampled=serving.temperature > 0.0)
-        # the sampled decode step both loops dispatch (graph replays or the
-        # eager step); None on the host-sampler path, which calls _decode
+            if mesh is None:
+                self._capture_graphs(fused_ks)
+        # what each loop dispatches: a graph's replay or the eager step.
+        # _step is the sampled tick (None on the host-sampler path, which
+        # calls _decode), _flush the k-tick flush, _spec the verify tick,
+        # _fused[k] the fused flush of depth k
         self._step = self.decode_graphs or self._decode_sampled
+        self._flush = self.loop_graphs or self._decode_loop
+        if self.spec_graphs is not None:
+            self._spec = self.spec_graphs
+        self._fused = {k: self.fused_graphs.get(k) or functools.partial(
+            self._decode_fused, k_dyn=k) for k in fused_ks}
+
+    def _capture_graphs(self, fused_ks) -> None:
+        """Capture every step the selected loop dispatches, one graph per
+        kv bucket each. The step's input tensors become the graphs' static
+        buffers: tokens and the active mask, plus the caps of a flush, the
+        [B, K+1] draft of a verify tick, the [B, W] draft window and its
+        lengths of a fused flush."""
+        b = self.serving.slots
+        buckets = self._kv_buckets if self._use_kv_buckets else (0,)
+        common = dict(paged_attn=self._paged_attn)
+        row = ((b,), torch.int32)
+        tick = (row, ((b,), torch.bool))
+        sampled = self.serving.temperature > 0.0
+        if (self._pipeline and not self._loop_k) or self._spec is not None:
+            self.decode_graphs = DecodeGraphs(self._decode_sampled, self.params, self.state,
+                                              self._gens, buckets, sampled=sampled, **common)
+        if self._loop_k:
+            self.loop_graphs = DecodeGraphs(self._decode_loop, self.params, self.state,
+                                            self._gens, buckets, sampled=sampled,
+                                            inputs=tick + (row,), **common)
+        t = self._spec_tokens + 1
+        if self._spec is not None:
+            self.spec_graphs = DecodeGraphs(self._spec, self.params, self.state, self._gens,
+                                            buckets, inputs=(((b, t), torch.int32),) + tick[1:]
+                                            + (row,), t=t, **common)
+        for k in fused_ks:
+            self.fused_graphs[k] = DecodeGraphs(
+                functools.partial(self._decode_fused, k_dyn=k), self.params, self.state,
+                self._gens, buckets, t=t, inputs=tick + (row, ((b, self._hist_window), torch.int32),
+                                                         row), **common)
+
+    def _graph_sets(self) -> list:
+        return [g for g in (self.decode_graphs, self.loop_graphs, self.spec_graphs,
+                            *self.fused_graphs.values()) if g is not None]
 
     # ------------------------------------------------------------------ API
 
@@ -902,7 +1166,8 @@ class ServingEngine:
         except Exception:
             self._alloc.release(blocks)  # no entry will ever reference them
             raise
-        return {"blocks": blocks, "len": n, "pad": pad, "last_logits": last}
+        return {"blocks": blocks, "len": n, "pad": pad, "last_logits": last,
+                "tokens": padded[0, :n].tolist()}
 
     def _build_prefix_dense(self, padded: torch.Tensor, n: int) -> dict:
         """Chunk-prefill a prefix into a one-row cache of its own (never the
@@ -912,7 +1177,8 @@ class ServingEngine:
         last = self._run_chunks(padded, n, scratch, 0)
         pad = padded.shape[1]
         buffers = {key: scratch[key][:, 0, :pad].clone() for key in kv_keys(scratch)}
-        return {"buffers": buffers, "len": n, "pad": pad, "last_logits": last}
+        return {"buffers": buffers, "len": n, "pad": pad, "last_logits": last,
+                "tokens": padded[0, :n].tolist()}
 
     def _drain_prefix_work(self) -> None:
         """Run queued paged prefix builds on the loop thread, the pool's
@@ -1025,13 +1291,37 @@ class ServingEngine:
         s = dict(self._stats)
         s["prefill_batch_hist"] = list(s["prefill_batch_hist"])
         s["kv_bucket_hist"] = dict(s["kv_bucket_hist"])
-        ticks = s["decode_ticks"]
+        s["spec_emitted_hist"] = list(s["spec_emitted_hist"])
+        s["fused_k_hist"] = list(s["fused_k_hist"])
+        # acceptance per (slot, verify tick): delivered tokens over slot
+        # participations, comparable with spec_min_mean
+        s["mean_emitted_per_spec_tick"] = (round(s["spec_emitted"] / s["spec_slot_ticks"], 3)
+                                           if s["spec_slot_ticks"] else None)
+        s["spec_ema"] = round(self._spec_ema, 3)
+        s["spec_cooling_off"] = self._spec_cooloff > 0
+        s["spec_disabled_reason"] = self._spec_disabled_reason
+        s["fused_spec"] = self._fused_spec
+        s["loop_policy"] = (type(self._loop_policy).__name__
+                            if self._loop_policy is not None else None)
+        # a decode tick and a verify tick each count; a flush counts its
+        # inner ticks, so one fetch a k-tick flush reads 1/k a tick
+        ticks = s["decode_ticks"] + s["spec_ticks"]
         s["device_gets_per_tick"] = round(s["tick_fetches"] / ticks, 4) if ticks else None
         s["bytes_fetched_per_tick"] = round(s["bytes_fetched"] / ticks, 1) if ticks else None
-        # host ms per tick (EMA of dispatch + delivery host work) and per
-        # tick head (admission), as the reference reports them
+        # host ms per tick (EMA of dispatch + delivery host work, one
+        # sample a delivery) and per tick head (admission), as the
+        # reference reports them; per token amortizes a delivery over the
+        # k tokens a flush carries for a slot
         s["host_ms_per_tick"] = (round(self._host_ms_ema, 4)
                                  if self._host_ms_ema is not None else None)
+        k_eff = self._loop_k or 1
+        s["decode_loop_k"] = k_eff
+        s["device_gets_per_token"] = s["device_gets_per_tick"]
+        s["host_ms_per_token"] = (round(self._host_ms_ema / k_eff, 4)
+                                  if self._host_ms_ema is not None else None)
+        # CUDA graphs captured when the engine was built (none on the CPU
+        # or under a mesh)
+        s["graphs_captured"] = sum(len(g.keys()) for g in self._graph_sets())
         s["admission_stall_ms"] = (round(self._admission_ms_ema, 4)
                                    if self._admission_ms_ema is not None else None)
         # span telemetry is a view over the trace's reservoirs
@@ -1101,6 +1391,21 @@ class ServingEngine:
         s["paged_attn_int8kv_tp_launches"] = _build.LAUNCHES["paged_decode_attention_int8kv_tp"]
         return s
 
+    def signals(self) -> EngineSignals:
+        """The engine's pressure snapshot (serving/shed.py): what a
+        LoopPolicy reads at a fused flush head. Every field is one read of
+        a counter or gauge. Features the port has not reached keep their
+        defaults: no parked sessions, never draining, no duty supplier."""
+        return EngineSignals(
+            queue_depth=self._pending.qsize() + len(self._waiting),
+            active_slots=sum(r is not None for r in self._slot_req),
+            pool_free=self._alloc.free_blocks if self._paged else None,
+            pool_used_hwm=self._alloc.used_hwm if self._paged else None,
+            prefill_backlog=len(self._admitting),
+            now_ns=time.monotonic_ns(),
+            pool_blocks=(self._n_blocks - 1) if self._paged else None,
+            spec_mean_accepted=(round(self._spec_ema, 3) if self._spec_tokens else None))
+
     # ----------------------------------------------------------- lifecycle
 
     def _end_stream(self, req: Request, status: str, slot: int = -1) -> None:
@@ -1146,6 +1451,7 @@ class ServingEngine:
         self._slot_len[slot] = 0
         self._itl_last[slot] = None
         self._admit_mask[slot] = False
+        self._history[slot] = []
         # the device table row stays stale: inactive reads are masked and
         # writes are dropped, and the next reservation overwrites it
         self._free_slot_blocks(slot)
@@ -1467,6 +1773,8 @@ class ServingEngine:
         token, already on the host."""
         self._begin_slot(slot, req, n)
         self._tokens[slot] = first
+        if self._spec_tokens:
+            self._history[slot].append(first)
         self._itl_last[slot] = time.perf_counter()
         self._note_first_token(req, slot)
         req.delivered += 1
@@ -1503,8 +1811,20 @@ class ServingEngine:
         self._slot_budget[slot] = min(req.max_new_tokens, self.cfg.max_seq - n) - 1
         self._slot_len[slot] = n
         self._itl_last[slot] = None
+        if self._spec_tokens:
+            # what the slot's cache holds: prefix + prompt (the first
+            # token joins when it is delivered)
+            self._seed_history(slot, req)
         self._stats["admissions"] += 1
         self._note_admit(req, slot, n)
+
+    def _seed_history(self, slot: int, req: Request) -> None:
+        """A slot's draft history at admission: the prefix's tokens (none
+        if it was unregistered meanwhile: drafts only lose those) and the
+        prompt."""
+        entry = self._prefixes.get(req.prefix) if req.prefix is not None else None
+        self._history[slot] = (list(entry["tokens"]) if entry else []) + [
+            int(x) for x in req.tokens.tolist()]
 
     # ------------------------------------------------------------ delivery
 
@@ -1525,18 +1845,19 @@ class ServingEngine:
         return {"host": flat, "done": done, "sizes": [a.numel() for a in arrays],
                 "kind": kind}
 
-    def _collect(self, staged: dict) -> list[np.ndarray]:
+    def _collect(self, staged: dict, ticks: int = 1) -> list[np.ndarray]:
         """The loop's ONLY device->host read: wait for a staged copy and
-        split it. Counted so stats() can show device_gets_per_tick == 1.0;
-        the wait is the tick's fetch phase (on the pipelined loop, the time
-        the host waits for the tick in flight)."""
+        split it. Counted so stats() can show device_gets_per_tick == 1.0
+        (1/k on the multi-tick loop); the wait is the tick's fetch phase
+        (on the pipelined loop, the time the host waits for the tick in
+        flight), over ``ticks`` inner ticks for a flush."""
         self._stats["device_gets"] += 1
         self._stats["tick_fetches" if staged["kind"] == "tick" else "admission_fetches"] += 1
         t0 = time.perf_counter()
         if staged["done"] is not None:
             staged["done"].synchronize()
         flat = staged["host"].numpy()
-        self._prof.note("fetch", time.perf_counter() - t0)
+        self._prof.note("fetch", time.perf_counter() - t0, ticks=ticks)
         self._stats["bytes_fetched"] += flat.nbytes
         out, at = [], 0
         for n in staged["sizes"]:
@@ -1597,6 +1918,8 @@ class ServingEngine:
     def _emit_first(self, slot: int, tok: int) -> None:
         req = self._slot_req[slot]
         self._tokens[slot] = tok
+        if self._spec_tokens:
+            self._history[slot].append(tok)
         self._itl_last[slot] = time.perf_counter()
         self._note_first_token(req, slot)
         req.delivered += 1
@@ -1655,18 +1978,23 @@ class ServingEngine:
         req.out.put(tok)
         self._stats["generated_tokens"] += 1
         self._slot_budget[slot] -= 1
+        if self._spec_tokens:
+            self._history[slot].append(tok)
         if self._slot_budget[slot] <= 0 or tok == self.serving.eos_token:
             self._retire(slot)
 
-    def _note_kv_window(self, kv_bucket: int) -> None:
+    def _note_kv_window(self, kv_bucket: int, t: int = 1, ticks: int = 1) -> None:
+        """Read-window and route accounting of one dispatch of ``ticks``
+        inner ticks of ``t`` queries a row (k for a flush, K+1 for a
+        verify chunk), counted in inner ticks."""
         key = int(kv_bucket) or self.cfg.max_seq
         hist = self._stats["kv_bucket_hist"]
-        hist[key] = hist.get(key, 0) + 1
+        hist[key] = hist.get(key, 0) + ticks
         if self._paged:
             # the trunk resolves the route from the same inputs
-            route = paged_attn_route(self._paged_attn, key, self.device)
+            route = paged_attn_route(self._paged_attn, key, self.device, t)
             self._stats["paged_attn_kernel_ticks" if route == "kernel"
-                        else "paged_attn_gather_ticks"] += 1
+                        else "paged_attn_gather_ticks"] += ticks
 
     def _kv_bucket(self, need: int) -> int:
         """The read window of a tick whose longest row needs ``need`` keys:
@@ -1679,7 +2007,11 @@ class ServingEngine:
 
     def _loop(self) -> None:
         try:
-            if self._pipeline:
+            if self._fused_spec:
+                self._loop_fused()
+            elif self._loop_k:
+                self._loop_device()
+            elif self._pipeline:
                 self._loop_pipelined()
             else:
                 self._loop_sync()
@@ -1724,12 +2056,38 @@ class ServingEngine:
         if self._wake.wait(timeout=0.05):
             self._wake.clear()
 
+    def _spec_probe_ema(self) -> float:
+        """The acceptance EMA of a fresh probe: a little above breakeven,
+        so a losing probe sinks below the gate within a few ticks."""
+        return (self.serving.spec_min_mean or 1.0) + 0.25
+
+    def _spec_allowed(self) -> bool:
+        """The adaptive gate: drafting pauses while the emitted-per-slot
+        EMA sits below spec_min_mean, and re-probes after the cooloff."""
+        if not self.serving.spec_min_mean:
+            return True
+        if self._spec_cooloff > 0:
+            self._spec_cooloff -= 1
+            if self._spec_cooloff == 0:
+                self._spec_ema = self._spec_probe_ema()
+            return False
+        return True
+
+    def _note_spec_ema(self, emitted: int, participations: int) -> None:
+        """Move the acceptance EMA toward this dispatch's delivered tokens
+        per slot participation; below spec_min_mean, start a cooloff."""
+        self._spec_ema = 0.9 * self._spec_ema + 0.1 * emitted / max(participations, 1)
+        if self.serving.spec_min_mean and self._spec_ema < self.serving.spec_min_mean:
+            self._spec_cooloff = self.serving.spec_cooloff_ticks
+
     def _loop_sync(self) -> None:
         """Synchronous tick loop: tick head, one decode dispatch, one fetch,
         delivery, repeat. Still one device->host read per tick; only the
         overlap of the pipelined loop is missing. With a custom sampler the
         tick returns [B, vocab] logits: that fetch is the tick's one, and
-        the callable runs on each live row."""
+        the callable runs on each live row. With speculation a tick where
+        some slot finds a draft in its history is a verify tick
+        (``_spec_tick``); the others are plain ticks."""
         b = self.serving.slots
         while not self._stop.is_set():
             admitted = self._tick_head()
@@ -1749,8 +2107,19 @@ class ServingEngine:
                 tokens = torch.where(self._upload(fresh, torch.bool), self._admit_buf, tokens)
                 self._admit_mask = [False] * b
             active = self._upload([r is not None for r in self._slot_req], torch.bool)
-            kv_bucket = self._kv_bucket(1 + max(self._slot_len[i] for i in active_slots))
-            self._note_kv_window(kv_bucket)
+            drafts = None
+            if self._spec_tokens and self._spec_allowed():
+                drafts = [lookup_draft(self._history[i], self._spec_tokens,
+                                       self.serving.spec_ngram) if i in active_slots else None
+                          for i in range(b)]
+                if not any(d is not None for d in drafts):
+                    drafts = None  # nothing to verify: a plain tick
+            chunk = self._spec_tokens + 1 if drafts is not None else 1
+            kv_bucket = self._kv_bucket(chunk + max(self._slot_len[i] for i in active_slots))
+            self._note_kv_window(kv_bucket, t=chunk)
+            if drafts is not None:
+                self._spec_tick(drafts, active, kv_bucket, active_slots, t_disp)
+                continue
             if not self._device_sampling:
                 self._host_sampled_tick(tokens, active, kv_bucket, active_slots, t_disp)
                 continue
@@ -1762,6 +2131,62 @@ class ServingEngine:
             disp_s = time.perf_counter() - t_disp
             self._prof.note("dispatch", disp_s)
             self._deliver(tick, extra_host_s=disp_s, firsts=firsts)
+
+    def _spec_tick(self, drafts: list, active, kv_bucket: int, active_slots: list,
+                   t_disp: float) -> None:
+        """One verify tick of the synchronous loop: the [B, K+1] draft
+        (each slot's pending token, then its draft or zeros), one fetch of
+        (pred, count), each slot's accepted run truncated at an eos and
+        delivered, and the acceptance accounting. The device length grew
+        by count; the host mirror follows it before any truncation."""
+        k = self._spec_tokens
+        b = self.serving.slots
+        draft = self._upload([[self._tokens[i]] + (drafts[i] or [0] * k) for i in range(b)],
+                             torch.int32)
+        cap = self._upload([max(self._slot_budget[i], 0) for i in range(b)], torch.int32)
+        (pred, count), self.state = self._spec(self.params, self.state, draft, active, cap,
+                                               self._gens, kv_bucket)
+        staged = self._stage([pred, count])
+        disp_s = time.perf_counter() - t_disp
+        self._prof.note("dispatch", disp_s)
+        pred, count = self._collect(staged)
+        pred = pred.reshape(b, k + 1)
+        t0 = time.perf_counter()
+        eos = self.serving.eos_token
+        hist = self._stats["spec_emitted_hist"]
+        emitted_total = 0
+        for slot in active_slots:
+            try:
+                emitted = [int(x) for x in pred[slot, :int(count[slot])]]
+                self._slot_len[slot] += int(count[slot])
+                if eos in emitted:
+                    emitted = emitted[:emitted.index(eos) + 1]
+                req = self._slot_req[slot]
+                for tok in emitted:
+                    self.trace.record("token", req.rid, slot)
+                    req.delivered += 1
+                    req.out.put(tok)
+                # acceptance counts DELIVERED tokens (after the eos cut)
+                emitted_total += len(emitted)
+                hist[min(len(emitted), len(hist) - 1)] += 1
+                self._stats["generated_tokens"] += len(emitted)
+                self._slot_budget[slot] -= len(emitted)
+                self._history[slot].extend(emitted)
+                if emitted:
+                    self._tokens[slot] = emitted[-1]
+                    # one gap per (slot, verify tick): the burst reaches
+                    # the client at once
+                    self._note_itl(slot, t0)
+                if self._slot_budget[slot] <= 0 or (emitted and emitted[-1] == eos):
+                    self._retire(slot)
+            except Exception:
+                self._contain_fault(slot)
+        self._stats["spec_ticks"] += 1
+        self._stats["spec_slot_ticks"] += len(active_slots)
+        self._stats["spec_emitted"] += emitted_total
+        self._note_spec_ema(emitted_total, len(active_slots))
+        self._prof.note("deliver", time.perf_counter() - t0)
+        self._note_host_ms(disp_s + time.perf_counter() - t0)
 
     def _tick(self, out, reqs: list) -> dict:
         """A dispatched tick: the sampled step's output (the tokens, or the
@@ -1895,3 +2320,357 @@ class ServingEngine:
             # are computed, so deliver them (and device_gets stays equal to
             # decode_ticks)
             self._deliver(inflight)
+
+    def _flush_arrays(self, flush: dict) -> list:
+        """A flush's arrays for its one staged copy: the [B, k] tokens, the
+        counts ([B], or [B, k] for a fused flush), and for a logprobs
+        engine the [B, k] logprobs bit-cast to int32."""
+        arrays = [flush["tokens"], flush["counts"]]
+        if flush.get("logprobs") is not None:
+            arrays.append(flush["logprobs"].view(torch.int32))
+        return arrays
+
+    def _loop_device(self) -> None:
+        """The multi-tick device loop (``decode_loop_k`` = k > 1, the
+        reference's ``_loop_device``): every dispatch is a k-tick flush
+        (one graph replay on a card) with the sampled token fed back on
+        the device and per-slot early exit, and the host makes ONE fetch
+        of the [B, k] tokens and the counts a flush. Admission, retirement
+        and cancellation happen at flush boundaries (``_tick_head``, 1/k as
+        often), so a request that arrives mid-flush waits up to k ticks.
+
+        Pipelining is flush-deep: flush t+1 is dispatched from flush t's
+        ``carry`` (still on the device) before flush t is delivered, so:
+        - each slot's cap is its remaining budget minus the in-flight
+          flush's predicted emissions, and a slot whose cap reaches zero is
+          left out (it retires at delivery): the device length never runs
+          past the budget wall or the pages reserved for it;
+        - an eos inside a flush freezes the slot on the device for the rest
+          of it and costs at most one slot-flush at t+1, whose column the
+          delivery's identity check drops;
+        - freshly admitted slots join with their first token merged in
+          from ``_admit_buf`` on the device;
+        - the read window covers the device length at the END of the
+          flush: the host mirror plus the in-flight predictions plus k.
+        ``pipeline_decode=False`` is the synchronous flush loop (dispatch,
+        deliver, repeat: still one fetch a flush)."""
+        b = self.serving.slots
+        k = self._loop_k
+        inflight: Optional[dict] = None
+        active = None
+        active_key: Optional[tuple] = None
+        while not self._stop.is_set():
+            admitted = self._tick_head()
+            firsts, self._pending_firsts = self._pending_firsts, []
+            t_disp = time.perf_counter()
+            fed = [inflight is not None and inflight["reqs"][i] is not None
+                   and inflight["reqs"][i] is self._slot_req[i] for i in range(b)]
+            # budget left after the in-flight flush's predicted emissions
+            # (exact unless the slot hit an eos in flight, and such a slot
+            # retires at delivery anyway)
+            rem = [self._slot_budget[i] - (inflight["pred"][i] if fed[i] else 0)
+                   for i in range(b)]
+            dispatch = [i for i in range(b) if self._slot_req[i] is not None and rem[i] > 0]
+            staged_firsts = None
+            if self._pipeline:
+                if inflight is not None:
+                    inflight["staged"] = self._stage(
+                        self._flush_arrays(inflight) + [f["tokens"] for f in firsts])
+                elif firsts:
+                    staged_firsts = self._stage([f["tokens"] for f in firsts], kind="admission")
+            new_inflight = None
+            disp_s = 0.0
+            if dispatch:
+                live = set(dispatch)
+                if inflight is not None and all(fed[i] for i in dispatch):
+                    # steady state: the in-flight flush's last tokens feed back
+                    tokens = inflight["carry"]
+                elif inflight is None:
+                    tokens = self._upload(self._tokens, torch.int32)
+                else:
+                    tokens = torch.where(self._upload(fed, torch.bool), inflight["carry"],
+                                         self._upload(self._tokens, torch.int32))
+                over = [i for i in dispatch if self._admit_mask[i]]
+                if over:
+                    tokens = torch.where(self._upload([i in over for i in range(b)], torch.bool),
+                                         self._admit_buf, tokens)
+                    for i in over:
+                        self._admit_mask[i] = False
+                if active_key != tuple(dispatch):
+                    active = self._upload([i in live for i in range(b)], torch.bool)
+                    active_key = tuple(dispatch)
+                # per-slot early-exit caps: a flush never overdraws a budget
+                pred = [min(rem[i], k) if i in live else 0 for i in range(b)]
+                kv_bucket = self._kv_bucket(k + max(
+                    self._slot_len[i] + (inflight["pred"][i] if fed[i] else 0)
+                    for i in dispatch))
+                self._note_kv_window(kv_bucket, ticks=k)
+                out, self.state = self._flush(self.params, self.state, tokens, active,
+                                              self._upload(pred, torch.int32), self._gens,
+                                              kv_bucket)
+                self._stats["decode_ticks"] += k
+                self._stats["loop_flushes"] += 1
+                if inflight is not None:
+                    self._stats["pipelined_ticks"] += k
+                toks, counts, carry, lps = out
+                new_inflight = {"tokens": toks, "counts": counts, "carry": carry,
+                                "logprobs": lps, "pred": pred, "k": k,
+                                "t_disp_ns": time.monotonic_ns(),
+                                "reqs": [self._slot_req[i] if i in live else None
+                                         for i in range(b)]}
+                disp_s = time.perf_counter() - t_disp
+                self._prof.note("dispatch", disp_s, ticks=k)
+            if not dispatch and inflight is None:
+                if firsts:
+                    self._deliver_firsts(firsts, fetched=(
+                        self._collect(staged_firsts) if staged_firsts is not None else None))
+                else:
+                    self._idle_wait(admitted)
+                continue
+            if not self._pipeline:
+                # the synchronous flush loop: deliver what was just dispatched
+                if new_inflight is not None:
+                    self._deliver_flush(new_inflight, extra_host_s=disp_s, firsts=firsts)
+                elif firsts:
+                    self._deliver_firsts(firsts)
+                continue
+            if inflight is not None:
+                self._deliver_flush(inflight, extra_host_s=disp_s, firsts=firsts)
+            elif firsts:
+                # no flush in flight to ride on (the engine was idle): the
+                # first tokens' own fetch, staged ahead of the new flush
+                self._deliver_firsts(firsts, fetched=self._collect(staged_firsts))
+            inflight = new_inflight
+        if inflight is not None:
+            # stop() landed between dispatch and delivery: the flush is
+            # computed, so deliver it
+            self._deliver_flush(inflight)
+
+    def _deliver_flush(self, flush: dict, extra_host_s: float = 0.0,
+                       firsts: Optional[list] = None) -> None:
+        """Deliver one k-tick flush: ONE fetch of the [B, k] tokens, the
+        counts (and the [B, k] logprobs) with this pass's first tokens,
+        then the budget/eos/retire bookkeeping over up to k tokens a slot.
+        A slot whose request changed since dispatch (retired, cancelled,
+        recycled) drops its whole column. The host length mirror advances
+        by the device's count, so the host's table rows and lengths agree
+        with the device at every flush boundary.
+
+        The k tokens of a slot share one host observation: their trace
+        events get timestamps interpolated over the flush (dispatch ->
+        delivery, floored at the previous delivery) and val=1, after one
+        ``loop_flush`` event (val: k); the ITL reservoir takes one gap per
+        (slot, flush), the burst the client sees."""
+        k = flush["k"]
+        b = self.serving.slots
+        firsts = firsts or []
+        staged = flush.get("staged") or self._stage(
+            self._flush_arrays(flush) + [f["tokens"] for f in firsts])
+        toks, counts, *rest = self._collect(staged, ticks=k)
+        toks = toks.reshape(b, k)
+        lps = rest.pop(0).view(np.float32).reshape(b, k) if flush["logprobs"] is not None else None
+        t0 = time.perf_counter()
+        if firsts:
+            self._deliver_firsts(firsts, fetched=rest)
+        now = time.perf_counter()
+        now_ns = time.monotonic_ns()
+        start_ns = max(flush["t_disp_ns"], self._last_flush_ns)
+        self.trace.record("loop_flush", -1, -1, k)
+        eos = self.serving.eos_token
+        for slot, req in enumerate(flush["reqs"]):
+            if req is None or req is not self._slot_req[slot]:
+                continue
+            try:
+                cnt = int(counts[slot])
+                if cnt < k:
+                    # froze inside the flush: budget wall or eos
+                    self._stats["loop_early_exits"] += 1
+                if cnt == 0:
+                    continue
+                emitted = [int(t) for t in toks[slot, :cnt]]
+                self._slot_len[slot] += cnt
+                self._slot_budget[slot] -= cnt
+                span = max(now_ns - start_ns, 0)
+                for j, tok in enumerate(emitted):
+                    self.trace.record_at(start_ns + ((j + 1) * span) // cnt, "token", req.rid,
+                                         slot, 1)
+                    # the logprob goes in before the token (see _emit)
+                    if lps is not None:
+                        req.logprobs.append(float(lps[slot, j]))
+                    req.delivered += 1
+                    req.out.put(tok)
+                self._stats["generated_tokens"] += cnt
+                if self._spec_tokens:
+                    self._history[slot].extend(emitted)
+                self._tokens[slot] = emitted[-1]
+                self._note_itl(slot, now)
+                if self._slot_budget[slot] <= 0 or emitted[-1] == eos:
+                    self._retire(slot)
+            except Exception:
+                # one request's column dies with its slot; the rest go on
+                self._contain_fault(slot)
+        self._last_flush_ns = now_ns
+        self._prof.note("deliver", time.perf_counter() - t0, ticks=k)
+        self._note_host_ms(extra_host_s + time.perf_counter() - t0)
+
+    def _loop_fused(self) -> None:
+        """Fused speculation (``decode_loop_k`` > 1 with active
+        ``spec_tokens``, the reference's ``_loop_fused``): draft and verify
+        run inside the flush, so a flush is up to k verify ticks of up to
+        K+1 tokens each against ONE fetch of the [B, k, K+1] tokens and
+        [B, k] counts. Synchronous: the device drafts from a window the
+        host uploads at each flush head from the slots' histories, which
+        needs the previous flush delivered.
+
+        At each flush head: the tick head (admission and retirement); the
+        LoopPolicy's pick of this flush's depth from ``signals()``, clamped
+        to [1, decode_loop_k] (a raising policy logs and takes the
+        ceiling); and the cooloff gate: while the acceptance EMA sits
+        below spec_min_mean the plain k-tick flush runs instead. On a card
+        each depth replays its own graph, all captured at construction."""
+        b = self.serving.slots
+        kmax = self._loop_k
+        chunk = self._spec_tokens + 1
+        w = self._hist_window
+        while not self._stop.is_set():
+            admitted = self._tick_head()
+            firsts, self._pending_firsts = self._pending_firsts, []
+            active_slots = [i for i in range(b) if self._slot_req[i] is not None]
+            if not active_slots:
+                if firsts:
+                    self._deliver_firsts(firsts)
+                else:
+                    self._idle_wait(admitted)
+                continue
+            t_disp = time.perf_counter()
+            tokens = self._upload(self._tokens, torch.int32)
+            active = self._upload([self._slot_req[i] is not None for i in range(b)], torch.bool)
+            k = kmax
+            if self._loop_policy is not None:
+                try:
+                    k = int(self._loop_policy.pick_k(kmax, self.signals()))
+                except Exception:
+                    log.exception("loop_policy.pick_k raised; using k=%d", kmax)
+                    k = kmax
+                k = max(1, min(k, kmax))
+            if not self._spec_allowed():
+                # cooloff: the plain k-tick flush, token-equal by contract
+                pred = [min(self._slot_budget[i], kmax) if i in active_slots else 0
+                        for i in range(b)]
+                kv_bucket = self._kv_bucket(kmax + max(self._slot_len[i] for i in active_slots))
+                self._note_kv_window(kv_bucket, ticks=kmax)
+                out, self.state = self._flush(self.params, self.state, tokens, active,
+                                              self._upload(pred, torch.int32), self._gens,
+                                              kv_bucket)
+                self._stats["decode_ticks"] += kmax
+                self._stats["loop_flushes"] += 1
+                disp_s = time.perf_counter() - t_disp
+                self._prof.note("dispatch", disp_s, ticks=kmax)
+                toks, counts, _, lps = out
+                self._deliver_flush({"tokens": toks, "counts": counts, "logprobs": lps,
+                                     "pred": pred, "k": kmax, "t_disp_ns": time.monotonic_ns(),
+                                     "reqs": [self._slot_req[i] if i in active_slots else None
+                                              for i in range(b)]},
+                                    extra_host_s=disp_s, firsts=firsts)
+                continue
+            # each live slot's recent tokens, right-aligned into [B, W]; the
+            # device shifts accepted runs in as the flush goes
+            hist = np.zeros((b, w), np.int32)
+            hlen = np.zeros((b,), np.int32)
+            for i in active_slots:
+                h = self._history[i][-w:]
+                if h:
+                    hist[i, w - len(h):] = h
+                    hlen[i] = len(h)
+            cap = self._upload([max(self._slot_budget[i], 0) if i in active_slots else 0
+                                for i in range(b)], torch.int32)
+            # the window covers the deepest advance: k ticks of K+1 tokens
+            kv_bucket = self._kv_bucket(k * chunk + max(self._slot_len[i] for i in active_slots))
+            self._note_kv_window(kv_bucket, t=chunk, ticks=k)
+            (toks, counts, _), self.state = self._fused[k](
+                self.params, self.state, tokens, active, cap, self._upload(hist, torch.int32),
+                self._upload(hlen, torch.int32), self._gens, kv_bucket)
+            self._stats["spec_ticks"] += k
+            self._stats["loop_flushes"] += 1
+            self._stats["fused_flushes"] += 1
+            self._stats["fused_k_hist"][k] += 1
+            disp_s = time.perf_counter() - t_disp
+            self._prof.note("dispatch", disp_s, ticks=k)
+            self._deliver_fused_flush({"tokens": toks, "counts": counts, "k": k,
+                                       "t_disp_ns": time.monotonic_ns(),
+                                       "reqs": [self._slot_req[i] if i in active_slots else None
+                                                for i in range(b)]},
+                                      extra_host_s=disp_s, firsts=firsts)
+
+    def _deliver_fused_flush(self, flush: dict, extra_host_s: float = 0.0,
+                             firsts: Optional[list] = None) -> None:
+        """Deliver one fused flush: ONE fetch of the [B, kmax, K+1] tokens
+        and [B, kmax] counts, then the spec path's bookkeeping with a
+        variable advance: slot b emitted the sum of its counts. The host
+        length mirror advances by that sum before the eos cut (as the
+        synchronous verify tick does), a changed slot drops its whole
+        column, and the acceptance accounting counts delivered tokens per
+        (slot, inner tick); the cooloff EMA moves once a flush."""
+        k = flush["k"]
+        b = self.serving.slots
+        kmax, t = self._loop_k, self._spec_tokens + 1
+        firsts = firsts or []
+        toks, counts, *rest = self._collect(self._stage(
+            [flush["tokens"], flush["counts"]] + [f["tokens"] for f in firsts]), ticks=k)
+        toks = toks.reshape(b, kmax, t)
+        counts = counts.reshape(b, kmax)
+        t0 = time.perf_counter()
+        if firsts:
+            self._deliver_firsts(firsts, fetched=rest)
+        now = time.perf_counter()
+        now_ns = time.monotonic_ns()
+        start_ns = max(flush["t_disp_ns"], self._last_flush_ns)
+        self.trace.record("loop_flush", -1, -1, k)
+        eos = self.serving.eos_token
+        hist_stats = self._stats["spec_emitted_hist"]
+        emitted_total = participations = 0
+        for slot, req in enumerate(flush["reqs"]):
+            if req is None or req is not self._slot_req[slot]:
+                continue
+            try:
+                per_tick = [[int(x) for x in toks[slot, i, :int(c)]]
+                            for i, c in enumerate(counts[slot]) if int(c) > 0]
+                if len(per_tick) < k:
+                    # froze inside the flush: budget wall or eos
+                    self._stats["loop_early_exits"] += 1
+                if not per_tick:
+                    continue
+                emitted = [x for run in per_tick for x in run]
+                self._slot_len[slot] += len(emitted)
+                if eos in emitted:
+                    emitted = emitted[:emitted.index(eos) + 1]
+                left = len(emitted)
+                for run in per_tick:
+                    d = min(len(run), max(left, 0))
+                    hist_stats[min(d, len(hist_stats) - 1)] += 1
+                    left -= d
+                participations += len(per_tick)
+                emitted_total += len(emitted)
+                span = max(now_ns - start_ns, 0)
+                cnt = len(emitted)
+                for j, tok in enumerate(emitted):
+                    self.trace.record_at(start_ns + ((j + 1) * span) // cnt, "token", req.rid,
+                                         slot, 1)
+                    req.delivered += 1
+                    req.out.put(tok)
+                self._stats["generated_tokens"] += cnt
+                self._slot_budget[slot] -= cnt
+                self._history[slot].extend(emitted)
+                self._tokens[slot] = emitted[-1]
+                self._note_itl(slot, now)
+                if self._slot_budget[slot] <= 0 or emitted[-1] == eos:
+                    self._retire(slot)
+            except Exception:
+                self._contain_fault(slot)
+        self._stats["spec_slot_ticks"] += participations
+        self._stats["spec_emitted"] += emitted_total
+        if participations:
+            self._note_spec_ema(emitted_total, participations)
+        self._last_flush_ns = now_ns
+        self._prof.note("deliver", time.perf_counter() - t0, ticks=k)
+        self._note_host_ms(extra_host_s + time.perf_counter() - t0)

@@ -1,27 +1,31 @@
-"""CUDA graphs over the sampled decode step.
+"""CUDA graphs over the engine's decode steps.
 
 A decode tick of the flagship model enqueues several hundred kernels from
 Python; replayed from a graph it is one launch from the host. The engine
-builds one ``DecodeGraphs`` when it serves the pipelined loop on one CUDA
-card (no mesh): one graph per (kv bucket, paged route, KV type), every
-graph captured when the engine is built, each replayed with its inputs
-copied into static buffers. JAX has no counterpart to port: its jitted
-step is already one dispatch.
+builds one ``DecodeGraphs`` per step it dispatches on one CUDA card (no
+mesh): the sampled decode tick, the k-tick flush of ``decode_loop_k``, the
+verify tick of ``spec_tokens`` and the fused speculation flush (one set
+per flush window a LoopPolicy may pick). Each holds one graph per (kv
+bucket, paged route, KV type), every graph captured when the engine is
+built, each replayed with its inputs copied into static buffers. JAX has
+no counterpart to port: its jitted step is already one dispatch.
 
 What a graph holds fixed, and why that is sound here:
-- the params, the KV state dict and its tensors: the step updates the
+- the params, the KV state dict and its tensors: every step updates the
   cache, the page table and the lengths in place, so their addresses never
   change (the engine's own writes into the table and lengths are in place
   too);
-- the token and active-mask buffers, copied into before each replay;
-- the output (the sampled tokens, or the tokens and their logprobs for a
-  logprobs engine): each replay returns a copy, since the next replay
-  overwrites the graph's own buffers;
+- the step's input tensors (tokens and the active mask; per step also the
+  caps, a verify draft, a draft window and its lengths), copied into
+  static buffers before each replay;
+- the output (a tensor, or a tuple of them): each replay returns a copy,
+  since the next replay overwrites the graph's own buffers;
 - the split partials of the paged kernels and every other temporary,
   allocated inside the capture from the graph's own memory pool, which
   lives as long as the graph (no two graphs share a pool);
 - the sampling generators: each slot's generator is registered with every
-  graph, so a replay draws the numbers the eager step would draw.
+  graph, so a replay draws the numbers the eager step would draw (a
+  k-tick flush draws k times).
 
 The paged kernels launch on ``torch.cuda.current_stream``, which is the
 capture stream during capture; their walk and combine are launched with
@@ -47,19 +51,24 @@ from vtpu_torch.ops.decode_attn import paged_attn_route
 
 
 class DecodeGraphs:
-    """The engine's decode step, ``step(params, state, tokens[B], active[B],
-    gens[B], kv_bucket) -> (out, state)``, ``out`` the tokens [B] int32 or
-    the pair (tokens, logprobs [B] f32), captured once per kv
-    bucket for one engine's params, state and generators, and called with
-    the same signature.
+    """One engine step, ``step(params, state, *inputs, gens, kv_bucket) ->
+    (out, state)``, captured once per kv bucket for one engine's params,
+    state and generators, and called with the same signature. ``out`` is a
+    tensor or a tuple of tensors (None entries pass through).
+
+    ``inputs`` are the (shape, dtype) of the step's input tensors, each
+    held in a static buffer; the default is the decode tick's tokens [B]
+    int32 and active mask [B] bool. ``t`` is the queries a row the step's
+    attention reads (1 for a tick or a flush of ticks, K+1 for a verify),
+    which picks its paged route.
 
     ``kv_buckets`` are every read window the engine can dispatch (0 = the
-    whole context); each is warmed once eagerly with every row inactive
-    (which writes nothing and leaves the lengths as they are) on throwaway
-    generators, then captured."""
+    whole context); each is warmed once eagerly with every input buffer
+    zero-filled (no row active: the step writes nothing and leaves the
+    lengths as they are) on throwaway generators, then captured."""
 
     def __init__(self, step: Callable, params, state: dict, gens: list, kv_buckets,
-                 paged_attn=None, sampled: bool = False):
+                 paged_attn=None, sampled: bool = False, inputs=None, t: int = 1):
         self._step = step
         self._params = params
         self._state = state
@@ -69,9 +78,11 @@ class DecodeGraphs:
             raise ValueError(f"CUDA graphs need the state on a CUDA device, got {dev}")
         self.device = dev
         b = state["len"].shape[0]
-        self._tokens = torch.zeros((b,), dtype=torch.int32, device=dev)
-        self._active = torch.zeros((b,), dtype=torch.bool, device=dev)
+        if inputs is None:
+            inputs = (((b,), torch.int32), ((b,), torch.bool))
+        self._inputs = [torch.zeros(shape, dtype=dtype, device=dev) for shape, dtype in inputs]
         self._paged_attn = paged_attn
+        self._t = t
         self._kv_type = "int8" if "k_scale" in state else str(state["k"].dtype)
         self._sampled = sampled
         self._graphs: dict = {}
@@ -83,7 +94,7 @@ class DecodeGraphs:
     def key(self, kv_bucket: int) -> tuple:
         """(kv bucket, paged route or "dense", KV type) of one graph."""
         route = ("dense" if "table" not in self._state
-                 else paged_attn_route(self._paged_attn, kv_bucket, self.device))
+                 else paged_attn_route(self._paged_attn, kv_bucket, self.device, self._t))
         return (kv_bucket, route, self._kv_type)
 
     def keys(self) -> list:
@@ -99,11 +110,11 @@ class DecodeGraphs:
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
             # the warm-up runs every lazy first use (library handles, module
-            # loads, the rope tables) outside the capture; all rows inactive
+            # loads, the rope tables) outside the capture; no row active
             # and fresh generators, so no state and no slot's stream moves
             spare = [torch.Generator(device=self.device).manual_seed(i)
                      for i in range(len(self._gens))]
-            self._step(self._params, self._state, self._tokens, self._active, spare, kv_bucket)
+            self._step(self._params, self._state, *self._inputs, spare, kv_bucket)
             graph = torch.cuda.CUDAGraph()
             if self._sampled:
                 for gen in self._gens:
@@ -114,8 +125,8 @@ class DecodeGraphs:
             try:
                 graph.capture_begin()
                 try:
-                    out, state = self._step(self._params, self._state, self._tokens,
-                                            self._active, self._gens, kv_bucket)
+                    out, state = self._step(self._params, self._state, *self._inputs,
+                                            self._gens, kv_bucket)
                 except BaseException:
                     try:
                         graph.capture_end()
@@ -138,21 +149,25 @@ class DecodeGraphs:
         return state.keys() == self._state.keys() and all(
             state[k] is x for k, x in self._state.items())
 
-    def __call__(self, params, state, tokens, active, gens, kv_bucket: int):
+    def __call__(self, params, state, *args):
+        *inputs, gens, kv_bucket = args
         if params is not self._params or gens is not self._gens or not self._same_state(state):
             raise RuntimeError("DecodeGraphs replays the params, state and generators it "
                                "captured; these are others")
+        if len(inputs) != len(self._inputs):
+            raise TypeError(f"the captured step takes {len(self._inputs)} input tensors, "
+                            f"got {len(inputs)}")
         entry = self._graphs.get(self.key(kv_bucket))
         if entry is None:
             raise RuntimeError(f"no decode graph captured for kv bucket {kv_bucket} "
                                f"(captured: {self.keys()})")
-        self._tokens.copy_(tokens, non_blocking=True)
-        self._active.copy_(active, non_blocking=True)
+        for buf, x in zip(self._inputs, inputs):
+            buf.copy_(x, non_blocking=True)
         entry["graph"].replay()
         for k, n in entry["launches"].items():
             _build.LAUNCHES[k] += n
         self.replays += 1
         out = entry["out"]
         if isinstance(out, tuple):
-            return tuple(x.clone() for x in out), state
+            return tuple(None if x is None else x.clone() for x in out), state
         return out.clone(), state
