@@ -76,6 +76,32 @@ Phases, any failure exits nonzero:
       head-local paged kernel on each rank, streams checked against the
       plain trunk of the same KV type; given four cards, four ranks over
       NCCL serve the same waves after them;
+   i. overcommit (run after g): the flagship on the default pipelined loop
+      on graphs with kv_swap, a pool of four sessions of at most 9 pages
+      (kv_pool_blocks=37, prefill_chunk=256) and a host tier of 36 pinned
+      blocks; a chat tenant's eight sessions between turns: four admitted,
+      16 tokens streamed, parked; four more admitted, which evicts the
+      first four; those stream and park; the first four resume and finish,
+      then the second four. Arms: the host tier, recompute-only
+      (kv_swap=0), the crossover (kv_swap_recompute_tokens=1280) and int8
+      KV with the host tier; then one park and resume each on a
+      decode_loop_k=8 and a fused (8, 4) engine, the park settling where
+      the device's length for the slot equals the tokens the stream has
+      cached. Held: every token of every stream, those after each park and
+      resume included, against the plain trunk teacher-forced on that
+      stream (a near-tie is skipped, not an end); every swapped-in block,
+      byte for byte, every KV and scale plane, against what left the pool
+      at its swap-out; the counters the traffic implies (evicted blocks, swap
+      faults, rebuilds, swap bytes = blocks x bytes a block), pool and host
+      tier free at the end, one fetch a tick as in an unparked wave, graph
+      replays and paged launches per tick, no capture while serving, every
+      state tensor in place, no host wait in a swap dispatch
+      (set_sync_debug_mode("error")). Printed: swap-out and swap-in GB/s
+      in the waves and idle against a plain pinned copy_ of the same
+      bytes, resume latency per restore path (resident, swap-in,
+      recompute) at about 128, 512 and 1040 cached tokens, the swap_drain
+      phase, and the eviction wave's tokens/s against the same wave with
+      nothing parked;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -84,6 +110,7 @@ Needs a CUDA device and the repo checkout; refuses to run without either.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import subprocess
@@ -108,6 +135,13 @@ ATOL = 2e-2
 # head's absmax on one element), smaller than the bf16 noise already
 # allowed for
 MARGIN = 0.05
+# check_forced holds every step of a stream whose teacher-forced plain-trunk
+# top-1/top-2 margin is at least this. Held over thousands of steps, and not
+# only the few before a stream's first near-tie, bf16 rounding flips the
+# greedy pick at margins up to 0.0625 on the H100 (four bf16 ulps of a top
+# logit in [2, 4)); this is twice that, and check_forced reports the widest
+# flip it skipped in every run
+FORCED_MARGIN = 0.125
 # a logprob against log_softmax of the plain trunk's logits: the same bf16
 # noise the margin rule allows for, on a log-probability
 LOGPROB_TOL = 0.05
@@ -609,10 +643,13 @@ def study_path(gen, log) -> dict:
     return {"launches": launches}
 
 
-def reference_stream(params, cfg, prompt: np.ndarray, steps: int, logprobs: list = None):
+def reference_stream(params, cfg, prompt: np.ndarray, steps: int, logprobs: list = None,
+                     forced: list = None):
     """Greedy stream of the port's plain trunk with each step's top-1/top-2
     logit margin; with ``logprobs`` (a list) each step's log_softmax of its
-    greedy token is appended there."""
+    greedy token is appended there. With ``forced`` (a stream's tokens) the
+    trunk is teacher-forced: each step feeds forced[i], not its own choice,
+    so its choices and margins are those at every step of that stream."""
     from vtpu_torch.models import decode_step, prefill
 
     toks = torch.from_numpy(prompt[None]).cuda()
@@ -628,8 +665,9 @@ def reference_stream(params, cfg, prompt: np.ndarray, steps: int, logprobs: list
         if logprobs is not None:
             logprobs.append(float(torch.log_softmax(row.float(), dim=-1)[out[-1]]))
         if i + 1 < steps:
+            nxt = out[-1] if forced is None else forced[i]
             logits, cache = decode_step(
-                params, cfg, cache, torch.tensor([out[-1]], dtype=torch.int32, device="cuda"))
+                params, cfg, cache, torch.tensor([nxt], dtype=torch.int32, device="cuda"))
             row = logits[0]
     return out, margins
 
@@ -1558,6 +1596,732 @@ def device_loop_spec_path(log, card: str, params, refs: dict) -> dict:
     return out
 
 
+# the overcommit phase: a chat tenant's eight sessions between turns. The
+# pool holds four sessions of at most 9 pages of 128 (37 blocks), the host
+# tier four (36 blocks); each session streams OC_TOKENS tokens a turn, two
+# turns
+OC_SERVING = dict(slots=4, prefill_buckets=(1024,), kv_page=128, prefill_chunk=256,
+                  kv_pool_blocks=37)
+OC_HOST = 36
+OC_TOKENS = 16
+# cached tokens at the park of the resume latency probes
+OC_PROBES = (128, 512, 1040)
+# budget of a session parked on the multi-tick and fused loops: a fused
+# flush may deliver up to LOOP_K * (SPEC_K + 1) = 40 tokens before the park
+# settles
+OC_LOOP_BUDGET = 96
+
+
+def overcommit_prompts(vocab: int) -> list[np.ndarray]:
+    """Eight prompts of 993-1024 tokens: with two turns of OC_TOKENS a
+    session reserves 9 pages of 128, so four fill the pool."""
+    rs = np.random.RandomState(SEED + 3)
+    return [rs.randint(0, vocab, (int(n),)).astype(np.int32) for n in rs.randint(993, 1025, 8)]
+
+
+def park_after(eng, req, n: int) -> None:
+    """Have the loop thread ask for ``req``'s park right after it puts the
+    n-th token from now on the stream: inside that delivery, so the park
+    settles at the next tick head where the slot has nothing in flight,
+    however fast the loop runs."""
+    from vtpu_torch.serving import Terminal
+
+    put, seen = req.out.put, [0]
+
+    def hook(item):
+        put(item)
+        if not isinstance(item, Terminal):
+            seen[0] += 1
+            if seen[0] == n:
+                req.out.put = put
+                eng.park(req)
+
+    req.out.put = hook
+
+
+class Session:
+    """One request of the overcommit phase, read by a thread of its own that
+    stamps each token; with ``park_at`` parked after that many tokens.
+    ``parks`` counts the parks asked of it. Waits on it block on a
+    condition the reader notifies: a waiter that polled would take the
+    interpreter lock from the loop thread in the middle of the waves it
+    times."""
+
+    def __init__(self, eng, prompt, budget: int, park_at: int = 0):
+        self.eng, self.prompt = eng, prompt
+        self.toks, self.times = [], []
+        self.ended = False
+        self.parks = 0
+        self.cond = threading.Condition()
+        self.t_submit = time.perf_counter()
+        self.req = eng.submit(prompt, max_new_tokens=budget)
+        if park_at:
+            self.park_after(park_at)
+            if self.req.delivered:
+                raise AssertionError("a token was delivered before the park hook was in place")
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def park_after(self, n: int) -> None:
+        park_after(self.eng, self.req, n)
+        self.parks += 1
+
+    def _read(self):
+        for tok in self.req.stream():
+            with self.cond:
+                self.times.append(time.perf_counter())
+                self.toks.append(tok)
+                self.cond.notify_all()
+        with self.cond:
+            self.ended = True
+            self.cond.notify_all()
+
+    def wait_tokens(self, n: int) -> None:
+        """Block until the reader holds ``n`` tokens (or the stream ended)."""
+        with self.cond:
+            if not self.cond.wait_for(lambda: len(self.toks) >= n or self.ended,
+                                      timeout=120):
+                raise AssertionError(f"{n} tokens did not arrive within 120 s")
+
+    def wait_end(self) -> None:
+        """Block until the stream has ended, whatever its status."""
+        with self.cond:
+            if not self.cond.wait_for(lambda: self.ended, timeout=120):
+                raise AssertionError("a stream did not end within 120 s")
+
+    def join(self) -> "Session":
+        self.thread.join(timeout=600)
+        if self.thread.is_alive() or self.req.status != "OK":
+            raise AssertionError(f"a stream ended {self.req.status} after {len(self.toks)} tokens")
+        return self
+
+
+class Lifecycle:
+    """The overcommit lifecycle as the engine's own trace records it: the
+    engine's ``trace.record`` is wrapped to count its park and evict events
+    per request (with the slot of the last one) and to notify a condition,
+    so a waiter blocks instead of polling."""
+
+    EVENTS = ("park", "evict")
+
+    def __init__(self, eng):
+        self.cond = threading.Condition()
+        self.counts, self.slots = collections.Counter(), {}
+        record = eng.trace.record
+
+        def counted(event, rid, *a, **kw):
+            record(event, rid, *a, **kw)
+            if event in self.EVENTS:
+                with self.cond:
+                    self.counts[event, rid] += 1
+                    self.slots[event, rid] = a[0] if a else kw.get("slot", -1)
+                    self.cond.notify_all()
+
+        eng.trace.record = counted
+
+    def count(self, event: str, s: Session) -> int:
+        with self.cond:
+            return self.counts[event, s.req.rid]
+
+    def slot(self, event: str, s: Session) -> int:
+        with self.cond:
+            return self.slots[event, s.req.rid]
+
+    def wait_parked(self, sessions) -> None:
+        """Block until each session has parked as often as it was asked to."""
+        with self.cond:
+            if not self.cond.wait_for(lambda: all(
+                    self.counts["park", s.req.rid] >= s.parks for s in sessions), timeout=120):
+                raise AssertionError("the parks did not settle within 120 s")
+
+
+def drained(s: Session) -> None:
+    """Block until the reader holds every token put on the stream."""
+    s.wait_tokens(s.req.delivered)
+
+
+def cached_at_park(s: Session) -> int:
+    """Tokens a parked session holds in the cache: its prompt and every
+    delivered token but the last, the pending input whose KV is not yet
+    written."""
+    drained(s)
+    return len(s.prompt) + s.req.delivered - 1
+
+
+def resume_latency(eng, s: Session) -> float:
+    """Resume a parked session and return ms from resume() to its next token."""
+    drained(s)
+    n = len(s.toks)
+    t0 = time.perf_counter()
+    eng.resume(s.req)
+    s.wait_tokens(n + 1)
+    return (s.times[n] - t0) * 1e3
+
+
+def forced_trunk(params, cfg):
+    """The plain trunk teacher-forced on a stream: ``ref(prompt, toks)`` ->
+    (its greedy choice, its top-1/top-2 margin) at every step of ``toks``
+    (reference_stream with ``forced``), cached by prompt; a stream that
+    begins another one already forced reads that one's steps."""
+    cache = {}
+
+    def ref(prompt: np.ndarray, toks: list) -> tuple[list, list]:
+        runs = cache.setdefault(prompt.tobytes(), [])
+        for got, want, margins in runs:
+            if got[:len(toks)] == list(toks):
+                return want[:len(toks)], margins[:len(toks)]
+        want, margins = reference_stream(params, cfg, prompt, len(toks), forced=list(toks))
+        runs.append((list(toks), want, margins))
+        return want, margins
+
+    return ref
+
+
+def check_forced(ref, held: list, what: str) -> dict:
+    """Every token of every stream in ``held`` ((prompt, tokens, index of
+    the first token after a park) each) against the plain trunk
+    teacher-forced on that stream (``ref``, forced_trunk): a step whose
+    top-1/top-2 margin is below FORCED_MARGIN is skipped, not an end, so
+    the tokens after every park and resume are held, not only those before
+    the stream's first near-tie. A mismatch raises, and so does a set of
+    parked streams none of whose tokens after a park could be held.
+    Returns the tokens held, those after a park, the steps skipped, and
+    the skipped steps whose token differs (bf16 flips) with the widest
+    margin among them."""
+    out = {"held": 0, "held_after_park": 0, "skipped": 0, "flips": 0, "widest_flip": 0.0}
+    for prompt, toks, after in held:
+        want, margins = ref(prompt, toks)
+        for i, (got, w, m) in enumerate(zip(toks, want, margins)):
+            if m < FORCED_MARGIN:
+                out["skipped"] += 1
+                if got != w:
+                    out["flips"] += 1
+                    out["widest_flip"] = max(out["widest_flip"], m)
+                continue
+            if got != w:
+                raise AssertionError(
+                    f"{what}: token {i} of a stream ({len(toks)} tokens, parked before token "
+                    f"{after}) is {got}; the plain trunk fed the same tokens picks {w} "
+                    f"(margin {m:.4f})")
+            out["held"] += 1
+            out["held_after_park"] += i >= after
+    if any(after < len(toks) for _, toks, after in held) and not out["held_after_park"]:
+        raise AssertionError(f"{what}: no token after a park could be held")
+    return out
+
+
+def guard_sync(eng) -> None:
+    """Run the engine's swap dispatches (evictions, swap-ins, the tick
+    head's polling of swap-outs) under set_sync_debug_mode("error"): a host
+    wait there raises, the loop ends with loop_error, and the phase fails."""
+    for name in ("_evict_entry", "_swap_in", "_drain_swap_outs"):
+        fn = getattr(eng, name)
+
+        def guarded(*a, _fn=fn, **kw):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+
+        setattr(eng, name, guarded)
+
+
+def block_bytes(eng) -> int:
+    """Bytes of one pool block across every layer and KV plane, scale
+    planes included, from the state's shapes."""
+    from vtpu_torch.models.transformer import kv_keys
+
+    return sum(eng.state[k][:, 0].numel() * eng.state[k].element_size()
+               for k in kv_keys(eng.state))
+
+
+def watch_swaps(eng) -> dict:
+    """Stamp each swap with CUDA events, no wait (a swap-out from its
+    gathers on the main stream to its last copy on the side stream, a
+    swap-in over its copies and scatters on the main stream), and hold
+    every swap-in byte for byte against what left the pool: a swap-out's
+    blocks are cloned on the main stream right behind the engine's gathers
+    (before any later write to the released blocks), keyed by host block;
+    a swap-in compares the pool blocks it wrote, every KV plane and scale
+    plane, with the clones of the host blocks it read and adds the bytes
+    that differ to a device counter (no host wait; read after the arm).
+    This holds the pinned tier, the side stream's ordering, the snapshot's
+    lifetime and the staging buffers at once. Returns {"out", "in": lists
+    of (start, end, blocks), "bad": that counter, "checked": blocks
+    compared, "spill", "restore": the engine's own methods, unwrapped}."""
+    from vtpu_torch.models.transformer import kv_keys
+
+    planes = kv_keys(eng.state)
+    box = {"out": [], "in": [], "bad": torch.zeros((), dtype=torch.int64, device="cuda"),
+           "checked": 0, "spill": eng._spill, "restore": eng._restore_pages}
+    saved = {}
+
+    def ids(blocks):
+        return torch.as_tensor(blocks, dtype=torch.long).pin_memory().to("cuda", non_blocking=True)
+
+    def spill(blocks, host):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        done = box["spill"](blocks, host)
+        end.record(eng._copy_stream)
+        box["out"].append((start, end, len(blocks)))
+        idx = ids(blocks)
+        left = {k: eng.state[k].index_select(1, idx) for k in planes}
+        for j, h in enumerate(host):
+            saved[h] = (left, j)
+        return done
+
+    def restore(blocks, host):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        box["restore"](blocks, host)
+        end.record()
+        box["in"].append((start, end, len(blocks)))
+        idx = ids(blocks)
+        for k in planes:
+            want = torch.stack([saved[h][0][k][:, saved[h][1]] for h in host], 1)
+            got = eng.state[k].index_select(1, idx)
+            box["bad"] += (got.view(torch.uint8) != want.view(torch.uint8)).sum()
+        for h in host:
+            del saved[h]
+        box["checked"] += len(blocks)
+
+    eng._spill, eng._restore_pages = spill, restore
+    return box
+
+
+def swap_rates(stamps: list, bpb: int) -> dict:
+    """GB/s and ms of stamped swaps (watch_swaps), after a synchronize."""
+    torch.cuda.synchronize()
+    ms = [start.elapsed_time(end) for start, end, _ in stamps]
+    blocks = [n for _, _, n in stamps]
+    return {"swaps": len(stamps), "blocks": sum(blocks), "ms": ms,
+            "gb_per_s": (sum(blocks) * bpb / (sum(ms) * 1e6)) if stamps else None}
+
+
+def idle_swap_rates(swaps: dict, bpb: int, blocks: int) -> dict:
+    """With the loop stopped and the pool and host tier free: the engine's
+    own swap-out (_spill) and swap-in (_restore_pages) of ``blocks``
+    blocks, unwrapped (``swaps``, watch_swaps), and, as the yardstick, one
+    plain pinned copy_ of the same bytes each way, device ms a call
+    (time_ms) and GB/s."""
+    nbytes = blocks * bpb
+    ids, host = list(range(1, blocks + 1)), list(range(blocks))
+
+    def spill(_):
+        torch.cuda.current_stream().wait_event(swaps["spill"](ids, host))
+
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    out = {"bytes": nbytes}
+    for key, fn in (("swap_out", spill), ("swap_in", lambda _: swaps["restore"](ids, host)),
+                    ("pinned_d2h", lambda _: pinned.copy_(dev, non_blocking=True)),
+                    ("pinned_h2d", lambda _: dev.copy_(pinned, non_blocking=True))):
+        ms, _ = time_ms(fn, iters=10)
+        out[key] = {"ms": ms, "gb_per_s": nbytes / (ms * 1e6)}
+    return out
+
+
+def oc_engine(params, cfg, serving):
+    """An overcommit engine, its Lifecycle, its state addresses and its
+    graph count."""
+    from vtpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(params, cfg, serving)
+    if eng.decode_graphs is None and eng.loop_graphs is None:
+        raise AssertionError("an overcommit engine does not serve on CUDA graphs")
+    return (eng, Lifecycle(eng), {k: x.data_ptr() for k, x in eng.state.items()},
+            eng.stats()["graphs_captured"])
+
+
+def oc_held(eng, ptrs: dict, captured: int, what: str) -> None:
+    """After the loop stopped: no loop error, no graph captured while
+    serving, every state tensor at its address."""
+    if eng.loop_error is not None:
+        raise AssertionError(f"{what}: serving loop failed: {eng.loop_error!r}")
+    if eng.stats()["graphs_captured"] != captured:
+        raise AssertionError(f"{what}: a graph was captured while serving")
+    if {k: x.data_ptr() for k, x in eng.state.items()} != ptrs:
+        raise AssertionError(f"{what}: a state tensor moved")
+
+
+def resume_probe(eng, lc, prompt, fillers, filler_refs, ref, paths: tuple, held: list) -> dict:
+    """One session parked after 2 tokens (len(prompt) + 2 or 3 cached
+    tokens), then per restore path in ``paths``: "resident" resumes it at
+    once; "swap_in" and "recompute" first re-park it and admit four
+    1024-token fillers that park after their first token, whose pages need
+    it evicted (it is the least recently parked: to the host tier, or
+    dropped on a kv_swap=0 engine; the trace's evict event says it was),
+    then cancel the fillers, so the resume finds the pool free. Returns the
+    cached length and ms from resume() to the next token per path; the
+    stream and the fillers' first tokens are held against the plain trunk
+    and go on ``held`` for check_forced."""
+    s = Session(eng, prompt, 2 * OC_TOKENS, park_at=2)
+    lc.wait_parked([s])
+    out = {"cached": cached_at_park(s)}
+    after = s.req.delivered
+    for i, path in enumerate(paths):
+        if i:
+            s.park_after(1)
+            lc.wait_parked([s])
+        if path != "resident":
+            evicted = lc.count("evict", s)
+            fill = [Session(eng, f, 8, park_at=1) for f in fillers]
+            lc.wait_parked(fill)
+            if lc.count("evict", s) != evicted + 1:
+                raise AssertionError("the fillers did not evict the parked probe")
+            for f in fill:
+                f.req.cancel()
+            for f in fill:
+                f.wait_end()
+            check_streams([f.toks for f in fill], filler_refs, "overcommit filler")
+            held += [(f.prompt, f.toks, len(f.toks)) for f in fill]
+        out[path] = resume_latency(eng, s)
+    s.join()
+    check_streams([s.toks], [ref], "overcommit probe")
+    held.append((prompt, s.toks, after))
+    return out
+
+
+def overcommit_round(eng, lc, prompts: list) -> dict:
+    """One round of an arm's traffic on a running engine with nothing
+    parked. The unparked wave: the last four prompts' first turn
+    (OC_TOKENS tokens) with nothing parked. Then the counted run, every
+    launch count set to 0 just before it: the first four are admitted,
+    stream OC_TOKENS tokens and park; the second four are admitted, which
+    must evict the first four, stream and park (the eviction wave); the
+    first four resume and finish, then the second four. Returns the
+    sessions (with the tokens each had delivered at its park), the stats
+    before the unparked wave and around the counted run, its launches and
+    graph replays, both waves' tokens/s and the resumes' ms to their next
+    token."""
+    from vtpu_torch.ops import _build
+
+    first, second = prompts[:4], prompts[4:]
+    settle(eng)
+    s0 = eng.stats()
+    unparked = [Session(eng, p, OC_TOKENS) for p in second]
+    for s in unparked:
+        s.join()
+    settle(eng)
+    s1 = eng.stats()
+    replays = eng.decode_graphs.replays
+    _build.reset_launches()
+    wave_a = [Session(eng, p, 2 * OC_TOKENS, park_at=OC_TOKENS) for p in first]
+    lc.wait_parked(wave_a)
+    wave_b = [Session(eng, p, 2 * OC_TOKENS, park_at=OC_TOKENS) for p in second]
+    lc.wait_parked(wave_b)
+    resume_ms, at_park = [], []
+    for group in (wave_a, wave_b):
+        for s in group:
+            drained(s)
+        n0 = [len(s.toks) for s in group]
+        at_park += n0
+        t0 = time.perf_counter()
+        for s in group:
+            eng.resume(s.req)
+        for s in group:
+            s.join()
+        resume_ms += [(s.times[n] - t0) * 1e3 for s, n in zip(group, n0)]
+    settle(eng)
+    end_b = max(s.times[OC_TOKENS - 1] for s in wave_b)
+    return {"s0": s0, "s1": s1, "s2": eng.stats(), "launches": _build.launches(),
+            "replays": eng.decode_graphs.replays - replays, "unparked": unparked,
+            "sessions": wave_a + wave_b, "at_park": at_park, "resume_ms": resume_ms,
+            "eviction_tps": 4 * OC_TOKENS / (end_b - min(s.t_submit for s in wave_b)),
+            "unparked_tps": 4 * OC_TOKENS / (max(s.times[-1] for s in unparked)
+                                             - min(s.t_submit for s in unparked)),
+            "eviction_split": wave_split(wave_b), "unparked_split": wave_split(unparked)}
+
+
+def wave_split(sessions: list) -> dict:
+    """A wave's first-turn time split: TTFT p50 (submit to first token) and
+    the gaps between its first OC_TOKENS tokens (p50 and max), ms."""
+    ttft = sorted((s.times[0] - s.t_submit) * 1e3 for s in sessions)
+    gaps = sorted((b - a) * 1e3 for s in sessions
+                  for a, b in zip(s.times[:OC_TOKENS - 1], s.times[1:OC_TOKENS]))
+    return {"ttft_p50_ms": ttft[len(ttft) // 2], "itl_p50_ms": gaps[len(gaps) // 2],
+            "itl_max_ms": gaps[-1]}
+
+
+def check_round(r: dict, refs: list, ref, expect: dict, bpb: int, paged: str,
+                what: str) -> dict:
+    """One round (overcommit_round) against what its traffic implies:
+    every token of every stream against the plain trunk teacher-forced on
+    it (check_forced: the parked sessions' 2 x OC_TOKENS, resumed ones
+    included, and the unparked wave's); the free-running margin rule
+    against ``refs`` as a report (it stops at each stream's first
+    near-tie); the counters against ``expect`` (blocks evicted, spilled and
+    swapped in, rebuilds; swap bytes = blocks x bytes a block), the pool
+    and host tier free, one fetch a tick with and without parking, graph
+    replays = decode ticks, paged launches = 12 x decode ticks. Returns its
+    figures."""
+    s0, s1, s2 = r["s0"], r["s1"], r["s2"]
+    forced = check_forced(ref, [(s.prompt, s.toks, n)
+                                for s, n in zip(r["sessions"], r["at_park"])], what)
+    forced_unparked = check_forced(ref, [(s.prompt, s.toks, len(s.toks))
+                                         for s in r["unparked"]], f"{what} unparked wave")
+    compared, ties = check_streams([s.toks for s in r["sessions"]], refs, what)
+    check_streams([s.toks for s in r["unparked"]], [(t[:OC_TOKENS], m) for t, m in refs[4:]],
+                  f"{what} unparked wave")
+    d = {k: s2[k] - s1[k] for k in (
+        "parks", "resumes", "evicted_blocks", "swap_out_bytes", "swap_in_bytes", "swap_faults",
+        "fault_recomputes", "pool_blocked_admissions", "decode_ticks", "tick_fetches")}
+    want = {"parks": 8, "resumes": 8, "evicted_blocks": expect["evicted"],
+            "swap_out_bytes": expect["spilled"] * bpb, "swap_in_bytes": expect["swapped_in"] * bpb,
+            "swap_faults": 8, "fault_recomputes": expect["recomputes"],
+            "pool_blocked_admissions": 0}
+    got = {k: d[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: counters {got}, the traffic implies {want}")
+    if (s2["kv_pool_free"] != s2["kv_pool_blocks"] or s2["parked_sessions"]
+            or s2["swap_host_free"] != s2["swap_host_blocks"]):
+        raise AssertionError(f"{what}: pool {s2['kv_pool_free']} of {s2['kv_pool_blocks']} "
+                             f"free, host tier {s2['swap_host_free']} of "
+                             f"{s2['swap_host_blocks']}, {s2['parked_sessions']} parked")
+    gets_unparked = ((s1["tick_fetches"] - s0["tick_fetches"])
+                     / (s1["decode_ticks"] - s0["decode_ticks"]))
+    gets = d["tick_fetches"] / d["decode_ticks"]
+    if not gets == gets_unparked == 1.0:
+        raise AssertionError(f"{what}: device_gets_per_tick {gets} (unparked wave "
+                             f"{gets_unparked}), expected 1.0")
+    if r["replays"] != d["decode_ticks"]:
+        raise AssertionError(f"{what}: {r['replays']} graph replays for {d['decode_ticks']} ticks")
+    launches = r["launches"]
+    others = {k: n for k, n in launches.items() if k not in (paged, "flash_attention") and n}
+    if (launches[paged] != FLAGSHIP["n_layers"] * d["decode_ticks"] or others
+            or launches["flash_attention"] <= 0):
+        raise AssertionError(f"{what}: launches {launches} over {d['decode_ticks']} ticks")
+    return {"counters": d, "launches": launches, "graph_replays": r["replays"],
+            "device_gets_per_tick": gets, "device_gets_per_tick_unparked": gets_unparked,
+            "eviction_wave_tokens_per_s": r["eviction_tps"],
+            "unparked_wave_tokens_per_s": r["unparked_tps"], "resume_ms": r["resume_ms"],
+            "eviction_wave_split": r["eviction_split"], "unparked_wave_split": r["unparked_split"],
+            "forced": forced, "forced_unparked": forced_unparked,
+            "compared_tokens": compared, "margin_cuts": ties,
+            "equal_run_tokens": equal_run([s.toks for s in r["sessions"]], refs)}
+
+
+def overcommit_wave(log, card: str, params, cfg, name: str, serving, prompts, refs, ref,
+                    expect: dict, probes=None) -> dict:
+    """One arm of the overcommit phase on the default pipelined loop on
+    graphs: a warm-up request, then REPEATS rounds of the tenant's traffic
+    (overcommit_round), each held by check_round, with every swap stamped
+    and every swap-in held byte for byte against what left the pool
+    (watch_swaps) and every swap dispatch under guard_sync (no host wait);
+    then, with ``probes`` = (prompts, fillers, filler refs, refs, paths),
+    the resume latency probes; then, with the loop stopped, the idle swap
+    rates. ``ref`` is the teacher-forced plain trunk (forced_trunk). No
+    capture while serving and every state tensor in place over the arm;
+    the pool and host tier free at its end."""
+    eng, lc, ptrs, captured = oc_engine(params, cfg, serving)
+    swaps = watch_swaps(eng)
+    guard_sync(eng)
+    paged = "paged_decode_attention_int8kv" if cfg.kv_int8 else "paged_decode_attention"
+    eng.start()
+    probe, held = None, []
+    try:
+        Session(eng, prompts[0][:64], 2).join()
+        rounds = [overcommit_round(eng, lc, prompts) for _ in range(REPEATS)]
+        wave_swaps = {k: list(swaps[k]) for k in ("out", "in")}
+        if probes is not None:
+            pprompts, fillers, frefs, prefs, paths = probes
+            probe = [resume_probe(eng, lc, p, fillers, frefs, r, paths, held)
+                     for p, r in zip(pprompts, prefs)]
+            settle(eng)
+        end = eng.stats()
+    finally:
+        eng.stop()
+    what = f"overcommit {name}"
+    oc_held(eng, ptrs, captured, what)
+    bpb = block_bytes(eng)
+    figs = [check_round(r, refs, ref, expect, bpb, paged, f"{what}, round {i}")
+            for i, r in enumerate(rounds)]
+    probe_forced = check_forced(ref, held, f"{what} resume probes") if held else None
+    torch.cuda.synchronize()
+    bad, swapped = int(swaps["bad"]), end["swap_in_bytes"] // bpb
+    if bad or swaps["checked"] != swapped:
+        raise AssertionError(f"{what}: {bad} bytes of the {swaps['checked']} blocks held differ "
+                             f"from what left the pool ({swapped} blocks swapped in)")
+    if (end["kv_pool_free"] != end["kv_pool_blocks"] or end["parked_sessions"]
+            or end["swap_host_free"] != end["swap_host_blocks"]):
+        raise AssertionError(f"{what}: the pool or the host tier is not free at the end")
+    if len(wave_swaps["out"]) != REPEATS * expect["spills"]:
+        raise AssertionError(f"{what}: {len(wave_swaps['out'])} swap-outs, expected "
+                             f"{REPEATS * expect['spills']}")
+    rates = {k: swap_rates(v, bpb) for k, v in wave_swaps.items()}
+    idle = idle_swap_rates(swaps, bpb, 9) if expect["swapped_in"] else None
+    drain = end["tick_phase_ms"]["swap_drain"]
+    f0 = figs[0]
+    held_n = {k: sum(f["forced"][k] for f in figs) for k in f0["forced"]}
+    same = sum([s.toks for s in r["sessions"]] == [s.toks for s in rounds[0]["sessions"]]
+               for r in rounds)
+    held_n["widest_flip"] = max(f[k]["widest_flip"] for f in figs
+                                for k in ("forced", "forced_unparked"))
+    log(f"overcommit {name} on {card}: {REPEATS} rounds of 8 sessions x 2 turns of "
+        f"{OC_TOKENS} tokens, pool {end['kv_pool_blocks']} blocks, host tier "
+        f"{end['swap_host_blocks']} blocks of {bpb} bytes; a round: parks "
+        f"{f0['counters']['parks']}, resumes {f0['counters']['resumes']}, evicted "
+        f"{f0['counters']['evicted_blocks']} blocks, swapped out "
+        f"{f0['counters']['swap_out_bytes'] // bpb} and in "
+        f"{f0['counters']['swap_in_bytes'] // bpb}, {f0['counters']['swap_faults']} faults, "
+        f"{f0['counters']['fault_recomputes']} rebuilt (every round alike); "
+        f"device_gets_per_tick 1.0 with and without parking; graph replays = decode ticks "
+        f"{[f['graph_replays'] for f in figs]}, launches {f0['launches']}")
+    log(f"overcommit {name} on {card}: swapped-in blocks equal byte for byte to what left the "
+        f"pool: {swaps['checked']} of {swapped}; parked streams against the plain trunk "
+        f"teacher-forced on them: {held_n['held']} of {REPEATS * 8 * 2 * OC_TOKENS} tokens "
+        f"equal ({held_n['held_after_park']} after a park), {held_n['skipped']} near-ties "
+        f"(margin < {FORCED_MARGIN}) skipped, {held_n['flips']} of them flipped by bf16 "
+        f"rounding (the widest at margin {held_n['widest_flip']}); unparked waves "
+        f"{sum(f['forced_unparked']['held'] for f in figs)} of {REPEATS * 4 * OC_TOKENS}"
+        + ("" if probe_forced is None else
+           f"; resume probes and fillers {probe_forced['held']} "
+           f"({probe_forced['held_after_park']} after a park, {probe_forced['flips']} flips "
+           f"skipped, the widest at margin {probe_forced['widest_flip']})")
+        + f"; rounds whose streams equal round 0's token for token: {same}"
+        + f"; free-running margin rule, to each stream's first near-tie: "
+        f"{sum(f['compared_tokens'] for f in figs)} "
+        f"equal, {sum(f['margin_cuts'] for f in figs)} cut, "
+        f"{sum(f['equal_run_tokens'] for f in figs)} equal before each stream's first "
+        "difference from the plain trunk's own stream")
+    log(f"overcommit {name} on {card}: eviction wave tokens/s "
+        f"{spread([f['eviction_wave_tokens_per_s'] for f in figs])} against unparked "
+        f"{spread([f['unparked_wave_tokens_per_s'] for f in figs])} (the second four's first "
+        f"turn, median [min, max] over {REPEATS} rounds); TTFT p50, ITL p50, ITL max ms: "
+        f"eviction wave " + ", ".join(spread([f["eviction_wave_split"][k] for f in figs])
+                                      for k in ("ttft_p50_ms", "itl_p50_ms", "itl_max_ms"))
+        + "; unparked " + ", ".join(spread([f["unparked_wave_split"][k] for f in figs])
+                                    for k in ("ttft_p50_ms", "itl_p50_ms", "itl_max_ms"))
+        + f"; resumes of four at once, ms to each next token: "
+        f"{spread([x for f in figs for x in f['resume_ms']])}; swap_drain {drain}")
+    for k, r in rates.items():
+        if r["swaps"]:
+            log(f"overcommit {name} on {card}: in-wave swap-{k} {r['gb_per_s']:.2f} GB/s over "
+                f"{r['swaps']} swaps of {r['blocks']} blocks ({spread(r['ms'])} ms a swap)")
+    if idle is not None:
+        log(f"overcommit {name} on {card}, idle, 9 blocks ({idle['bytes']} bytes): swap-out "
+            f"{idle['swap_out']['gb_per_s']:.2f} GB/s ({idle['swap_out']['ms']:.3f} ms), swap-in "
+            f"{idle['swap_in']['gb_per_s']:.2f} GB/s ({idle['swap_in']['ms']:.3f} ms); pinned "
+            f"copy_ D2H {idle['pinned_d2h']['gb_per_s']:.2f} GB/s, H2D "
+            f"{idle['pinned_h2d']['gb_per_s']:.2f} GB/s")
+    if probe is not None:
+        log(f"overcommit {name} resume latency on {card}, ms from resume() to the next token: "
+            + "; ".join(f"{p['cached']} cached tokens: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in p.items() if k != "cached") for p in probe))
+    return {"rounds": figs, "block_bytes": bpb, "swap_rates": rates, "idle_swap_rates": idle,
+            "swap_drain": drain, "resume_probes": probe, "resume_probes_forced": probe_forced,
+            "rounds_equal_to_round_0": same,
+            "swap_in_blocks_held": swaps["checked"]}
+
+
+def boundary_park(log, card: str, params, cfg, name: str, serving, prompt, ref, forced) -> dict:
+    """One session on a multi-tick or fused engine on graphs, parked after
+    OC_TOKENS tokens: the park settles at a flush boundary, where the
+    device's length for the slot (the trace's park event names the slot;
+    nothing else runs, so it stays as the park left it) equals the tokens
+    the stream has in the cache: its prompt and every delivered token but
+    the pending one. Resumed, every token of the stream, those after the
+    park included, equals the plain trunk teacher-forced on it
+    (``forced``); the free-running margin rule against ``ref`` is a
+    report."""
+    eng, lc, ptrs, captured = oc_engine(params, cfg, serving)
+    eng.start()
+    try:
+        Session(eng, prompt[:64], 2).join()
+        s = Session(eng, prompt, OC_LOOP_BUDGET, park_at=OC_TOKENS)
+        lc.wait_parked([s])
+        cached = cached_at_park(s)
+        at_park = s.req.delivered
+        device = int(eng.state["len"][lc.slot("park", s)])
+        ms = resume_latency(eng, s)
+        s.join()
+        settle(eng)
+    finally:
+        eng.stop()
+    what = f"overcommit, park on the {name} loop"
+    oc_held(eng, ptrs, captured, what)
+    if device != cached:
+        raise AssertionError(f"{what}: at the park the device holds {device} tokens for the "
+                             f"slot, the stream {cached} ({len(prompt)} prompt tokens and "
+                             f"{at_park} delivered, the last one pending)")
+    st = eng.stats()
+    if st["parks"] != 1 or st["resumes"] != 1:
+        raise AssertionError(f"{what}: {st['parks']} parks, {st['resumes']} resumes")
+    held = check_forced(forced, [(prompt, s.toks, at_park)], what)
+    compared, ties = check_streams([s.toks], [ref], what)
+    same = equal_run([s.toks], [ref])
+    log(f"{what} on {card}: parked at {cached} cached tokens (= the device's length for the "
+        f"slot) after {at_park} tokens, resumed in {ms:.2f} ms; {len(s.toks)} tokens, "
+        f"{held['held']} equal to the plain trunk teacher-forced on them "
+        f"({held['held_after_park']} after the park), {held['skipped']} near-ties skipped "
+        f"({held['flips']} flipped, the widest at margin {held['widest_flip']}); "
+        f"free-running margin rule, to the first near-tie: {compared} equal, {ties} cut, "
+        f"{same} equal before the first difference")
+    return {"seq_len": cached, "device_len": device, "delivered_at_park": at_park,
+            "resume_ms": ms, "tokens": len(s.toks), "forced": held,
+            "compared_tokens": compared, "margin_cuts": ties, "equal_run_tokens": same}
+
+
+def overcommit_path(log, card: str, params, refs: dict) -> dict:
+    """KV overcommit on the flagship at full width and depth, on the default
+    pipelined loop on graphs (OC_SERVING): the host tier (kv_swap=36, with
+    the resume latency probes of the resident and swap-in paths),
+    recompute-only (kv_swap=0, with the recompute probes), the crossover
+    (kv_swap_recompute_tokens=1280) and int8 KV with the host tier, each
+    one overcommit_wave; then a park on a decode_loop_k=8 engine and on a
+    fused (8, 4) one (boundary_park). The counters each arm's traffic
+    implies: the first four's 36 blocks evicted by the second four's
+    admission (spilled while the host tier has room, else dropped), the
+    second four's 36 evicted by the first four's resumes (the first one
+    dropped where the tier is still full, the rest spilled into the room
+    each swap-in frees), 8 restores."""
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.serving import ServingConfig
+
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    cfg8 = dataclasses.replace(cfg, kv_int8=True)
+    prompts = overcommit_prompts(cfg.vocab)
+    rs = np.random.RandomState(SEED + 4)
+    probe_prompts = [rs.randint(0, cfg.vocab, (n - 2,)).astype(np.int32) for n in OC_PROBES]
+    fillers = [rs.randint(0, cfg.vocab, (1024,)).astype(np.int32) for _ in range(4)]
+    plain = {c.kv_int8: dataclasses.replace(c, use_kernels=False) for c in (cfg, cfg8)}
+    forced = {kv: forced_trunk(params, plain[kv]) for kv in plain}
+    oc_refs = {kv: [reference_stream(params, plain[kv], p, 2 * OC_TOKENS) for p in prompts]
+               for kv in (False, True)}
+    probe_refs = [reference_stream(params, plain[False], p, 2 * OC_TOKENS) for p in probe_prompts]
+    filler_refs = [reference_stream(params, plain[False], f, 1) for f in fillers]
+    base = ServingConfig(**OC_SERVING, max_new_tokens=2 * OC_TOKENS)
+    out = {}
+    for name, c, kw, expect, paths in (
+            ("host tier", cfg, dict(kv_swap=OC_HOST),
+             dict(evicted=72, spilled=63, swapped_in=63, spills=7, recomputes=1),
+             ("resident", "swap_in")),
+            ("recompute-only", cfg, dict(kv_swap=0),
+             dict(evicted=72, spilled=0, swapped_in=0, spills=0, recomputes=8), ("recompute",)),
+            ("crossover", cfg, dict(kv_swap=OC_HOST, kv_swap_recompute_tokens=1280),
+             dict(evicted=72, spilled=63, swapped_in=0, spills=7, recomputes=8), None),
+            ("int8 host tier", cfg8, dict(kv_swap=OC_HOST),
+             dict(evicted=72, spilled=63, swapped_in=63, spills=7, recomputes=1), None)):
+        probes = (probe_prompts, fillers, filler_refs, probe_refs, paths) if paths else None
+        out[name] = overcommit_wave(log, card, params, c, name, dataclasses.replace(base, **kw),
+                                    prompts, oc_refs[c.kv_int8], forced[c.kv_int8], expect,
+                                    probes)
+        torch.cuda.empty_cache()
+    loop = ServingConfig(slots=4, prefill_buckets=(1024,), kv_page=128, kv_swap=OC_HOST,
+                         max_new_tokens=OC_LOOP_BUDGET)
+    prompt = wave_prompts(cfg.vocab)[0]
+    ref = (refs["bf16"][0][0][:OC_LOOP_BUDGET], refs["bf16"][0][1][:OC_LOOP_BUDGET])
+    for name, kw in (("device_loop", dict(decode_loop_k=LOOP_K)),
+                     ("fused", dict(decode_loop_k=LOOP_K, spec_tokens=SPEC_K))):
+        out[name] = boundary_park(log, card, params, cfg, name,
+                                  dataclasses.replace(loop, **kw), prompt, ref, forced[False])
+        torch.cuda.empty_cache()
+    return out
+
+
 def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
     """Tensor-parallel serving: ``tp`` ranks, spawned, serve the main path's
     wave on the flagship model, once with bf16 and once with int8 KV, each
@@ -1691,6 +2455,7 @@ def main() -> int:
                                                   runs["main_path"]["tokens_per_s"])
     runs["chunked_prefix_path"] = chunked_prefix_path(log, card, params)
     runs["device_loop_spec_path"] = device_loop_spec_path(log, card, params, refs)
+    runs["overcommit_path"] = overcommit_path(log, card, params, refs)
     runs["study_path"] = study_path(gen, log)
     del params
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one

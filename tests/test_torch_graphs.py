@@ -21,10 +21,19 @@ address; a k-tick flush's replay equals k eager ticks (greedy and under
 temperature, logprobs included), a verify tick's and a fused flush's
 replays their eager steps, bit for bit; and the engine's multi-tick,
 speculating and fused loops serve on graphs captured at construction
-only, their streams held against the plain trunk."""
+only, their streams held against the plain trunk; a replay after an
+in-place swap-in (the staging scatter into other blocks, the table row
+remapped in place) reads the restored blocks, bit for bit the eager step
+on a state that never swapped; the engine's own swap-out and swap-in
+(side copy stream, pinned tier, staging buffers) keep every byte of every
+KV and scale plane while the released blocks are overwritten at once; and
+an overcommit engine parks, evicts to its pinned host tier and resumes on
+its graphs, streaming token for token what a twin engine that never parks
+streams."""
 
 import ctypes
 import functools
+import time
 
 import numpy as np
 import pytest
@@ -35,7 +44,8 @@ from vtpu_torch.ops import _build
 from vtpu_torch.ops.decode_attn import paged_decode_attention, paged_split_plan
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status, TransformerSlotModel
 from vtpu_torch.serving.adapters import (
-    fused_spec_decode_step, multi_tick_decode_step, sampled_decode_step, verify_step,
+    fused_spec_decode_step, multi_tick_decode_step, sampled_decode_step, swap_page_gather,
+    swap_page_scatter, verify_step,
 )
 from vtpu_torch.serving.graphs import DecodeGraphs
 
@@ -511,3 +521,174 @@ def test_engine_loops_replay_their_graphs(dev, loop):
             if m < 0.05:
                 break
             assert got == ref
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_replay_after_an_in_place_swap_in_reads_the_restored_blocks(dev, kv):
+    """Slot 0's blocks leave through the staging gather into pinned host
+    memory and are zeroed in the pool; the staging scatter brings them back
+    in place into four other blocks and the slot's table row is remapped in
+    place. Replays of a graph captured before all this read the restored
+    blocks: the live rows' tokens, the lengths and slot 0's pages equal the
+    eager step's on a twin state that never swapped, bit for bit, and no
+    state tensor moved. (Idle slot 3's stale row names slot 0's old first
+    block, now zeroed: its masked-out token is junk either way.)"""
+    cfg = _cfg(kv)
+    params = init_params(0, cfg, device=dev)
+    model = TransformerSlotModel(params, cfg, kv_page=PAGE, device=dev)
+    eager_state = _admitted_state(model, params, PAGE)
+    graph_state = {k: x.clone() for k, x in eager_state.items()}
+    step = sampled_decode_step(model, 0.0, 0, 1.0)
+    gens = [torch.Generator(device=dev).manual_seed(i) for i in range(4)]
+    graphs = DecodeGraphs(step, params, graph_state, gens, (128, 256), paged_attn=None)
+    ptrs = {k: x.data_ptr() for k, x in graph_state.items()}
+    old = graph_state["table"][0, :4].long()
+    new = torch.arange(40, 44, device=dev)
+    snap = swap_page_gather(graph_state, old)
+    host = {k: torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x, non_blocking=True)
+            for k, x in snap.items()}
+    for key in snap:
+        graph_state[key].index_fill_(1, old, 0)
+    swap_page_scatter(graph_state, new, {k: x.to(dev, non_blocking=True) for k, x in host.items()})
+    graph_state["table"][0, :4].copy_(new.to(torch.int32))
+    active = torch.tensor([True, True, True, False], device=dev)
+    tok_e = tok_g = torch.tensor([3, 4, 5, 0], dtype=torch.int32, device=dev)
+    for bucket in (128, 128, 256):
+        tok_e, eager_state = step(params, eager_state, tok_e, active, gens, bucket)
+        tok_g, graph_state = graphs(params, graph_state, tok_g, active, gens, bucket)
+        torch.cuda.synchronize()
+        assert torch.equal(tok_e[:3], tok_g[:3])
+        assert torch.equal(graph_state["len"], eager_state["len"])
+        for key in snap:
+            assert torch.equal(graph_state[key][:, new], eager_state[key][:, old]), key
+    assert graphs.replays == 3
+    assert {k: x.data_ptr() for k, x in graph_state.items()} == ptrs
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_engine_swap_round_trip_keeps_every_byte(dev, kv):
+    """The engine's own swap path on the card, byte for byte. ``_spill``
+    evicts four pool blocks to the pinned host tier while the main stream
+    is still busy, so the side stream's copies must wait for the gathers
+    or read unwritten snapshots. The released blocks are then overwritten
+    on the main stream at once, from fresh tensors the size of the
+    snapshots, which must not take the snapshots' memory while their
+    copies run (``record_stream``). The main stream waits on the
+    swap-out's event, as a resume racing its own swap-out does, and
+    ``_restore_pages`` brings the pages back into four other blocks
+    through the staging buffers, two blocks a group. Every KV plane,
+    scale planes included, then equals what was evicted, byte for byte,
+    and no state tensor moved."""
+    from vtpu_torch.models.transformer import kv_keys
+
+    cfg = _cfg(kv)
+    params = init_params(0, cfg, device=dev)
+    eng = ServingEngine(params, cfg, ServingConfig(
+        slots=4, prefill_buckets=(64,), max_new_tokens=NEW, kv_page=PAGE, kv_pool_blocks=16,
+        kv_swap=8, kv_swap_stage_blocks=2))
+    assert eng._copy_stream is not None
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    old, new, host = [1, 2, 3, 4], [9, 10, 11, 12], [0, 1, 2, 3]
+    idx = torch.tensor(old, device=dev)
+    for key in kv_keys(eng.state):
+        plane = eng.state[key]
+        shape = plane[:, old].shape
+        if plane.dtype == torch.int8:
+            vals = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        else:
+            vals = torch.randn(shape, generator=gen, device=dev).to(plane.dtype)
+        plane.index_copy_(1, idx, vals)
+    want = {key: eng.state[key][:, old].clone() for key in kv_keys(eng.state)}
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    done = eng._spill(old, host)
+    junk = []
+    for key in kv_keys(eng.state):
+        plane = eng.state[key]
+        for _ in range(2):
+            junk.append(torch.full((2, plane.shape[0]) + tuple(plane.shape[2:]), 3,
+                                   dtype=plane.dtype, device=dev))
+        plane.index_fill_(1, idx, 3)
+    torch.cuda.current_stream().wait_event(done)
+    eng._restore_pages(new, host)
+    torch.cuda.synchronize()
+    assert done.query()
+    for key, val in want.items():
+        got = eng.state[key][:, new]
+        assert torch.equal(got.view(torch.uint8), val.view(torch.uint8)), key
+        assert not torch.equal(eng.state[key][:, old].view(torch.uint8), val.view(torch.uint8))
+    assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs
+
+
+def test_overcommit_engine_serves_on_its_graphs(dev):
+    """kv_swap on the pipelined loop on graphs: the first request parks
+    after its 2nd token, the second's admission evicts it to the pinned
+    host tier (a pool of one request's 5 pages), and its resume swaps it
+    back. Both streams equal, token for token, the streams of a twin engine
+    without kv_swap that serves each request alone and never parks (the
+    same kernels and graphs; a request is alone in the batch in both);
+    they also equal the plain trunk's greedy streams up to a top-1/top-2
+    margin below 0.05 (bf16). Replays = decode ticks, paged launches =
+    n_layers x decode ticks, no graph captured while serving, every state
+    tensor in place."""
+    from vtpu_torch.serving import Terminal
+
+    cfg = _cfg("bf16")
+    params = init_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(1, DIMS["vocab"], (64,), generator=gen).numpy() for _ in range(2)]
+    eng = ServingEngine(params, cfg, ServingConfig(
+        slots=4, prefill_buckets=(64,), max_new_tokens=NEW, kv_page=PAGE, kv_pool_blocks=5,
+        kv_swap=8))
+    captured = eng.stats()["graphs_captured"]
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    r1 = eng.submit(prompts[0])
+    put, seen = r1.out.put, [0]
+
+    def park_at_second(item):
+        put(item)
+        if not isinstance(item, Terminal):
+            seen[0] += 1
+            if seen[0] == 2:
+                eng.park(r1)
+
+    r1.out.put = park_at_second
+    _build.reset_launches()
+    eng.start()
+    try:
+        t0 = time.monotonic()
+        while r1 not in eng._parked:
+            assert time.monotonic() - t0 < 120, "the park never settled"
+            time.sleep(0.002)
+        r2 = eng.submit(prompts[1])
+        out2 = list(r2.stream())
+        eng.resume(r1)
+        out1 = list(r1.stream())
+    finally:
+        eng.stop()
+    assert eng.loop_error is None and r1.status == r2.status == Status.OK
+    launches = _build.launches()["paged_decode_attention"]
+    twin = ServingEngine(params, cfg, ServingConfig(
+        slots=4, prefill_buckets=(64,), max_new_tokens=NEW, kv_page=PAGE, kv_pool_blocks=5))
+    twin.start()
+    try:
+        alone = [list(twin.submit(p).stream()) for p in prompts]
+    finally:
+        twin.stop()
+    assert twin.loop_error is None
+    assert out1 == alone[0] and out2 == alone[1]
+    for out, prompt in zip((out1, out2), prompts):
+        assert len(out) == NEW
+        want, margins = _plain_stream(params, cfg, prompt, NEW)
+        for got, ref, m in zip(out, want, margins):
+            if m < 0.05:
+                break
+            assert got == ref
+    st = eng.stats()
+    assert st["parks"] == st["resumes"] == st["swap_faults"] == 1
+    assert st["evicted_blocks"] == 5 and st["swap_in_bytes"] == 5 * eng._block_bytes
+    assert st["kv_pool_free"] == 5 and st["swap_host_free"] == 8
+    assert st["graphs_captured"] == captured and eng.decode_graphs.replays == st["decode_ticks"]
+    assert launches == cfg.n_layers * st["decode_ticks"]
+    assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs

@@ -333,6 +333,13 @@ def test_unported_serving_fields_raise(weights, field, value):
         else:
             assert st["batched_admission"] is False and st["admission_syncs"] == 1
         return
+    if field == "kv_swap":
+        # ported since the overcommit slice: on a dense engine it raises the
+        # reference's ValueError (tests/test_torch_overcommit.py holds the
+        # paged overcommit against the reference)
+        with pytest.raises(ValueError, match="paged"):
+            ServingEngine(tp, CFG, ServingConfig(**{field: value}), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=field):
         ServingEngine(tp, CFG, ServingConfig(**{field: value}), device="cpu")
 

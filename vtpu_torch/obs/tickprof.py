@@ -17,9 +17,9 @@ Phases (one histogram each):
               the in-flight tick: the device-bound share of the tick.
 - deliver:    pure-Python bookkeeping after the fetch (stream puts,
               budget/eos/retire).
-- swap_drain: landing swap-out snapshots in the host pool (a phase of the
-              reference's overcommit path, which the port has not reached:
-              its histogram stays empty).
+- swap_drain: the tick head's retirement of finished swap-outs to the
+              host tier (overcommit: event queries, never a wait; empty
+              without ``kv_swap``).
 
 Everything is plain host arithmetic: a ``note()`` is one bisect over a
 static bucket table plus four scalar updates. Writers are the serving-loop

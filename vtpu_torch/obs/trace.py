@@ -10,11 +10,11 @@ spans are derived offline:
         -> token* -> retire
 
 The vocabulary is the reference's whole vocabulary. Kinds of features the
-port has not reached (park, evict, swap_out, swap_in, fault_recompute,
-resume, the disaggregation and migration events) are kept so a trace reads
-the same in both packages; the port never records them. It records
-prefill_chunk for each chunk of a chunked or prefixed admission and fault
-for a request a contained failure ended.
+port has not reached (the disaggregation and migration events) are kept so
+a trace reads the same in both packages; the port never records them. It
+records prefill_chunk for each chunk of a chunked or prefixed admission,
+fault for a request a contained failure ended, and the overcommit
+lifecycle (park, evict, swap_out, swap_in, fault_recompute, resume).
 
 Recording cost is the contract: one ``itertools.count`` bump (atomic under
 the GIL), one ``time.monotonic_ns`` stamp, one tuple, one list-slot store.

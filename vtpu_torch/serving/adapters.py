@@ -16,6 +16,9 @@ Contract (all shapes static; per-slot state is data, never shape):
       -> (pred [B, T], count [B], state)
 
 The state is updated in place; the returned dict is the one to keep.
+The KV-overcommit staging pair (``swap_page_gather`` /
+``swap_page_scatter``) moves whole pool blocks between the pool and the
+engine's host tier, one device only.
 ``prefill_chunk_into_slot`` with an explicit ``block_ids`` row and the slot
 count as ``slot`` (whose length write is dropped) is the slot-less prefill
 that builds a shared prefix into fresh pool blocks.
@@ -35,7 +38,7 @@ import torch
 
 from vtpu_torch.device import resolve_device
 from vtpu_torch.models.transformer import (
-    init_kv_cache, init_paged_kv_cache, kv_quantized, multi_tick_decode,
+    init_kv_cache, init_paged_kv_cache, kv_keys, kv_quantized, multi_tick_decode,
     multi_tick_spec_decode, prefill, sample_tokens,
 )
 from vtpu_torch.ops.decode_attn import PAGED_ATTN_ROUTES
@@ -161,6 +164,32 @@ def batched_admission_step(model: Any, temperature: float, top_k: int, top_p: fl
         return tok, buf, state
 
     return step
+
+
+def swap_page_gather(state: dict, ids: torch.Tensor) -> dict:
+    """KV-overcommit D2H staging source (the reference's
+    ``swap_page_gather``): gather pool blocks ``ids`` ([n] int64 on the
+    pool's device, n up to ``kv_swap_stage_blocks``; a padded id 0 names
+    the null block) of every KV plane, the int8 scale planes included, into
+    a fresh contiguous snapshot: one [n, L, page, ...] tensor a plane,
+    block-major, so each block is one contiguous run that copies to its
+    host-tier block in one transfer. The snapshot owns its memory: the
+    engine releases the blocks (and a later step may overwrite them) as
+    soon as the gather is enqueued, since stream order runs it first."""
+    return {key: state[key].transpose(0, 1).index_select(0, ids) for key in kv_keys(state)}
+
+
+def swap_page_scatter(state: dict, ids: torch.Tensor, pages: dict) -> dict:
+    """KV-overcommit H2D staging sink (the reference's
+    ``swap_page_scatter``): write staged blocks (the gather's block-major
+    [n, L, page, ...] plane dict, uploaded from the host tier) into pool
+    blocks ``ids`` IN PLACE, ``index_copy_`` on the state's own tensors,
+    whose addresses the decode graphs hold. A padded id 0 writes the null
+    block, which every reader masks; its staged pages must be finite
+    (zeros): a masked read still multiplies by them. Returns the state."""
+    for key, val in pages.items():
+        state[key].index_copy_(1, ids, val.transpose(0, 1))
+    return state
 
 
 class TransformerSlotModel:

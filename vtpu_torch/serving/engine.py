@@ -14,7 +14,13 @@ synchronous loop (``pipeline_decode=False``), the multi-tick device loop
 (``spec_tokens``: prompt-lookup drafts verified K+1 positions a tick on the
 synchronous loop) and, with both, fused speculation (draft and verify
 inside the flush, its depth picked by a ``LoopPolicy``). On one CUDA card
-each loop replays its steps from CUDA graphs (serving/graphs.py). A custom
+each loop replays its steps from CUDA graphs (serving/graphs.py). KV
+overcommit (``kv_swap``, paged pool, one device): ``park`` takes a session
+out of the decode batch with its pages still in the pool; an admission or
+resume the free list cannot cover evicts parked sessions' private pages,
+lowest priority first and least recently parked within a priority, to a
+preallocated pinned host tier (or drops them, to be rebuilt through
+prefill on resume), and ``resume`` restores the session token-exact. A custom
 ``sample=`` callable runs the reference's host path: the synchronous loop
 fetches the [B, vocab] logits once a tick and calls the callable per live
 row. Requests join and leave slots without any shape
@@ -25,15 +31,16 @@ does, host-side only.
 What the port has not reached raises instead of being ignored: every
 ``ServingConfig`` field named in ``_UNPORTED`` must stay at its default,
 ``ModelConfig.kv_int8="auto"`` is refused, and so are chunked prefill,
-prefix registration, speculation and the multi-tick loop under a mesh. ``kv_int8=True`` serves int8 KV: dense or
+prefix registration, speculation, the multi-tick loop and overcommit
+under a mesh. ``kv_int8=True`` serves int8 KV: dense or
 paged int8 planes with f32 scale planes beside them, written quantized at
 every KV write site here. ``mesh=`` (a vtpu_torch.parallel.TpMesh) serves
 tensor-parallel over torch.distributed: see ``ServingEngine`` for how the
 ranks split the work.
 
 Every write into the engine's state (a chunk's KV, a prefix install, a
-copy-on-write block, a table row, a length) goes into the state's own
-tensors in place: the CUDA graphs of the pipelined loop hold their
+copy-on-write block, a swap-in, a table row, a length) goes into the
+state's own tensors in place: the CUDA graphs of the pipelined loop hold their
 addresses, so a replaced tensor would leave a replay reading stale KV.
 
 Writes the reference drops. JAX's ``.at[...].set(..., mode="drop")`` lets an
@@ -52,6 +59,10 @@ pinned memory with non-blocking copies, and the tick's tokens come back
 through a copy staged into pinned memory right after the tick and waited
 for at delivery: a copy from or to pageable memory would make the host wait
 for the whole stream, and so, on the pipelined loop, for the tick in flight.
+The host tier is pinned too: a swap-out's copies run on a side stream
+behind the gather and are polled by an event at tick heads, a swap-in's
+run on the main stream ahead of the tick that reads the blocks, and
+neither makes the host wait.
 """
 
 from __future__ import annotations
@@ -80,7 +91,8 @@ from vtpu_torch.ops import _build
 from vtpu_torch.ops.decode_attn import paged_attn_route
 from vtpu_torch.serving.adapters import (
     TransformerSlotModel, batched_admission_step, fused_spec_decode_step,
-    multi_tick_decode_step, sampled_decode_step, verify_step,
+    multi_tick_decode_step, sampled_decode_step, swap_page_gather, swap_page_scatter,
+    verify_step,
 )
 from vtpu_torch.serving.graphs import DecodeGraphs
 from vtpu_torch.serving.shed import EngineSignals, load_loop_policy
@@ -101,9 +113,9 @@ class ServingConfig:
     loop (unrolled or a fori_loop); the port's layer loop is a Python loop,
     always unrolled, so None, True and False serve the same computation.
 
-    Speculation and the multi-tick loop are served on one device; under a
-    tensor-parallel mesh their six fields raise (the rank-0 broadcast
-    protocol has no verify and no flush op yet)."""
+    Speculation, the multi-tick loop and KV overcommit are served on one
+    device; under a tensor-parallel mesh their nine fields raise (the
+    rank-0 broadcast protocol has no verify, flush or swap op yet)."""
 
     slots: int = 4  # concurrent sequences (the decode batch)
     prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024)
@@ -161,8 +173,20 @@ class ServingConfig:
     kv_pool_blocks: Optional[int] = None
     # paged read route: None (auto: kernel on CUDA), "kernel" or "gather"
     paged_attn: Optional[str] = None
+    # KV overcommit: the host tier's capacity in blocks (None = off, the
+    # plain paged pool). Needs kv_page. park() keeps a session's pages in
+    # the pool; an admission or resume the free list cannot cover evicts
+    # parked sessions' private pages (lowest Request.priority first, least
+    # recently parked within a priority) to the pinned host tier, or drops
+    # them when it is full and the sequence can be rebuilt through prefill.
+    # Shared prefix blocks are never evicted. 0: no host tier, every
+    # eviction drops (recompute-only overcommit)
     kv_swap: Optional[int] = None
+    # blocks one staging gather or scatter moves
     kv_swap_stage_blocks: int = 8
+    # a resuming session of at most this many cached tokens is rebuilt
+    # through prefill even when its host pages exist; 0 = recompute only
+    # where the pages were dropped
     kv_swap_recompute_tokens: int = 0
     # request-trace ring capacity in events; 0 turns the ring off (the
     # latency percentiles in stats() stay live)
@@ -190,22 +214,23 @@ class ServingConfig:
 # fields whose features are later slices of the port: a non-default value
 # raises NotImplementedError naming the field
 _UNPORTED = (
-    "kv_swap", "kv_swap_stage_blocks", "kv_swap_recompute_tokens", "disagg",
-    "shed_queue_depth", "shed_policy", "fetch_watchdog_ms", "fetch_watchdog_recover_ms",
+    "disagg", "shed_queue_depth", "shed_policy", "fetch_watchdog_ms", "fetch_watchdog_recover_ms",
     "worker_retry_limit", "worker_retry_backoff_ms", "faults", "duty_supplier",
 )
 # served on one device only: under a mesh a non-default value raises (the
-# rank-0 broadcast protocol has no verify op and no flush op yet)
+# rank-0 broadcast protocol has no verify, flush or swap op yet)
 _ONE_DEVICE = ("spec_tokens", "spec_ngram", "spec_min_mean", "spec_cooloff_ticks",
-               "decode_loop_k", "loop_policy")
+               "decode_loop_k", "loop_policy", "kv_swap", "kv_swap_stage_blocks",
+               "kv_swap_recompute_tokens")
 
 
 def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
     """Refuse what this port has not reached. Every other combination is
     ported, under a tensor-parallel ``mesh`` as on one device, except
-    chunked prefill (and so prefix registration), speculation and the
-    multi-tick loop, whose rank-0 broadcast ops are a later slice: the mesh
-    itself is checked by the adapter (``_validate_serving_mesh``)."""
+    chunked prefill (and so prefix registration), speculation, the
+    multi-tick loop and KV overcommit, whose rank-0 broadcast ops are a
+    later slice: the mesh itself is checked by the adapter
+    (``_validate_serving_mesh``)."""
     for f in dataclasses.fields(ServingConfig):
         if f.name in _UNPORTED and getattr(serving, f.name) != f.default:
             raise NotImplementedError(
@@ -215,8 +240,8 @@ def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
             raise NotImplementedError(
                 f"ServingConfig.{f.name}={getattr(serving, f.name)!r} under a tensor-parallel "
                 "mesh= is not ported to vtpu_torch: the rank-0 broadcast protocol has no "
-                "verify op and no flush op yet; serve speculation and decode_loop_k on one "
-                "device")
+                "verify, flush or swap op yet; serve speculation, decode_loop_k and "
+                "kv_swap on one device")
     if isinstance(getattr(cfg, "kv_int8", False), str):
         raise NotImplementedError(
             f"ModelConfig.kv_int8={cfg.kv_int8!r} is not ported to vtpu_torch: the "
@@ -227,6 +252,9 @@ def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
             f"ServingConfig.prefill_chunk={serving.prefill_chunk} under a tensor-parallel "
             "mesh= is not ported to vtpu_torch: the rank-0 broadcast protocol has no "
             "chunk op yet; serve chunked prefill and prefixes on one device")
+    if serving.kv_swap is not None and serving.kv_page is None:
+        raise ValueError("kv_swap requires the paged pool (set kv_page): the dense "
+                         "ring has no block granularity to evict or swap")
 
 
 class BlockAllocator:
@@ -396,6 +424,9 @@ class Request:
     tokens: Any  # [S] int32 numpy prompt (the suffix when ``prefix`` is set)
     max_new_tokens: int = 0
     prefix: Optional[int] = None  # registered prefix id (register_prefix)
+    # QoS tier of overcommit eviction: parked sessions of the lowest
+    # priority leave the pool first (least recently parked within a tier)
+    priority: int = 0
     rid: int = -1  # engine-unique id assigned by submit()
     t_submit_ns: int = 0
     t_depart_ns: int = 0  # left the waiting line (admitted)
@@ -691,6 +722,18 @@ def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
     return logits, cache
 
 
+def _runs(ids: list[int]):
+    """(index, first id, length) of each run of consecutive ids in
+    ``ids``: the host-tier blocks one copy moves."""
+    i = 0
+    while i < len(ids):
+        r = 1
+        while i + r < len(ids) and ids[i + r] == ids[i] + r:
+            r += 1
+        yield i, ids[i], r
+        i += r
+
+
 class ServingEngine:
     """Continuous-batching loop: admit -> prefill -> joint decode -> stream.
 
@@ -725,6 +768,14 @@ class ServingEngine:
     a paged pool maps its full pages read-only into every prefixed slot and
     copies only the partial boundary page; a dense cache copies the
     prefix's KV into the slot.
+
+    KV overcommit (``kv_swap``, one device): ``park`` and ``resume`` are
+    commands the loop applies at its tick heads (``_process_lifecycle``),
+    a park once the slot has no token in flight. Admissions, resumes and
+    prefix builds allocate through ``_alloc_reclaim``, which evicts parked
+    sessions' private pages when the free list is dry. Everything the
+    overcommit state holds (the parked entries, the host tier's free
+    list, the swap-outs in flight) is the loop thread's, as the pool is.
 
     Tensor-parallel serving (``mesh``, a vtpu_torch.parallel.TpMesh) is a
     leader/worker split over torch.distributed, one process per rank.
@@ -939,6 +990,7 @@ class ServingEngine:
         # paged prefix builds write the pool, so they run on the loop
         # thread: register_prefix parks a work item here and waits
         self._prefix_work: "queue.Queue[dict]" = queue.Queue()
+        self._init_swap_tier(serving)
         self._pending: "queue.Queue[Request]" = queue.Queue()
         self._waiting = WaitQueue()
         self._slot_req: list[Optional[Request]] = [None] * b
@@ -984,10 +1036,27 @@ class ServingEngine:
             # the depth each ran, as a histogram index
             "loop_flushes": 0, "loop_early_exits": 0, "fused_flushes": 0,
             "fused_k_hist": [0] * ((self._loop_k or 0) + 1),
+            # overcommit: parks and resumes; pool blocks reclaimed from
+            # parked sessions; host-tier traffic; resumes whose pages had
+            # left the pool (swap_faults) and, of those, the ones rebuilt
+            # through prefill (fault_recomputes); tick heads where a resume
+            # waited for the pool
+            "parks": 0, "resumes": 0, "evicted_blocks": 0,
+            "swap_out_bytes": 0, "swap_in_bytes": 0,
+            "swap_faults": 0, "fault_recomputes": 0, "pool_blocked_resumes": 0,
         }
-        # per-slot token history (prompt + emitted) feeding prompt-lookup
-        # drafts; kept only while speculation is on
+        # per-slot token history (prefix + prompt + delivered tokens): the
+        # prompt-lookup drafts' source and what a park saves and a
+        # recompute rebuilds; kept only while speculation or overcommit is on
         self._history: list[list[int]] = [[] for _ in range(b)]
+        self._track_history = bool(self._spec_tokens or self._swap_enabled)
+        # False where a slot's history lacks prefix tokens (the prefix was
+        # unregistered before admission): such a session may swap, but is
+        # never rebuilt from its history
+        self._slot_hist_exact = [True] * b
+        # slots with a dispatched tick or flush not yet delivered (the
+        # pipelined loops): a park waits until its slot leaves this set
+        self._inflight_slots: set = set()
         # the acceptance EMA starts a little above breakeven, so a losing
         # probe cools off within a few ticks
         self._spec_ema = self._spec_probe_ema()
@@ -1039,6 +1108,48 @@ class ServingEngine:
             self._spec = self.spec_graphs
         self._fused = {k: self.fused_graphs.get(k) or functools.partial(
             self._decode_fused, k_dyn=k) for k in fused_ks}
+
+    def _init_swap_tier(self, serving: ServingConfig) -> None:
+        """Overcommit state (``kv_swap``): the lifecycle queue of park and
+        resume commands, the parked sessions in park order (the LRU axis),
+        and the host tier: one preallocated plane per KV plane, scale
+        planes included, [kv_swap, L, page, ...] block-major (each host
+        block one contiguous run), pinned on a card, with its free list, and
+        the side stream its swap-outs copy on. On a card with a host tier
+        the staging pair runs once here (the null block to host block 0 and
+        back), so no first use of its kernels or copies stalls the loop."""
+        self._swap_enabled = serving.kv_swap is not None
+        self._lifecycle_q: "queue.Queue[tuple[str, Request]]" = queue.Queue()
+        self._want_park: set = set()
+        # park commands whose request was nowhere for one pass: it may
+        # still sit in _pending (one pass of grace)
+        self._park_unseen: set = set()
+        self._want_resume: list[Request] = []
+        self._parked: "collections.OrderedDict[Request, dict]" = collections.OrderedDict()
+        self._park_seq = 0
+        self._swap_pending: list[dict] = []  # entries whose swap-out is in flight
+        self._swap_stage = max(int(serving.kv_swap_stage_blocks), 1)
+        self._swap_host_blocks = int(serving.kv_swap or 0)
+        self._host_pool: dict[str, torch.Tensor] = {}
+        self._copy_stream = None
+        self._block_bytes = 0
+        if self._swap_enabled:
+            pin = self.device.type == "cuda"
+            for key in kv_keys(self.state):
+                plane = self.state[key]
+                self._block_bytes += plane[:, 0].numel() * plane.element_size()
+                if self._swap_host_blocks:
+                    self._host_pool[key] = torch.empty(
+                        (self._swap_host_blocks, plane.shape[0]) + tuple(plane.shape[2:]),
+                        dtype=plane.dtype, pin_memory=pin)
+            if pin:
+                self._copy_stream = torch.cuda.Stream(self.device)
+                if self._swap_host_blocks:
+                    torch.cuda.current_stream(self.device).wait_event(self._spill([0], [0]))
+                    self._restore_pages([0], [0])
+                    torch.cuda.synchronize(self.device)
+        # popped from the end: host blocks go out in ascending runs
+        self._host_free = list(range(self._swap_host_blocks - 1, -1, -1))
 
     def _capture_graphs(self, fused_ks) -> None:
         """Capture every step the selected loop dispatches, one graph per
@@ -1156,7 +1267,8 @@ class ServingEngine:
         ``start()``. The slot count as the slot drops the length write."""
         pad = padded.shape[1]
         pages = -(-pad // self._page)
-        blocks = self._alloc.alloc(pages)
+        # runs on the pool owner's thread, so it may evict parked sessions
+        blocks = self._alloc_reclaim(pages)
         if blocks is None:
             # an admin op fails loudly rather than wait behind tenant traffic
             raise RuntimeError(f"kv pool exhausted: prefix needs {pages} blocks, "
@@ -1210,10 +1322,12 @@ class ServingEngine:
             if self._paged:
                 self._alloc.release(entry["blocks"])
 
-    def submit(self, tokens, max_new_tokens: int = 0, prefix: Optional[int] = None) -> Request:
+    def submit(self, tokens, max_new_tokens: int = 0, prefix: Optional[int] = None,
+               priority: int = 0) -> Request:
         """Queue a prompt (with ``prefix``: the suffix after a registered
-        prefix, possibly empty). A prompt nothing can admit raises here, to
-        its submitter."""
+        prefix, possibly empty). ``priority`` is the request's overcommit
+        QoS tier (``Request.priority``). A prompt nothing can admit raises
+        here, to its submitter."""
         if self._stop.is_set():
             raise RuntimeError("ServingEngine is stopped")
         tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
@@ -1250,7 +1364,7 @@ class ServingEngine:
                     f"only has {self._n_blocks - 1}"
                     + (f" ({pinned} pinned by its prefix)" if pinned else "")
                     + "; raise kv_pool_blocks or lower max_new_tokens")
-        req = Request(tokens=tokens, max_new_tokens=budget, prefix=prefix)
+        req = Request(tokens=tokens, max_new_tokens=budget, prefix=prefix, priority=priority)
         req.rid = next(self._req_ctr)
         req.t_submit_ns = time.monotonic_ns()
         self.trace.record("submit", req.rid, -1, n)
@@ -1261,6 +1375,34 @@ class ServingEngine:
             # hangs the client
             self._end_stream(req, Status.CANCELLED)
         return req
+
+    def park(self, req: Request) -> None:
+        """Take a live request out of the decode batch without ending its
+        stream: the slot frees for other traffic and the session's pages
+        stay in the pool until admission pressure evicts them (to the host
+        tier, or dropped for a rebuild through prefill). Thread-safe and
+        asynchronous: the loop parks the session at the first tick head
+        where its slot has no token in flight (on the multi-tick loops, a
+        flush boundary), so no stream token is lost or reordered. Parking a
+        request still waiting for admission defers it (resume re-queues
+        it); parking a finished or unknown request does nothing. Requires
+        ``kv_swap``."""
+        if not self._swap_enabled:
+            raise ValueError("park() requires ServingConfig.kv_swap")
+        self._lifecycle_q.put(("park", req))
+        self._wake.set()
+
+    def resume(self, req: Request) -> None:
+        """Bring a parked request back into the decode batch: its pages are
+        remapped (still in the pool), swapped in from the host tier, or
+        rebuilt through prefill (dropped, or under
+        ``kv_swap_recompute_tokens``), and its stream continues with the
+        token after the last one delivered. Thread-safe; resuming a request
+        that is not parked does nothing. Requires ``kv_swap``."""
+        if not self._swap_enabled:
+            raise ValueError("resume() requires ServingConfig.kv_swap")
+        self._lifecycle_q.put(("resume", req))
+        self._wake.set()
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -1345,7 +1487,7 @@ class ServingEngine:
             round(min(self.trace.events_recorded, self.trace.capacity) / self.trace.capacity, 4)
             if self.trace.enabled else None)
         # where host_ms_per_tick goes: admission head, dispatch, fetch,
-        # deliver (swap_drain stays empty: the port has no swap tier)
+        # deliver, and the tick head's polling of swap-outs (swap_drain)
         s["tick_phase_ms"] = self._prof.snapshot()
         s["device_sampling"] = self._device_sampling
         s["pipelined"] = self._pipeline
@@ -1370,6 +1512,11 @@ class ServingEngine:
             "paged": self._n_blocks * self._page * bpt // tp if self._paged else None,
         }
         s["kv_hbm_bytes_per_chip"] = dict(s["kv_hbm_bytes"])
+        # overcommit: the parked population and the host tier (blocks)
+        s["kv_swap"] = self.serving.kv_swap if self._swap_enabled else None
+        s["parked_sessions"] = len(self._parked)
+        s["swap_host_blocks"] = self._swap_host_blocks if self._swap_enabled else None
+        s["swap_host_free"] = len(self._host_free) if self._swap_enabled else None
         if self._paged:
             usable = self._n_blocks - 1
             free = self._alloc.free_blocks
@@ -1395,12 +1542,13 @@ class ServingEngine:
         """The engine's pressure snapshot (serving/shed.py): what a
         LoopPolicy reads at a fused flush head. Every field is one read of
         a counter or gauge. Features the port has not reached keep their
-        defaults: no parked sessions, never draining, no duty supplier."""
+        defaults: never draining, no duty supplier."""
         return EngineSignals(
             queue_depth=self._pending.qsize() + len(self._waiting),
             active_slots=sum(r is not None for r in self._slot_req),
             pool_free=self._alloc.free_blocks if self._paged else None,
             pool_used_hwm=self._alloc.used_hwm if self._paged else None,
+            parked_sessions=len(self._parked),
             prefill_backlog=len(self._admitting),
             now_ns=time.monotonic_ns(),
             pool_blocks=(self._n_blocks - 1) if self._paged else None,
@@ -1416,7 +1564,8 @@ class ServingEngine:
 
     def _drain_all(self) -> None:
         """Terminal for everyone still holding a Request: occupied slots
-        (CANCELLED — the engine abandoned them), admissions mid-chunk,
+        (CANCELLED — the engine abandoned them), admissions and rebuilds
+        mid-chunk, parked sessions (whatever they hold goes back),
         waiters and submissions; a caller waiting in register_prefix gets
         an error."""
         for slot in range(len(self._slot_req)):
@@ -1425,6 +1574,12 @@ class ServingEngine:
             self._end_stream(adm["req"], adm["req"]._abort or Status.CANCELLED, slot)
             self._free_slot_blocks(slot)
         self._admitting.clear()
+        for req in list(self._parked):
+            self._release_parked(self._parked.pop(req))
+            self._end_stream(req, req._abort or Status.CANCELLED)
+        self._want_park.clear()
+        self._park_unseen.clear()
+        self._want_resume.clear()
         while True:
             try:
                 item = self._prefix_work.get_nowait()
@@ -1452,6 +1607,7 @@ class ServingEngine:
         self._itl_last[slot] = None
         self._admit_mask[slot] = False
         self._history[slot] = []
+        self._slot_hist_exact[slot] = True
         # the device table row stays stale: inactive reads are masked and
         # writes are dropped, and the next reservation overwrites it
         self._free_slot_blocks(slot)
@@ -1475,6 +1631,417 @@ class ServingEngine:
         log.exception("request %s faulted in slot %d; containing",
                       getattr(req, "rid", None), slot)
         self._retire(slot, status=Status.FAULTED)
+
+    # ---------------------------------------------------------- overcommit
+
+    def _alloc_reclaim(self, n: int, exclude: Optional[Request] = None) -> Optional[list[int]]:
+        """``BlockAllocator.alloc`` under overcommit: when the free list
+        cannot cover ``n`` but the free and the reclaimable blocks (parked
+        sessions' evictable private pages) together can, evict until it
+        fits and allocate. ``exclude`` keeps a resuming entry from evicting
+        itself. The blocks, or None with nothing reserved."""
+        got = self._alloc.alloc(n)
+        if got is not None or not self._swap_enabled:
+            return got
+        if self._alloc.free_blocks + self._reclaimable(exclude) < n:
+            return None
+        self._reclaim(n, exclude)
+        return self._alloc.alloc(n)
+
+    def _reclaimable(self, exclude: Optional[Request] = None) -> int:
+        return sum(len(e["priv"]) for r, e in self._parked.items()
+                   if r is not exclude and e["priv"] and self._evictable(e))
+
+    def _evictable(self, e: dict) -> bool:
+        """Can a parked entry's private pages leave the pool: the host
+        tier has room for them, or the sequence can be rebuilt through
+        prefill. Shared prefix blocks never leave: their refcounts pin
+        them."""
+        return len(e["priv"]) <= len(self._host_free) or e["recompute_ok"]
+
+    def _reclaim(self, need: int, exclude: Optional[Request] = None) -> None:
+        """Evict parked sessions until the free list covers ``need`` blocks
+        or nothing evictable is left: lowest ``Request.priority`` first,
+        least recently parked within a priority."""
+        order = sorted((r for r, e in self._parked.items()
+                        if r is not exclude and e["priv"] and self._evictable(e)),
+                       key=lambda r: (self._parked[r]["priority"], self._parked[r]["seq"]))
+        for req in order:
+            if self._alloc.free_blocks >= need:
+                return
+            e = self._parked[req]
+            if self._evictable(e):  # earlier spills may have filled the host tier
+                self._evict_entry(e)
+
+    def _evict_entry(self, e: dict) -> None:
+        """Reclaim one parked session's private pages. With room in the
+        host tier they spill (``_spill``: nothing waits) and the pool
+        blocks are released at once: the snapshot, not the pool, feeds the
+        host copy, so an admission may overwrite the blocks this very tick.
+        Without room they are dropped, and resume rebuilds them (the
+        ``_evictable`` gate made sure it can); an entry that can do neither
+        stays resident."""
+        priv = e["priv"]
+        m = len(priv)
+        if self._swap_host_blocks and m <= len(self._host_free):
+            e["host"] = [self._host_free.pop() for _ in range(m)]
+            e["pend"] = self._spill(priv, e["host"])
+            self._swap_pending.append(e)
+            self._stats["swap_out_bytes"] += m * self._block_bytes
+        elif e["recompute_ok"]:
+            e["dropped"] = True
+        else:
+            return
+        self._stats["evicted_blocks"] += m
+        self.trace.record("evict", e["req"].rid, -1, m)
+        if e["host"] is not None:
+            self.trace.record("swap_out", e["req"].rid, -1, m * self._block_bytes)
+        self._alloc.release(priv)
+        e["priv"] = []
+
+    def _spill(self, blocks: list[int], host: list[int]) -> Optional[torch.cuda.Event]:
+        """Enqueue the swap-out of pool ``blocks`` into host-tier blocks
+        ``host`` (same order): the staging gathers run on the main stream,
+        up to ``kv_swap_stage_blocks`` blocks each, and the copies of their
+        snapshots into the pinned host tier on the side stream behind them,
+        non-blocking, one copy a plane for each run of consecutive host
+        blocks. Returns the event that marks the copies done (None on the
+        CPU, where they have run). The side stream holds each snapshot
+        (``record_stream``) until its copy has read it."""
+        w = self._swap_stage
+        snaps = []
+        for i in range(0, len(blocks), w):
+            snaps.append((i, swap_page_gather(self.state, self._upload(blocks[i:i + w], torch.long))))
+        cs = self._copy_stream
+        if cs is None:
+            for i, snap in snaps:
+                self._to_host(snap, host[i:i + w], non_blocking=False)
+            return None
+        cs.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(cs):
+            for i, snap in snaps:
+                self._to_host(snap, host[i:i + w], non_blocking=True)
+                for x in snap.values():
+                    x.record_stream(cs)
+            done = torch.cuda.Event()
+            done.record(cs)
+        return done
+
+    def _to_host(self, snap: dict, host: list[int], non_blocking: bool) -> None:
+        for j, h, r in _runs(host):
+            for key, x in snap.items():
+                self._host_pool[key][h:h + r].copy_(x[j:j + r], non_blocking=non_blocking)
+
+    def _drain_swap_outs(self) -> None:
+        """Retire the swap-outs whose copies are done (an event query, never
+        a wait: the tick path does not block on a swap). A resume that
+        needs its pages first orders its swap-in behind their event
+        (``_finalize_swap_out``)."""
+        for e in list(self._swap_pending):
+            if e["pend"] is None or e["pend"].query():
+                self._finalize_swap_out(e)
+
+    def _finalize_swap_out(self, e: dict) -> None:
+        """Land an entry's swap-out: the host tier holds its pages once the
+        event has completed. A swap-in racing its own swap-out makes the
+        main stream wait for the event (a device-side wait: the host goes
+        on)."""
+        if e["pend"] is not None and not e["pend"].query():
+            torch.cuda.current_stream(self.device).wait_event(e["pend"])
+        e["pend"] = None
+        self._swap_pending.remove(e)
+
+    def _release_parked(self, e: dict) -> None:
+        """Return everything a parked entry holds: its prefix shares, its
+        private blocks still in the pool, its host blocks and a swap-out in
+        flight. A host block freed under a copy in flight is next written
+        by a later swap-out on the same side stream, after it."""
+        if e in self._swap_pending:
+            e["pend"] = None
+            self._swap_pending.remove(e)
+        if e["shared"]:
+            self._alloc.release(e["shared"])
+            e["shared"] = []
+        if e["priv"]:
+            self._alloc.release(e["priv"])
+            e["priv"] = []
+        if e["host"] is not None:
+            self._host_free.extend(e["host"])
+            e["host"] = None
+
+    def _can_recompute(self, seq_len: int) -> bool:
+        """Rebuildable through prefill: a bucket covers the sequence, or
+        chunked prefill is configured (any length up to the context)."""
+        return any(bkt >= seq_len for bkt in self._prefill_buckets) or self._chunk is not None
+
+    def _parkable(self, slot: int) -> bool:
+        """A slot parks once a token has been delivered for it (its history
+        holds the cache contents plus exactly the one delivered token whose
+        KV is not yet written) and none is in flight for it (the pipelined
+        loops exclude it from dispatch until then)."""
+        return (slot not in self._inflight_slots
+                and len(self._history[slot]) == self._slot_len[slot] + 1)
+
+    def _do_park(self, slot: int) -> None:
+        """Move a settled slot's session into a parked entry. Its pending
+        token is the last DELIVERED one, from the host's history: on the
+        pipelined loops the next input may sit on the device, and nothing
+        here reads the device. The entry takes over the slot's blocks; the
+        slot's table row goes stale as a retire's does (its reads are
+        masked, its writes go to the null block)."""
+        req = self._slot_req[slot]
+        nshared = self._slot_shared[slot]
+        blocks = self._slot_blocks[slot]
+        n = self._slot_len[slot]
+        exact = self._slot_hist_exact[slot]
+        self._parked[req] = {
+            "req": req, "tokens": list(self._history[slot][:-1]),
+            "pending": self._history[slot][-1], "budget": self._slot_budget[slot],
+            "seq_len": n, "n_pages": len(blocks),
+            "shared": blocks[:nshared],  # refcount holds kept while parked
+            "priv": blocks[nshared:],    # this session's own KV: evictable
+            "host": None, "pend": None, "dropped": False,
+            "recompute_ok": self._can_recompute(n) and exact, "hist_exact": exact,
+            "priority": req.priority, "seq": self._park_seq}
+        self._park_seq += 1
+        self._slot_req[slot] = None
+        self._slot_budget[slot] = 0
+        self._slot_len[slot] = 0
+        self._slot_blocks[slot] = []
+        self._slot_shared[slot] = 0
+        self._history[slot] = []
+        self._slot_hist_exact[slot] = True
+        self._itl_last[slot] = None
+        self._admit_mask[slot] = False
+        self._stats["parks"] += 1
+        self.trace.record("park", req.rid, slot, len(blocks))
+
+    def _process_lifecycle(self) -> None:
+        """Take the park and resume commands of client threads, apply the
+        parks whose slots have settled, and release cancelled parked
+        sessions (everything they hold goes back, as a live slot's cancel
+        does)."""
+        while True:
+            try:
+                kind, req = self._lifecycle_q.get_nowait()
+            except queue.Empty:
+                break
+            if kind == "park":
+                if req in self._parked and req in self._want_resume:
+                    # a park overtook a queued resume: the session stays parked
+                    self._want_resume.remove(req)
+                else:
+                    self._want_park.add(req)
+            elif req in self._want_park:
+                # a resume overtook a park that never settled: both cancel
+                self._want_park.discard(req)
+            elif req in self._parked and req not in self._want_resume:
+                # the resume-latency span starts here
+                self.trace.record("resume", req.rid)
+                self._want_resume.append(req)
+        for req in list(self._want_park):
+            if req.cancelled or req in self._parked:
+                self._want_park.discard(req)
+                self._park_unseen.discard(req)
+                continue
+            if self._waiting.take(req):
+                # not admitted yet: parked unstarted, with no pages; resume
+                # puts it back in the waiting line
+                self._park_unseen.discard(req)
+                self._want_park.discard(req)
+                self._parked[req] = {
+                    "req": req, "unstarted": True, "tokens": [], "pending": None,
+                    "budget": 0, "seq_len": 0, "n_pages": 0, "shared": [], "priv": [],
+                    "host": None, "pend": None, "dropped": False, "recompute_ok": True,
+                    "hist_exact": True, "priority": req.priority, "seq": self._park_seq}
+                self._park_seq += 1
+                self._stats["parks"] += 1
+                self.trace.record("park", req.rid)
+                continue
+            try:
+                slot = self._slot_req.index(req)
+            except ValueError:
+                # mid-chunked-admission: it parks once admitted. Nowhere at
+                # all: its submit may still sit in _pending (put there after
+                # this pass drained it), so the command is dropped only on
+                # the second pass in a row that finds it nowhere
+                if not any(adm["req"] is req for adm in self._admitting.values()):
+                    if req in self._park_unseen:
+                        self._want_park.discard(req)
+                        self._park_unseen.discard(req)
+                    else:
+                        self._park_unseen.add(req)
+                continue
+            self._park_unseen.discard(req)
+            if self._parkable(slot):
+                self._want_park.discard(req)
+                self._do_park(slot)
+        for req in [r for r in self._parked if r.cancelled]:
+            self._release_parked(self._parked.pop(req))
+            self._end_stream(req, req._abort or Status.CANCELLED)
+
+    def _advance_resumes(self, budget: float) -> float:
+        """Bring resumed sessions back into free slots, in resume order and
+        ahead of new admissions (older traffic). Pages still in the pool
+        remap; dropped pages, or a sequence under the recompute crossover,
+        rebuild through prefill (a bucketed rebuild spends its bucket from
+        the tick's prompt budget as an admission would; a longer one rides
+        the chunked admissions); swapped pages come back from the host
+        tier. No free slot, a dry pool or a spent budget leaves the entry
+        queued for the next tick head. Returns the remaining budget."""
+        while self._want_resume:
+            req = self._want_resume[0]
+            e = self._parked.get(req)
+            if e is None or req.cancelled:
+                # the parked sweep releases a cancelled session
+                self._want_resume.pop(0)
+                continue
+            if e.get("unstarted"):
+                self._want_resume.pop(0)
+                del self._parked[req]
+                self._waiting.append(req)
+                self._stats["resumes"] += 1
+                continue
+            slot = next((i for i in range(self.serving.slots)
+                         if self._slot_req[i] is None and i not in self._admitting), None)
+            if slot is None:
+                break
+            if e["priv"]:
+                # still in the pool: a table-row remap beats both restores
+                # (and a rebuild here would strand the resident blocks)
+                self._finish_resume_slot(slot, e)
+            elif e["dropped"] or (e["seq_len"] <= self.serving.kv_swap_recompute_tokens
+                                  and e["recompute_ok"]):
+                bkt = next((b for b in self._prefill_buckets if b >= e["seq_len"]), None)
+                if bkt is not None and bkt > budget:
+                    break
+                if not self._begin_recompute(slot, e):
+                    break
+                if bkt is not None:
+                    budget -= bkt
+            elif not self._swap_in(slot, e):
+                break
+            self._want_resume.pop(0)
+        return budget
+
+    def _swap_in(self, slot: int, e: dict) -> bool:
+        """Restore a swapped session: allocate its private blocks (evicting
+        others if the free list is dry, never itself), bring its pages back
+        (``_restore_pages``), then remap the slot. The host blocks go back
+        to the free list at once: the next write to them is a swap-out on
+        the side stream, which waits for the main stream first."""
+        need = e["n_pages"] - len(e["shared"])
+        priv = self._alloc_reclaim(need, exclude=e["req"])
+        if priv is None:
+            self._stats["pool_blocked_resumes"] += 1
+            return False
+        if e in self._swap_pending:
+            self._finalize_swap_out(e)  # rare: the resume raced its own swap-out
+        self._restore_pages(priv, e["host"])
+        self._host_free.extend(e["host"])
+        e["host"] = None
+        e["priv"] = priv
+        self._stats["swap_in_bytes"] += need * self._block_bytes
+        self._stats["swap_faults"] += 1
+        self.trace.record("swap_in", e["req"].rid, slot, need * self._block_bytes)
+        self._finish_resume_slot(slot, e)
+        return True
+
+    def _restore_pages(self, blocks: list[int], host: list[int]) -> None:
+        """Enqueue the swap-in of host-tier blocks ``host`` into pool
+        ``blocks`` (same order) on the main stream, ahead of the tick that
+        reads them: up to ``kv_swap_stage_blocks`` blocks at a time, the
+        pinned host blocks copy non-blocking into a device staging buffer
+        (one copy a plane for each run of consecutive host blocks) and the
+        staging scatter writes them into the pool in place."""
+        w = self._swap_stage
+        cuda = self.device.type == "cuda"
+        for i in range(0, len(blocks), w):
+            grp, hgrp = blocks[i:i + w], host[i:i + w]
+            pages = {}
+            for key, plane in self._host_pool.items():
+                stage = torch.empty((len(grp),) + tuple(plane.shape[1:]), dtype=plane.dtype,
+                                    device=self.device)
+                for j, h, r in _runs(hgrp):
+                    stage[j:j + r].copy_(plane[h:h + r], non_blocking=cuda)
+                pages[key] = stage
+            swap_page_scatter(self.state, self._upload(grp, torch.long), pages)
+
+    def _set_row(self, slot: int, blocks: list[int], length: int) -> None:
+        """The slot's device table row and length, in place."""
+        row = np.zeros((self._max_pages,), np.int32)
+        row[:len(blocks)] = blocks
+        self.state["table"][slot].copy_(self._upload(row, torch.int32))
+        self.state["len"][slot].fill_(length)
+
+    def _finish_resume_slot(self, slot: int, e: dict) -> None:
+        """Remap a restored entry's table row and put the session back in
+        the slot: the next tick feeds its pending token as if it had never
+        parked."""
+        blocks = e["shared"] + e["priv"]
+        self._slot_blocks[slot] = blocks
+        self._slot_shared[slot] = len(e["shared"])
+        e["shared"], e["priv"] = [], []
+        self._set_row(slot, blocks, e["seq_len"])
+        self._restore_slot(slot, e)
+
+    def _restore_slot(self, slot: int, e: dict) -> None:
+        """Slot bookkeeping of a restored session (a parked entry, or a
+        chunked rebuild's ``resume`` record). Its pending token goes up
+        from the host at the next dispatch: the slot is not fed from a
+        tick in flight."""
+        req = e["req"]
+        self._slot_req[slot] = req
+        self._slot_budget[slot] = e["budget"]
+        self._tokens[slot] = e["pending"]
+        self._slot_len[slot] = e["seq_len"]
+        self._history[slot] = list(e["tokens"]) + [e["pending"]]
+        self._slot_hist_exact[slot] = e.get("hist_exact", True)
+        self._itl_last[slot] = None  # the resume gap is no ITL sample
+        self._admit_mask[slot] = False
+        if req in self._parked:
+            del self._parked[req]
+            self._stats["resumes"] += 1
+
+    def _begin_recompute(self, slot: int, e: dict) -> bool:
+        """Rebuild a dropped (or crossover-short) session's KV through
+        prefill. The whole sequence goes private: prefix shares are
+        released and their positions recomputed with the rest. A sequence a
+        bucket covers takes one [1, bucket] prefill dispatch (its logits
+        are discarded: the pending token is on the host already, so no
+        first-token buffer or mask is touched); a longer one rides the
+        chunked admissions, one chunk a loop pass under the prompt budget,
+        and its final chunk restores the slot."""
+        req = e["req"]
+        n = e["seq_len"]
+        need = e["n_pages"]
+        priv = self._alloc_reclaim(need, exclude=req)
+        if priv is None:
+            self._stats["pool_blocked_resumes"] += 1
+            return False
+        self._release_parked(e)  # its prefix shares, and host pages left unread
+        self._slot_blocks[slot] = priv
+        self._slot_shared[slot] = 0
+        self._set_row(slot, priv, 0)
+        self._stats["swap_faults"] += 1
+        self._stats["fault_recomputes"] += 1
+        self.trace.record("fault_recompute", req.rid, slot, n)
+        toks = e["tokens"]
+        bucket = next((b for b in self._prefill_buckets if b >= n), None)
+        if bucket is not None:
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :n] = toks
+            _, self.state = self.model.prefill_into_slot(
+                self.params, self.state, self._upload(padded, torch.int32), slot, n)
+            self._restore_slot(slot, e)
+            return True
+        self._admitting[slot] = {
+            "req": req, "padded": pad_to_chunks(toks, n, self._chunk), "n": n, "off": 0,
+            "base": 0, "resume": {"req": req, "pending": e["pending"], "budget": e["budget"],
+                                  "seq_len": n, "tokens": toks}}
+        del self._parked[req]
+        self._stats["resumes"] += 1
+        return True
 
     # ----------------------------------------------------------- admission
 
@@ -1539,7 +2106,9 @@ class ServingEngine:
         full = base // page  # whole prefix pages, shared as they are
         need_priv = -(-max(total + max(budget, 0), 1) // page) - full
         shared = entry["blocks"][:full] if entry is not None else []
-        priv = self._alloc.alloc(need_priv) if need_priv > 0 else []
+        # overcommit: a dry free list first evicts parked sessions' private
+        # pages before the admission waits
+        priv = self._alloc_reclaim(need_priv) if need_priv > 0 else []
         if priv is None:
             self._stats["pool_blocked_admissions"] += 1
             return False
@@ -1556,10 +2125,7 @@ class ServingEngine:
         blocks = list(shared) + priv
         self._slot_blocks[slot] = blocks
         self._slot_shared[slot] = len(shared)
-        row = np.zeros((self._max_pages,), np.int32)
-        row[:len(blocks)] = blocks
-        self.state["table"][slot] = self._upload(row, torch.int32)
-        self.state["len"][slot] = base
+        self._set_row(slot, blocks, base)
         return True
 
     def _install_prefix(self, slot: int, entry: dict) -> None:
@@ -1701,8 +2267,9 @@ class ServingEngine:
         """One prefill chunk per mid-admission slot, then back to the decode
         tick, sharing the per-tick prompt budget with bucketed admission;
         the lead rotates so no admitting slot starves under the budget. The
-        final chunk completes the admission. An exception faults that
-        request alone."""
+        final chunk completes the admission, or restores the slot of a
+        chunked rebuild (overcommit). An exception faults that request
+        alone."""
         order = sorted(self._admitting)
         if len(order) > 1:
             lead = self._adm_rr % len(order)
@@ -1740,6 +2307,12 @@ class ServingEngine:
                 pad = adm["padded"].shape[1]
                 if adm["off"] >= pad:
                     del self._admitting[slot]
+                    if adm.get("resume") is not None:
+                        # a chunked rebuild: the pending token was delivered
+                        # before the park, so the slot is restored and
+                        # nothing is sampled
+                        self._restore_slot(slot, adm["resume"])
+                        continue
                     self._first_from(slot, req, logits[0, (n - base - 1) - (pad - c)], n)
             except Exception:
                 self._admitting.pop(slot, None)
@@ -1773,7 +2346,7 @@ class ServingEngine:
         token, already on the host."""
         self._begin_slot(slot, req, n)
         self._tokens[slot] = first
-        if self._spec_tokens:
+        if self._track_history:
             self._history[slot].append(first)
         self._itl_last[slot] = time.perf_counter()
         self._note_first_token(req, slot)
@@ -1811,20 +2384,28 @@ class ServingEngine:
         self._slot_budget[slot] = min(req.max_new_tokens, self.cfg.max_seq - n) - 1
         self._slot_len[slot] = n
         self._itl_last[slot] = None
-        if self._spec_tokens:
+        if self._track_history:
             # what the slot's cache holds: prefix + prompt (the first
             # token joins when it is delivered)
-            self._seed_history(slot, req)
+            self._seed_history(slot, req, n)
         self._stats["admissions"] += 1
         self._note_admit(req, slot, n)
 
-    def _seed_history(self, slot: int, req: Request) -> None:
-        """A slot's draft history at admission: the prefix's tokens (none
-        if it was unregistered meanwhile: drafts only lose those) and the
-        prompt."""
+    def _seed_history(self, slot: int, req: Request, n: int) -> None:
+        """A slot's history at admission, mirroring the ``n`` positions its
+        cache holds: the prefix's tokens and the prompt. A prefix
+        unregistered meanwhile leaves its tokens out: drafts only lose
+        them, and under overcommit placeholders keep the length (a park
+        needs it) with the history flagged inexact, so the session may
+        swap but is never rebuilt from it."""
         entry = self._prefixes.get(req.prefix) if req.prefix is not None else None
-        self._history[slot] = (list(entry["tokens"]) if entry else []) + [
-            int(x) for x in req.tokens.tolist()]
+        pre = list(entry["tokens"]) if entry else []
+        toks = [int(x) for x in req.tokens.tolist()]
+        miss = n - len(pre) - len(toks)
+        self._slot_hist_exact[slot] = miss <= 0
+        if miss > 0 and self._swap_enabled:
+            pre += [0] * miss
+        self._history[slot] = pre + toks
 
     # ------------------------------------------------------------ delivery
 
@@ -1918,7 +2499,7 @@ class ServingEngine:
     def _emit_first(self, slot: int, tok: int) -> None:
         req = self._slot_req[slot]
         self._tokens[slot] = tok
-        if self._spec_tokens:
+        if self._track_history:
             self._history[slot].append(tok)
         self._itl_last[slot] = time.perf_counter()
         self._note_first_token(req, slot)
@@ -1978,7 +2559,7 @@ class ServingEngine:
         req.out.put(tok)
         self._stats["generated_tokens"] += 1
         self._slot_budget[slot] -= 1
-        if self._spec_tokens:
+        if self._track_history:
             self._history[slot].append(tok)
         if self._slot_budget[slot] <= 0 or tok == self.serving.eos_token:
             self._retire(slot)
@@ -2023,10 +2604,13 @@ class ServingEngine:
 
     def _tick_head(self) -> bool:
         """Run queued paged prefix builds, drain submissions into the
-        waiting line, advance chunked admissions, then admit into free
-        slots, all under one prompt budget (bypassed while nothing decodes;
-        chunks in flight spend first), and retire cancelled slots. Returns
-        whether anything was admitted."""
+        waiting line; under overcommit apply park and resume commands and
+        retire finished swap-outs (no wait: the swap_drain phase); advance
+        chunked admissions and rebuilds, bring resumed sessions back, then
+        admit into free slots, all under one prompt budget (bypassed while
+        nothing decodes; chunks in flight spend first, resumes before new
+        admissions), and retire cancelled slots. Returns whether anything
+        was admitted."""
         t0 = time.perf_counter()
         if self._paged:
             self._drain_prefix_work()
@@ -2035,17 +2619,26 @@ class ServingEngine:
                 self._waiting.append(self._pending.get_nowait())
             except queue.Empty:
                 break
+        swap_s = 0.0
+        if self._swap_enabled:
+            self._process_lifecycle()
+            t_sw = time.perf_counter()
+            self._drain_swap_outs()
+            swap_s = time.perf_counter() - t_sw
+            self._prof.note("swap_drain", swap_s)
         decoding = any(r is not None for r in self._slot_req)
         budget = (float(self.serving.prefill_budget)
                   if self.serving.prefill_budget and decoding else float("inf"))
         budget = self._advance_admissions(budget)
+        if self._swap_enabled:
+            budget = self._advance_resumes(budget)
         admitted, _ = self._admit_waiting(budget)
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.cancelled:
                 self._retire(slot)
         dt = time.perf_counter() - t0
         self._note_admission_ms(dt)
-        self._prof.note("admission", dt)
+        self._prof.note("admission", dt - swap_s)
         return admitted
 
     def _idle_wait(self, admitted: bool) -> None:
@@ -2237,6 +2830,8 @@ class ServingEngine:
           over-advanced cache row and length);
         - a slot admitted after t's dispatch joins at t+1, its first token
           merged in from ``_admit_buf`` on the device;
+        - a slot wanted for a park is left out of t+1, so the park settles
+          at the next tick head once t's token has landed;
         - the read window covers the DEVICE length (the host mirror lags
           one tick for slots fed from the tick in flight);
         - on stop, a tick still in flight is delivered.
@@ -2258,7 +2853,10 @@ class ServingEngine:
             # the same request
             fed = [inflight is not None and inflight["reqs"][i] is not None
                    and inflight["reqs"][i] is self._slot_req[i] for i in range(b)]
+            # a slot wanted for a park is left out, so its in-flight token
+            # lands and the park settles at the next tick head
             dispatch = [i for i in range(b) if self._slot_req[i] is not None
+                        and self._slot_req[i] not in self._want_park
                         and self._slot_budget[i] - (1 if fed[i] else 0) > 0]
             staged_firsts = None
             if inflight is not None:
@@ -2315,11 +2913,20 @@ class ServingEngine:
                 # first tokens' own fetch, staged ahead of the new tick
                 self._deliver_firsts(firsts, fetched=self._collect(staged_firsts))
             inflight = new_inflight
+            self._inflight_slots = self._slots_of(inflight)
         if inflight is not None:
             # stop() landed between dispatch and delivery: the tick's tokens
             # are computed, so deliver them (and device_gets stays equal to
             # decode_ticks)
             self._deliver(inflight)
+
+    @staticmethod
+    def _slots_of(inflight: Optional[dict]) -> set:
+        """Slots with a token in flight: what the next tick head's parks
+        must wait for."""
+        if inflight is None:
+            return set()
+        return {i for i, r in enumerate(inflight["reqs"]) if r is not None}
 
     def _flush_arrays(self, flush: dict) -> list:
         """A flush's arrays for its one staged copy: the [B, k] tokens, the
@@ -2350,6 +2957,8 @@ class ServingEngine:
           delivery's identity check drops;
         - freshly admitted slots join with their first token merged in
           from ``_admit_buf`` on the device;
+        - a slot wanted for a park is left out, so the park settles at the
+          next boundary with the host's length equal to the device's;
         - the read window covers the device length at the END of the
           flush: the host mirror plus the in-flight predictions plus k.
         ``pipeline_decode=False`` is the synchronous flush loop (dispatch,
@@ -2370,7 +2979,8 @@ class ServingEngine:
             # retires at delivery anyway)
             rem = [self._slot_budget[i] - (inflight["pred"][i] if fed[i] else 0)
                    for i in range(b)]
-            dispatch = [i for i in range(b) if self._slot_req[i] is not None and rem[i] > 0]
+            dispatch = [i for i in range(b) if self._slot_req[i] is not None
+                        and self._slot_req[i] not in self._want_park and rem[i] > 0]
             staged_firsts = None
             if self._pipeline:
                 if inflight is not None:
@@ -2441,6 +3051,7 @@ class ServingEngine:
                 # first tokens' own fetch, staged ahead of the new flush
                 self._deliver_firsts(firsts, fetched=self._collect(staged_firsts))
             inflight = new_inflight
+            self._inflight_slots = self._slots_of(inflight)
         if inflight is not None:
             # stop() landed between dispatch and delivery: the flush is
             # computed, so deliver it
@@ -2500,7 +3111,7 @@ class ServingEngine:
                     req.delivered += 1
                     req.out.put(tok)
                 self._stats["generated_tokens"] += cnt
-                if self._spec_tokens:
+                if self._track_history:
                     self._history[slot].extend(emitted)
                 self._tokens[slot] = emitted[-1]
                 self._note_itl(slot, now)

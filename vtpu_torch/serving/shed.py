@@ -26,8 +26,8 @@ class EngineSignals:
     """The pressure snapshot a policy decides against: small and plain
     data, so a policy program can be tested without an engine. Pool fields
     are None on dense (non-paged) engines; fields of features the port has
-    not reached keep their defaults (no parked sessions, never draining, no
-    duty supplier, no fabric link)."""
+    not reached keep their defaults (never draining, no duty supplier, no
+    fabric link)."""
 
     queue_depth: int = 0           # live waiting-line length
     active_slots: int = 0          # slots with a live request
