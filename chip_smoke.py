@@ -102,6 +102,29 @@ Phases, any failure exits nonzero:
       recompute) at about 128, 512 and 1040 cached tokens, the swap_drain
       phase, and the eviction wave's tokens/s against the same wave with
       nothing parked;
+   j. failure domains (run after i): the flagship on the pipelined loop on
+      graphs (paged bf16, slots=4, the 1024 bucket). Deadlines and
+      overload: eight prompts, priorities 0-7, queued before the loop
+      starts on a one-deep line, one with deadline_ms=0 and one whose
+      deadline is rewound after 4 tokens; with the default policy, an
+      inverted one and a raising one: the statuses, shed_deadline and
+      shed_overload exact, the trace's shed events. dispatch_exc at its
+      6th arrival on the main path's wave: one request FAULTED, the
+      counters exact. The watchdog's ladder on decode_loop_k=8: a
+      threshold of max(20 ms, 10 x the warm wave's fetch p99), stalls of
+      three thresholds (delayed_fetch): three waves each healthy, on rung
+      1 (one-token flushes) and on rung 2 (the gather graphs), tokens/s;
+      a second engine degrades twice and recovers twice in LIFO order;
+      the gather graphs record no paged launch, paged launches = 12 x the
+      kernel route's ticks, no capture while serving; an 8-tick flush
+      capped at one token timed against the one-token flush; the graph
+      pools with and without the watchdog's sets. The overcommit seams on
+      phase i's engine: alloc_exhaust, swap_d2h_loss, swap_h2d_loss, each
+      once, with the counters they imply. engine_death armed after two
+      tokens: the loop thread exits without cleanup and no terminal, then
+      a fresh engine serves. Every stream a fault or shed leaves alone,
+      and every cut stream's prefix, held against the plain trunk
+      teacher-forced on it; pool and host tier free; state in place;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -1697,27 +1720,35 @@ class Session:
 
 
 class Lifecycle:
-    """The overcommit lifecycle as the engine's own trace records it: the
-    engine's ``trace.record`` is wrapped to count its park and evict events
-    per request (with the slot of the last one) and to notify a condition,
+    """The lifecycle as the engine's own trace records it: the engine's
+    ``trace.record`` is wrapped to count the ``events`` it watches (park and
+    evict by default) per request, with the slot of the last one, to keep
+    their (event, rid, val) in order in ``seq``, and to notify a condition,
     so a waiter blocks instead of polling."""
 
     EVENTS = ("park", "evict")
 
-    def __init__(self, eng):
+    def __init__(self, eng, events: tuple = EVENTS):
         self.cond = threading.Condition()
         self.counts, self.slots = collections.Counter(), {}
+        self.seq = []
         record = eng.trace.record
 
         def counted(event, rid, *a, **kw):
             record(event, rid, *a, **kw)
-            if event in self.EVENTS:
+            if event in events:
                 with self.cond:
                     self.counts[event, rid] += 1
                     self.slots[event, rid] = a[0] if a else kw.get("slot", -1)
+                    self.seq.append((event, rid, a[1] if len(a) > 1 else kw.get("val", 0)))
                     self.cond.notify_all()
 
         eng.trace.record = counted
+
+    def events(self, *names) -> list:
+        """(event, rid, val) of the named events, in the order recorded."""
+        with self.cond:
+            return [e for e in self.seq if e[0] in names]
 
     def count(self, event: str, s: Session) -> int:
         with self.cond:
@@ -2322,6 +2353,519 @@ def overcommit_path(log, card: str, params, refs: dict) -> dict:
     return out
 
 
+# the failure-domain phase: tokens a request in its deadline, containment,
+# overcommit and death arms, in the watchdog's waves, and the deadline
+# rewind's token
+FD_TOKENS = 16
+FD_WAVE_TOKENS = 64
+FD_REWIND_AT = 4
+# a delayed_fetch stalls this many watchdog thresholds; the LIFO engine's
+# recovery window (ms of healthy fetches a rung)
+FD_STALLS = 3
+FD_RECOVER_MS = 20.0
+FD_EVENTS = ("shed", "fault", "degrade", "recover", "park", "evict", "fault_recompute",
+             "swap_in")
+
+
+def fd_serving(**kw):
+    """The flagship's serving config of phase j (bench.py's tenants) with
+    ``kw``."""
+    from vtpu_torch.serving import ServingConfig
+
+    return ServingConfig(**{**dict(slots=4, prefill_buckets=(1024,), kv_page=128,
+                                   max_new_tokens=FD_TOKENS), **kw})
+
+
+def on_token(req, n: int, action) -> None:
+    """Run ``action()`` on the loop thread right after ``req`` puts its n-th
+    token on the stream (inside that delivery)."""
+    put, seen = req.out.put, [0]
+
+    def hook(item):
+        put(item)
+        if isinstance(item, int):
+            seen[0] += 1
+            if seen[0] == n:
+                action()
+
+    req.out.put = hook
+
+
+def fd_engine(params, cfg, serving):
+    """An engine of phase j on graphs, with its Lifecycle over FD_EVENTS,
+    its state addresses and its graph count."""
+    from vtpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(params, cfg, serving)
+    if not eng._graph_sets():
+        raise AssertionError("a phase j engine does not serve on CUDA graphs")
+    return (eng, Lifecycle(eng, FD_EVENTS), {k: x.data_ptr() for k, x in eng.state.items()},
+            eng.stats()["graphs_captured"])
+
+
+def fd_free(eng, ptrs: dict, captured: int, what: str) -> dict:
+    """After stop(): oc_held's checks, the pool (and the host tier) free;
+    returns stats()."""
+    oc_held(eng, ptrs, captured, what)
+    st = eng.stats()
+    if st["kv_pool_free"] != st["kv_pool_blocks"]:
+        raise AssertionError(f"{what}: {st['kv_pool_blocks'] - st['kv_pool_free']} pool blocks "
+                             "still held after the arm")
+    if st["swap_host_blocks"] and st["swap_host_free"] != st["swap_host_blocks"]:
+        raise AssertionError(f"{what}: host tier not free after the arm")
+    return st
+
+
+def fd_held(forced, prompts, recs: list, what: str, after=None) -> dict:
+    """Every stream of ``recs`` (reader records or token lists) against the
+    plain trunk teacher-forced on it (check_forced); ``after[i]`` is the
+    index of request i's first token after a park, none by default."""
+    held = []
+    for i, (prompt, rec) in enumerate(zip(prompts, recs)):
+        toks = rec["toks"] if isinstance(rec, dict) else rec
+        if toks:
+            held.append((prompt, toks, len(toks) if after is None else after[i]))
+    return check_forced(forced, held, what)
+
+
+def fd_shed_arm(log, card, params, cfg, forced, name: str, policy, expect: dict) -> dict:
+    """Arm 1: eight prompts, priorities 0-7, queued before start() on a
+    one-deep waiting line. The first tick head sheds the deadline-0 request
+    (index 5) before admission, admits four, and sheds what still overflows
+    by ``policy``; request 0's deadline is rewound white-box after its
+    FD_REWIND_AT-th token, so it ends SHED_DEADLINE at the next tick head.
+    ``expect``: the statuses by index. Counters from stats() and the
+    trace's shed events; every untouched stream and every shed prefix
+    held."""
+    from vtpu_torch.obs.trace import TERMINAL_CODES
+
+    prompts = overcommit_prompts(cfg.vocab)
+    eng, lc, ptrs, captured = fd_engine(params, cfg, fd_serving(
+        shed_queue_depth=1, shed_policy=policy, max_new_tokens=2 * FD_TOKENS))
+    reqs = [eng.submit(p, priority=i, deadline_ms={0: 600e3, 5: 0}.get(i))
+            for i, p in enumerate(prompts)]
+    on_token(reqs[0], FD_REWIND_AT, lambda: setattr(reqs[0], "deadline_ns",
+                                                    time.monotonic_ns() - 1))
+    t0 = time.perf_counter()
+    eng.start()
+    try:
+        streams = [list(r.stream()) for r in reqs]
+    finally:
+        eng.stop()
+    wall = time.perf_counter() - t0
+    what = f"failure domains, shed arm ({name})"
+    st = fd_free(eng, ptrs, captured, what)
+    statuses = [r.status for r in reqs]
+    if statuses != expect["statuses"]:
+        raise AssertionError(f"{what}: statuses {statuses}, expected {expect['statuses']}")
+    if (st["shed_deadline"], st["shed_overload"]) != (2, expect["overload"]):
+        raise AssertionError(f"{what}: shed_deadline {st['shed_deadline']}, shed_overload "
+                             f"{st['shed_overload']}, expected 2 and {expect['overload']}")
+    sheds = sorted((rid, val) for _, rid, val in lc.events("shed"))
+    want = sorted([(0, TERMINAL_CODES["SHED_DEADLINE"]), (5, TERMINAL_CODES["SHED_DEADLINE"])]
+                  + [(i, TERMINAL_CODES["SHED_OVERLOAD"]) for i, s in enumerate(statuses)
+                     if s == "SHED_OVERLOAD"])
+    if sheds != want:
+        raise AssertionError(f"{what}: the trace's shed events {sheds}, expected {want}")
+    if not FD_REWIND_AT <= len(streams[0]) < 2 * FD_TOKENS:
+        raise AssertionError(f"{what}: the rewound request delivered {len(streams[0])} tokens")
+    for i, s in enumerate(statuses):
+        want_len = {"OK": 2 * FD_TOKENS, "SHED_OVERLOAD": 0}.get(s)
+        if i != 0 and (s == "SHED_DEADLINE" and streams[i] or
+                       want_len is not None and len(streams[i]) != want_len):
+            raise AssertionError(f"{what}: request {i} ended {s} after {len(streams[i])} tokens")
+    held = fd_held(forced, prompts, streams, what)
+    log(f"{what} on {card}: statuses {statuses}; shed_deadline {st['shed_deadline']}, "
+        f"shed_overload {st['shed_overload']}; the rewound request cut after "
+        f"{len(streams[0])} tokens; {held['held']} tokens held against the teacher-forced "
+        f"trunk, {held['skipped']} near-ties skipped; {wall:.2f} s")
+    return {"statuses": statuses, "shed_deadline": st["shed_deadline"],
+            "shed_overload": st["shed_overload"], "forced": held, "wall_s": wall}
+
+
+def fd_containment_arm(log, card, params, cfg, forced) -> dict:
+    """Arm 2: dispatch_exc at its 6th arrival on the main path's wave: one
+    request FAULTED (the trace's fault event names it), the counters
+    exact, every other stream and the faulted one's prefix held."""
+    from vtpu_torch.serving import FaultPlan, FaultSpec
+
+    prompts = wave_prompts(cfg.vocab)
+    plan = FaultPlan([FaultSpec("dispatch_exc", at=5)])
+    eng, lc, ptrs, captured = fd_engine(params, cfg, fd_serving(faults=plan))
+    eng.start()
+    try:
+        recs, wall = stream_all(eng, prompts)
+    finally:
+        eng.stop()
+    what = "failure domains, dispatch_exc"
+    st = fd_free(eng, ptrs, captured, what)
+    statuses = [rec["status"] for rec in recs]
+    faults = [rid for _, rid, _ in lc.events("fault")]
+    if sorted(statuses) != ["FAULTED"] + ["OK"] * (len(prompts) - 1) or faults != [
+            statuses.index("FAULTED")]:
+        raise AssertionError(f"{what}: statuses {statuses}, fault events for {faults}")
+    if (st["faulted_requests"], st["faults_injected"]) != (1, 1):
+        raise AssertionError(f"{what}: faulted_requests {st['faulted_requests']}, "
+                             f"faults_injected {st['faults_injected']}")
+    held = fd_held(forced, prompts, recs, what)
+    log(f"{what} on {card}: request {faults[0]} FAULTED after "
+        f"{len(recs[faults[0]]['toks'])} tokens, the rest OK; faulted_requests 1, "
+        f"faults_injected 1; {held['held']} tokens held")
+    return {"statuses": statuses, "forced": held, "wall_s": wall}
+
+
+def fetch_p99_ms(before: list, after: list) -> float:
+    """The upper bucket edge (ms) of the 99th percentile of the fetch phase
+    between two snapshots of the engine's tick profiler's fetch histogram
+    counts (the +Inf bucket reads as its lower edge)."""
+    from vtpu_torch.obs.tickprof import PHASE_BUCKETS_MS
+
+    counts = [a - b for a, b in zip(after, before)]
+    need, acc = 0.99 * sum(counts), 0
+    for i, c in enumerate(counts):
+        acc += c
+        if acc >= need:
+            return PHASE_BUCKETS_MS[min(i, len(PHASE_BUCKETS_MS) - 1)]
+    return PHASE_BUCKETS_MS[-1]
+
+
+def fd_watchdog_arm(log, card, params, cfg, forced) -> dict:
+    """Arm 3: the fetch watchdog's ladder on the kernel route with
+    decode_loop_k=8, the flagship's wave at FD_WAVE_TOKENS a request.
+
+    The threshold T = max(20 ms, 10 x the fetch phase's p99 over a warm
+    wave of an engine without the watchdog). A one-way engine (no
+    recovery) serves three healthy waves, then a stall of FD_STALLS x T
+    (the plan armed between waves) applies rung 1 and three waves run on
+    one-token flushes, then another applies rung 2 and three waves run on
+    the gather graphs: tokens/s of each. Rung 1's design: a 8-tick flush
+    capped at one token against the one-token flush, device ms a replay.
+    A second engine with a recovery window takes two stalls in a row and
+    recovers: the trace's degrade, degrade, recover, recover in LIFO order.
+    On both: no capture while serving, the gather sets record no paged
+    launch, paged launches = n_layers x the ticks counted on the kernel
+    route, every stream held. Graph-pool bytes of an engine with and
+    without the watchdog's extra sets."""
+    from vtpu_torch.ops import _build
+    from vtpu_torch.serving import FaultPlan, FaultSpec
+
+    prompts = wave_prompts(cfg.vocab)
+    base = dict(decode_loop_k=LOOP_K, max_new_tokens=FD_WAVE_TOKENS)
+    eng0, mem0 = build_engine(params, cfg, fd_serving(**base))
+    fetch = eng0.tick_profile.phases["fetch"]
+    eng0.start()
+    try:
+        stream_all(eng0, prompts)  # warms the engine
+        before = list(fetch.counts)
+        stream_all(eng0, prompts)
+        after = list(fetch.counts)
+    finally:
+        eng0.stop()
+    p99 = fetch_p99_ms(before, after)
+    thr = max(20.0, 10.0 * p99)
+    stall = FD_STALLS * thr / 1e3
+    del eng0
+    torch.cuda.empty_cache()
+    paged = "paged_decode_attention"
+    out = {"fetch_p99_ms": p99, "threshold_ms": thr, "stall_s": stall,
+           "graph_pool_bytes": {"healthy": mem0["graphs"]}}
+
+    plan = FaultPlan()
+    eng, mem1 = build_engine(params, cfg, fd_serving(**base, fetch_watchdog_ms=thr,
+                                                     faults=plan))
+    out["graph_pool_bytes"]["watchdog"] = mem1["graphs"]
+    lc = Lifecycle(eng, FD_EVENTS)
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    captured = eng.stats()["graphs_captured"]
+    gather = eng.route_graphs["gather"]
+    buckets = eng._kv_buckets
+    for key in ("flush", "flush1"):
+        for b in buckets:
+            if (paged in gather[key].launches(b)
+                    or paged not in eng.route_graphs[None][key].launches(b)):
+                raise AssertionError(f"watchdog: the {key} graph of bucket {b} launches "
+                                     f"{gather[key].launches(b)} on the gather route")
+    _build.reset_launches()
+    eng.start()
+    held, tps = [], {}
+    try:
+        for stage in ("healthy", "rung 1", "rung 2"):
+            if stage != "healthy":
+                plan.arm("delayed_fetch", arg=stall)
+                recs, _ = stream_all(eng, prompts[:1])  # the stall and the degrade
+                held.append((prompts[:1], recs))
+            waves = [stream_all(eng, prompts) for _ in range(REPEATS)]
+            tps[stage] = [sum(len(r["toks"]) for r in recs) / wall for recs, wall in waves]
+            held += [(prompts, recs) for recs, _ in waves]
+    finally:
+        eng.stop()
+    what = "failure domains, watchdog (one-way)"
+    st = fd_free(eng, ptrs, captured, what)
+    launched = _build.launches()[paged]
+    ladder = [(e, v) for e, _, v in lc.events("degrade", "recover")]
+    if ladder != [("degrade", 1), ("degrade", 2)] or st["watchdog_degrades"] != 2:
+        raise AssertionError(f"{what}: ladder {ladder}, degrades {st['watchdog_degrades']}")
+    if launched != FLAGSHIP["n_layers"] * st["paged_attn_kernel_ticks"] or not st[
+            "paged_attn_gather_ticks"]:
+        raise AssertionError(f"{what}: {launched} paged launches for "
+                             f"{st['paged_attn_kernel_ticks']} kernel-route ticks, "
+                             f"{st['paged_attn_gather_ticks']} gather ticks")
+    replays = {name: g.replays for name, g in (
+        ("flush", eng.route_graphs[None]["flush"]), ("flush1", eng.route_graphs[None]["flush1"]),
+        ("gather flush1", gather["flush1"]), ("gather flush", gather["flush"]))}
+    if not (replays["flush1"] and replays["gather flush1"]) or replays["gather flush"]:
+        raise AssertionError(f"{what}: replays by set {replays}")
+    for recs_prompts, recs in held:
+        for rec in recs:
+            if rec["status"] != "OK" or len(rec["toks"]) != FD_WAVE_TOKENS:
+                raise AssertionError(f"{what}: a stream ended {rec['status']} after "
+                                     f"{len(rec['toks'])} tokens")
+    forced_held = fd_held(forced, [p for ps, recs in held for p in ps],
+                          [r for _, recs in held for r in recs], what)
+    # rung 1's design: a k-tick flush capped at one token still runs its k
+    # inner ticks; the one-token flush runs one
+    b = eng.serving.slots
+    zeros = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    idle = torch.zeros((b,), dtype=torch.bool, device="cuda")
+    ones = torch.ones((b,), dtype=torch.int32, device="cuda")
+    bkt = buckets[-1]
+    rung1 = {}
+    for key in ("flush", "flush1"):
+        g = eng.route_graphs[None][key]
+        rung1[key], _ = time_ms(lambda _, g=g: g(eng.params, eng.state, zeros, idle, ones,
+                                                 eng._gens, bkt), iters=20)
+    out.update({"tokens_per_s": tps, "ladder": ladder, "replays": replays,
+                "paged_launches": launched, "kernel_ticks": st["paged_attn_kernel_ticks"],
+                "gather_ticks": st["paged_attn_gather_ticks"], "forced": forced_held,
+                "capped_flush_ms": rung1["flush"], "one_token_flush_ms": rung1["flush1"]})
+    del eng, gather
+    torch.cuda.empty_cache()
+
+    # the ladder both ways: two stalls in a row, then the recovery window
+    plan2 = FaultPlan([FaultSpec("delayed_fetch", at=2, count=2, arg=stall)])
+    eng, lc, ptrs, captured = fd_engine(params, cfg, fd_serving(
+        **base, fetch_watchdog_ms=thr, fetch_watchdog_recover_ms=FD_RECOVER_MS, faults=plan2))
+    _build.reset_launches()
+    eng.start()
+    try:
+        recs, _ = stream_all(eng, prompts)
+    finally:
+        eng.stop()
+    what = "failure domains, watchdog ladder (LIFO)"
+    st = fd_free(eng, ptrs, captured, what)
+    ladder2 = [(e, v) for e, _, v in lc.events("degrade", "recover")]
+    if ladder2 != [("degrade", 1), ("degrade", 2), ("recover", 1), ("recover", 0)] or (
+            st["watchdog_degrades"], st["watchdog_recoveries"]) != (2, 2):
+        raise AssertionError(f"{what}: ladder {ladder2}, degrades {st['watchdog_degrades']}, "
+                             f"recoveries {st['watchdog_recoveries']}")
+    if eng._degrade_rungs != ["loop_k1", "paged_gather"] or eng._paged_attn is not None:
+        raise AssertionError(f"{what}: rungs {eng._degrade_rungs}, route {eng._paged_attn}")
+    if _build.launches()[paged] != FLAGSHIP["n_layers"] * st["paged_attn_kernel_ticks"] or not st[
+            "paged_attn_gather_ticks"]:
+        raise AssertionError(f"{what}: paged launches {_build.launches()[paged]}, kernel ticks "
+                             f"{st['paged_attn_kernel_ticks']}")
+    if any(r["status"] != "OK" or len(r["toks"]) != FD_WAVE_TOKENS for r in recs):
+        raise AssertionError(f"{what}: a stream ended short")
+    lifo_held = fd_held(forced, prompts, recs, what)
+    out.update({"ladder_lifo": ladder2, "lifo_forced": lifo_held})
+    del eng
+    torch.cuda.empty_cache()
+    med = {k: sorted(v)[len(v) // 2] for k, v in tps.items()}
+    log(f"failure domains, watchdog on {card}: warm fetch p99 {p99} ms (bucket edge), "
+        f"threshold {thr:.1f} ms, stalls {stall * 1e3:.0f} ms; tokens/s median [min, max] "
+        + ", ".join(f"{k} {spread(v)}" for k, v in tps.items())
+        + f" ({med['rung 1'] / med['healthy']:.2f}x and {med['rung 2'] / med['healthy']:.2f}x "
+        f"healthy); one-way ladder {ladder}, LIFO ladder {ladder2}; replays {replays}; paged "
+        f"launches {launched} = 12 x {out['kernel_ticks']} kernel-route ticks, gather ticks "
+        f"{out['gather_ticks']}; a {LOOP_K}-tick flush capped "
+        f"at one token {rung1['flush']:.4f} ms a replay against the one-token flush "
+        f"{rung1['flush1']:.4f} ms ({rung1['flush'] / rung1['flush1']:.2f}x); graph pools "
+        f"{mem0['graphs'] / 2**20:.1f} MiB without the watchdog, {mem1['graphs'] / 2**20:.1f} "
+        f"MiB with its one-token flush and gather sets; {forced_held['held']} + "
+        f"{lifo_held['held']} tokens held against the teacher-forced trunk")
+    return out
+
+
+def resume_in_one_pass(eng, sessions: list) -> None:
+    """Resume ``sessions`` so that the loop thread takes every resume in one
+    lifecycle pass, in this order: the first from here, each later one from
+    inside the pass that records the first's ``resume`` event (the pass
+    drains the command queue until it is empty). Their order in the resume
+    queue then does not hang on the loop's timing."""
+    record, first = eng.trace.record, sessions[0].req.rid
+
+    def hooked(event, rid, *a, **kw):
+        record(event, rid, *a, **kw)
+        if event == "resume" and rid == first:
+            eng.trace.record = record
+            for s in sessions[1:]:
+                eng.resume(s.req)
+
+    eng.trace.record = hooked
+    eng.resume(sessions[0].req)
+
+
+def fd_overcommit_arm(log, card, params, cfg, forced) -> dict:
+    """Arm 4: the overcommit engine of phase i (kv_pool_blocks=37,
+    kv_swap=36, prefill_chunk=256) under a plan of one alloc_exhaust, one
+    swap_d2h_loss and one swap_h2d_loss, each at its seam's first arrival.
+    Two sessions admit (the first reservation finds the pool dry once and
+    backs off), stream FD_TOKENS and park; three more admit, the last of
+    which evicts the least recently parked of the first two, whose spill
+    is lost (its pages drop); they stream and park. The first two resume
+    in one lifecycle pass, the resident one first (it remaps), then the
+    dropped one, which rebuilds through prefill and so evicts a parked one
+    of the second wave to the host tier; they finish. Then the second
+    three resume, and the swapped one's restore is lost (it rebuilds
+    through prefill). Which of the first two parked first is the loop's
+    timing; the resume order follows the eviction, so nothing else is.
+    Held:
+    every token of every stream, those after each resume, the counters
+    the plan implies, pool and host tier free, no host wait in a swap
+    dispatch."""
+    from vtpu_torch.serving import FaultPlan, FaultSpec
+
+    plan = FaultPlan([FaultSpec("alloc_exhaust"), FaultSpec("swap_d2h_loss"),
+                      FaultSpec("swap_h2d_loss")])
+    prompts = overcommit_prompts(cfg.vocab)[:5]
+    eng, lc, ptrs, captured = fd_engine(params, cfg, fd_serving(
+        **OC_SERVING, kv_swap=OC_HOST, max_new_tokens=2 * FD_TOKENS, faults=plan))
+    guard_sync(eng)
+    eng.start()
+    try:
+        first = [Session(eng, p, 2 * FD_TOKENS, park_at=FD_TOKENS) for p in prompts[:2]]
+        lc.wait_parked(first)
+        second = [Session(eng, p, 2 * FD_TOKENS, park_at=FD_TOKENS) for p in prompts[2:]]
+        lc.wait_parked(second)
+        dropped = [i for i, s in enumerate(first) for _, r, _ in lc.events("evict")
+                   if r == s.req.rid]
+        if len(dropped) != 1 or len(lc.events("evict")) != 1:
+            raise AssertionError("failure domains, overcommit seams: the second wave's "
+                                 f"admission evicted {lc.events('evict')}, not one of the first")
+        for s in first:
+            drained(s)
+        resume_in_one_pass(eng, [first[1 - dropped[0]], first[dropped[0]]])
+        for s in first:
+            s.join()
+        for s in second:
+            drained(s)
+            eng.resume(s.req)
+        for s in second:
+            s.join()
+    finally:
+        eng.stop()
+    what = "failure domains, overcommit seams"
+    st = fd_free(eng, ptrs, captured, what)
+    sessions = first + second
+    rid = {s.req.rid: i for i, s in enumerate(sessions)}
+    evicts = [rid[r] for _, r, _ in lc.events("evict")]
+    rebuilt = sorted(rid[r] for _, r, _ in lc.events("fault_recompute"))
+    swapped = sorted(rid[r] for _, r, _ in lc.events("swap_in"))
+    got = {k: st[k] for k in ("faults_injected", "pool_blocked_admissions", "fault_recomputes",
+                              "swap_faults", "parks", "resumes", "evicted_blocks")}
+    want = {"faults_injected": 3, "pool_blocked_admissions": 1, "fault_recomputes": 2,
+            "swap_faults": 2, "parks": 5, "resumes": 5, "evicted_blocks": 18}
+    # one eviction from each wave, each rebuilt: the first's spill was lost,
+    # the second's restore
+    if (got != want or len(evicts) != 2 or evicts[0] > 1 or evicts[1] < 2
+            or rebuilt != sorted(evicts) or swapped):
+        raise AssertionError(f"{what}: counters {got} (expected {want}), evictions of sessions "
+                             f"{evicts}, rebuilt {rebuilt}, swapped in {swapped}")
+    held = check_forced(forced, [(s.prompt, s.toks, FD_TOKENS) for s in sessions], what)
+    log(f"{what} on {card}: {got}; evicted sessions {evicts} (the first's spill lost), "
+        f"rebuilt {rebuilt}; {held['held']} tokens held ({held['held_after_park']} after a "
+        f"park), {held['skipped']} near-ties skipped")
+    return {"counters": got, "evicted": evicts, "rebuilt": rebuilt, "forced": held}
+
+
+def fd_death_arm(log, card, params, cfg, forced) -> dict:
+    """Arm 5: engine_death armed inside the delivery of a live wave's
+    second token: the loop thread exits within 5 s without its cleanup (no
+    terminal reaches the live streams), the heartbeat stops, stop()
+    returns; once the dead engine is dropped, a fresh engine serves one
+    request held against the trunk."""
+    import gc
+
+    from vtpu_torch.serving import FaultPlan
+
+    prompts = wave_prompts(cfg.vocab)[:4]
+    plan = FaultPlan()
+    eng, _, _, _ = fd_engine(params, cfg, fd_serving(max_new_tokens=4 * FD_TOKENS,
+                                                     faults=plan))
+    reqs = [eng.submit(p) for p in prompts]
+    on_token(reqs[0], 2, lambda: plan.arm("engine_death"))
+    eng.start()
+    eng._thread.join(timeout=5)
+    what = "failure domains, engine_death"
+    if eng._thread.is_alive() or not eng._died or eng.loop_error is not None:
+        raise AssertionError(f"{what}: the loop thread is alive {eng._thread.is_alive()}, died "
+                             f"{eng._died}, error {eng.loop_error!r}")
+    beat = eng._beat_ns
+    time.sleep(0.2)
+    t0 = time.perf_counter()
+    eng.stop()
+    stop_s = time.perf_counter() - t0
+    if eng._beat_ns != beat or any(r.status is not None for r in reqs):
+        raise AssertionError(f"{what}: the heartbeat moved or a terminal reached a stream")
+    delivered = [r.delivered for r in reqs]
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh, _, ptrs, captured = fd_engine(params, cfg, fd_serving())
+    req = fresh.submit(prompts[0])
+    fresh.start()
+    try:
+        toks = list(req.stream())
+    finally:
+        fresh.stop()
+    fd_free(fresh, ptrs, captured, what + ", fresh engine")
+    if req.status != "OK" or len(toks) != FD_TOKENS:
+        raise AssertionError(f"{what}: the fresh engine's stream ended {req.status}")
+    held = check_forced(forced, [(prompts[0], toks, len(toks))], what)
+    log(f"{what} on {card}: the loop thread exited without cleanup after {delivered} tokens, "
+        f"no terminal, heartbeat still; stop() returned in {stop_s * 1e3:.1f} ms; a fresh "
+        f"engine served {len(toks)} tokens, {held['held']} held")
+    return {"delivered": delivered, "stop_ms": stop_s * 1e3, "forced": held}
+
+
+def failure_domains_path(log, card: str, params) -> dict:
+    """Phase j: the failure domains on the flagship at full width and depth,
+    on the pipelined loop on graphs (the watchdog arm on decode_loop_k=8):
+    deadlines and overload shedding with the default, a custom and a
+    raising policy; dispatch_exc containment; the watchdog's ladder; the
+    overcommit seams; engine death. Every stream a fault or shed does not
+    touch, and every shed or faulted stream's prefix, is held against the
+    plain trunk teacher-forced on it."""
+    from vtpu_torch.models import ModelConfig
+
+    class HighestFirst:
+        def select(self, waiters, need):
+            return sorted(waiters, key=lambda r: -r.priority)[:need]
+
+    class Raising:
+        def select(self, waiters, need, signals=None):
+            raise RuntimeError("a policy bug")
+
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    forced = forced_trunk(params, dataclasses.replace(cfg, use_kernels=False))
+    t0 = time.perf_counter()
+    ok, sd, so = "OK", "SHED_DEADLINE", "SHED_OVERLOAD"
+    out = {"shed": {}}
+    for name, policy, statuses, overload in (
+            ("default policy", None, [sd, ok, ok, ok, so, sd, so, ok], 2),
+            ("highest priority first", HighestFirst, [sd, ok, ok, ok, ok, sd, so, so], 2),
+            ("raising policy", Raising, [sd, ok, ok, ok, ok, sd, ok, ok], 0)):
+        out["shed"][name] = fd_shed_arm(log, card, params, cfg, forced, name, policy,
+                                        {"statuses": statuses, "overload": overload})
+    out["dispatch_exc"] = fd_containment_arm(log, card, params, cfg, forced)
+    out["watchdog"] = fd_watchdog_arm(log, card, params, cfg, forced)
+    out["overcommit"] = fd_overcommit_arm(log, card, params, cfg, forced)
+    out["engine_death"] = fd_death_arm(log, card, params, cfg, forced)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"failure domains phase on {card}: {out['seconds']:.1f} s")
+    return out
+
+
 def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
     """Tensor-parallel serving: ``tp`` ranks, spawned, serve the main path's
     wave on the flagship model, once with bf16 and once with int8 KV, each
@@ -2456,6 +3000,7 @@ def main() -> int:
     runs["chunked_prefix_path"] = chunked_prefix_path(log, card, params)
     runs["device_loop_spec_path"] = device_loop_spec_path(log, card, params, refs)
     runs["overcommit_path"] = overcommit_path(log, card, params, refs)
+    runs["failure_domains_path"] = failure_domains_path(log, card, params)
     runs["study_path"] = study_path(gen, log)
     del params
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one

@@ -692,3 +692,143 @@ def test_overcommit_engine_serves_on_its_graphs(dev):
     assert st["graphs_captured"] == captured and eng.decode_graphs.replays == st["decode_ticks"]
     assert launches == cfg.n_layers * st["decode_ticks"]
     assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs
+
+
+def _held_streams(outs, twins, params, cfg, prompts):
+    """Each stream equals its twin's and the plain trunk's greedy stream, token
+    for token, up to the trunk's first top-1/top-2 margin below 0.05 (bf16:
+    the gather and kernel routes round differently only there)."""
+    for out, twin, prompt in zip(outs, twins, prompts):
+        assert len(out) == len(twin) == NEW
+        want, margins = _plain_stream(params, cfg, prompt, NEW)
+        for got, tw, ref, m in zip(out, twin, want, margins):
+            if m < 0.05:
+                break
+            assert got == tw == ref
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_watchdog_switches_route_between_captured_graph_sets(dev, kv):
+    """The watchdog's second rung on graphs: the engine captures its tick on
+    the kernel and the gather route when it is built (the gather set records
+    no paged launch); a stalled fetch (delayed_fetch, 0.75 s against a
+    500 ms threshold) moves the replays to the gather set and the recovery
+    back, with no capture while serving and every state tensor at its
+    address. Replays split between the sets as the ticks the stats count on
+    each route, paged launches = n_layers x kernel replays, and the streams
+    equal a never-degraded engine's."""
+    from vtpu_torch.serving import FaultPlan, FaultSpec
+
+    cfg = _cfg(kv)
+    params = init_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, DIMS["vocab"], (n,), generator=gen).numpy() for n in (9, 64, 33)]
+    base = dict(slots=4, prefill_buckets=(64,), max_new_tokens=NEW, kv_page=PAGE)
+    eng = ServingEngine(params, cfg, ServingConfig(
+        **base, fetch_watchdog_ms=500.0, fetch_watchdog_recover_ms=1.0,
+        faults=FaultPlan([FaultSpec("delayed_fetch", at=2, arg=0.75)])))
+    captured = eng.stats()["graphs_captured"]
+    assert captured == 4  # the tick on two routes, two kv buckets each
+    kern, gath = eng.route_graphs[None]["step"], eng.route_graphs["gather"]["step"]
+    assert eng.decode_graphs is kern and eng._step is kern
+    paged = "paged_decode_attention_int8kv" if kv == "int8" else "paged_decode_attention"
+    for bkt in (64, 256):
+        assert kern.launches(bkt) == {paged: cfg.n_layers}
+        assert gath.launches(bkt) == {}
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    _build.reset_launches()
+    eng.start()
+    try:
+        outs = [list(eng.submit(p).stream()) for p in prompts]
+    finally:
+        eng.stop()
+    assert eng.loop_error is None
+    st = eng.stats()
+    assert st["watchdog_degrades"] == st["watchdog_recoveries"] == 1
+    assert [e["event"] for e in eng.trace.events()
+            if e["event"] in ("degrade", "recover")] == ["degrade", "recover"]
+    assert kern.replays > 0 and gath.replays > 0
+    assert kern.replays + gath.replays == st["decode_ticks"]
+    assert (st["paged_attn_kernel_ticks"], st["paged_attn_gather_ticks"]) == (
+        kern.replays, gath.replays)
+    assert _build.launches()[paged] == cfg.n_layers * kern.replays
+    assert st["graphs_captured"] == captured
+    assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs
+    assert eng._paged_attn is None and eng._step is kern
+    twin = ServingEngine(params, cfg, ServingConfig(**base))
+    twin.start()
+    try:
+        twins = [list(twin.submit(p).stream()) for p in prompts]
+    finally:
+        twin.stop()
+    _held_streams(outs, twins, params, cfg, prompts)
+
+
+def test_watchdog_rung1_replays_the_one_token_flush(dev):
+    """The watchdog's first rung dispatches a one-token flush captured when
+    the engine was built (a capped k-token flush would still run its k inner
+    ticks on the device). Its replay equals, bit for bit, a 4-tick flush
+    capped at one token (token, count, carry, caches and lengths); on the
+    engine a stalled fetch moves every later flush to it (one-way here), the
+    flushes and inner ticks split between the two graphs as counted, with
+    no capture while serving, and the streams equal a never-degraded
+    engine's."""
+    from vtpu_torch.serving import FaultPlan, FaultSpec
+
+    cfg = _cfg("bf16")
+    params = init_params(0, cfg, device=dev)
+    model = TransformerSlotModel(params, cfg, kv_page=PAGE, device=dev)
+    state = _admitted_state(model, params, PAGE)
+    states = [state, {k: x.clone() for k, x in state.items()}]
+    b = 4
+    inputs = (((b,), torch.int32), ((b,), torch.bool), ((b,), torch.int32))
+    gens = [[torch.Generator(device=dev).manual_seed(i) for i in range(b)] for _ in range(2)]
+    flushes = [DecodeGraphs(multi_tick_decode_step(model, 0.0, 0, 1.0, False, k, -1), params,
+                            st, g, (128, 256), inputs=inputs)
+               for k, st, g in zip((4, 1), states, gens)]
+    tokens = torch.tensor([3, 4, 5, 0], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, True, True, False], device=dev)
+    one = torch.ones((b,), dtype=torch.int32, device=dev)
+    for bucket in (128, 256):
+        (o4, c4, carry4, _), _ = flushes[0](params, states[0], tokens, active, one, gens[0], bucket)
+        (o1, c1, carry1, _), _ = flushes[1](params, states[1], tokens, active, one, gens[1], bucket)
+        torch.cuda.synchronize()
+        assert torch.equal(o4[:, :1], o1) and torch.equal(c4, c1) and torch.equal(carry4, carry1)
+        assert c1.tolist() == [1, 1, 1, 0]
+        for key in states[0]:
+            assert torch.equal(states[0][key], states[1][key]), key
+        tokens = carry1
+    assert flushes[1].launches(256) == {"paged_decode_attention": cfg.n_layers}
+
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(1, DIMS["vocab"], (n,), generator=gen).numpy() for n in (9, 64, 33)]
+    base = dict(slots=4, prefill_buckets=(64,), max_new_tokens=NEW, kv_page=PAGE,
+                decode_loop_k=4)
+    eng = ServingEngine(params, cfg, ServingConfig(
+        **base, fetch_watchdog_ms=500.0,
+        faults=FaultPlan([FaultSpec("delayed_fetch", at=1, arg=0.75)])))
+    captured = eng.stats()["graphs_captured"]
+    assert captured == 8  # the 4-tick and 1-tick flushes on two routes, two buckets each
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    reqs = [eng.submit(p) for p in prompts]
+    eng.start()
+    try:
+        outs = [list(r.stream()) for r in reqs]
+    finally:
+        eng.stop()
+    assert eng.loop_error is None
+    st = eng.stats()
+    assert st["watchdog_degrades"] == 1 and eng._loop_cap == 1
+    assert eng.loop1_graphs.replays > 0
+    assert eng.loop_graphs.replays + eng.loop1_graphs.replays == st["loop_flushes"]
+    assert 4 * eng.loop_graphs.replays + eng.loop1_graphs.replays == st["decode_ticks"]
+    assert st["graphs_captured"] == captured
+    assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs
+    twin = ServingEngine(params, cfg, ServingConfig(**base))
+    twin_reqs = [twin.submit(p) for p in prompts]
+    twin.start()
+    try:
+        twins = [list(r.stream()) for r in twin_reqs]
+    finally:
+        twin.stop()
+    _held_streams(outs, twins, params, cfg, prompts)

@@ -14,6 +14,7 @@ import torch
 
 from vtpu.models import ModelConfig as JModelConfig, init_params as j_init_params
 from vtpu.models.transformer import greedy_generate as j_greedy_generate
+from vtpu.serving import ServingConfig as JServingConfig, ServingEngine as JServingEngine
 from vtpu.serving.engine import (
     batched_decode_step as j_batched_decode_step,
     prefill_into_slot as j_prefill_into_slot,
@@ -23,7 +24,7 @@ from vtpu_torch.models import ModelConfig, init_params
 from vtpu_torch.serving import (
     BlockAllocator, ServingConfig, ServingEngine, Status, WaitQueue,
 )
-from vtpu_torch.serving.engine import batched_decode_step, prefill_into_slot
+from vtpu_torch.serving import batched_decode_step, prefill_into_slot, prefill_into_slots
 
 DIMS = dict(vocab=64, d_model=64, n_heads=2, n_layers=2, d_ff=128, max_seq=32, head_dim=32)
 JCFG = JModelConfig(**DIMS, dtype=jnp.float32, use_pallas=False)
@@ -333,6 +334,23 @@ def test_unported_serving_fields_raise(weights, field, value):
         else:
             assert st["batched_admission"] is False and st["admission_syncs"] == 1
         return
+    if field in ("shed_queue_depth", "fetch_watchdog_ms"):
+        # ported since the failure-domain slice: the value is served
+        # (tests/test_torch_faults.py holds shedding and the watchdog against
+        # the reference); a dense one-tick engine has no watchdog rung to
+        # apply, and a line of one never overflows a depth of 3
+        eng = ServingEngine(tp, CFG, ServingConfig(
+            slots=2, prefill_buckets=(8,), max_new_tokens=3, **{field: value}), device="cpu")
+        req = eng.submit(np.arange(1, 6))
+        eng.start()
+        try:
+            out = list(req.stream())
+        finally:
+            eng.stop()
+        st = eng.stats()
+        assert len(out) == 3 and req.status == Status.OK
+        assert st["shed_overload"] == 0 and st["watchdog_degrades"] == 0
+        return
     if field == "kv_swap":
         # ported since the overcommit slice: on a dense engine it raises the
         # reference's ValueError (tests/test_torch_overcommit.py holds the
@@ -342,6 +360,56 @@ def test_unported_serving_fields_raise(weights, field, value):
         return
     with pytest.raises(NotImplementedError, match=field):
         ServingEngine(tp, CFG, ServingConfig(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("loop", ["pipelined", "sync", "device_loop"])
+def test_read_window_stats_match_reference(weights, prompts_and_refs, loop):
+    """The paged pool's read-window keys (read_pages_live, _window, _hist,
+    _ratio) and kv_pool_occupancy equal the JAX engine's on the same paged
+    wave, queued before the loop starts so both engines dispatch the same
+    ticks; the multi-tick flush scales them by its inner ticks."""
+    jp, tp = weights
+    prompts = prompts_and_refs[0][:3]
+    kw = dict(slots=4, prefill_buckets=(8, 16), max_new_tokens=NEW, kv_page=8,
+              **{"pipelined": {}, "sync": dict(pipeline_decode=False),
+                 "device_loop": dict(decode_loop_k=4)}[loop])
+    keys = ("read_pages_live", "read_pages_window", "read_pages_hist", "read_pages_ratio",
+            "kv_pool_occupancy", "kv_bucket_hist", "decode_ticks")
+    got = {}
+    for side, eng in (("jax", JServingEngine(jp, JCFG, JServingConfig(**kw))),
+                      ("port", ServingEngine(tp, CFG, ServingConfig(**kw), device="cpu"))):
+        reqs = [eng.submit(p, max_new_tokens=NEW) for p in prompts]
+        eng.start()
+        try:
+            for r in reqs:
+                assert len(list(r.stream())) == NEW
+        finally:
+            eng.stop()
+        got[side] = {k: eng.stats()[k] for k in keys}
+    assert got["port"] == got["jax"]
+    assert got["port"]["read_pages_live"] > 0 and 0 < got["port"]["read_pages_ratio"] <= 1
+    assert got["port"]["kv_pool_occupancy"] == 0.0  # every block back after the wave
+    eng = ServingEngine(tp, CFG, ServingConfig(slots=2, prefill_buckets=(8,)), device="cpu")
+    st = eng.stats()
+    assert st["read_pages_ratio"] is None and st["kv_pool_occupancy"] is None
+
+
+def test_serving_exports_match_reference():
+    """vtpu_torch.serving exports the step functions the reference's package
+    exports, and this slice's failure-domain names, each the name the
+    reference package gives it."""
+    import vtpu.serving as jserving
+    import vtpu_torch.serving as serving
+    from vtpu_torch.serving import engine
+
+    for fn in (batched_decode_step, prefill_into_slot, prefill_into_slots):
+        assert getattr(engine, fn.__name__) is fn
+    names = ("batched_decode_step", "prefill_into_slot", "prefill_into_slots", "FaultPlan",
+             "FaultSpec", "EngineDeath", "EngineSignals", "PriorityDeadlineShedPolicy",
+             "ShedPolicy", "Status", "Terminal", "Request", "WaitQueue")
+    for name in names:
+        assert name in serving.__all__ and hasattr(serving, name), name
+        assert hasattr(jserving, name), name
 
 
 def test_unported_model_options_raise(weights):

@@ -22,7 +22,7 @@ import multiprocessing
 import queue
 import time
 import traceback
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -151,21 +151,29 @@ def _load_weights(weights, cfg, mesh):
 
 
 def _serve_wave(mesh, params, cfg, serving, prompts: Sequence, new_tokens: int,
-                sample=None) -> dict:
+                sample=None, submit: Optional[Sequence[dict]] = None) -> dict:
     """One engine's life on every rank: rank 0 serves ``prompts``, all
-    submitted at once, and stops the workers; the others follow it. Every
-    rank's dict holds the shape of its KV plane ``kv_shape``; rank 0's adds
-    ``streams``, ``logprobs``, ``statuses``, ``stats`` and ``wall_s``."""
+    submitted at once, and stops the workers; the others follow it. With
+    ``submit`` (one dict of ``submit`` keywords a prompt: priority,
+    deadline_ms) every prompt is queued before the loop starts, so the
+    first tick head sees them all. Every rank's dict holds the shape of its
+    KV plane ``kv_shape``; rank 0's adds ``streams``, ``logprobs``,
+    ``statuses``, ``stats``, ``signals`` and ``wall_s``."""
     from vtpu_torch.serving import ServingEngine
 
     if mesh.rank != 0:
         state = serve_worker(params, cfg, serving, mesh)
         return {"kv_shape": list(state["k"].shape)}
     eng = ServingEngine(params, cfg, serving, mesh=mesh, sample=sample)
-    eng.start()
     try:
         t0 = time.perf_counter()
-        reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        if submit is not None:
+            reqs = [eng.submit(p, max_new_tokens=new_tokens, **kw)
+                    for p, kw in zip(prompts, submit)]
+            eng.start()
+        else:
+            eng.start()
+            reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
         streams = [list(r.stream()) for r in reqs]
         wall = time.perf_counter() - t0
     finally:
@@ -174,14 +182,17 @@ def _serve_wave(mesh, params, cfg, serving, prompts: Sequence, new_tokens: int,
         raise RuntimeError(f"rank 0's serving loop failed: {eng.loop_error!r}")
     return {"kv_shape": list(eng.state["k"].shape), "streams": streams,
             "logprobs": [list(r.logprobs) for r in reqs],
-            "statuses": [r.status for r in reqs], "stats": eng.stats(), "wall_s": wall}
+            "statuses": [r.status for r in reqs], "stats": eng.stats(),
+            "signals": eng.signals().to_dict(), "wall_s": wall}
 
 
 def serve_requests(mesh, weights, runs: Sequence, prompts: Sequence, new_tokens: int,
                    warmup: bool = False) -> list[dict]:
     """Rank entry: serve ``prompts`` once per ``(ModelConfig,
-    ServingConfig)`` or ``(ModelConfig, ServingConfig, sample)`` of
-    ``runs`` (``sample`` a picklable custom sampler, for rank 0's engine),
+    ServingConfig)``, ``(ModelConfig, ServingConfig, sample)`` or
+    ``(ModelConfig, ServingConfig, sample, submit)`` of ``runs``
+    (``sample`` a picklable custom sampler or None, for rank 0's engine;
+    ``submit`` the per-prompt submit keywords of ``_serve_wave``),
     ``new_tokens`` each, all submitted at once. Rank 0 drives a ServingEngine; the other ranks run serve_worker.
     With ``warmup`` one prompt is served first by an engine of its own, so
     the counted wave's engine, stats and launch counts see none of it.
@@ -194,11 +205,12 @@ def serve_requests(mesh, weights, runs: Sequence, prompts: Sequence, new_tokens:
     done = []
     for cfg, serving, *rest in runs:
         sample = rest[0] if rest else None
+        submit = rest[1] if len(rest) > 1 else None
         params = _load_weights(weights, cfg, mesh)
         if warmup:
             _serve_wave(mesh, params, cfg, serving, prompts[:1], new_tokens, sample)
         _build.reset_launches()
-        res = _serve_wave(mesh, params, cfg, serving, prompts, new_tokens, sample)
+        res = _serve_wave(mesh, params, cfg, serving, prompts, new_tokens, sample, submit)
         res["launches"] = _build.launches()
         done.append(res)
     return done

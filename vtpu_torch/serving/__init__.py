@@ -1,6 +1,8 @@
-"""Serving stack of the port (counterpart of vtpu/serving): the synchronous
+"""Serving stack of the port (counterpart of vtpu/serving): the
 continuous-batching engine over the dense transformer, on one device or
-tensor-parallel over torch.distributed (``mesh=``)."""
+tensor-parallel over torch.distributed (``mesh=``), with its failure
+domains (deadlines, overload shedding, fault injection, the fetch
+watchdog)."""
 
 from vtpu_torch.serving.adapters import TransformerSlotModel
 from vtpu_torch.serving.engine import (
@@ -11,15 +13,47 @@ from vtpu_torch.serving.engine import (
     Status,
     Terminal,
     WaitQueue,
+    batched_decode_step,
+    prefill_into_slot,
+    prefill_into_slots,
+)
+from vtpu_torch.serving.faults import (
+    SEAMS,
+    EngineDeath,
+    FaultInjected,
+    FaultPlan,
+    FaultSpec,
+    WorkerDeath,
+)
+from vtpu_torch.serving.shed import (
+    EngineSignals,
+    PriorityDeadlineShedPolicy,
+    ShedPolicy,
+    accepts_signals,
+    load_shed_policy,
 )
 
 __all__ = [
     "BlockAllocator",
+    "EngineDeath",
+    "EngineSignals",
+    "FaultInjected",
+    "FaultPlan",
+    "FaultSpec",
+    "PriorityDeadlineShedPolicy",
     "Request",
+    "SEAMS",
     "ServingConfig",
     "ServingEngine",
+    "ShedPolicy",
     "Status",
     "Terminal",
     "TransformerSlotModel",
     "WaitQueue",
+    "WorkerDeath",
+    "accepts_signals",
+    "batched_decode_step",
+    "load_shed_policy",
+    "prefill_into_slot",
+    "prefill_into_slots",
 ]

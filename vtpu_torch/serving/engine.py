@@ -28,11 +28,20 @@ changing; inactive slots compute but their writes are dropped. The request
 trace and the tick-phase profiler (vtpu_torch/obs) record what the loop
 does, host-side only.
 
+Failure domains: a failure ends one request, or degrades a route, never
+the engine. ``submit(deadline_ms=)`` sheds a request that outlives its
+deadline (SHED_DEADLINE), ``shed_queue_depth`` bounds the waiting line
+(SHED_OVERLOAD, victims picked by a ``ShedPolicy``), an exception in one
+request's delivery retires that slot alone (FAULTED), and the fetch
+watchdog (``fetch_watchdog_ms``) degrades a stalled engine one rung at a
+time and lifts the rungs once latency recovers. A ``FaultPlan``
+(``ServingConfig.faults``, serving/faults.py) fires each seam on schedule.
+
 What the port has not reached raises instead of being ignored: every
 ``ServingConfig`` field named in ``_UNPORTED`` must stay at its default,
 ``ModelConfig.kv_int8="auto"`` is refused, and so are chunked prefill,
-prefix registration, speculation, the multi-tick loop and overcommit
-under a mesh. ``kv_int8=True`` serves int8 KV: dense or
+prefix registration, speculation, the multi-tick loop, overcommit and the
+fetch watchdog under a mesh. ``kv_int8=True`` serves int8 KV: dense or
 paged int8 planes with f32 scale planes beside them, written quantized at
 every KV write site here. ``mesh=`` (a vtpu_torch.parallel.TpMesh) serves
 tensor-parallel over torch.distributed: see ``ServingEngine`` for how the
@@ -94,8 +103,11 @@ from vtpu_torch.serving.adapters import (
     multi_tick_decode_step, sampled_decode_step, swap_page_gather, swap_page_scatter,
     verify_step,
 )
+from vtpu_torch.serving.faults import EngineDeath, FaultInjected, FaultPlan
 from vtpu_torch.serving.graphs import DecodeGraphs
-from vtpu_torch.serving.shed import EngineSignals, load_loop_policy
+from vtpu_torch.serving.shed import (
+    EngineSignals, accepts_signals, load_loop_policy, load_shed_policy,
+)
 
 log = logging.getLogger(__name__)
 
@@ -113,9 +125,11 @@ class ServingConfig:
     loop (unrolled or a fori_loop); the port's layer loop is a Python loop,
     always unrolled, so None, True and False serve the same computation.
 
-    Speculation, the multi-tick loop and KV overcommit are served on one
-    device; under a tensor-parallel mesh their nine fields raise (the
-    rank-0 broadcast protocol has no verify, flush or swap op yet)."""
+    Speculation, the multi-tick loop, KV overcommit and the fetch watchdog
+    are served on one device; under a tensor-parallel mesh their eleven
+    fields raise (the rank-0 broadcast protocol has no verify, flush, swap
+    or route-switch op yet). Deadlines, overload shedding, fault plans and
+    the duty supplier are rank-0 host decisions, served under a mesh too."""
 
     slots: int = 4  # concurrent sequences (the decode batch)
     prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024)
@@ -201,36 +215,49 @@ class ServingConfig:
     # LoopPolicy (serving/shed.py; instance, class or "module:attr") that
     # picks it per flush, up to decode_loop_k. Requires the fused loop
     loop_policy: Optional[Any] = None
+    # overload shedding: the waiting line's bound (0 = unbounded). Whatever
+    # overflows it after a tick head's admissions ends SHED_OVERLOAD,
+    # victims picked by shed_policy (serving/shed.py; None = lowest
+    # priority first, nearest deadline within a tier; an instance, a class
+    # or a "module:attr" string)
     shed_queue_depth: int = 0
     shed_policy: Optional[Any] = None
+    # fetch watchdog (one device): a fetch that waits past this many ms
+    # steps the degradation ladder, first decode_loop_k down to one-token
+    # flushes, then the paged route down to gather (0 = off); latency back
+    # under it for fetch_watchdog_recover_ms lifts one rung at a time, the
+    # last one first (0 = degradation is one-way). On a card every step of
+    # both routes is captured when the engine is built
     fetch_watchdog_ms: float = 0.0
     fetch_watchdog_recover_ms: float = 0.0
     worker_retry_limit: int = 2
     worker_retry_backoff_ms: float = 10.0
+    # a FaultPlan (serving/faults.py): its seams fire on schedule; None =
+    # every seam is one attribute check
     faults: Optional[Any] = None
+    # a zero-argument callable returning the device's attested busy
+    # fraction (or None): signals().duty, which a shed policy reads
     duty_supplier: Optional[Any] = None
 
 
 # fields whose features are later slices of the port: a non-default value
 # raises NotImplementedError naming the field
-_UNPORTED = (
-    "disagg", "shed_queue_depth", "shed_policy", "fetch_watchdog_ms", "fetch_watchdog_recover_ms",
-    "worker_retry_limit", "worker_retry_backoff_ms", "faults", "duty_supplier",
-)
+_UNPORTED = ("disagg", "worker_retry_limit", "worker_retry_backoff_ms")
 # served on one device only: under a mesh a non-default value raises (the
-# rank-0 broadcast protocol has no verify, flush or swap op yet)
+# rank-0 broadcast protocol has no verify, flush, swap or route-switch op
+# yet)
 _ONE_DEVICE = ("spec_tokens", "spec_ngram", "spec_min_mean", "spec_cooloff_ticks",
                "decode_loop_k", "loop_policy", "kv_swap", "kv_swap_stage_blocks",
-               "kv_swap_recompute_tokens")
+               "kv_swap_recompute_tokens", "fetch_watchdog_ms", "fetch_watchdog_recover_ms")
 
 
 def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
     """Refuse what this port has not reached. Every other combination is
     ported, under a tensor-parallel ``mesh`` as on one device, except
     chunked prefill (and so prefix registration), speculation, the
-    multi-tick loop and KV overcommit, whose rank-0 broadcast ops are a
-    later slice: the mesh itself is checked by the adapter
-    (``_validate_serving_mesh``)."""
+    multi-tick loop, KV overcommit and the fetch watchdog, whose rank-0
+    broadcast ops are a later slice: the mesh itself is checked by the
+    adapter (``_validate_serving_mesh``)."""
     for f in dataclasses.fields(ServingConfig):
         if f.name in _UNPORTED and getattr(serving, f.name) != f.default:
             raise NotImplementedError(
@@ -240,8 +267,8 @@ def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
             raise NotImplementedError(
                 f"ServingConfig.{f.name}={getattr(serving, f.name)!r} under a tensor-parallel "
                 "mesh= is not ported to vtpu_torch: the rank-0 broadcast protocol has no "
-                "verify, flush or swap op yet; serve speculation, decode_loop_k and "
-                "kv_swap on one device")
+                "verify, flush, swap or route-switch op yet; serve speculation, "
+                "decode_loop_k, kv_swap and the fetch watchdog on one device")
     if isinstance(getattr(cfg, "kv_int8", False), str):
         raise NotImplementedError(
             f"ModelConfig.kv_int8={cfg.kv_int8!r} is not ported to vtpu_torch: the "
@@ -424,9 +451,13 @@ class Request:
     tokens: Any  # [S] int32 numpy prompt (the suffix when ``prefix`` is set)
     max_new_tokens: int = 0
     prefix: Optional[int] = None  # registered prefix id (register_prefix)
-    # QoS tier of overcommit eviction: parked sessions of the lowest
-    # priority leave the pool first (least recently parked within a tier)
+    # QoS tier of overcommit eviction and overload shedding: the lowest
+    # priority leaves first (parked sessions: least recently parked within
+    # a tier)
     priority: int = 0
+    # absolute service deadline (monotonic_ns) from submit(deadline_ms=);
+    # past it the request ends SHED_DEADLINE at the next tick head
+    deadline_ns: Optional[int] = None
     rid: int = -1  # engine-unique id assigned by submit()
     t_submit_ns: int = 0
     t_depart_ns: int = 0  # left the waiting line (admitted)
@@ -747,13 +778,16 @@ class ServingEngine:
     admission first tokens) in ONE device-to-host copy, deliver, retire.
 
     Which loop runs is ``pipeline_decode`` resolved as the reference
-    resolves it (speculation is not ported): None (auto) runs the
-    pipelined loop when sampling is on the device and the synchronous loop
-    with a custom ``sample=`` callable, True the pipelined loop (a custom
-    sampler raises), False the synchronous loop. On one CUDA card (no mesh)
-    the pipelined loop replays the decode step from CUDA graphs captured
-    when the engine is built, one per kv bucket (``decode_graphs``); under
-    a mesh and on the CPU it runs the step eagerly. ``sample(row)`` is
+    resolves it: None (auto) runs the pipelined loop when sampling is on
+    the device and no speculation is active, the synchronous loop with a
+    custom ``sample=`` callable or with ``spec_tokens``; True the pipelined
+    loop (a custom sampler or active speculation raises), False the
+    synchronous loop. ``decode_loop_k`` runs the multi-tick loop, and with
+    ``spec_tokens`` the fused one. On one CUDA card (no mesh) every
+    device-sampled loop replays its steps from CUDA graphs captured when
+    the engine is built, one per kv bucket (``decode_graphs`` and its
+    siblings); under a mesh and on the CPU the steps run eagerly.
+    ``sample(row)`` is
     called with one fetched numpy [vocab] f32 logits row (the first token's
     at admission, then each decode tick's) and returns the token id; it
     runs on the loop thread, and an exception in it faults that request
@@ -914,14 +948,15 @@ class ServingEngine:
             serving.spec_ngram) if self._fused_spec else None)
         # the host-drafted verify tick of the synchronous loop (a fused
         # engine verifies inside its flush)
-        self._spec = (verify_step(self.model) if self._spec_tokens and not self._fused_spec
-                      else None)
+        self._verify = (verify_step(self.model) if self._spec_tokens and not self._fused_spec
+                        else None)
         if self._spec_tokens and self._paged:
             # a forced kernel route cannot read a verify chunk past 16 queries
             paged_attn_route(self._paged_attn, cfg.max_seq, self.device, self._spec_tokens + 1)
         # monotonic_ns of the last flush delivery: the floor of the next
         # flush's interpolated per-token stamps
         self._last_flush_ns = 0
+        self._init_failure_domains(serving)
         # batched admission samples first tokens on the device: a custom
         # sampler admits serially, one blocking first-token fetch each, and
         # so does speculation (its draft history needs the first token on
@@ -1044,6 +1079,14 @@ class ServingEngine:
             "parks": 0, "resumes": 0, "evicted_blocks": 0,
             "swap_out_bytes": 0, "swap_in_bytes": 0,
             "swap_faults": 0, "fault_recomputes": 0, "pool_blocked_resumes": 0,
+            # the paged read window per dispatched slot, in inner ticks: the
+            # pages each slot maps (live) against the pages the window spans
+            # for it, and a histogram of a dispatch's live pages
+            "read_pages_live": 0, "read_pages_window": 0, "read_pages_hist": {},
+            # failure domains: typed sheds, and the fetch watchdog's rungs
+            # applied and lifted
+            "shed_deadline": 0, "shed_overload": 0,
+            "watchdog_degrades": 0, "watchdog_recoveries": 0,
         }
         # per-slot token history (prefix + prompt + delivered tokens): the
         # prompt-lookup drafts' source and what a park saves and a
@@ -1086,28 +1129,74 @@ class ServingEngine:
         # single tick (pipelined loop; the fallback tick of unfused
         # speculation), the k-tick flush (device loop; the cooloff flush of
         # fused speculation), the verify tick, and the fused flush at each
-        # depth the LoopPolicy may pick (only decode_loop_k without one)
+        # depth the LoopPolicy may pick (only decode_loop_k without one).
+        # With the fetch watchdog on, also the one-token flush of its first
+        # rung (loop1_graphs, and the fused flush at depth 1) and, where its
+        # second rung applies, every set again on the gather route
+        # (route_graphs["gather"]); a rung switches which set replays
         self.decode_graphs: Optional[DecodeGraphs] = None
         self.loop_graphs: Optional[DecodeGraphs] = None
+        self.loop1_graphs: Optional[DecodeGraphs] = None
         self.spec_graphs: Optional[DecodeGraphs] = None
         self.fused_graphs: dict[int, DecodeGraphs] = {}
-        fused_ks = (range(1, self._loop_k + 1) if self._loop_policy is not None
-                    else (self._loop_k,)) if self._fused_spec else ()
+        self.route_graphs: dict = {}
+        fused_ks = set((range(1, self._loop_k + 1) if self._loop_policy is not None
+                        else (self._loop_k,)) if self._fused_spec else ())
+        if self._fused_spec and self._watchdog:
+            fused_ks.add(1)
+        self._fused_ks = tuple(sorted(fused_ks))
         if self.device.type == "cuda":
             # build the kernels now, not at their first use inside the loop
             _build.build_all()
             if mesh is None:
-                self._capture_graphs(fused_ks)
-        # what each loop dispatches: a graph's replay or the eager step.
-        # _step is the sampled tick (None on the host-sampler path, which
-        # calls _decode), _flush the k-tick flush, _spec the verify tick,
-        # _fused[k] the fused flush of depth k
-        self._step = self.decode_graphs or self._decode_sampled
-        self._flush = self.loop_graphs or self._decode_loop
-        if self.spec_graphs is not None:
-            self._spec = self.spec_graphs
-        self._fused = {k: self.fused_graphs.get(k) or functools.partial(
-            self._decode_fused, k_dyn=k) for k in fused_ks}
+                self._capture_graphs()
+        self._select_steps()
+
+    def _init_failure_domains(self, serving: ServingConfig) -> None:
+        """Deadlines, overload shedding, the fault plan, the fetch
+        watchdog's ladder and the duty supplier, each validated here (a bad
+        policy string fails the constructor, not the loop). The ladder's
+        rungs are those that apply to this engine's shape: ``loop_k1``
+        (one-token flushes) where decode_loop_k > 1, ``paged_gather`` where
+        the paged route is not already gather."""
+        if serving.faults is not None and not isinstance(serving.faults, FaultPlan):
+            raise ValueError("ServingConfig.faults must be a vtpu_torch.serving.faults."
+                             f"FaultPlan, got {type(serving.faults).__name__}")
+        self._faults = serving.faults
+        if serving.shed_queue_depth < 0:
+            raise ValueError(f"shed_queue_depth must be >= 0, got {serving.shed_queue_depth}")
+        self._shed_policy = load_shed_policy(serving.shed_policy)
+        self._shed_signals = accepts_signals(self._shed_policy)
+        if serving.duty_supplier is not None and not callable(serving.duty_supplier):
+            raise ValueError("ServingConfig.duty_supplier must be a zero-arg callable returning "
+                             "a duty fraction (or None), got "
+                             f"{type(serving.duty_supplier).__name__}")
+        # one-way latch set by the first submit(deadline_ms=): a
+        # deadline-free engine's tick head never scans for deadlines
+        self._deadlines_seen = False
+        self._watchdog = serving.fetch_watchdog_ms > 0
+        self._loop_cap = self._loop_k  # 1 while rung loop_k1 holds
+        self._degrade_rungs: list[str] = []
+        if self._loop_k:
+            self._degrade_rungs.append("loop_k1")
+        if self._paged and self._paged_attn != "gather":
+            self._degrade_rungs.append("paged_gather")
+        self._degrade_level = 0
+        # the rungs applied (lifted last first), the route to restore, and
+        # the start of the current healthy-fetch streak (None: no streak)
+        self._applied_rungs: list[str] = []
+        self._paged_attn_orig = self._paged_attn
+        self._healthy_since: Optional[float] = None
+        # rung 1's one-token flush: the k-tick flush's body at k = 1, so its
+        # token is the one a flush capped at 1 would deliver
+        self._decode_loop1 = (multi_tick_decode_step(
+            self.model, serving.temperature, serving.top_k, serving.top_p, self._logprobs, 1,
+            serving.eos_token) if self._loop_k and self._watchdog else None)
+        # the loop's heartbeat, stamped at every tick head (0 before the
+        # first); _died: the engine_death seam fired and the loop thread
+        # exited without its cleanup
+        self._beat_ns = 0
+        self._died = False
 
     def _init_swap_tier(self, serving: ServingConfig) -> None:
         """Overcommit state (``kv_swap``): the lifecycle queue of park and
@@ -1151,39 +1240,77 @@ class ServingEngine:
         # popped from the end: host blocks go out in ascending runs
         self._host_free = list(range(self._swap_host_blocks - 1, -1, -1))
 
-    def _capture_graphs(self, fused_ks) -> None:
-        """Capture every step the selected loop dispatches, one graph per
-        kv bucket each. The step's input tensors become the graphs' static
-        buffers: tokens and the active mask, plus the caps of a flush, the
-        [B, K+1] draft of a verify tick, the [B, W] draft window and its
-        lengths of a fused flush."""
+    def _capture_graphs(self) -> None:
+        """Capture the graph set of the engine's paged route and, where the
+        watchdog's second rung applies, the same set on the gather route
+        (``route_graphs``, keyed by route override)."""
+        self.route_graphs[self._paged_attn] = self._capture_set(self._paged_attn)
+        if self._watchdog and "paged_gather" in self._degrade_rungs:
+            self.route_graphs["gather"] = self._capture_set("gather")
+        g = self.route_graphs[self._paged_attn]
+        self.decode_graphs, self.loop_graphs = g["step"], g["flush"]
+        self.loop1_graphs, self.spec_graphs = g["flush1"], g["spec"]
+        self.fused_graphs = g["fused"]
+
+    def _capture_set(self, route: Optional[str]) -> dict:
+        """Capture every step the selected loop dispatches on the paged
+        ``route``, one graph per kv bucket each. The steps read the route
+        from the model when they run, so it is set there for the capture.
+        The step's input tensors become the graphs' static buffers: tokens
+        and the active mask, plus the caps of a flush, the [B, K+1] draft
+        of a verify tick, the [B, W] draft window and its lengths of a
+        fused flush."""
         b = self.serving.slots
         buckets = self._kv_buckets if self._use_kv_buckets else (0,)
-        common = dict(paged_attn=self._paged_attn)
+        common = dict(paged_attn=route)
         row = ((b,), torch.int32)
         tick = (row, ((b,), torch.bool))
         sampled = self.serving.temperature > 0.0
-        if (self._pipeline and not self._loop_k) or self._spec is not None:
-            self.decode_graphs = DecodeGraphs(self._decode_sampled, self.params, self.state,
-                                              self._gens, buckets, sampled=sampled, **common)
-        if self._loop_k:
-            self.loop_graphs = DecodeGraphs(self._decode_loop, self.params, self.state,
-                                            self._gens, buckets, sampled=sampled,
-                                            inputs=tick + (row,), **common)
         t = self._spec_tokens + 1
-        if self._spec is not None:
-            self.spec_graphs = DecodeGraphs(self._spec, self.params, self.state, self._gens,
-                                            buckets, inputs=(((b, t), torch.int32),) + tick[1:]
-                                            + (row,), t=t, **common)
-        for k in fused_ks:
-            self.fused_graphs[k] = DecodeGraphs(
-                functools.partial(self._decode_fused, k_dyn=k), self.params, self.state,
-                self._gens, buckets, t=t, inputs=tick + (row, ((b, self._hist_window), torch.int32),
-                                                         row), **common)
+        g = {"step": None, "flush": None, "flush1": None, "spec": None, "fused": {}}
+        kept, self.model.paged_attn = self.model.paged_attn, route
+        try:
+            if (self._pipeline and not self._loop_k) or self._verify is not None:
+                g["step"] = DecodeGraphs(self._decode_sampled, self.params, self.state,
+                                         self._gens, buckets, sampled=sampled, **common)
+            for key, step in (("flush", self._decode_loop), ("flush1", self._decode_loop1)):
+                if step is not None:
+                    g[key] = DecodeGraphs(step, self.params, self.state, self._gens, buckets,
+                                          sampled=sampled, inputs=tick + (row,), **common)
+            if self._verify is not None:
+                g["spec"] = DecodeGraphs(self._verify, self.params, self.state, self._gens,
+                                         buckets, inputs=(((b, t), torch.int32),) + tick[1:]
+                                         + (row,), t=t, **common)
+            for k in self._fused_ks:
+                g["fused"][k] = DecodeGraphs(
+                    functools.partial(self._decode_fused, k_dyn=k), self.params, self.state,
+                    self._gens, buckets, t=t,
+                    inputs=tick + (row, ((b, self._hist_window), torch.int32), row), **common)
+        finally:
+            self.model.paged_attn = kept
+        return g
+
+    def _select_steps(self) -> None:
+        """Point what each loop dispatches at the current paged route: a
+        graph's replay on a card, the eager step elsewhere (which reads the
+        route from the model). _step is the sampled tick (None on the
+        host-sampler path, which calls _decode), _flush the k-tick flush,
+        _flush1 rung 1's one-token flush, _spec the verify tick, _fused[k]
+        the fused flush of depth k."""
+        g = self.route_graphs.get(self._paged_attn) or {}
+        fused = g.get("fused", {})
+        self._step = g.get("step") or self._decode_sampled
+        self._flush = g.get("flush") or self._decode_loop
+        self._flush1 = g.get("flush1") or self._decode_loop1
+        self._spec = g.get("spec") or self._verify
+        self._fused = {k: fused.get(k) or functools.partial(self._decode_fused, k_dyn=k)
+                       for k in self._fused_ks}
 
     def _graph_sets(self) -> list:
-        return [g for g in (self.decode_graphs, self.loop_graphs, self.spec_graphs,
-                            *self.fused_graphs.values()) if g is not None]
+        """Every DecodeGraphs the engine captured, on every route."""
+        return [dg for g in self.route_graphs.values()
+                for dg in (g["step"], g["flush"], g["flush1"], g["spec"], *g["fused"].values())
+                if dg is not None]
 
     # ------------------------------------------------------------------ API
 
@@ -1323,11 +1450,18 @@ class ServingEngine:
                 self._alloc.release(entry["blocks"])
 
     def submit(self, tokens, max_new_tokens: int = 0, prefix: Optional[int] = None,
-               priority: int = 0) -> Request:
+               priority: int = 0, deadline_ms: Optional[float] = None) -> Request:
         """Queue a prompt (with ``prefix``: the suffix after a registered
-        prefix, possibly empty). ``priority`` is the request's overcommit
-        QoS tier (``Request.priority``). A prompt nothing can admit raises
-        here, to its submitter."""
+        prefix, possibly empty). ``priority`` is the request's QoS tier for
+        overcommit eviction and overload shedding (``Request.priority``).
+        ``deadline_ms`` bounds the request's whole service time from this
+        call: past it the request is shed from the waiting line before
+        admission, or aborted mid-stream at the next tick head, with a
+        SHED_DEADLINE terminal (None: no deadline; 0 sheds at the first
+        tick head). A prompt nothing can admit raises here, to its
+        submitter."""
+        if deadline_ms is not None and deadline_ms < 0:
+            raise ValueError(f"deadline_ms must be >= 0, got {deadline_ms}")
         if self._stop.is_set():
             raise RuntimeError("ServingEngine is stopped")
         tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
@@ -1367,6 +1501,9 @@ class ServingEngine:
         req = Request(tokens=tokens, max_new_tokens=budget, prefix=prefix, priority=priority)
         req.rid = next(self._req_ctr)
         req.t_submit_ns = time.monotonic_ns()
+        if deadline_ms is not None:
+            req.deadline_ns = req.t_submit_ns + int(deadline_ms * 1e6)
+            self._deadlines_seen = True
         self.trace.record("submit", req.rid, -1, n)
         self._pending.put(req)
         self._wake.set()
@@ -1433,6 +1570,7 @@ class ServingEngine:
         s = dict(self._stats)
         s["prefill_batch_hist"] = list(s["prefill_batch_hist"])
         s["kv_bucket_hist"] = dict(s["kv_bucket_hist"])
+        s["read_pages_hist"] = dict(s["read_pages_hist"])
         s["spec_emitted_hist"] = list(s["spec_emitted_hist"])
         s["fused_k_hist"] = list(s["fused_k_hist"])
         # acceptance per (slot, verify tick): delivered tokens over slot
@@ -1523,10 +1661,17 @@ class ServingEngine:
             s["kv_pool_blocks"] = usable
             s["kv_pool_free"] = free
             s["kv_pool_used"] = usable - free
+            s["kv_pool_occupancy"] = round((usable - free) / usable, 4) if usable else None
+            # live pages over the pages the read windows spanned
+            s["read_pages_ratio"] = (round(s["read_pages_live"] / s["read_pages_window"], 4)
+                                     if s["read_pages_window"] else None)
             s["kv_pool_used_hwm"] = self._alloc.used_hwm
         else:
             s["kv_pool_blocks"] = s["kv_pool_free"] = None
             s["kv_pool_used"] = s["kv_pool_used_hwm"] = None
+            s["kv_pool_occupancy"] = s["read_pages_ratio"] = None
+        # failure domains: the FaultPlan's own injection count
+        s["faults_injected"] = self._faults.injected_total if self._faults is not None else 0
         # process-wide kernel launch counts (the wrappers' counters; a graph
         # replay adds the launches its capture recorded)
         s["flash_launches"] = _build.LAUNCHES["flash_attention"]
@@ -1540,9 +1685,18 @@ class ServingEngine:
 
     def signals(self) -> EngineSignals:
         """The engine's pressure snapshot (serving/shed.py): what a
-        LoopPolicy reads at a fused flush head. Every field is one read of
-        a counter or gauge. Features the port has not reached keep their
-        defaults: never draining, no duty supplier."""
+        ShedPolicy reads at an overload shed and a LoopPolicy at a fused
+        flush head. Every field is one read of a counter or gauge; ``duty``
+        is ``ServingConfig.duty_supplier``'s reading (None without one, and
+        None, logged, when it raises). Features the port has not reached
+        keep their defaults: never draining."""
+        duty = None
+        sup = self.serving.duty_supplier
+        if sup is not None:
+            try:
+                duty = sup()
+            except Exception:
+                log.exception("duty_supplier raised; reporting duty=None")
         return EngineSignals(
             queue_depth=self._pending.qsize() + len(self._waiting),
             active_slots=sum(r is not None for r in self._slot_req),
@@ -1552,6 +1706,7 @@ class ServingEngine:
             prefill_backlog=len(self._admitting),
             now_ns=time.monotonic_ns(),
             pool_blocks=(self._n_blocks - 1) if self._paged else None,
+            duty=duty,
             spec_mean_accepted=(round(self._spec_ema, 3) if self._spec_tokens else None))
 
     # ----------------------------------------------------------- lifecycle
@@ -1632,6 +1787,75 @@ class ServingEngine:
                       getattr(req, "rid", None), slot)
         self._retire(slot, status=Status.FAULTED)
 
+    # ------------------------------------------------------ failure domains
+
+    def _fire_fault(self, seam: str):
+        """The configured FaultPlan's answer at ``seam``: the FaultSpec to
+        inject (truthy) or None; one attribute check without a plan."""
+        plan = self._faults
+        if plan is None:
+            return None
+        return plan.fire(seam)
+
+    def _maybe_inject_dispatch(self) -> None:
+        """The dispatch_exc seam, first thing in one slot's delivery: the
+        raise takes the containment path an organic bug would."""
+        if self._fire_fault("dispatch_exc"):
+            raise FaultInjected("injected dispatch_exc")
+
+    def _trip_watchdog(self, stalled_s: float) -> None:
+        """A fetch waited past fetch_watchdog_ms: apply the next rung of
+        the ladder. ``loop_k1`` makes every flush a one-token flush (the
+        host sees each token again); ``paged_gather`` moves every dispatch
+        to the gather route (on a card, to the gather graphs captured when
+        the engine was built: nothing is captured while serving). Both
+        deliver the same tokens. An exhausted ladder logs and goes on."""
+        if not self._degrade_rungs:
+            log.warning("fetch watchdog: fetch stalled %.0f ms with the degradation ladder "
+                        "exhausted", stalled_s * 1e3)
+            return
+        rung = self._degrade_rungs.pop(0)
+        self._applied_rungs.append(rung)
+        self._healthy_since = None  # a stall ends a recovery streak
+        self._degrade_level += 1
+        self._stats["watchdog_degrades"] += 1
+        self.trace.record("degrade", -1, -1, self._degrade_level)
+        if rung == "loop_k1":
+            self._loop_cap = 1
+            log.warning("fetch watchdog: fetch stalled %.0f ms; degrading decode_loop_k=%d to "
+                        "one-token flushes", stalled_s * 1e3, self._loop_k)
+        else:
+            self._set_route("gather")
+            log.warning("fetch watchdog: fetch stalled %.0f ms; degrading paged_attn to the "
+                        "gather route", stalled_s * 1e3)
+
+    def _recover_watchdog(self) -> None:
+        """Lift ONE rung after fetches stayed under the threshold for
+        fetch_watchdog_recover_ms, the last applied first; it goes back to
+        the head of the ladder, so a relapse trips it again first."""
+        if not self._applied_rungs:
+            return
+        rung = self._applied_rungs.pop()
+        self._degrade_rungs.insert(0, rung)
+        self._degrade_level -= 1
+        self._stats["watchdog_recoveries"] += 1
+        self.trace.record("recover", -1, -1, self._degrade_level)
+        if rung == "loop_k1":
+            self._loop_cap = self._loop_k
+            log.warning("fetch watchdog: latency recovered; restoring decode_loop_k=%d flushes",
+                        self._loop_k)
+        else:
+            self._set_route(self._paged_attn_orig)
+            log.warning("fetch watchdog: latency recovered; restoring paged_attn=%r",
+                        self._paged_attn_orig)
+
+    def _set_route(self, route: Optional[str]) -> None:
+        """Switch the paged read route of every later dispatch: the model's
+        override (what an eager step reads) and the graph set replayed."""
+        self._paged_attn = route
+        self.model.paged_attn = route
+        self._select_steps()
+
     # ---------------------------------------------------------- overcommit
 
     def _alloc_reclaim(self, n: int, exclude: Optional[Request] = None) -> Optional[list[int]]:
@@ -1639,7 +1863,11 @@ class ServingEngine:
         cannot cover ``n`` but the free and the reclaimable blocks (parked
         sessions' evictable private pages) together can, evict until it
         fits and allocate. ``exclude`` keeps a resuming entry from evicting
-        itself. The blocks, or None with nothing reserved."""
+        itself. The blocks, or None with nothing reserved. The
+        alloc_exhaust seam reports a dry free list here, so the caller's
+        backpressure runs as under a full pool."""
+        if self._fire_fault("alloc_exhaust"):
+            return None
         got = self._alloc.alloc(n)
         if got is not None or not self._swap_enabled:
             return got
@@ -1680,10 +1908,12 @@ class ServingEngine:
         host copy, so an admission may overwrite the blocks this very tick.
         Without room they are dropped, and resume rebuilds them (the
         ``_evictable`` gate made sure it can); an entry that can do neither
-        stays resident."""
+        stays resident. The swap_d2h_loss seam loses the spill of an entry
+        that can be rebuilt: its pages drop (one that cannot ignores it)."""
         priv = e["priv"]
         m = len(priv)
-        if self._swap_host_blocks and m <= len(self._host_free):
+        d2h_lost = e["recompute_ok"] and self._fire_fault("swap_d2h_loss") is not None
+        if not d2h_lost and self._swap_host_blocks and m <= len(self._host_free):
             e["host"] = [self._host_free.pop() for _ in range(m)]
             e["pend"] = self._spill(priv, e["host"])
             self._swap_pending.append(e)
@@ -1929,7 +2159,13 @@ class ServingEngine:
         others if the free list is dry, never itself), bring its pages back
         (``_restore_pages``), then remap the slot. The host blocks go back
         to the free list at once: the next write to them is a swap-out on
-        the side stream, which waits for the main stream first."""
+        the side stream, which waits for the main stream first. The
+        swap_h2d_loss seam loses the restore of an entry that can be
+        rebuilt: it drops its host pages and rebuilds through prefill (one
+        that cannot ignores it)."""
+        if e["recompute_ok"] and self._fire_fault("swap_h2d_loss"):
+            e["dropped"] = True
+            return self._begin_recompute(slot, e)
         need = e["n_pages"] - len(e["shared"])
         priv = self._alloc_reclaim(need, exclude=e["req"])
         if priv is None:
@@ -2431,14 +2667,35 @@ class ServingEngine:
         split it. Counted so stats() can show device_gets_per_tick == 1.0
         (1/k on the multi-tick loop); the wait is the tick's fetch phase
         (on the pipelined loop, the time the host waits for the tick in
-        flight), over ``ticks`` inner ticks for a flush."""
+        flight), over ``ticks`` inner ticks for a flush.
+
+        The fetch watchdog reads the same wait: past fetch_watchdog_ms it
+        trips a rung; under it, on a degraded engine, it extends a
+        healthy streak, and a streak of fetch_watchdog_recover_ms lifts a
+        rung (each further rung needs a streak of its own). The
+        delayed_fetch seam stalls here for its ``arg`` seconds."""
         self._stats["device_gets"] += 1
         self._stats["tick_fetches" if staged["kind"] == "tick" else "admission_fetches"] += 1
         t0 = time.perf_counter()
+        spec = self._fire_fault("delayed_fetch")
+        if spec is not None:
+            time.sleep(spec.arg or 0.05)
         if staged["done"] is not None:
             staged["done"].synchronize()
         flat = staged["host"].numpy()
-        self._prof.note("fetch", time.perf_counter() - t0, ticks=ticks)
+        dt = time.perf_counter() - t0
+        self._prof.note("fetch", dt, ticks=ticks)
+        wd = self.serving.fetch_watchdog_ms
+        if wd:
+            if dt * 1e3 > wd:
+                self._trip_watchdog(dt)
+            elif self._applied_rungs and self.serving.fetch_watchdog_recover_ms:
+                now = time.perf_counter()
+                if self._healthy_since is None:
+                    self._healthy_since = now
+                elif (now - self._healthy_since) * 1e3 >= self.serving.fetch_watchdog_recover_ms:
+                    self._recover_watchdog()
+                    self._healthy_since = now
         self._stats["bytes_fetched"] += flat.nbytes
         out, at = [], 0
         for n in staged["sizes"]:
@@ -2538,7 +2795,11 @@ class ServingEngine:
         for slot, req in enumerate(tick["reqs"]):
             if req is None or req is not self._slot_req[slot]:
                 continue
-            self._emit(slot, int(toks[slot]), None if lps is None else float(lps[slot]), now)
+            try:
+                self._emit(slot, int(toks[slot]), None if lps is None else float(lps[slot]), now)
+            except Exception:
+                # one request's delivery failed: that slot alone retires
+                self._contain_fault(slot)
         self._prof.note("deliver", time.perf_counter() - t0)
         self._note_host_ms(extra_host_s + time.perf_counter() - t0)
 
@@ -2546,6 +2807,7 @@ class ServingEngine:
               now: Optional[float] = None) -> None:
         """One delivered decode token: the one implementation behind the
         device-sampled delivery and the host-sampler path."""
+        self._maybe_inject_dispatch()
         req = self._slot_req[slot]
         self._tokens[slot] = tok
         self._slot_len[slot] += 1  # the device length advanced at dispatch
@@ -2564,14 +2826,25 @@ class ServingEngine:
         if self._slot_budget[slot] <= 0 or tok == self.serving.eos_token:
             self._retire(slot)
 
-    def _note_kv_window(self, kv_bucket: int, t: int = 1, ticks: int = 1) -> None:
+    def _note_kv_window(self, kv_bucket: int, lens: list, t: int = 1, ticks: int = 1) -> None:
         """Read-window and route accounting of one dispatch of ``ticks``
         inner ticks of ``t`` queries a row (k for a flush, K+1 for a
-        verify chunk), counted in inner ticks."""
+        verify chunk), counted in inner ticks. ``lens`` is each dispatched
+        slot's device length the dispatch reads up to (before its own
+        write): on a paged pool the pages each slot maps against the pages
+        the window spans, at the dispatch's lengths for all its inner ticks
+        (a flush undercounts by at most a page a slot), as the reference
+        counts them."""
         key = int(kv_bucket) or self.cfg.max_seq
         hist = self._stats["kv_bucket_hist"]
         hist[key] = hist.get(key, 0) + ticks
-        if self._paged:
+        if self._paged and lens:
+            page = self._page
+            live = sum(-(-(n + 1) // page) for n in lens)
+            self._stats["read_pages_live"] += live * ticks
+            self._stats["read_pages_window"] += (key // page) * len(lens) * ticks
+            rh = self._stats["read_pages_hist"]
+            rh[live] = rh.get(live, 0) + ticks
             # the trunk resolves the route from the same inputs
             route = paged_attn_route(self._paged_attn, key, self.device, t)
             self._stats["paged_attn_kernel_ticks" if route == "kernel"
@@ -2596,22 +2869,33 @@ class ServingEngine:
                 self._loop_pipelined()
             else:
                 self._loop_sync()
+        except EngineDeath:
+            # the engine_death seam: the thread exits without its shutdown
+            # sweep (no terminals, no releases), as a killed process would
+            return
         except Exception as exc:  # the loop thread's boundary: report, end streams
             self.loop_error = exc
             log.exception("serving loop failed; ending every stream")
         finally:
-            self._drain_all()
+            if not self._died:
+                self._drain_all()
 
     def _tick_head(self) -> bool:
-        """Run queued paged prefix builds, drain submissions into the
-        waiting line; under overcommit apply park and resume commands and
-        retire finished swap-outs (no wait: the swap_drain phase); advance
-        chunked admissions and rebuilds, bring resumed sessions back, then
-        admit into free slots, all under one prompt budget (bypassed while
-        nothing decodes; chunks in flight spend first, resumes before new
-        admissions), and retire cancelled slots. Returns whether anything
-        was admitted."""
+        """Stamp the heartbeat (then the engine_death seam), run queued
+        paged prefix builds, drain submissions into the waiting line, shed
+        requests past their deadlines; under overcommit apply park and
+        resume commands and retire finished swap-outs (no wait: the
+        swap_drain phase); advance chunked admissions and rebuilds, bring
+        resumed sessions back, then admit into free slots, all under one
+        prompt budget (bypassed while nothing decodes; chunks in flight
+        spend first, resumes before new admissions); shed the waiting
+        line's overflow, and retire cancelled and deadline-aborted slots.
+        Returns whether anything was admitted."""
         t0 = time.perf_counter()
+        self._beat_ns = time.monotonic_ns()
+        if self._fire_fault("engine_death"):
+            self._died = True
+            raise EngineDeath("injected engine_death at the flush boundary")
         if self._paged:
             self._drain_prefix_work()
         while True:
@@ -2619,6 +2903,7 @@ class ServingEngine:
                 self._waiting.append(self._pending.get_nowait())
             except queue.Empty:
                 break
+        self._shed_deadlines()
         swap_s = 0.0
         if self._swap_enabled:
             self._process_lifecycle()
@@ -2633,6 +2918,7 @@ class ServingEngine:
         if self._swap_enabled:
             budget = self._advance_resumes(budget)
         admitted, _ = self._admit_waiting(budget)
+        self._shed_overload()
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.cancelled:
                 self._retire(slot)
@@ -2640,6 +2926,62 @@ class ServingEngine:
         self._note_admission_ms(dt)
         self._prof.note("admission", dt - swap_s)
         return admitted
+
+    def _shed_deadlines(self) -> None:
+        """Deadlines at the tick head. A waiting request past its deadline
+        is taken from the line atomically and ends SHED_DEADLINE before
+        admission; a live or mid-chunk one is marked for abort, and the
+        cancel sweeps of this tick head retire it with that terminal,
+        the path a client cancel rides (a token in flight for it is
+        dropped at delivery). Nothing runs until a submit carries a
+        deadline."""
+        if not self._deadlines_seen:
+            return
+        now = time.monotonic_ns()
+        shed = TERMINAL_CODES[Status.SHED_DEADLINE]
+        for req in self._waiting:
+            if req.deadline_ns is not None and now > req.deadline_ns and not req.cancelled:
+                if self._waiting.take(req):
+                    self._stats["shed_deadline"] += 1
+                    self.trace.record("shed", req.rid, -1, shed)
+                    self._end_stream(req, Status.SHED_DEADLINE)
+        live = [r for r in self._slot_req if r is not None]
+        live += [adm["req"] for adm in self._admitting.values()]
+        for req in live:
+            if req.deadline_ns is not None and now > req.deadline_ns and req._abort is None:
+                req._abort = Status.SHED_DEADLINE
+                self._stats["shed_deadline"] += 1
+                self.trace.record("shed", req.rid, -1, shed)
+
+    def _shed_overload(self) -> None:
+        """Overload shedding after the tick head's admissions: what still
+        overflows shed_queue_depth is real excess, and the ShedPolicy picks
+        the victims, given the pressure snapshot with queue_depth pinned to
+        its own waiter snapshot where it takes one. A victim claimed or
+        cancelled meanwhile loses the atomic take and is skipped. A policy
+        that raises is logged and this tick sheds nothing."""
+        depth = self.serving.shed_queue_depth
+        if not depth:
+            return
+        excess = len(self._waiting) - depth
+        if excess <= 0:
+            return
+        try:
+            waiters = list(self._waiting)
+            if self._shed_signals:
+                signals = dataclasses.replace(self.signals(), queue_depth=len(waiters))
+                victims = list(self._shed_policy.select(waiters, excess, signals))[:excess]
+            else:
+                victims = list(self._shed_policy.select(waiters, excess))[:excess]
+        except Exception:
+            log.exception("shed policy %r raised; skipping this tick's overload shed",
+                          type(self._shed_policy).__name__)
+            return
+        for req in victims:
+            if self._waiting.take(req):
+                self._stats["shed_overload"] += 1
+                self.trace.record("shed", req.rid, -1, TERMINAL_CODES[Status.SHED_OVERLOAD])
+                self._end_stream(req, Status.SHED_OVERLOAD)
 
     def _idle_wait(self, admitted: bool) -> None:
         """Nothing to decode or deliver: wait briefly for a submission,
@@ -2709,7 +3051,8 @@ class ServingEngine:
                     drafts = None  # nothing to verify: a plain tick
             chunk = self._spec_tokens + 1 if drafts is not None else 1
             kv_bucket = self._kv_bucket(chunk + max(self._slot_len[i] for i in active_slots))
-            self._note_kv_window(kv_bucket, t=chunk)
+            self._note_kv_window(kv_bucket, [self._slot_len[i] + chunk - 1 for i in active_slots],
+                                 t=chunk)
             if drafts is not None:
                 self._spec_tick(drafts, active, kv_bucket, active_slots, t_disp)
                 continue
@@ -2750,6 +3093,7 @@ class ServingEngine:
         emitted_total = 0
         for slot in active_slots:
             try:
+                self._maybe_inject_dispatch()
                 emitted = [int(x) for x in pred[slot, :int(count[slot])]]
                 self._slot_len[slot] += int(count[slot])
                 if eos in emitted:
@@ -2886,9 +3230,9 @@ class ServingEngine:
                 if active_key != tuple(dispatch):
                     active = self._upload([i in live for i in range(b)], torch.bool)
                     active_key = tuple(dispatch)
-                kv_bucket = self._kv_bucket(
-                    1 + max(self._slot_len[i] + (1 if fed[i] else 0) for i in dispatch))
-                self._note_kv_window(kv_bucket)
+                lens = [self._slot_len[i] + (1 if fed[i] else 0) for i in dispatch]
+                kv_bucket = self._kv_bucket(1 + max(lens))
+                self._note_kv_window(kv_bucket, lens)
                 out, self.state = self._step(
                     self.params, self.state, tokens, active, self._gens, kv_bucket)
                 self._stats["decode_ticks"] += 1
@@ -2962,9 +3306,9 @@ class ServingEngine:
         - the read window covers the device length at the END of the
           flush: the host mirror plus the in-flight predictions plus k.
         ``pipeline_decode=False`` is the synchronous flush loop (dispatch,
-        deliver, repeat: still one fetch a flush)."""
+        deliver, repeat: still one fetch a flush). While the watchdog's
+        first rung holds, each dispatch is a one-token flush (``_flush1``)."""
         b = self.serving.slots
-        k = self._loop_k
         inflight: Optional[dict] = None
         active = None
         active_key: Optional[tuple] = None
@@ -3009,15 +3353,16 @@ class ServingEngine:
                 if active_key != tuple(dispatch):
                     active = self._upload([i in live for i in range(b)], torch.bool)
                     active_key = tuple(dispatch)
+                k = self._loop_cap
+                flush = self._flush1 if k == 1 else self._flush
                 # per-slot early-exit caps: a flush never overdraws a budget
                 pred = [min(rem[i], k) if i in live else 0 for i in range(b)]
-                kv_bucket = self._kv_bucket(k + max(
-                    self._slot_len[i] + (inflight["pred"][i] if fed[i] else 0)
-                    for i in dispatch))
-                self._note_kv_window(kv_bucket, ticks=k)
-                out, self.state = self._flush(self.params, self.state, tokens, active,
-                                              self._upload(pred, torch.int32), self._gens,
-                                              kv_bucket)
+                lens = [self._slot_len[i] + (inflight["pred"][i] if fed[i] else 0)
+                        for i in dispatch]
+                kv_bucket = self._kv_bucket(k + max(lens))
+                self._note_kv_window(kv_bucket, lens, ticks=k)
+                out, self.state = flush(self.params, self.state, tokens, active,
+                                        self._upload(pred, torch.int32), self._gens, kv_bucket)
                 self._stats["decode_ticks"] += k
                 self._stats["loop_flushes"] += 1
                 if inflight is not None:
@@ -3092,6 +3437,7 @@ class ServingEngine:
             if req is None or req is not self._slot_req[slot]:
                 continue
             try:
+                self._maybe_inject_dispatch()
                 cnt = int(counts[slot])
                 if cnt < k:
                     # froze inside the flush: budget wall or eos
@@ -3138,9 +3484,10 @@ class ServingEngine:
         to [1, decode_loop_k] (a raising policy logs and takes the
         ceiling); and the cooloff gate: while the acceptance EMA sits
         below spec_min_mean the plain k-tick flush runs instead. On a card
-        each depth replays its own graph, all captured at construction."""
+        each depth replays its own graph, all captured at construction.
+        While the watchdog's first rung holds, every flush has depth 1 (a
+        one-token flush in cooloff)."""
         b = self.serving.slots
-        kmax = self._loop_k
         chunk = self._spec_tokens + 1
         w = self._hist_window
         while not self._stop.is_set():
@@ -3156,30 +3503,33 @@ class ServingEngine:
             t_disp = time.perf_counter()
             tokens = self._upload(self._tokens, torch.int32)
             active = self._upload([self._slot_req[i] is not None for i in range(b)], torch.bool)
-            k = kmax
+            # the watchdog's ceiling, then the policy's pick within it
+            k_cap = self._loop_cap
+            k = k_cap
             if self._loop_policy is not None:
                 try:
-                    k = int(self._loop_policy.pick_k(kmax, self.signals()))
+                    k = int(self._loop_policy.pick_k(k_cap, self.signals()))
                 except Exception:
-                    log.exception("loop_policy.pick_k raised; using k=%d", kmax)
-                    k = kmax
-                k = max(1, min(k, kmax))
+                    log.exception("loop_policy.pick_k raised; using k=%d", k_cap)
+                    k = k_cap
+                k = max(1, min(k, k_cap))
             if not self._spec_allowed():
                 # cooloff: the plain k-tick flush, token-equal by contract
-                pred = [min(self._slot_budget[i], kmax) if i in active_slots else 0
+                flush = self._flush1 if k_cap == 1 else self._flush
+                pred = [min(self._slot_budget[i], k_cap) if i in active_slots else 0
                         for i in range(b)]
-                kv_bucket = self._kv_bucket(kmax + max(self._slot_len[i] for i in active_slots))
-                self._note_kv_window(kv_bucket, ticks=kmax)
-                out, self.state = self._flush(self.params, self.state, tokens, active,
-                                              self._upload(pred, torch.int32), self._gens,
-                                              kv_bucket)
-                self._stats["decode_ticks"] += kmax
+                kv_bucket = self._kv_bucket(k_cap + max(self._slot_len[i] for i in active_slots))
+                self._note_kv_window(kv_bucket, [self._slot_len[i] for i in active_slots],
+                                     ticks=k_cap)
+                out, self.state = flush(self.params, self.state, tokens, active,
+                                        self._upload(pred, torch.int32), self._gens, kv_bucket)
+                self._stats["decode_ticks"] += k_cap
                 self._stats["loop_flushes"] += 1
                 disp_s = time.perf_counter() - t_disp
-                self._prof.note("dispatch", disp_s, ticks=kmax)
+                self._prof.note("dispatch", disp_s, ticks=k_cap)
                 toks, counts, _, lps = out
                 self._deliver_flush({"tokens": toks, "counts": counts, "logprobs": lps,
-                                     "pred": pred, "k": kmax, "t_disp_ns": time.monotonic_ns(),
+                                     "pred": pred, "k": k_cap, "t_disp_ns": time.monotonic_ns(),
                                      "reqs": [self._slot_req[i] if i in active_slots else None
                                               for i in range(b)]},
                                     extra_host_s=disp_s, firsts=firsts)
@@ -3197,7 +3547,8 @@ class ServingEngine:
                                 for i in range(b)], torch.int32)
             # the window covers the deepest advance: k ticks of K+1 tokens
             kv_bucket = self._kv_bucket(k * chunk + max(self._slot_len[i] for i in active_slots))
-            self._note_kv_window(kv_bucket, t=chunk, ticks=k)
+            self._note_kv_window(kv_bucket, [self._slot_len[i] + k * chunk - 1
+                                             for i in active_slots], t=chunk, ticks=k)
             (toks, counts, _), self.state = self._fused[k](
                 self.params, self.state, tokens, active, cap, self._upload(hist, torch.int32),
                 self._upload(hlen, torch.int32), self._gens, kv_bucket)
@@ -3244,6 +3595,7 @@ class ServingEngine:
             if req is None or req is not self._slot_req[slot]:
                 continue
             try:
+                self._maybe_inject_dispatch()
                 per_tick = [[int(x) for x in toks[slot, i, :int(c)]]
                             for i, c in enumerate(counts[slot]) if int(c) > 0]
                 if len(per_tick) < k:

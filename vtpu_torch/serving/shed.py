@@ -1,24 +1,24 @@
-"""Engine pressure signals and the flush-window policy of the fused loop
-(counterpart of vtpu/serving/shed.py, the port's own copy).
+"""Engine pressure signals, the overload-shedding policies and the
+flush-window policy of the fused loop (counterpart of vtpu/serving/shed.py,
+the port's own copy).
 
 ``EngineSignals`` is the plain-data pressure snapshot
-``ServingEngine.signals()`` returns. A ``LoopPolicy`` reads it at every
-flush head of the fused speculation loop (``decode_loop_k`` > 1 with active
-``spec_tokens``) and picks how many inner ticks the next flush runs.
-Deployments load their own policy program without forking the engine:
-``ServingConfig.loop_policy`` takes an instance, a class or a
-``"module:attr"`` string (``load_loop_policy``).
-
-The overload-shedding policies of the reference module (``ShedPolicy`` and
-its loader) belong to the failure-domain slice of the port and are not here
-yet.
+``ServingEngine.signals()`` returns. A ``ShedPolicy`` picks which waiters
+leave the line when it overflows ``ServingConfig.shed_queue_depth``; a
+``LoopPolicy`` reads the snapshot at every flush head of the fused
+speculation loop (``decode_loop_k`` > 1 with active ``spec_tokens``) and
+picks how many inner ticks the next flush runs. Deployments load their own
+policy programs without forking the engine: ``shed_policy`` and
+``loop_policy`` take an instance, a class or a ``"module:attr"`` string
+(``load_shed_policy``, ``load_loop_policy``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+import inspect
+from typing import Iterable, List, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,8 +26,7 @@ class EngineSignals:
     """The pressure snapshot a policy decides against: small and plain
     data, so a policy program can be tested without an engine. Pool fields
     are None on dense (non-paged) engines; fields of features the port has
-    not reached keep their defaults (never draining, no duty supplier, no
-    fabric link)."""
+    not reached keep their defaults (never draining, no fabric link)."""
 
     queue_depth: int = 0           # live waiting-line length
     active_slots: int = 0          # slots with a live request
@@ -64,6 +63,73 @@ class EngineSignals:
         take their defaults."""
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+class ShedPolicy:
+    """Which waiters leave the line when it overflows. A pure decision over
+    the snapshot: the engine owns the shed itself (an atomic
+    ``WaitQueue.take`` per victim, the typed terminal, counters, trace)."""
+
+    def select(self, waiters: List, need: int,
+               signals: Optional[EngineSignals] = None) -> Iterable:
+        """Up to ``need`` requests to shed, most shed-worthy first, from a
+        FIFO snapshot of the live waiting Requests (priority, deadline_ns,
+        t_submit_ns, tokens, ...); ``signals`` is the engine's pressure
+        snapshot (None only when a caller drives the policy directly)."""
+        raise NotImplementedError
+
+
+class PriorityDeadlineShedPolicy(ShedPolicy):
+    """The default: the lowest ``priority`` first (the axis overcommit
+    evicts on); within a tier the nearest deadline (the likeliest to miss
+    anyway; no deadline sheds last); among equals the youngest (the
+    longest waiter keeps its FIFO place). Takes the signals like every
+    policy and ignores them."""
+
+    def select(self, waiters: List, need: int,
+               signals: Optional[EngineSignals] = None) -> Iterable:
+        order = sorted(waiters, key=lambda r: (
+            r.priority, r.deadline_ns if r.deadline_ns is not None else float("inf"),
+            -r.t_submit_ns))
+        return order[:need]
+
+
+def accepts_signals(policy) -> bool:
+    """Does this policy's ``select`` take the EngineSignals third argument:
+    a third positional parameter, a ``signals`` keyword or ``*args``.
+    Resolved once, at engine construction; a two-argument policy is called
+    without the snapshot."""
+    try:
+        sig = inspect.signature(policy.select)
+    except (TypeError, ValueError):  # builtins and C callables
+        return False
+    params = list(sig.parameters.values())
+    if any(p.kind == p.VAR_POSITIONAL for p in params):
+        return True
+    if "signals" in sig.parameters:
+        return True
+    positional = [p for p in params if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    # a bound method: (waiters, need, signals)
+    return len(positional) >= 3
+
+
+def load_shed_policy(spec) -> ShedPolicy:
+    """Resolve ``ServingConfig.shed_policy``: None -> the default; a
+    ``"module:attr"`` string -> imported (a class or an instance); a class
+    -> instantiated; anything else is used as it is and must have
+    ``select``."""
+    if spec is None:
+        return PriorityDeadlineShedPolicy()
+    if isinstance(spec, str):
+        mod, sep, attr = spec.partition(":")
+        if not sep or not attr:
+            raise ValueError(f"shed_policy string must be 'module:attr', got {spec!r}")
+        spec = getattr(importlib.import_module(mod), attr)
+    if isinstance(spec, type):
+        spec = spec()
+    if not callable(getattr(spec, "select", None)):
+        raise ValueError(f"shed_policy {spec!r} does not implement select(waiters, need)")
+    return spec
 
 
 class LoopPolicy:
