@@ -125,6 +125,32 @@ Phases, any failure exits nonzero:
       a fresh engine serves. Every stream a fault or shed leaves alone,
       and every cut stream's prefix, held against the plain trunk
       teacher-forced on it; pool and host tier free; state in place;
+   k. model families (run after j): ServingEngine(model=) over the MoE
+      (the flagship trunk with 8 experts of width 2048, top-2, capacity
+      factor 2.0: MoeSlotModel on a paged pool of 128-token pages) and the
+      selective SSM (SSMConfig(vocab=8192, d_model=1024, n_layers=12,
+      d_state=16) of benchmarks/mfu_bench.py: SsmSlotModel), both at full
+      width and depth, random weights from SEED, on graphs captured when
+      each engine is built. MoE arms: the pipelined loop, bf16 KV, three
+      waves; int8 KV; decode_loop_k=8, spec_tokens=4 and both (fused);
+      prefill_chunk=256 with a registered 512-token prefix and two prompts
+      past the bucket; the plain route (no kernels, the gather route).
+      SSM: the pipelined loop and decode_loop_k=8, three waves each. Every
+      MoE stream held against the plain MoE trunk teacher-forced on it
+      behind its admission replayed as the engine ran it (the batch, from
+      the engine's trace, or the chunks), a step skipped under the logit
+      margin or under ROUTE_MARGIN between a token's k-th and (k+1)-th
+      expert probability, each arm holding FAMILY_HELD steps at least; the
+      loop arms' streams equal to the pipelined arm's on the same
+      admission up to a first difference at such a step; the flash
+      route's admissions against the plain route's, layer by layer; every
+      SSM stream against the plain recurrence; flash launches = 12 x
+      admission dispatches and paged launches = 12 x inner ticks on MoE,
+      none on the plain route and the SSM; one replay a dispatch, no
+      capture while serving, every state
+      tensor in place, the pool free; tokens/s and TTFT beside the main
+      path's, an admission's wall time and peak memory, the MoE block's
+      parts at the admission shape and the SSM scan's peak;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -735,7 +761,7 @@ def equal_run(streams: list, refs: list) -> int:
 def stream_all(eng, prompts, prefix=None) -> tuple[list[dict], float]:
     """Submit every prompt at once (after the registered ``prefix``, if
     given); a reader thread per request records its tokens, logprobs and
-    first-token time. Returns (records, wall seconds)."""
+    first-token time and its request id. Returns (records, wall seconds)."""
     recs = [{"toks": []} for _ in prompts]
 
     def read(req, rec):
@@ -750,6 +776,7 @@ def stream_all(eng, prompts, prefix=None) -> tuple[list[dict], float]:
     for prompt, rec in zip(prompts, recs):
         rec["submit"] = time.perf_counter()
         req = eng.submit(prompt, prefix=prefix)
+        rec["rid"] = req.rid
         th = threading.Thread(target=read, args=(req, rec), daemon=True)
         th.start()
         threads.append(th)
@@ -2866,6 +2893,861 @@ def failure_domains_path(log, card: str, params) -> dict:
     return out
 
 
+# phase k, the model families: the MoE at the flagship trunk's widths with
+# the reference MoEConfig's expert geometry (top-2 of 8 experts of width
+# 2048: the dense flagship's FFN work a token), and the selective SSM of
+# benchmarks/mfu_bench.py
+MOE_FLAGSHIP = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=12, d_ff=2048, n_experts=8,
+                    top_k=2, capacity_factor=2.0, max_seq=1280, head_dim=128)
+SSM_FLAGSHIP = dict(vocab=8192, d_model=1024, n_layers=12, d_state=16)
+# the serving config's one prefill bucket (an admission is [N, FAMILY_BUCKET])
+FAMILY_BUCKET = 1024
+FAMILY_TOKENS = 16
+# a greedy step is skipped by check_routed where, in the plain decode fed
+# the stream, the step's token has a layer whose k-th and (k+1)-th expert
+# probabilities lie closer than this: the kernel route's rounding may send
+# it to the other expert, which moves the hidden state by a whole expert's
+# output. Phase k prints, every run, how many steps each candidate margin
+# holds and the flips it would not skip (PERF.md §6 has the H100's)
+ROUTE_MARGIN = 0.005
+# each MoE arm holds at least FAMILY_HELD steps of distinct streams, and
+# each loop arm compares at least FAMILY_MATCHED distinct streams with the
+# pipelined arm's on the same admission: an arm serves more waves, each of
+# new prompts (family_prompts), until it does, FAMILY_MAX_WAVES at most
+FAMILY_HELD = 40
+FAMILY_MATCHED = 3
+FAMILY_MAX_WAVES = 6
+FAMILY_LOOPS = {"device_loop": {"decode_loop_k": LOOP_K},
+                "spec": {"spec_tokens": SPEC_K, "spec_min_mean": 0.0},
+                "fused": {"decode_loop_k": LOOP_K, "spec_tokens": SPEC_K, "spec_min_mean": 0.0}}
+
+
+def family_prompts(vocab: int, j: int) -> list[np.ndarray]:
+    """Phase k's prompt set ``j``: the serving wave (wave_prompts) for 0,
+    else six more prompts of 600-1024 tokens from SEED + 100 + j."""
+    if not j:
+        return wave_prompts(vocab)
+    rs = np.random.RandomState(SEED + 100 + j)
+    return [rs.randint(0, vocab, (int(n),)).astype(np.int32) for n in rs.randint(600, 1025, 6)]
+
+
+def admission_key(admission: tuple) -> tuple:
+    """A hashable key of an admission (moe_forced_trunk's ``admission``)."""
+    if admission[0] == "batch":
+        return ("batch", tuple(p.tobytes() for p in admission[1]), admission[2])
+    return ("chunks", None if admission[1] is None else admission[1].tobytes())
+
+
+def moe_forced_trunk(params, served, plain, serving):
+    """The plain MoE trunk teacher-forced on a stream, behind the stream's
+    admission replayed as the engine ran it: ``ref(prompt, toks,
+    admission)`` -> (its greedy choice, its top-1/top-2 logit margin, its
+    routing gap) at every step of ``toks``; ``drops`` counts the replayed
+    admissions' dropped and routed choices.
+
+    ``admission`` says how the engine admitted the stream:
+    - ("batch", rows, i): one bucketed dispatch of ``rows`` (its prompts in
+      row order), the stream in row i. The batch is prefilled as the
+      adapter prefills it, under ``served`` (the engine's config, with the
+      flash route when it uses kernels): ``moe_prefill`` at [N,
+      FAMILY_BUCKET] with each row's true length, so pads are masked out of
+      routing, capacity follows the config's formula over the batch, and
+      the first token and the KV are the engine's, dropped choices included.
+    - ("chunks", prefix): a chunked admission after the registered
+      ``prefix`` tokens (or None): the prefix, then the prompt, go through
+      the chunk trunk under ``served`` on a one-row dense cache, at the
+      engine's chunk grid and read windows (``serving``).
+    The row then decodes alone on a one-row dense cache under ``plain``
+    (use_kernels False, eager), fed the stream's own tokens, so a later
+    step differs from the engine's only by the decode's rounding (the paged
+    kernel's and the batched step's against the plain one-row step). A
+    step's routing gap is the smallest, over the layers, of its token's
+    k-th less (k+1)-th expert probability: in the plain decode, and at step
+    0 in the replayed admission."""
+    from vtpu_torch.models import init_kv_cache
+    from vtpu_torch.models.moe import moe_decode_ffn, moe_ffn, moe_prefill, route
+    from vtpu_torch.ops import rms_norm
+    from vtpu_torch.serving.engine import (batched_decode_step, chunked_prefill_into_slot,
+                                           pad_to_chunks)
+
+    k = plain.top_k
+    dev = params["embed"].device
+    gaps: list = []
+    drops = {"dropped": 0, "choices": 0}
+    ctx = served.max_seq
+    windows = sorted({min(b, ctx) for b in serving.prefill_buckets} | {ctx})
+    chunk = serving.prefill_chunk
+
+    def gap(lp, normed):
+        top = torch.topk(torch.softmax(normed.float() @ lp["router"], dim=-1), k + 1).values
+        return top[..., k - 1] - top[..., k]
+
+    def hooked(ffn):
+        def fn(lp, x):
+            gaps.append(gap(lp, rms_norm(x, lp["mlp_norm"])))
+            return ffn(lp, x)
+        return fn
+
+    decode_ffn, chunk_ffn = hooked(moe_decode_ffn(plain)), hooked(moe_decode_ffn(served))
+
+    def prefill_ffn(lp, normed, cfg_, capacity=None, pad_mask=None):
+        last = pad_mask.sum(dim=1) - 1  # each row's last real position
+        gaps.append(gap(lp, normed[torch.arange(normed.shape[0], device=dev), last]))
+        flat = normed.reshape(-1, normed.shape[-1])
+        dispatch, _, _ = route(lp["router"], flat, cfg_, cfg_.capacity(flat.shape[0]),
+                               pad_mask=pad_mask.reshape(-1))
+        real = int(pad_mask.sum()) * k
+        drops["dropped"] += real - int(dispatch.sum())
+        drops["choices"] += real
+        return moe_ffn(lp, normed, cfg_, capacity=capacity, pad_mask=pad_mask)
+
+    def run_chunks(cache, toks, base):
+        # the engine's grid: chunks from ``base``, the window covering each
+        n = base + len(toks)
+        padded = pad_to_chunks(toks, len(toks), chunk).to(dev)
+        pad = padded.shape[1]
+        for off in range(0, pad, chunk):
+            gaps.clear()
+            window = next((w for w in windows if w >= base + off + chunk), ctx)
+            logits, cache = chunked_prefill_into_slot(
+                params, served, cache, padded[:, off:off + chunk], 0, base + off,
+                min(base + off + chunk, n), kv_bucket=window, ffn_fn=chunk_ffn)
+        at = (n - base - 1) - (pad - chunk)
+        return logits[0, at], float(torch.stack([g[0, at] for g in gaps]).min()), cache
+
+    admitted: dict = {}
+
+    def admit(prompt, admission):
+        """(the first token's logits [vocab], the stream's one-row KV, the
+        step-0 routing gap)."""
+        if admission[0] == "batch":
+            _, rows, i = admission
+            key = admission_key(admission)[:2]
+            if key not in admitted:
+                lens = torch.tensor([len(p) for p in rows], device=dev)
+                padded = np.zeros((len(rows), FAMILY_BUCKET), np.int32)
+                for j, p in enumerate(rows):
+                    padded[j, :len(p)] = p
+                gaps.clear()
+                last, kv = moe_prefill(params, served, torch.from_numpy(padded).to(dev),
+                                       true_len=lens, logits_at=lens - 1, ffn=prefill_ffn)
+                admitted[key] = (last, kv, torch.stack(gaps))
+            last, kv, step0 = admitted[key]
+            one = {name: x[:, i:i + 1].clone() for name, x in kv.items() if name != "len"}
+            one["len"] = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+            return last[i], one, float(step0[:, i].min())
+        prefix, base = admission[1], 0
+        one = init_kv_cache(served, 1, device=dev)
+        if prefix is not None:
+            key = admission_key(admission)
+            if key not in admitted:
+                admitted[key] = run_chunks(one, prefix, 0)[2]
+            one = {name: x.clone() for name, x in admitted[key].items()}
+            base = len(prefix)
+        row, step0, one = run_chunks(one, prompt, base)
+        return row, one, step0
+
+    runs_of: dict = {}
+
+    def ref(prompt: np.ndarray, toks: list, admission: tuple) -> tuple[list, list, list]:
+        runs = runs_of.setdefault((prompt.tobytes(), admission_key(admission)), [])
+        for got, res in runs:
+            if got[:len(toks)] == list(toks):
+                return tuple(r[:len(toks)] for r in res)
+        row, kv, g0 = admit(prompt, admission)
+        want, margins, route_gaps = [], [], [g0]
+        active = torch.ones((1,), dtype=torch.bool, device=dev)
+        for j in range(len(toks)):
+            if j:
+                gaps.clear()
+                logits, kv = batched_decode_step(
+                    params, plain, kv, torch.tensor([toks[j - 1]], dtype=torch.int32, device=dev),
+                    active, ffn_fn=decode_ffn)
+                row = logits[0]
+                route_gaps.append(float(torch.stack(gaps).min()))
+            if not bool(torch.isfinite(row).all()):
+                raise AssertionError("plain MoE trunk produced non-finite logits")
+            top = torch.topk(row, 2).values
+            margins.append(float(top[0] - top[1]))
+            want.append(int(torch.argmax(row)))
+        res = (want, margins, route_gaps)
+        runs.append((list(toks), res))
+        return res
+
+    ref.drops = drops
+    return ref
+
+
+def admission_batches(life) -> dict:
+    """{rid: (the rids of its admission dispatch in row order, its row)} of
+    every bucketed admission in the engine's trace (``life``: a Lifecycle
+    watching queue_depart, admit and prefill_chunk). A dispatch records its
+    requests' queue_depart events in row order and then their admit
+    events, so a run of admit events is one dispatch (the serial path's is
+    a run of one); a run that is not the tail of the departures before it
+    raises. Chunked admissions (prefill_chunk events) are left out."""
+    seq = life.events("queue_depart", "admit", "prefill_chunk")
+    chunked = {rid for ev, rid, _ in seq if ev == "prefill_chunk"}
+    out, run = {}, []
+    for j, (ev, rid, _) in enumerate(seq + [("end", -1, 0)]):
+        if ev == "admit" and rid not in chunked:
+            run.append(rid)
+            continue
+        if run:
+            departed = [r for e, r, _ in seq[:j - len(run)]
+                        if e == "queue_depart" and r not in chunked][-len(run):]
+            if departed != run:
+                raise AssertionError(f"admission trace: a dispatch admitted {run} after the "
+                                     f"departures {departed}")
+            for i, r in enumerate(run):
+                out[r] = (tuple(run), i)
+            run = []
+    return out
+
+
+def check_routed(ref, held: list, what: str) -> dict:
+    """Every token of every stream in ``held`` ((prompt, tokens, its
+    admission) each) against the plain MoE trunk teacher-forced on that
+    stream behind its replayed admission (``ref``, moe_forced_trunk): a
+    step whose logit margin is below FORCED_MARGIN, or whose routing gap is
+    below ROUTE_MARGIN, is skipped, not an end. A mismatch raises. Returns
+    the steps held, the steps skipped by each rule (a step under both counts
+    under the logit margin), the skipped steps whose token differs, with the
+    widest logit margin among those the logit rule skipped and the widest
+    routing gap among those only the routing rule skipped, and every step as
+    [step, equal, logit margin, routing gap] (``steps``)."""
+    out = {"held": 0, "skipped_logit": 0, "skipped_route": 0, "flips": 0,
+           "widest_flip": 0.0, "widest_route_flip": 0.0, "steps": []}
+    for prompt, toks, admission in held:
+        want, margins, gaps = ref(prompt, toks, admission)
+        for i, (got, w, m, g) in enumerate(zip(toks, want, margins, gaps)):
+            out["steps"].append([i, int(got == w), m, g])
+            if m < FORCED_MARGIN or g < ROUTE_MARGIN:
+                by_logit = m < FORCED_MARGIN
+                out["skipped_logit" if by_logit else "skipped_route"] += 1
+                if got != w:
+                    out["flips"] += 1
+                    if by_logit:
+                        out["widest_flip"] = max(out["widest_flip"], m)
+                    else:  # a flip only the routing rule skipped
+                        out["widest_route_flip"] = max(out["widest_route_flip"], g)
+                continue
+            if got != w:
+                raise AssertionError(
+                    f"{what}: token {i} of a stream ({len(toks)} tokens) is {got}; the plain "
+                    f"MoE trunk fed the same tokens picks {w} (margin {m:.4f}, routing gap "
+                    f"{g:.4f})")
+            out["held"] += 1
+    return out
+
+
+def check_loop_equal(ref, held: list, pipelined: dict, what: str) -> dict:
+    """A loop arm's streams (``held`` as for check_routed) against the
+    pipelined arm's streams of the same admission (``pipelined``:
+    admission_key -> tokens): equal token for token up to their first
+    difference, which must come at a step check_routed skips (in the plain
+    trunk fed the tokens both share, a logit margin under FORCED_MARGIN or
+    a routing gap under ROUTE_MARGIN). The loops round apart (a multi-tick
+    flush reads the window its last tick needs, a verify tick runs five
+    queries a row), and routing turns such a rounding into a whole expert
+    at a near-tie. A difference elsewhere raises. Returns the streams
+    compared, those equal throughout, and the tokens equal before each
+    stream's first difference, each first difference as [step, logit
+    margin, routing gap] (``differences``)."""
+    out = {"matched": 0, "equal_streams": 0, "equal_tokens": 0, "differences": []}
+    for prompt, toks, admission in held:
+        other = pipelined.get(admission_key(admission))
+        if other is None:
+            continue
+        out["matched"] += 1
+        i = next((j for j, (a, b) in enumerate(zip(toks, other)) if a != b), None)
+        if i is None:
+            out["equal_streams"] += 1
+            out["equal_tokens"] += len(toks)
+            continue
+        out["equal_tokens"] += i
+        _, margins, gaps = ref(prompt, toks[:i + 1], admission)
+        out["differences"].append([i, margins[i], gaps[i]])
+        if margins[i] >= FORCED_MARGIN and gaps[i] >= ROUTE_MARGIN:
+            raise AssertionError(
+                f"{what}: token {i} of a stream is {toks[i]}, the pipelined arm's on the same "
+                f"admission {other[i]}, where the plain trunk's margin is {margins[i]:.4f} and "
+                f"its routing gap {gaps[i]:.4f}")
+    return out
+
+
+def route_sweep(steps: list) -> list:
+    """For candidate routing margins: the steps they hold (with
+    FORCED_MARGIN) and the held steps whose token differs."""
+    rows = []
+    for cut in (0.0, 0.001, 0.002, 0.005, 0.01, 0.02):
+        held = [s for s in steps if s[2] >= FORCED_MARGIN and s[3] >= cut]
+        rows.append({"route_margin": cut, "held": len(held),
+                     "flips": sum(1 for s in held if not s[1])})
+    return rows
+
+
+def add_checks(total: dict, part: dict) -> dict:
+    """Sum two check_routed / check_forced / check_loop_equal results
+    (widest: the larger; lists: joined)."""
+    return {k: (max(total.get(k, 0.0), v) if k.startswith("widest")
+                else total.get(k, []) + v if isinstance(v, list) else total.get(k, 0) + v)
+            for k, v in part.items()}
+
+
+def ssm_forced_trunk(params, cfg):
+    """The plain SSM recurrence teacher-forced on a stream: ``ref(prompt,
+    toks)`` -> (its greedy choice, its top-1/top-2 logit margin) at every
+    step: ssm_prefill over the prompt, then ssm_decode_step fed each
+    token of ``toks``, eager; cached by prompt."""
+    from vtpu_torch.models.ssm import ssm_decode_step, ssm_prefill
+
+    cache: dict = {}
+
+    def ref(prompt: np.ndarray, toks: list) -> tuple[list, list]:
+        runs = cache.setdefault(prompt.tobytes(), [])
+        for got, want, margins in runs:
+            if got[:len(toks)] == list(toks):
+                return want[:len(toks)], margins[:len(toks)]
+        dev = params["embed"].device
+        logits, state = ssm_prefill(params, cfg, torch.from_numpy(prompt[None]).to(dev),
+                                    len(prompt), logits_at=torch.tensor([len(prompt) - 1],
+                                                                        device=dev))
+        row = logits[0]
+        want, margins = [], []
+        for i in range(len(toks)):
+            if not bool(torch.isfinite(row).all()):
+                raise AssertionError("plain SSM recurrence produced non-finite logits")
+            top = torch.topk(row, 2).values
+            margins.append(float(top[0] - top[1]))
+            want.append(int(torch.argmax(row)))
+            if i + 1 < len(toks):
+                logits, state = ssm_decode_step(params, cfg, state, torch.tensor(
+                    [toks[i]], dtype=torch.int32, device=dev))
+                row = logits[0]
+        runs.append((list(toks), want, margins))
+        return want, margins
+
+    return ref
+
+
+def family_wave(eng, prompts, what: str, prefix=None) -> dict:
+    """One counted wave of phase k: every launch count set to 0 just before
+    it and read just after; every stream OK with FAMILY_TOKENS tokens; one
+    graph replay a dispatch (a flush on the multi-tick loops, a tick or a
+    verify tick else); nothing captured while serving. Returns its records,
+    counters and figures."""
+    from vtpu_torch.ops import _build
+
+    settle(eng)
+    replays = sum(g.replays for g in eng._graph_sets())
+    before = eng.stats()
+    _build.reset_launches()
+    recs, wall = stream_all(eng, prompts, prefix=prefix)
+    settle(eng)
+    launches = _build.launches()
+    after = eng.stats()
+    d = {k: after[k] - before[k] for k in (
+        "decode_ticks", "spec_ticks", "loop_flushes", "tick_fetches", "prefill_chunks",
+        "spec_emitted", "spec_slot_ticks")}
+    d["admission_dispatches"] = sum(after["prefill_batch_hist"]) - sum(before["prefill_batch_hist"])
+    for rec in recs:
+        if rec.get("status") != "OK" or len(rec["toks"]) != FAMILY_TOKENS:
+            raise AssertionError(f"{what}: a stream ended {rec.get('status')} after "
+                                 f"{len(rec['toks'])} of {FAMILY_TOKENS} tokens")
+    inner = d["decode_ticks"] + d["spec_ticks"]
+    played = sum(g.replays for g in eng._graph_sets()) - replays
+    dispatches = d["loop_flushes"] if eng._loop_k else inner
+    if played != dispatches or not played:
+        raise AssertionError(f"{what}: {played} graph replays for {dispatches} dispatches")
+    if after["graphs_captured"] != before["graphs_captured"]:
+        raise AssertionError(f"{what}: a graph was captured while serving")
+    if not eng._loop_k and not eng._spec_tokens and d["tick_fetches"] != d["decode_ticks"]:
+        raise AssertionError(f"{what}: {d['tick_fetches']} fetches for {d['decode_ticks']} ticks")
+    ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
+    total = sum(len(rec["toks"]) for rec in recs)
+    return {"recs": recs, "wall_s": wall, "tokens_per_s": total / wall,
+            "ttft_p50_ms": ttft[len(ttft) // 2], "launches": launches, "inner_ticks": inner,
+            "graph_replays": played, **d}
+
+
+def admission_probe(model, params, vocab: int) -> dict:
+    """One [4, FAMILY_BUCKET] admission (four full-bucket prompts from SEED) through
+    ``model.prefill_into_slots`` on a fresh state, after one warm-up: its
+    wall ms (synchronized, median of three) and the memory it allocated at
+    its peak above what was allocated before it."""
+    dev = params["embed"].device
+    state = model.init_state(4)
+    rs = np.random.RandomState(SEED + 5)
+    padded = torch.from_numpy(rs.randint(0, vocab, (4, FAMILY_BUCKET)).astype(np.int32)).to(dev)
+    slots = torch.arange(4, device=dev)
+    lens = torch.full((4,), FAMILY_BUCKET, device=dev)
+    model.prefill_into_slots(params, state, padded, slots, lens)
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.prefill_into_slots(params, state, padded, slots, lens)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base
+    del state
+    return {"wall_ms": sorted(walls)[1], "walls_ms": walls, "peak_bytes": peak}
+
+
+def moe_ffn_split(params, cfg) -> dict:
+    """One layer's MoE block at the admission shape (4 x FAMILY_BUCKET tokens, the
+    capacity formula's C): device ms of ``route``, the dispatch einsum,
+    the experts and the combine einsum (time_ms, back to back behind a
+    hold), and the einsums' FLOPs."""
+    from vtpu_torch.models.moe import expert_ffn, route
+    from vtpu_torch.ops import rms_norm
+
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    t = 4 * FAMILY_BUCKET
+    x = rms_norm(torch.randn((t, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype),
+                 lp["mlp_norm"])
+    cap = cfg.capacity(t)
+    dispatch, combine, _ = route(lp["router"], x, cfg, cap)
+    d16, c16 = dispatch.to(cfg.dtype), combine.to(cfg.dtype)
+    slots = torch.einsum("tec,td->ecd", d16, x)
+    outs = expert_ffn(lp, slots)
+    parts = {"route": lambda i: route(lp["router"], x, cfg, cap),
+             "dispatch_einsum": lambda i: torch.einsum("tec,td->ecd", d16, x),
+             "experts": lambda i: expert_ffn(lp, slots),
+             "combine_einsum": lambda i: torch.einsum("tec,ecd->td", c16, outs)}
+    ms = {name: time_ms(fn, 5)[0] for name, fn in parts.items()}
+    flops = 2 * t * cfg.n_experts * cap * cfg.d_model
+    return {"ms": ms, "capacity": cap, "einsum_gflop": flops / 1e9,
+            "experts_gflop": 3 * 2 * cfg.n_experts * cap * cfg.d_model * cfg.d_ff / 1e9,
+            "kept_choices": int(dispatch.sum()), "choices": t * cfg.top_k}
+
+
+def moe_arm(name: str, model, serving, vocab: int, forced, min_waves: int = 1,
+            pipelined=None) -> dict:
+    """An engine of the MoE family on its graphs (model= the adapter): a
+    warm-up request, then counted waves (family_wave): ``min_waves`` of
+    the serving wave (prompt set 0), then one wave a new prompt set until
+    the arm holds FAMILY_HELD steps of distinct streams and, given
+    ``pipelined`` (admission_key -> the pipelined arm's tokens), compares
+    FAMILY_MATCHED distinct streams with it (check_loop_equal);
+    FAMILY_MAX_WAVES waves at most. Each wave's admissions come from the
+    engine's trace (admission_batches); each stream not seen before is held
+    by check_routed. On the kernel route flash launches = 12 x admission
+    dispatches and paged launches (bf16 or int8 per the state) = 12 x
+    inner ticks, the other paged kernel none; without kernels none at all.
+    The pool ends free and every state tensor in place. ``by_admission``
+    maps each stream's admission_key to its tokens."""
+    from vtpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model=model, serving=serving)
+    if not eng._graph_sets():
+        raise AssertionError(f"MoE {name} does not serve on CUDA graphs")
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    paged, other = "paged_decode_attention", "paged_decode_attention_int8kv"
+    if "k_scale" in eng.state:
+        paged, other = other, paged
+    n_layers = model.cfg.n_layers
+    out = {"waves": [], "checks": {}, "graphs": eng.stats()["graphs_captured"],
+           "by_admission": {}}
+    if pipelined is not None:
+        out["equal"] = {"matched": 0}
+    life = Lifecycle(eng, ("queue_depart", "admit", "prefill_chunk"))
+    prompt_of = {}
+    seen = set()
+    eng.start()
+    try:
+        warm = family_prompts(vocab, 0)[0]
+        prompt_of.update((rec["rid"], warm) for rec in stream_all(eng, [warm])[0])
+        while True:
+            j = max(0, len(out["waves"]) - min_waves + 1)
+            prompts = family_prompts(vocab, j)
+            w = family_wave(eng, prompts, f"MoE {name}")
+            lc = w["launches"]
+            want = ({"flash_attention": n_layers * w["admission_dispatches"],
+                     paged: n_layers * w["inner_ticks"]} if model.cfg.use_kernels else {})
+            if {k: v for k, v in lc.items() if v} != want or not w["admission_dispatches"]:
+                raise AssertionError(
+                    f"MoE {name}: launches {lc} over {w['admission_dispatches']} admission "
+                    f"dispatches and {w['inner_ticks']} inner ticks (expected {want})")
+            recs = w.pop("recs")
+            prompt_of.update((rec["rid"], p) for p, rec in zip(prompts, recs))
+            batches = admission_batches(life)
+            held = []
+            for rec in recs:
+                rids, i = batches[rec["rid"]]
+                adm = ("batch", tuple(prompt_of[r] for r in rids), i)
+                if (admission_key(adm), tuple(rec["toks"])) not in seen:
+                    seen.add((admission_key(adm), tuple(rec["toks"])))
+                    held.append((prompt_of[rec["rid"]], rec["toks"], adm))
+            w["prompt_set"] = j
+            w["admissions"] = [[len(batches[rec["rid"]][0]), batches[rec["rid"]][1]]
+                               for rec in recs]
+            out["checks"] = add_checks(out["checks"], check_routed(forced, held, f"MoE {name}"))
+            if pipelined is not None:
+                out["equal"] = add_checks(out["equal"], check_loop_equal(
+                    forced, held, pipelined, f"MoE {name}"))
+            out["by_admission"].update((admission_key(a), t) for _, t, a in held)
+            w["streams"] = [rec["toks"] for rec in recs]
+            out["waves"].append(w)
+            held_n = out["checks"]["held"]
+            matched = out["equal"]["matched"] if pipelined is not None else FAMILY_MATCHED
+            if (len(out["waves"]) >= min_waves and held_n >= FAMILY_HELD
+                    and matched >= FAMILY_MATCHED):
+                break
+            if len(out["waves"]) >= FAMILY_MAX_WAVES:
+                raise AssertionError(
+                    f"MoE {name}: {held_n} steps held (floor {FAMILY_HELD}) and {matched} "
+                    f"streams compared with the pipelined arm's (floor {FAMILY_MATCHED}) after "
+                    f"{FAMILY_MAX_WAVES} waves")
+        settle(eng)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    if eng.loop_error is not None:
+        raise AssertionError(f"MoE {name} loop failed: {eng.loop_error!r}")
+    if {k: x.data_ptr() for k, x in eng.state.items()} != ptrs:
+        raise AssertionError(f"MoE {name}: a state tensor moved")
+    if st["kv_pool_free"] != st["kv_pool_blocks"]:
+        raise AssertionError(f"MoE {name}: paged pool not fully free after the waves")
+    out["spec_disabled_reason"] = st["spec_disabled_reason"]
+    return out
+
+
+def prefill_witness(params, served, plain, batches: list) -> dict:
+    """The flash route's MoE admission against the plain route's on the
+    same ``batches`` (each its prompts in row order, as the engine
+    dispatched them): per layer, the real tokens whose two experts differ
+    and those whose kept (not dropped) choices differ; the first layer
+    where some token's experts differ, with the widest plain-route routing
+    gap among those tokens; and the rows whose first token agrees. Below
+    that layer both routes route and drop alike, so their hidden states
+    differ by the attention's rounding alone, and a token there may route
+    otherwise only at a near-tie: a gap of ROUTE_MARGIN or more raises."""
+    from vtpu_torch.models.moe import moe_ffn, moe_prefill, route
+
+    k, n_layers = plain.top_k, plain.n_layers
+    dev = params["embed"].device
+    out = {"batches": len(batches), "rows": 0, "tokens": 0, "first_layers": [],
+           "first_flips": 0, "first_widest_gap": 0.0, "experts_differ": [0] * n_layers,
+           "kept_differ": [0] * n_layers, "first_tokens_equal": 0}
+    for rows in batches:
+        lens = torch.tensor([len(p) for p in rows], device=dev)
+        padded = np.zeros((len(rows), FAMILY_BUCKET), np.int32)
+        for j, p in enumerate(rows):
+            padded[j, :len(p)] = p
+        tokens = torch.from_numpy(padded).to(dev)
+        seen = {}
+        for tag, cfg in (("served", served), ("plain", plain)):
+            layers = []
+
+            def ffn(lp, normed, cfg_, capacity=None, pad_mask=None, layers=layers):
+                real = pad_mask.reshape(-1)
+                flat = normed.reshape(-1, normed.shape[-1])
+                top = torch.topk(torch.softmax(flat[real].float() @ lp["router"], dim=-1), k + 1)
+                dispatch, _, _ = route(lp["router"], flat, cfg_, cfg_.capacity(flat.shape[0]),
+                                       pad_mask=real)
+                layers.append((top.indices[:, :k].sort(dim=-1).values,
+                               top.values[:, k - 1] - top.values[:, k],
+                               dispatch.sum(dim=-1)[real] > 0))
+                return moe_ffn(lp, normed, cfg_, capacity=capacity, pad_mask=pad_mask)
+
+            last, _ = moe_prefill(params, cfg, tokens, true_len=lens, logits_at=lens - 1, ffn=ffn)
+            seen[tag] = (last.argmax(dim=-1), layers)
+        first = None
+        for l in range(n_layers):
+            (e_s, _, kept_s), (e_p, gap_p, kept_p) = seen["served"][1][l], seen["plain"][1][l]
+            differ = (e_s != e_p).any(dim=-1)
+            out["experts_differ"][l] += int(differ.sum())
+            out["kept_differ"][l] += int((kept_s != kept_p).any(dim=-1).sum())
+            if first is None and bool(differ.any()):
+                first = l
+                out["first_flips"] += int(differ.sum())
+                out["first_widest_gap"] = max(out["first_widest_gap"], float(gap_p[differ].max()))
+        out["first_layers"].append(first)
+        out["rows"] += len(rows)
+        out["tokens"] += int(lens.sum())
+        out["first_tokens_equal"] += int((seen["served"][0] == seen["plain"][0]).sum())
+    if out["first_widest_gap"] >= ROUTE_MARGIN:
+        raise AssertionError(
+            f"MoE admission: at the first layer where the flash route routes a token otherwise "
+            f"than the plain route, a token's plain routing gap is {out['first_widest_gap']:.4f}"
+            f" (>= ROUTE_MARGIN {ROUTE_MARGIN}), not a near-tie")
+    return out
+
+
+def model_families_path(log, card: str, main: dict) -> dict:
+    """Phase k: the MoE and selective-SSM families served through
+    ServingEngine(model=) at full width and depth on graphs captured when
+    each engine is built (``main``: the dense main path's figures, printed
+    beside). MoE: paged bf16 on the pipelined loop (three waves), int8 KV,
+    decode_loop_k=8, spec_tokens=4 and both (fused), the plain route (no
+    kernels, the gather route), chunked admission with a registered
+    512-token prefix; each arm holds FAMILY_HELD steps at least, the loop
+    arms' streams agree with the pipelined arm's (check_loop_equal), and
+    the flash route's admissions are held against the plain route's
+    (prefill_witness). SSM: the pipelined loop and decode_loop_k=8 (three
+    waves each), every stream held by check_forced against the plain
+    recurrence. An admission's wall time and peak memory, and the MoE
+    block's parts at the admission shape."""
+    from vtpu_torch.models import MoEConfig, SSMConfig, init_moe_params, init_ssm_params
+    from vtpu_torch.serving import ServingConfig, ServingEngine
+    from vtpu_torch.serving.adapters import MoeSlotModel, SsmSlotModel
+
+    t0 = time.perf_counter()
+    out: dict = {"moe": {}, "ssm": {}}
+    cfg = MoEConfig(**MOE_FLAGSHIP, dtype=torch.bfloat16)
+    params = init_moe_params(SEED, cfg, device="cuda")
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    c8 = dataclasses.replace(cfg, kv_int8=True)
+    serving = ServingConfig(slots=4, prefill_buckets=(FAMILY_BUCKET,),
+                            max_new_tokens=FAMILY_TOKENS)
+    forced = {"bf16": moe_forced_trunk(params, cfg, plain, serving),
+              "int8": moe_forced_trunk(params, c8, dataclasses.replace(c8, use_kernels=False),
+                                       serving),
+              "plain": moe_forced_trunk(params, plain, plain, serving)}
+    moe = out["moe"]
+    moe["pipelined"] = moe_arm("pipelined", MoeSlotModel(params, cfg, kv_page=128), serving,
+                               cfg.vocab, forced["bf16"], REPEATS)
+    by_admission = moe["pipelined"].pop("by_admission")
+    moe["int8"] = moe_arm("int8", MoeSlotModel(params, c8, kv_page=128), serving, cfg.vocab,
+                          forced["int8"])
+    for name, kw in FAMILY_LOOPS.items():
+        moe[name] = moe_arm(name, MoeSlotModel(params, cfg, kv_page=128),
+                            dataclasses.replace(serving, **kw), cfg.vocab, forced["bf16"],
+                            pipelined=by_admission)
+        if "spec_tokens" in kw and not sum(w["spec_ticks"] for w in moe[name]["waves"]):
+            raise AssertionError(f"MoE {name}: no verify tick ran")
+    moe["plain_gather"] = moe_arm(
+        "plain gather", MoeSlotModel(params, plain, kv_page=128, paged_attn="gather"), serving,
+        cfg.vocab, forced["plain"])
+    for arm in moe.values():
+        arm.pop("by_admission", None)
+    moe["chunked_prefix"] = moe_chunked_prefix(params, cfg, plain)
+    batches = sorted({key[1] for key in by_admission}, key=len, reverse=True)[:3]
+    moe["prefill_witness"] = prefill_witness(
+        params, cfg, plain, [tuple(np.frombuffer(p, np.int32) for p in rows) for rows in batches])
+    moe["route_sweep"] = route_sweep([s for name, arm in moe.items() if name != "plain_gather"
+                                      and "checks" in arm for s in arm["checks"]["steps"]])
+    moe["admission_drops"] = {kv: ref.drops for kv, ref in forced.items()}
+    model = MoeSlotModel(params, cfg)
+    moe["admission"] = admission_probe(model, params, cfg.vocab)
+    moe["ffn_split"] = moe_ffn_split(params, cfg)
+    del model, params
+    torch.cuda.empty_cache()
+    out["moe_seconds"] = time.perf_counter() - t0
+
+    scfg = SSMConfig(**SSM_FLAGSHIP, dtype=torch.bfloat16)
+    sparams = init_ssm_params(SEED, scfg, device="cuda")
+    sforced = ssm_forced_trunk(sparams, scfg)
+    prompts = wave_prompts(scfg.vocab)
+    engines = {"pipelined": {}, "device_loop": {"decode_loop_k": LOOP_K}}
+    ssm = out["ssm"]
+    built = {}
+    for name, kw in engines.items():
+        eng = ServingEngine(model=SsmSlotModel(sparams, scfg),
+                            serving=dataclasses.replace(serving, **kw))
+        if eng.stats()["graphs_captured"] != 1:
+            raise AssertionError(f"SSM {name}: {eng.stats()['graphs_captured']} graphs "
+                                 "captured, expected one (no read window)")
+        built[name] = (eng, {k: x.data_ptr() for k, x in eng.state.items()})
+        ssm[name] = {"waves": [], "checks": {}}
+        eng.start()
+    try:
+        for eng, _ in built.values():
+            stream_all(eng, [prompts[0]])
+        for r in range(REPEATS):
+            for name in (list(engines) if r % 2 == 0 else list(engines)[::-1]):
+                w = family_wave(built[name][0], prompts, f"SSM {name}")
+                if any(w["launches"].values()):
+                    raise AssertionError(f"SSM {name}: kernel launches {w['launches']}")
+                recs = w.pop("recs")
+                ssm[name]["checks"] = add_checks(ssm[name]["checks"], check_forced(
+                    sforced, [(p, rec["toks"], len(rec["toks"])) for p, rec in zip(prompts, recs)],
+                    f"SSM {name}"))
+                ssm[name]["waves"].append(w)
+    finally:
+        for eng, _ in built.values():
+            eng.stop()
+    for name, (eng, ptrs) in built.items():
+        if eng.loop_error is not None:
+            raise AssertionError(f"SSM {name} loop failed: {eng.loop_error!r}")
+        if {k: x.data_ptr() for k, x in eng.state.items()} != ptrs:
+            raise AssertionError(f"SSM {name}: a state tensor moved")
+    del built, eng
+    ssm["admission"] = admission_probe(SsmSlotModel(sparams, scfg), sparams, scfg.vocab)
+    ssm["scan_peak_bytes"] = scan_peak(scfg)
+    del sparams
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    report_families(log, card, out, main)
+    return out
+
+
+def scan_peak(cfg) -> int:
+    """Peak memory above the allocated baseline of one ``_scan_states`` at
+    an admission's [4, FAMILY_BUCKET, d_inner, d_state] f32, its inputs
+    included."""
+    from vtpu_torch.models.ssm import _scan_states
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    shape = (4, FAMILY_BUCKET, cfg.d_inner, cfg.d_state)
+    a = torch.rand(shape, device="cuda")
+    b = torch.randn(shape, device="cuda")
+    h = _scan_states(a, b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if not bool(torch.isfinite(h).all()):
+        raise AssertionError("the scan produced non-finite states")
+    return peak
+
+
+def moe_chunked_prefix(params, cfg, plain) -> dict:
+    """Arm 4: prefill_chunk=256 with one registered 512-token prefix on the
+    MoE engine (paged bf16, pipelined on graphs): waves of the four
+    prefixed suffixes and of the two prompts past the bucket (chunks
+    through moe_decode_ffn), then pairs of new prompts of the same lengths
+    until the arm holds FAMILY_HELD steps (FAMILY_MAX_WAVES pairs at
+    most), streams held by check_routed behind
+    their chunks replayed; chunks as the prompts imply; the prefix's blocks
+    held by the registry alone after the waves and the pool free after
+    unregister."""
+    from vtpu_torch.serving import ServingConfig, ServingEngine
+    from vtpu_torch.serving.adapters import MoeSlotModel
+
+    serving = ServingConfig(slots=4, prefill_buckets=(FAMILY_BUCKET,), prefill_chunk=CHUNK,
+                            max_new_tokens=FAMILY_TOKENS)
+    forced = moe_forced_trunk(params, cfg, plain, serving)
+    eng = ServingEngine(model=MoeSlotModel(params, cfg, kv_page=128), serving=serving)
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    prefix, sufs, longs = chunked_prefix_prompts(cfg.vocab)
+    want = (sum(-(-len(s) // CHUNK) for s in sufs), sum(-(-len(p) // CHUNK) for p in longs))
+    out = {"prefixed": [], "long": [], "checks": {}}
+    eng.start()
+    try:
+        pid = eng.register_prefix(prefix)
+        blocks = list(eng._prefixes[pid]["blocks"])
+        stream_all(eng, [sufs[0]], prefix=pid)
+        while not out["prefixed"] or out["checks"]["held"] < FAMILY_HELD:
+            if len(out["prefixed"]) >= FAMILY_MAX_WAVES:
+                raise AssertionError(f"MoE chunked + prefix: {out['checks']['held']} steps held "
+                                     f"(floor {FAMILY_HELD}) after {FAMILY_MAX_WAVES} wave pairs")
+            if out["prefixed"]:  # a later pair: new prompts of the same lengths
+                rs = np.random.RandomState(SEED + 200 + len(out["prefixed"]))
+                sufs = [rs.randint(0, cfg.vocab, (len(x),)).astype(np.int32) for x in sufs]
+                longs = [rs.randint(0, cfg.vocab, (len(x),)).astype(np.int32) for x in longs]
+            pre = family_wave(eng, sufs, "MoE prefixed", prefix=pid)
+            long = family_wave(eng, longs, "MoE chunked")
+            if (pre["prefill_chunks"], long["prefill_chunks"]) != want:
+                raise AssertionError(f"prefill_chunks {pre['prefill_chunks']}, "
+                                     f"{long['prefill_chunks']}, the prompts imply {want}")
+            for w in (pre, long):
+                if w["launches"]["paged_decode_attention"] != cfg.n_layers * w["decode_ticks"]:
+                    raise AssertionError(f"MoE chunked + prefix launches {w['launches']}")
+            held = ([(s, r["toks"], ("chunks", prefix)) for s, r in zip(sufs, pre.pop("recs"))]
+                    + [(p, r["toks"], ("chunks", None)) for p, r in zip(longs, long.pop("recs"))])
+            out["checks"] = add_checks(out["checks"], check_routed(forced, held,
+                                                                   "MoE chunked + prefix"))
+            out["prefixed"].append(pre)
+            out["long"].append(long)
+        refs = [eng._alloc.refcount(b) for b in blocks]
+        eng.unregister_prefix(pid)
+        settle(eng)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    if eng.loop_error is not None:
+        raise AssertionError(f"MoE chunked + prefix loop failed: {eng.loop_error!r}")
+    if refs != [1] * len(blocks) or st["kv_pool_free"] != st["kv_pool_blocks"]:
+        raise AssertionError(f"prefix block refcounts {refs} after the waves; after unregister "
+                             f"{st['kv_pool_free']} of {st['kv_pool_blocks']} blocks free")
+    if {k: x.data_ptr() for k, x in eng.state.items()} != ptrs:
+        raise AssertionError("MoE chunked + prefix: a state tensor moved")
+    out.update(prefix_refcounts=refs, prefix_hits=st["prefix_hits"])
+    return out
+
+
+def report_families(log, card: str, out: dict, main: dict) -> None:
+    """Phase k's lines: per arm its tokens/s and TTFT (median [min, max]
+    over its waves), counts and the held streams; the dense main path's
+    figures beside; the admissions and the MoE block's parts."""
+    main_ttft = main["ttft_ms"][len(main["ttft_ms"]) // 2]
+
+    def held(checks: dict) -> str:
+        return str({k: (round(v, 4) if isinstance(v, float) else v)
+                    for k, v in checks.items() if k != "steps"})
+
+    for fam in ("moe", "ssm"):
+        for name, arm in out[fam].items():
+            if not isinstance(arm, dict) or "waves" not in arm:
+                continue
+            ws = arm["waves"]
+            ws0 = [w for w in ws if not w.get("prompt_set")]
+            log(f"model families, {fam.upper()} {name} on {card}, {len(ws)} wave(s) of 6 x "
+                f"{FAMILY_TOKENS} tokens ({len(ws0)} of the serving wave), median [min, max] "
+                f"over those: tokens/s {spread([w['tokens_per_s'] for w in ws0])}; TTFT p50 ms "
+                f"{spread([w['ttft_p50_ms'] for w in ws0])}; inner ticks "
+                f"{[w['inner_ticks'] for w in ws]}, graph replays "
+                f"{[w['graph_replays'] for w in ws]}, admission dispatches "
+                f"{[w['admission_dispatches'] for w in ws]}, spec ticks "
+                f"{[w['spec_ticks'] for w in ws]}; launches {ws[-1]['launches']}; "
+                + (f"against the pipelined arm on the same admission {arm['equal']}; "
+                   if "equal" in arm else "")
+                + f"held {held(arm['checks'])}")
+    moe = out["moe"]
+    log(f"model families, MoE admissions as the trunk replays them: dropped choices "
+        f"{moe['admission_drops']} (capacity by the config's formula over each admission, "
+        "pads masked out)")
+    cp = moe["chunked_prefix"]
+    log(f"model families, MoE chunked + prefix on {card}, {len(cp['prefixed'])} wave pair(s): "
+        f"prefixed TTFT p50 ms {spread([w['ttft_p50_ms'] for w in cp['prefixed']])} "
+        f"({cp['prefixed'][0]['prefill_chunks']} chunks a wave), chunked {LONG_LENS} TTFT p50 ms "
+        f"{spread([w['ttft_p50_ms'] for w in cp['long']])} ({cp['long'][0]['prefill_chunks']} "
+        f"chunks); prefix hits {cp['prefix_hits']}, prefix block refcounts after the waves "
+        f"{cp['prefix_refcounts']}; held {held(cp['checks'])}")
+    pw = moe["prefill_witness"]
+    log(f"model families, MoE admission, flash route against plain route on {pw['batches']} "
+        f"batches ({pw['rows']} rows, {pw['tokens']} real tokens): first layer routing a token "
+        f"otherwise {pw['first_layers']}, {pw['first_flips']} tokens there, widest plain "
+        f"routing gap among them {pw['first_widest_gap']:.5f}; tokens routed otherwise a layer "
+        f"{pw['experts_differ']}, tokens kept otherwise a layer {pw['kept_differ']}; first "
+        f"tokens equal {pw['first_tokens_equal']} of {pw['rows']}")
+    log("model families, MoE routing-margin sweep over the kernel arms' steps (logit margin "
+        f">= {FORCED_MARGIN}): " + "; ".join(
+            f"{r['route_margin']}: {r['held']} held, {r['flips']} differing"
+            for r in moe["route_sweep"]) + f" (ROUTE_MARGIN {ROUTE_MARGIN})")
+    med = {}
+    for fam, name in (("moe", "pipelined"), ("ssm", "pipelined"), ("ssm", "device_loop")):
+        tps = sorted(w["tokens_per_s"] for w in out[fam][name]["waves"] if not w.get("prompt_set"))
+        med[f"{fam} {name}"] = tps[len(tps) // 2]
+    log(f"model families on {card}, beside the dense main path's {main['tokens_per_s']:.1f} "
+        f"tokens/s, TTFT p50 {main_ttft:.1f} ms (one wave, logprobs on): median tokens/s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in med.items()))
+    for fam in ("moe", "ssm"):
+        a = out[fam]["admission"]
+        log(f"model families, {fam.upper()} admission of 4 x {FAMILY_BUCKET} tokens on {card}: "
+            f"{a['wall_ms']:.2f} ms wall (runs {[round(x, 2) for x in a['walls_ms']]}), peak "
+            f"{a['peak_bytes'] / 2**30:.3f} GiB above what was allocated before it")
+    log(f"model families, SSM scan alone at [4, {FAMILY_BUCKET}, 2048, 16] f32: peak "
+        f"{out['ssm']['scan_peak_bytes'] / 2**30:.3f} GiB")
+    sp = out["moe"]["ffn_split"]
+    adm = out["moe"]["admission"]["wall_ms"]
+    n_layers = MOE_FLAGSHIP["n_layers"]
+    ein = sp["ms"]["dispatch_einsum"] + sp["ms"]["combine_einsum"]
+    log(f"model families, MoE block at the admission shape (4096 tokens, capacity "
+        f"{sp['capacity']}, {sp['kept_choices']} of {sp['choices']} choices kept) on {card}, "
+        f"device ms a layer: " + ", ".join(f"{k} {v:.3f}" for k, v in sp["ms"].items())
+        + f"; the dispatch and combine einsums ({sp['einsum_gflop']:.0f} GFLOP each, the "
+        f"experts {sp['experts_gflop']:.0f}) x {n_layers} layers = {n_layers * ein:.2f} ms, "
+        f"{100 * n_layers * ein / adm:.1f}% of the admission's {adm:.2f} ms")
+    log(f"model families phase on {card}: {out['seconds']:.1f} s (MoE {out['moe_seconds']:.1f})")
+
+
 def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
     """Tensor-parallel serving: ``tp`` ranks, spawned, serve the main path's
     wave on the flagship model, once with bf16 and once with int8 KV, each
@@ -2990,18 +3872,36 @@ def main() -> int:
 
     # weights depend on the widths only: one seeded set serves both KV types
     params = init_params(SEED, ModelConfig(**FLAGSHIP, dtype=torch.bfloat16))
+    # wall seconds of each phase from the end of the one before it
+    phase_s: dict = {}
+    marks = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        marks.append(time.perf_counter())
+        phase_s[name] = marks[-1] - marks[-2]
+
     runs = {"main_path": serving_path(log, card, params, kv_int8=False),
             "int8_serving_path": serving_path(log, card, params, kv_int8=True)}
     refs = {"bf16": runs["main_path"].pop("refs"), "int8": runs["int8_serving_path"].pop("refs")}
+    mark("serving paths")
     runs["loop_comparison"] = {kv: loop_comparison(log, card, params, kv == "int8", refs[kv])
                                for kv in ("bf16", "int8")}
+    mark("loop comparison")
     runs["host_sampler_path"] = host_sampler_path(log, card, params, refs["bf16"],
                                                   runs["main_path"]["tokens_per_s"])
+    mark("host sampler")
     runs["chunked_prefix_path"] = chunked_prefix_path(log, card, params)
+    mark("chunked + prefix")
     runs["device_loop_spec_path"] = device_loop_spec_path(log, card, params, refs)
+    mark("device loop + speculation")
     runs["overcommit_path"] = overcommit_path(log, card, params, refs)
+    mark("overcommit")
     runs["failure_domains_path"] = failure_domains_path(log, card, params)
+    mark("failure domains")
+    runs["model_families_path"] = model_families_path(log, card, runs["main_path"])
+    mark("model families")
     runs["study_path"] = study_path(gen, log)
+    mark("study")
     del params
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one
     for tp in (TP, 4):
@@ -3009,6 +3909,8 @@ def main() -> int:
             out = tp_serving_paths(log, card, refs, tp)
             pre = "tp" if tp == TP else f"tp{tp}"
             runs[f"{pre}_serving_path"], runs[f"{pre}_int8_serving_path"] = out["bf16"], out["int8"]
+            mark(f"tp={tp}")
+    log("phase wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     bf16, int8 = runs["main_path"], runs["int8_serving_path"]
     log(f"serving waves on {card}: bf16 KV {bf16['tokens_per_s']:.1f} tokens/s, TTFT p50 "
         f"{bf16['ttft_ms'][len(bf16['ttft_ms']) // 2]:.1f} ms; int8 KV "
@@ -3032,6 +3934,7 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                        "builds": {k: v["seconds"] for k, v in builds.items()},
+                       "phase_seconds": phase_s,
                        "kernels": kernels, **runs}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "tile", "n_split")

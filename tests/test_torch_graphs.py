@@ -29,9 +29,14 @@ on a state that never swapped; the engine's own swap-out and swap-in
 KV and scale plane while the released blocks are overwritten at once; and
 an overcommit engine parks, evicts to its pinned host tier and resumes on
 its graphs, streaming token for token what a twin engine that never parks
-streams."""
+streams; the MoE and SSM families' decode steps replay bit for bit their
+eager steps (an SSM state written in place, masked by the active flags),
+their engines on graphs stream what their synchronous eager loops stream,
+and MoE routing (comparisons with an arange, no one_hot) captures under
+``set_sync_debug_mode("error")``, drops and pad mask included."""
 
 import ctypes
+import dataclasses
 import functools
 import time
 
@@ -39,13 +44,17 @@ import numpy as np
 import pytest
 import torch
 
-from vtpu_torch.models import LOOP_PAD_TOKEN, ModelConfig, init_params
+from vtpu_torch.models import (
+    LOOP_PAD_TOKEN, ModelConfig, MoEConfig, SSMConfig, init_moe_params, init_params,
+    init_ssm_params,
+)
+from vtpu_torch.models.moe import moe_ffn, route
 from vtpu_torch.ops import _build
 from vtpu_torch.ops.decode_attn import paged_decode_attention, paged_split_plan
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status, TransformerSlotModel
 from vtpu_torch.serving.adapters import (
-    fused_spec_decode_step, multi_tick_decode_step, sampled_decode_step, swap_page_gather,
-    swap_page_scatter, verify_step,
+    MoeSlotModel, SsmSlotModel, fused_spec_decode_step, multi_tick_decode_step,
+    sampled_decode_step, swap_page_gather, swap_page_scatter, verify_step,
 )
 from vtpu_torch.serving.graphs import DecodeGraphs
 
@@ -832,3 +841,174 @@ def test_watchdog_rung1_replays_the_one_token_flush(dev):
     finally:
         twin.stop()
     _held_streams(outs, twins, params, cfg, prompts)
+
+
+# ------------------------------------------------- the MoE and SSM families
+
+MOE_DIMS = dict(vocab=512, d_model=256, n_heads=2, n_layers=2, d_ff=256, n_experts=4,
+                top_k=2, max_seq=256, head_dim=128)
+SSM_DIMS = dict(vocab=512, d_model=256, n_layers=2, d_state=16)
+
+
+def _family(dev, family, kv="bf16", page=None):
+    """(params, adapter) of a small bf16 MoE or SSM model on the card."""
+    if family == "moe":
+        cfg = MoEConfig(**MOE_DIMS, dtype=torch.bfloat16, kv_int8=kv == "int8")
+        params = init_moe_params(0, cfg, device=dev)
+        return params, MoeSlotModel(params, cfg, kv_page=page, device=dev)
+    cfg = SSMConfig(**SSM_DIMS, dtype=torch.bfloat16)
+    params = init_ssm_params(0, cfg, device=dev)
+    return params, SsmSlotModel(params, cfg, device=dev)
+
+
+@pytest.mark.parametrize("family,kv,page", [("moe", "bf16", PAGE), ("moe", "int8", PAGE),
+                                            ("moe", "bf16", None), ("ssm", "bf16", None)])
+def test_family_replay_equals_eager_step(dev, family, kv, page):
+    """An MoE (paged bf16 and int8, dense) and an SSM decode step, sampled
+    on the device: each replay equals the eager step bit for bit (tokens
+    and every state tensor), slot 3 inactive (its SSM state unchanged)."""
+    params, model = _family(dev, family, kv, page)
+    eager_state = _admitted_state(model, params, page)
+    graph_state = {k: x.clone() for k, x in eager_state.items()}
+    step = sampled_decode_step(model, 0.0, 0, 1.0)
+    gens = [torch.Generator(device=dev).manual_seed(i) for i in range(4)]
+    buckets = (128, 256) if family == "moe" else (0,)
+    graphs = DecodeGraphs(step, params, graph_state, gens, buckets)
+    idle = {k: x[:, 3].clone() for k, x in eager_state.items()} if family == "ssm" else {}
+    active = torch.tensor([True, True, True, False], device=dev)
+    tok_e = tok_g = torch.tensor([3, 4, 5, 0], dtype=torch.int32, device=dev)
+    for bucket in (buckets * 3)[:3]:
+        tok_e, eager_state = step(params, eager_state, tok_e, active, gens, bucket)
+        tok_g, graph_state = graphs(params, graph_state, tok_g, active, gens, bucket)
+        torch.cuda.synchronize()
+        assert torch.equal(tok_e, tok_g)
+        for key in eager_state:
+            assert torch.equal(graph_state[key], eager_state[key]), key
+    for key, x in idle.items():
+        assert torch.equal(graph_state[key][:, 3], x), key
+    assert graphs.replays == 3
+    if family == "ssm":
+        assert graphs.keys() == [(0, "dense", "ssm")]
+
+
+def _moe_plain_stream(params, cfg, prompt, steps):
+    """The MoE plain trunk's (no kernel, a dense cache) greedy stream with
+    each step's top-1/top-2 logit margin."""
+    from vtpu_torch.models.moe import moe_decode_ffn, moe_prefill
+    from vtpu_torch.serving.engine import batched_decode_step
+
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    dev = params["embed"].device
+    logits, cache = moe_prefill(params, plain, torch.from_numpy(prompt[None]).to(dev))
+    row, out, margins = logits[0, -1], [], []
+    active = torch.ones((1,), dtype=torch.bool, device=dev)
+    for _ in range(steps):
+        top = torch.topk(row.float(), 2).values
+        margins.append(float(top[0] - top[1]))
+        out.append(int(torch.argmax(row)))
+        logits, cache = batched_decode_step(
+            params, plain, cache, torch.tensor([out[-1]], dtype=torch.int32, device=dev),
+            active, ffn_fn=moe_decode_ffn(plain))
+        row = logits[0]
+    return out, margins
+
+
+@pytest.mark.parametrize("family,loop", [("moe", {}), ("moe", {"decode_loop_k": 4}),
+                                         ("moe", {"spec_tokens": 3}),
+                                         ("moe", {"decode_loop_k": 4, "spec_tokens": 3}),
+                                         ("ssm", {}), ("ssm", {"decode_loop_k": 4})])
+def test_family_engines_on_graphs_stream_what_the_eager_loop_streams(dev, family, loop):
+    """ServingEngine(model=...) of each family on its graphs, captured when
+    it is built (one kv bucket for the SSM, every one for MoE, the verify
+    and fused sets on the speculating loops), against the same adapter on
+    the synchronous eager loop without graphs: the same streams; one replay
+    a dispatch, nothing captured while serving, every state tensor in place;
+    MoE: paged launches = n_layers x inner ticks and flash at admission,
+    the SSM none."""
+    params, model = _family(dev, family, page=PAGE if family == "moe" else None)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(1, 512, (n,), generator=gen).numpy() for n in (9, 64, 33, 17)]
+    serving = ServingConfig(slots=4, prefill_buckets=(64,), max_new_tokens=NEW)
+    eng = ServingEngine(model=model, serving=dataclasses.replace(serving, **loop))
+    captured = eng.stats()["graphs_captured"]
+    assert captured == (len(eng._kv_buckets) * (2 if "spec_tokens" in loop else 1)
+                        if family == "moe" else 1)
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    reqs = [eng.submit(p) for p in prompts]
+    _build.reset_launches()
+    eng.start()
+    try:
+        outs = [list(r.stream()) for r in reqs]
+    finally:
+        eng.stop()
+    launches = _build.launches()
+    assert eng.loop_error is None
+    st = eng.stats()
+    if "spec_tokens" in loop:
+        # a verify chunk of T = 4 rounds otherwise than T = 1 ticks: held
+        # against the plain trunk under the bf16 margin rule
+        for out, prompt in zip(outs, prompts):
+            want, margins = _moe_plain_stream(params, model.cfg, prompt, NEW)
+            for got, ref, m in zip(out, want, margins):
+                if m < 0.05:
+                    break
+                assert got == ref
+    else:
+        twin = ServingEngine(model=model, serving=dataclasses.replace(
+            serving, pipeline_decode=False))
+        assert twin._graph_sets() == []  # the synchronous loop runs eagerly
+        twin_reqs = [twin.submit(p) for p in prompts]
+        twin.start()
+        try:
+            assert [list(r.stream()) for r in twin_reqs] == outs
+        finally:
+            twin.stop()
+    assert st["graphs_captured"] == captured
+    assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs
+    inner = st["decode_ticks"] + st["spec_ticks"]
+    dispatches = st["loop_flushes"] if "decode_loop_k" in loop else inner
+    assert sum(g.replays for g in eng._graph_sets()) == dispatches
+    if family == "moe":
+        assert launches["paged_decode_attention"] == model.cfg.n_layers * inner
+        assert launches["flash_attention"] > 0
+    else:
+        assert sum(launches.values()) == 0
+
+
+def test_moe_routing_captures_under_sync_debug_error(dev):
+    """route and moe_ffn with drops (capacity factor 0.5) and a pad mask,
+    captured in one CUDA graph under set_sync_debug_mode("error"): the
+    one-hots are comparisons with an arange and read nothing back; the
+    replay equals the eager call bit for bit, a dropped choice's row zero."""
+    cfg = MoEConfig(**{**MOE_DIMS, "capacity_factor": 0.5}, dtype=torch.bfloat16)
+    params = init_moe_params(0, cfg, device=dev)
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.arange(64, device=dev)[None, :] < torch.tensor([[64], [40]], device=dev)
+    cap = cfg.capacity(128)
+
+    def run():
+        d, c, _ = route(lp["router"], x.reshape(128, -1), cfg, cap)
+        out, _ = moe_ffn(lp, x, cfg, pad_mask=mask)
+        return d, c, out
+
+    want = run()
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        run()  # warm-up outside the capture
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.capture_begin()
+            got = run()
+            graph.capture_end()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(want[0].sum()) < 128 * cfg.top_k  # the tight capacity dropped choices

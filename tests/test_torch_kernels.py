@@ -317,3 +317,42 @@ def test_paged_wrappers_refuse_more_than_16_queries(dev, kv):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(logits).all()) and int(cache["len"][0]) == 64
     assert _build.launches() == before
+
+
+def test_engine_moe_streams_kernel_equals_gather(dev):
+    """The card half of tests/test_paged_attn_kernel.py::
+    test_engine_moe_streams_kernel_equals_gather: an MoE engine on a paged
+    bf16 pool, on its graphs, streams the same tokens through the paged
+    kernel as through the gather route; every decode tick of the kernel
+    engine launched the kernel once a layer, the gather engine none, and
+    both admissions went through the flash kernel."""
+    from vtpu_torch.models import MoEConfig, init_moe_params
+    from vtpu_torch.serving import ServingConfig, ServingEngine
+    from vtpu_torch.serving.adapters import MoeSlotModel
+
+    cfg = MoEConfig(vocab=256, d_model=256, n_heads=2, n_layers=2, d_ff=256, n_experts=4,
+                    top_k=2, max_seq=128, head_dim=128, dtype=torch.bfloat16)
+    params = init_moe_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(1, 256, (n,), generator=gen).numpy() for n in (9, 40)]
+    out = {}
+    for route in ("gather", "kernel"):
+        eng = ServingEngine(model=MoeSlotModel(params, cfg, kv_page=16, paged_attn=route),
+                            serving=ServingConfig(slots=2, prefill_buckets=(64,),
+                                                  max_new_tokens=8))
+        reqs = [eng.submit(p) for p in prompts]
+        _build.reset_launches()
+        eng.start()
+        try:
+            streams = [list(r.stream()) for r in reqs]
+        finally:
+            eng.stop()
+        assert eng.loop_error is None
+        out[route] = (streams, eng.stats(), _build.launches())
+    assert out["kernel"][0] == out["gather"][0]
+    st, launches = out["kernel"][1], out["kernel"][2]
+    assert st["paged_attn_kernel_ticks"] > 0
+    assert launches["paged_decode_attention"] == cfg.n_layers * st["decode_ticks"]
+    assert out["gather"][2]["paged_decode_attention"] == 0
+    assert launches["flash_attention"] > 0 and out["gather"][2]["flash_attention"] > 0
+    assert st["kv_pool_free"] == st["kv_pool_blocks"]

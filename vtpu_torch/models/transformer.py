@@ -428,19 +428,26 @@ def _mlp_block(lp, x, mesh=None):
     return all_reduce_sum((gate * (normed @ lp["w_up"])) @ lp["w_down"], mesh)
 
 
-def transformer_layer(cfg: ModelConfig, lp: dict[str, torch.Tensor], x: torch.Tensor,
-                      cos, sin, positions, mesh=None):
-    """One decoder block over a full sequence. x: [B, S, D] -> (x, (k, v)).
-    With ``cfg.use_kernels`` attention goes to the flash kernel at any S."""
+def attention_block(cfg, lp: dict[str, torch.Tensor], x: torch.Tensor, cos, sin, positions,
+                    mesh=None):
+    """The attention half of a decoder block over a full sequence, shared by
+    every family with an attention trunk (dense and MoE). x: [B, S, D] ->
+    (x + attention output, (k, v)). With ``cfg.use_kernels`` attention
+    goes to the flash kernel at any S."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, lp, x, cos, sin, positions, mesh)
     if cfg.use_kernels:
         attn = flash_attention(q, k, v)
     else:
         attn = causal_attention(q, k, v)
-    x = x + all_reduce_sum(attn.reshape(b, s, -1) @ lp["wo"], mesh)
-    x = x + _mlp_block(lp, x, mesh)
-    return x, (k, v)
+    return x + all_reduce_sum(attn.reshape(b, s, -1) @ lp["wo"], mesh), (k, v)
+
+
+def transformer_layer(cfg: ModelConfig, lp: dict[str, torch.Tensor], x: torch.Tensor,
+                      cos, sin, positions, mesh=None):
+    """One decoder block over a full sequence. x: [B, S, D] -> (x, (k, v))."""
+    x, kv = attention_block(cfg, lp, x, cos, sin, positions, mesh)
+    return x + _mlp_block(lp, x, mesh), kv
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,8 +1,9 @@
 """Serving stack of the port (counterpart of vtpu/serving): the
 continuous-batching engine over the dense transformer, on one device or
-tensor-parallel over torch.distributed (``mesh=``), with its failure
-domains (deadlines, overload shedding, fault injection, the fetch
-watchdog)."""
+tensor-parallel over torch.distributed (``mesh=``), and over the MoE and
+selective-SSM families on one device (``ServingEngine(model=...)`` with an
+adapter from vtpu_torch.serving.adapters), with its failure domains
+(deadlines, overload shedding, fault injection, the fetch watchdog)."""
 
 from vtpu_torch.serving.adapters import TransformerSlotModel
 from vtpu_torch.serving.engine import (

@@ -1,9 +1,17 @@
-"""Slot-model adapter: the contract between the serving engine and the
-dense transformer (counterpart of vtpu/serving/adapters.py).
+"""Slot-model adapters: the contract between the serving engine and a model
+family (counterpart of vtpu/serving/adapters.py). Three families: the dense
+transformer (``TransformerSlotModel``) and the MoE (``MoeSlotModel``), each
+with a dense per-slot KV cache or a paged block pool, and the selective SSM
+(``SsmSlotModel``: an O(1) recurrent state a slot, no KV cache).
 
 Contract (all shapes static; per-slot state is data, never shape):
   params                        parameter dict passed back into every call
-  max_context                   cap on prompt + generation
+  cfg                           the family's config
+  device                        the device the params live on
+  max_context                   cap on prompt + generation, or None (SSM)
+  supports_kv_buckets           True if decode accepts a bounded read window
+  kv_page, paged_attn           the paged pool and read route it was built
+                                with (None for a dense cache and the SSM)
   init_state(slots) -> state
   prefill_into_slot(params, state, padded[1, bucket], slot, true_len)
       -> (last_logits [vocab], state)
@@ -15,7 +23,10 @@ Contract (all shapes static; per-slot state is data, never shape):
   spec_step(params, state, draft[B, T], active[B], cap[B], kv_bucket)
       -> (pred [B, T], count [B], state)
 
-The state is updated in place; the returned dict is the one to keep.
+The state is updated in place, every tensor at its address (the engine's
+CUDA graphs hold them); the returned dict is the one to keep. The SSM has
+no ``spec_step`` and no ``prefill_chunk_into_slot``: the engine serves it
+without speculation and chunked admission, as the reference does.
 The KV-overcommit staging pair (``swap_page_gather`` /
 ``swap_page_scatter``) moves whole pool blocks between the pool and the
 engine's host tier, one device only.
@@ -26,6 +37,7 @@ that builds a shared prefix into fresh pool blocks.
 Under a tensor-parallel mesh rank 0's adapter leads and every other
 rank's follows it (``follow``, run in a loop by
 vtpu_torch.parallel.launch.serve_worker): see ``TransformerSlotModel``.
+The MoE and SSM families serve on one device only.
 """
 
 from __future__ import annotations
@@ -37,6 +49,8 @@ from typing import Any, Optional
 import torch
 
 from vtpu_torch.device import resolve_device
+from vtpu_torch.models.moe import moe_decode_ffn, moe_prefill
+from vtpu_torch.models.ssm import init_ssm_state, ssm_decode_step, ssm_prefill
 from vtpu_torch.models.transformer import (
     init_kv_cache, init_paged_kv_cache, kv_keys, kv_quantized, multi_tick_decode,
     multi_tick_spec_decode, prefill, sample_tokens,
@@ -210,7 +224,11 @@ class TransformerSlotModel:
     same call on their shards from ``follow``. A lock keeps one call (and
     its broadcasts) at a time."""
 
+    family = "dense transformer"
     supports_kv_buckets = True
+    # the family's post-attention block in the decode trunk (None: the
+    # dense MLP)
+    _ffn = None
 
     def __init__(self, params: Any, cfg: Any, kv_page: Optional[int] = None,
                  kv_pool_blocks: Optional[int] = None,
@@ -280,7 +298,8 @@ class TransformerSlotModel:
         from vtpu_torch.serving.engine import batched_spec_step
 
         return batched_spec_step(params, self.cfg, state, draft, active, cap,
-                                 kv_bucket=kv_bucket, paged_attn=self.paged_attn)
+                                 kv_bucket=kv_bucket, ffn_fn=self._ffn,
+                                 paged_attn=self.paged_attn)
 
     def prefill_chunk_into_slot(self, params, state, chunk, slot, offset, new_len,
                                 kv_bucket=0, block_ids=None):
@@ -294,7 +313,8 @@ class TransformerSlotModel:
         from vtpu_torch.serving.engine import chunked_prefill_into_slot
 
         return chunked_prefill_into_slot(params, self.cfg, state, chunk, slot, offset,
-                                         new_len, kv_bucket=kv_bucket, block_ids=block_ids)
+                                         new_len, kv_bucket=kv_bucket, block_ids=block_ids,
+                                         ffn_fn=self._ffn)
 
     def stop_workers(self) -> None:
         """Rank 0: tell the other ranks to leave ``follow`` (once). A no-op
@@ -386,8 +406,8 @@ class TransformerSlotModel:
         from vtpu_torch.serving.engine import batched_decode_step
 
         return batched_decode_step(params, self.cfg, state, tokens, active,
-                                   kv_bucket=kv_bucket, paged_attn=self.paged_attn,
-                                   mesh=self.mesh)
+                                   kv_bucket=kv_bucket, ffn_fn=self._ffn,
+                                   paged_attn=self.paged_attn, mesh=self.mesh)
 
 
 def _validate_serving_mesh(mesh: Any, cfg: Any) -> None:
@@ -415,3 +435,98 @@ def _check_rank_shard(params: Any, cfg: Any, mesh: Any) -> None:
         raise ValueError(
             f"under tp={mesh.size} the params must be one rank's shard (shard_params): "
             f"wq has {qd} output columns, expected {cfg.qkv_dim // mesh.size}")
+
+
+class MoeSlotModel(TransformerSlotModel):
+    """Mixture-of-Experts (vtpu_torch/models/moe.py): the dense family's
+    attention trunk with routed experts as its post-attention block, so it
+    shares the slot KV machinery (a dense cache or the paged pool, bf16 or
+    int8, bounded read windows, both paged read routes) and only swaps the
+    FFN: ``moe_decode_ffn`` in decode, verify and chunk steps (capacity =
+    every token of the step, so nothing drops), ``moe_prefill`` with each
+    row's true length at admission (pads masked out of routing, capacity by
+    the config's formula). One device only: ``mesh`` raises."""
+
+    family = "MoE"
+
+    def __init__(self, params: Any, cfg: Any, kv_page: Optional[int] = None,
+                 kv_pool_blocks: Optional[int] = None,
+                 paged_attn: Optional[str] = None, device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the MoE family (MoeSlotModel) under a tensor-parallel mesh= is not ported "
+                "to vtpu_torch: it needs the expert axis split over 'tp' and its ops in the "
+                "rank-0 broadcast protocol; serve it on one device")
+        super().__init__(params, cfg, kv_page=kv_page, kv_pool_blocks=kv_pool_blocks,
+                         paged_attn=paged_attn, device=device)
+        self._ffn = moe_decode_ffn(cfg)
+
+    def _prefill(self, params, state, padded, slots, true_lens):
+        from vtpu_torch.serving.engine import prefill_into_slots
+
+        # true_lens masks each row's pads out of routing; logits_at gathers
+        # each row's final position before the vocab projection (one
+        # device: the mesh is None)
+        return prefill_into_slots(
+            params, self.cfg, state, padded, slots, true_lens,
+            prefill_fn=lambda p, c, t, mesh: moe_prefill(p, c, t, true_len=true_lens,
+                                                         logits_at=true_lens - 1))
+
+
+class SsmSlotModel:
+    """Selective SSM (vtpu_torch/models/ssm.py): an O(1) recurrent state a
+    slot (conv windows [L, B, K-1, Di] and SSM states [L, B, Di, N]), so
+    there is no context cap and nothing for a read window to bound. Every
+    write goes into the state's own tensors: an admission scatters each
+    row's state at that row's true length into its slot, and a decode step
+    writes the new state masked by ``active`` (an inactive slot keeps its
+    state). No speculation, no chunked admission, no paged pool; one
+    device only."""
+
+    family = "selective SSM"
+    supports_kv_buckets = False
+    max_context = None
+    kv_page = None
+    paged_attn = None
+    mesh = None
+
+    def __init__(self, params: Any, cfg: Any, device=None):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"params live on {params['embed'].device} but the model runs "
+                f"on {self.device}")
+        self.params = params
+        self.cfg = cfg
+
+    def init_state(self, slots: int):
+        return init_ssm_state(self.cfg, slots, device=self.device)
+
+    def prefill_into_slot(self, params, state, padded, slot, true_len):
+        dev = padded.device
+        last, state = self.prefill_into_slots(
+            params, state, padded, torch.tensor([slot], device=dev),
+            torch.tensor([true_len], device=dev))
+        return last[0], state
+
+    def prefill_into_slots(self, params, state, padded, slots, true_lens):
+        """N right-padded prompts in one forward; row i's state at
+        true_lens[i] goes into slot slots[i] (distinct slots). Returns (last
+        logits [N, vocab], state)."""
+        last, rows = ssm_prefill(params, self.cfg, padded, true_lens, logits_at=true_lens - 1)
+        for key in ("conv", "h"):
+            state[key][:, slots] = rows[key].to(state[key].dtype)
+        return last, state
+
+    def decode_step(self, params, state, tokens, active, kv_bucket):
+        """One recurrent step for every slot; ``kv_bucket`` is accepted for
+        the shared step signature (no read window). Returns (logits [B,
+        vocab], state)."""
+        logits, new = ssm_decode_step(params, self.cfg, state, tokens)
+        keep = active[None, :, None, None]
+        for key in ("conv", "h"):
+            state[key].copy_(torch.where(keep, new[key], state[key]))
+        return logits, state
+
+    def stop_workers(self) -> None:
+        """One device: there are no worker ranks to stop."""

@@ -1,6 +1,8 @@
-"""Continuous-batching serving engine over the dense transformer.
+"""Continuous-batching serving engine over the model families.
 
-Counterpart of vtpu/serving/engine.py: a fixed pool of B cache slots
+Counterpart of vtpu/serving/engine.py: a model family's slot adapter
+(serving/adapters.py: the dense transformer by default, or ``model=`` an
+MoE or selective-SSM adapter) behind a fixed pool of B cache slots
 (dense ring or paged block pool), bucketed batched admission with the first
 tokens sampled on the device (or the serial path, ``async_admission=False``:
 one prompt a dispatch and a blocking first-token fetch), chunked prefill for
@@ -279,9 +281,6 @@ def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
             f"ServingConfig.prefill_chunk={serving.prefill_chunk} under a tensor-parallel "
             "mesh= is not ported to vtpu_torch: the rank-0 broadcast protocol has no "
             "chunk op yet; serve chunked prefill and prefixes on one device")
-    if serving.kv_swap is not None and serving.kv_page is None:
-        raise ValueError("kv_swap requires the paged pool (set kv_page): the dense "
-                         "ring has no block granularity to evict or swap")
 
 
 class BlockAllocator:
@@ -692,7 +691,8 @@ def lookup_draft(history: list, k: int, max_ngram: int) -> Optional[list]:
 
 def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
                               chunk: torch.Tensor, slot: int, offset: int, new_len: int,
-                              kv_bucket: int = 0, block_ids: Optional[torch.Tensor] = None):
+                              kv_bucket: int = 0, block_ids: Optional[torch.Tensor] = None,
+                              ffn_fn=None):
     """One [1, C] prompt chunk written into *slot* at positions
     offset..offset+C-1, through THE decode trunk (``spec_verify_loop``) at
     T = C: a chunk is a verify pass whose draft is known-correct prompt. One
@@ -717,8 +717,10 @@ def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
     An int8 cache quantizes the chunk's KV into its scale planes. Pads in
     the final chunk write junk KV above ``new_len``, masked by the length
     and overwritten before any query reads them. ``new_len`` is the slot's
-    length after this chunk. Every write is in place. Returns (logits [1,
-    C, vocab] f32, cache)."""
+    length after this chunk. ``ffn_fn`` is the family's post-attention
+    block in the trunk (the MoE's ``moe_decode_ffn``; None: the dense
+    MLP). Every write is in place. Returns (logits [1, C, vocab] f32,
+    cache)."""
     c = chunk.shape[1]
     bucket = kv_bucket or cfg.max_seq
     if offset + c > bucket:
@@ -739,7 +741,8 @@ def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
         store_kv(kv, l, (slice(None), slice(offset, offset + c)), k, v)
         return kv
 
-    logits, new_view = spec_verify_loop(params, cfg, view, chunk, bucket, write_kv)
+    logits, new_view = spec_verify_loop(params, cfg, view, chunk, bucket, write_kv,
+                                        ffn_fn=ffn_fn)
     if block_ids is not None:
         span = min(-(-c // page) + 1, wp)
         p0 = min(offset // page, wp - span)
@@ -829,11 +832,40 @@ class ServingEngine:
     device tensors through host memory, one device->host copy per call,
     which waits for the stream: the pipelined loop then overlaps nothing
     (it is not counted as a fetch). ``stop()`` sends the workers their
-    stop."""
+    stop.
 
-    def __init__(self, params: Params, cfg: ModelConfig,
+    Model families (``model=``, the reference's ``engine.py:1185``): pass
+    either (params, cfg) for the dense transformer, or a slot-model adapter
+    (serving/adapters.py: ``TransformerSlotModel``, ``MoeSlotModel``,
+    ``SsmSlotModel``), whose params, config and device the engine takes. The
+    adapter owns the paged pool and its read route: a ``ServingConfig``
+    whose ``kv_page`` or ``paged_attn`` differs from the adapter's raises.
+    Every engine path reads the context cap, the read windows and the KV
+    layout from the adapter (``max_context`` None and
+    ``supports_kv_buckets`` False for the SSM: no read windows, one graph a
+    step). An adapter without ``spec_step`` serves without speculation
+    (``stats()["spec_disabled_reason"]``), one without
+    ``prefill_chunk_into_slot`` without chunked admission. The MoE and SSM
+    families serve on one device: with ``mesh=`` they raise."""
+
+    def __init__(self, params: Params = None, cfg: ModelConfig = None,
                  serving: ServingConfig = ServingConfig(), device=None, sample=None,
-                 mesh=None):
+                 mesh=None, model=None):
+        if model is not None:
+            if mesh is not None and mesh is not model.mesh:
+                if model.family != TransformerSlotModel.family:
+                    raise NotImplementedError(
+                        f"the {model.family} family ({type(model).__name__}) under a "
+                        "tensor-parallel mesh= is not ported to vtpu_torch; serve it on one "
+                        "device")
+                raise ValueError("mesh= is not the adapter's mesh: build the adapter with it")
+            mesh = model.mesh
+            params, cfg = model.params, model.cfg
+            # the device is where the adapter's params live
+            own = params["embed"].device
+            if device is not None and torch.device(device).type != own.type:
+                raise ValueError(f"device {device} is not the adapter's device {own}")
+            device = own
         _check_ported(serving, cfg, mesh)
         if mesh is not None:
             if mesh.rank != 0:
@@ -847,14 +879,30 @@ class ServingEngine:
         self.cfg = cfg
         self.serving = serving
         self.mesh = mesh
-        self.model = TransformerSlotModel(
-            params, cfg, kv_page=serving.kv_page, kv_pool_blocks=serving.kv_pool_blocks,
-            paged_attn=serving.paged_attn, device=self.device, mesh=mesh)
-        self.params = self.model.params
+        if model is None:
+            model = TransformerSlotModel(
+                params, cfg, kv_page=serving.kv_page, kv_pool_blocks=serving.kv_pool_blocks,
+                paged_attn=serving.paged_attn, device=self.device, mesh=mesh)
+        self.model = model
+        self.params = model.params
         b = serving.slots
-        self._page = serving.kv_page
+        # the adapter is the one source of the page size and the paged route
+        self._page = model.kv_page
+        if serving.kv_page is not None and self._page != serving.kv_page:
+            raise ValueError(
+                f"ServingConfig.kv_page={serving.kv_page} but the provided model adapter was "
+                f"built with kv_page={self._page}; pass kv_page/kv_pool_blocks to the adapter "
+                "(or just params+cfg)")
         self._paged = self._page is not None
-        self._paged_attn = serving.paged_attn
+        self._paged_attn = model.paged_attn
+        if serving.paged_attn is not None and self._paged_attn != serving.paged_attn:
+            raise ValueError(
+                f"ServingConfig.paged_attn={serving.paged_attn!r} but the provided model "
+                f"adapter was built with paged_attn={self._paged_attn!r}; pass paged_attn to "
+                "the adapter (or just params+cfg)")
+        if serving.kv_swap is not None and not self._paged:
+            raise ValueError("kv_swap requires the paged pool (set kv_page): the dense "
+                             "ring has no block granularity to evict or swap")
         self.state = self.model.init_state(b)
         # one sampling stream per slot (admission first tokens draw from the
         # admitted slot's stream too); greedy never touches them
@@ -950,9 +998,10 @@ class ServingEngine:
         # engine verifies inside its flush)
         self._verify = (verify_step(self.model) if self._spec_tokens and not self._fused_spec
                         else None)
+        ctx = model.max_context
         if self._spec_tokens and self._paged:
             # a forced kernel route cannot read a verify chunk past 16 queries
-            paged_attn_route(self._paged_attn, cfg.max_seq, self.device, self._spec_tokens + 1)
+            paged_attn_route(self._paged_attn, ctx, self.device, self._spec_tokens + 1)
         # monotonic_ns of the last flush delivery: the floor of the next
         # flush's interpolated per-token stamps
         self._last_flush_ns = 0
@@ -973,16 +1022,20 @@ class ServingEngine:
         # plus the host mask of which slots hold one
         self._admit_buf = torch.zeros((b,), dtype=torch.int32, device=self.device)
         self._admit_mask = [False] * b
-        ctx = cfg.max_seq
-        self._kv_buckets = tuple(sorted({min(bkt, ctx) for bkt in serving.prefill_buckets}
-                                        | {ctx}))
-        self._use_kv_buckets = serving.kv_read_buckets is not False
-        self._prefill_buckets = tuple(bkt for bkt in serving.prefill_buckets if bkt <= ctx)
+        # a model without a context cap (the SSM) has no read windows
+        self._kv_buckets = (tuple(sorted({min(bkt, ctx) for bkt in serving.prefill_buckets}
+                                         | {ctx})) if ctx else (0,))
+        self._use_kv_buckets = (serving.kv_read_buckets is not False
+                                and model.supports_kv_buckets)
+        self._prefill_buckets = tuple(bkt for bkt in serving.prefill_buckets
+                                      if ctx is None or bkt <= ctx)
         if not self._prefill_buckets:
-            raise ValueError(f"no prefill bucket fits max_seq={ctx}: "
+            raise ValueError(f"no prefill bucket fits max_context={ctx}: "
                              f"{serving.prefill_buckets}")
         chunk = serving.prefill_chunk
-        if chunk and ctx % chunk:
+        if chunk and not hasattr(model, "prefill_chunk_into_slot"):
+            chunk = None  # a family without a chunkable trunk (the SSM)
+        if chunk and ctx and ctx % chunk:
             # a final chunk straddling the context wall would run past the cache
             raise ValueError(f"prefill_chunk {chunk} must divide max_context {ctx}")
         self._chunk = chunk or None
@@ -1334,7 +1387,7 @@ class ServingEngine:
             raise ValueError("register_prefix requires prefill_chunk")
         tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
         n, c = int(tokens.shape[0]), self._chunk
-        if n < 1 or n > self.cfg.max_seq - c:
+        if n < 1 or n > self.model.max_context - c:
             # at least one suffix chunk must fit after the prefix
             raise ValueError(f"prefix length {n} leaves no room for a suffix")
         padded = pad_to_chunks(tokens, n, c)
@@ -1469,7 +1522,7 @@ class ServingEngine:
         if n == 0 and prefix is None:
             raise ValueError("empty prompt requires a prefix")
         budget = max_new_tokens or self.serving.max_new_tokens
-        ctx = self.cfg.max_seq
+        ctx = self.model.max_context
         if prefix is not None:
             entry = self._prefixes.get(prefix)
             if entry is None:
@@ -1644,9 +1697,11 @@ class ServingEngine:
         # sized against) are the global bytes / tp; one device: the same
         tp = 1 if self.mesh is None else self.mesh.size
         s["tp"] = tp
-        bpt = kv_bytes_per_token(self.cfg)
+        # a model without a KV cache (the SSM) has no KV bytes to count
+        ctx = self.model.max_context
+        bpt = kv_bytes_per_token(self.cfg) if ctx else None
         s["kv_hbm_bytes"] = {
-            "dense": self.serving.slots * self.cfg.max_seq * bpt // tp,
+            "dense": self.serving.slots * ctx * bpt // tp if ctx else None,
             "paged": self._n_blocks * self._page * bpt // tp if self._paged else None,
         }
         s["kv_hbm_bytes_per_chip"] = dict(s["kv_hbm_bytes"])
@@ -2288,8 +2343,8 @@ class ServingEngine:
         for bkt in self._prefill_buckets:
             if n <= bkt:
                 return bkt
-        ctx = self.cfg.max_seq
-        if self._chunk and n <= ctx:
+        ctx = self.model.max_context
+        if self._chunk and (ctx is None or n <= ctx):
             return None
         raise ValueError(f"prompt length {n} exceeds the largest usable bucket "
                          f"{self._prefill_buckets[-1]}"
@@ -2299,7 +2354,7 @@ class ServingEngine:
     def _chunk_bucket(self, need: int) -> int:
         """The read window of a chunk ending at ``need``: the smallest kv
         bucket covering it (buckets on or off)."""
-        return next((bkt for bkt in self._kv_buckets if bkt >= need), self.cfg.max_seq)
+        return next((bkt for bkt in self._kv_buckets if bkt >= need), self.model.max_context)
 
     def _upload(self, values, dtype: torch.dtype) -> torch.Tensor:
         """Host values (a list or numpy array) as a tensor on the engine's
@@ -2338,7 +2393,7 @@ class ServingEngine:
         page = self._page
         base = entry["len"] if entry is not None else 0
         total = base + int(req.tokens.shape[0])
-        budget = min(req.max_new_tokens, self.cfg.max_seq - total)
+        budget = min(req.max_new_tokens, self.model.max_context - total)
         full = base // page  # whole prefix pages, shared as they are
         need_priv = -(-max(total + max(budget, 0), 1) // page) - full
         shared = entry["blocks"][:full] if entry is not None else []
@@ -2617,7 +2672,9 @@ class ServingEngine:
         """Slot bookkeeping for an admission whose first token is still on
         the device; its budget slice is reserved here."""
         self._slot_req[slot] = req
-        self._slot_budget[slot] = min(req.max_new_tokens, self.cfg.max_seq - n) - 1
+        ctx = self.model.max_context
+        self._slot_budget[slot] = (min(req.max_new_tokens, ctx - n) if ctx
+                                   else req.max_new_tokens) - 1
         self._slot_len[slot] = n
         self._itl_last[slot] = None
         if self._track_history:
@@ -2835,7 +2892,7 @@ class ServingEngine:
         the window spans, at the dispatch's lengths for all its inner ticks
         (a flush undercounts by at most a page a slot), as the reference
         counts them."""
-        key = int(kv_bucket) or self.cfg.max_seq
+        key = int(kv_bucket) or int(self.model.max_context or 0)
         hist = self._stats["kv_bucket_hist"]
         hist[key] = hist.get(key, 0) + ticks
         if self._paged and lens:
@@ -2855,7 +2912,7 @@ class ServingEngine:
         the smallest kv bucket covering it (0 = max_seq with buckets off)."""
         if not self._use_kv_buckets:
             return 0
-        return next((bkt for bkt in self._kv_buckets if bkt >= need), self.cfg.max_seq)
+        return next((bkt for bkt in self._kv_buckets if bkt >= need), self.model.max_context)
 
     # ---------------------------------------------------------------- loop
 

@@ -11,10 +11,10 @@ built, each replayed with its inputs copied into static buffers. JAX has
 no counterpart to port: its jitted step is already one dispatch.
 
 What a graph holds fixed, and why that is sound here:
-- the params, the KV state dict and its tensors: every step updates the
-  cache, the page table and the lengths in place, so their addresses never
-  change (the engine's own writes into the table and lengths are in place
-  too);
+- the params, the state dict and its tensors: every step updates the
+  cache, the page table and the lengths in place (an SSM's conv windows and
+  states likewise), so their addresses never change (the engine's own
+  writes into the table and lengths are in place too);
 - the step's input tensors (tokens and the active mask; per step also the
   caps, a verify draft, a draft window and its lengths), copied into
   static buffers before each replay;
@@ -63,9 +63,10 @@ class DecodeGraphs:
     which picks its paged route.
 
     ``kv_buckets`` are every read window the engine can dispatch (0 = the
-    whole context); each is warmed once eagerly with every input buffer
-    zero-filled (no row active: the step writes nothing and leaves the
-    lengths as they are) on throwaway generators, then captured."""
+    whole context; an SSM's one); each is warmed once eagerly with every
+    input buffer zero-filled (no row active: the step writes nothing and
+    leaves the lengths as they are) on throwaway generators, then
+    captured."""
 
     def __init__(self, step: Callable, params, state: dict, gens: list, kv_buckets,
                  paged_attn=None, sampled: bool = False, inputs=None, t: int = 1):
@@ -73,17 +74,19 @@ class DecodeGraphs:
         self._params = params
         self._state = state
         self._gens = gens
-        dev = state["len"].device
+        # a KV state's lengths, or an SSM state's [L, B, ...] planes
+        b = state["len"].shape[0] if "len" in state else state["h"].shape[1]
+        dev = next(iter(state.values())).device
         if dev.type != "cuda":
             raise ValueError(f"CUDA graphs need the state on a CUDA device, got {dev}")
         self.device = dev
-        b = state["len"].shape[0]
         if inputs is None:
             inputs = (((b,), torch.int32), ((b,), torch.bool))
         self._inputs = [torch.zeros(shape, dtype=dtype, device=dev) for shape, dtype in inputs]
         self._paged_attn = paged_attn
         self._t = t
-        self._kv_type = "int8" if "k_scale" in state else str(state["k"].dtype)
+        self._kv_type = ("int8" if "k_scale" in state else
+                         str(state["k"].dtype) if "k" in state else "ssm")
         self._sampled = sampled
         self._graphs: dict = {}
         self._stream = torch.cuda.Stream(dev)
