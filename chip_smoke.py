@@ -151,6 +151,27 @@ Phases, any failure exits nonzero:
       tensor in place, the pool free; tokens/s and TTFT beside the main
       path's, an admission's wall time and peak memory, the MoE block's
       parts at the admission shape and the SSM scan's peak;
+   l. disaggregated prefill/decode (run after k): the flagship with
+      prefill_chunk=256 on the pipelined loop on graphs; two background
+      streams of 128 tokens, then a burst of the six wave prompts of 16
+      tokens each. The A/B: co-scheduled (prefill_budget=2048, bucketed
+      flash admission) against DisaggConfig() (a prefill worker on its own
+      CUDA stream), interleaved, three waves each; then one wave each of
+      int8 KV, prefill_workers=2, decode_loop_k=8, the MoE of phase k, a
+      worker_death at the wave's first claim, and phase i's overcommit
+      engine where handoffs race evictions. Held a wave: every stream OK,
+      equal to the co-scheduled arm's stream of the same prompt up to a
+      step the teacher-forced plain trunk calls a near-tie and every token
+      against that trunk (check_forced; the MoE through check_routed,
+      FAMILY_HELD steps); handoff_copies 0, a handoff a request, one fetch
+      and one replay a dispatch, paged launches = 12 x inner ticks, no
+      flash launch under disaggregation, no capture, the pool free; every
+      swapped-in block byte for byte; one worker restart; the handoff
+      installs and swap dispatches under set_sync_debug_mode("error"), the
+      worker's fetch an event wait that mode does not flag. Printed: burst
+      TTFT p50/p99, background ITL p50/p99 while the burst is served,
+      tokens/s, queue wait and prefill exec, a worker chunk's and a loop
+      chunk's host and stream ms;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -1868,11 +1889,15 @@ def check_forced(ref, held: list, what: str) -> dict:
     return out
 
 
-def guard_sync(eng) -> None:
-    """Run the engine's swap dispatches (evictions, swap-ins, the tick
-    head's polling of swap-outs) under set_sync_debug_mode("error"): a host
-    wait there raises, the loop ends with loop_error, and the phase fails."""
-    for name in ("_evict_entry", "_swap_in", "_drain_swap_outs"):
+SWAP_DISPATCH = ("_evict_entry", "_swap_in", "_drain_swap_outs")
+
+
+def guard_sync(eng, names: tuple = SWAP_DISPATCH) -> None:
+    """Run the engine's methods ``names`` (by default its swap dispatches:
+    evictions, swap-ins, the tick head's polling of swap-outs) under
+    set_sync_debug_mode("error"): a host wait there raises, the loop ends
+    with loop_error, and the phase fails."""
+    for name in names:
         fn = getattr(eng, name)
 
         def guarded(*a, _fn=fn, **kw):
@@ -2942,7 +2967,8 @@ def moe_forced_trunk(params, served, plain, serving):
     """The plain MoE trunk teacher-forced on a stream, behind the stream's
     admission replayed as the engine ran it: ``ref(prompt, toks,
     admission)`` -> (its greedy choice, its top-1/top-2 logit margin, its
-    routing gap) at every step of ``toks``; ``drops`` counts the replayed
+    routing gap) at every step of ``toks`` (with ``differs``, up to the
+    first step whose choice is not the stream's token); ``drops`` counts the replayed
     admissions' dropped and routed choices.
 
     ``admission`` says how the engine admitted the stream:
@@ -3049,7 +3075,8 @@ def moe_forced_trunk(params, served, plain, serving):
 
     runs_of: dict = {}
 
-    def ref(prompt: np.ndarray, toks: list, admission: tuple) -> tuple[list, list, list]:
+    def ref(prompt: np.ndarray, toks: list, admission: tuple,
+            differs: bool = False) -> tuple[list, list, list]:
         runs = runs_of.setdefault((prompt.tobytes(), admission_key(admission)), [])
         for got, res in runs:
             if got[:len(toks)] == list(toks):
@@ -3070,8 +3097,10 @@ def moe_forced_trunk(params, served, plain, serving):
             top = torch.topk(row, 2).values
             margins.append(float(top[0] - top[1]))
             want.append(int(torch.argmax(row)))
+            if differs and want[-1] != toks[j]:
+                break  # the caller reads no step past the first that differs
         res = (want, margins, route_gaps)
-        runs.append((list(toks), res))
+        runs.append((list(toks[:len(want)]), res))
         return res
 
     ref.drops = drops
@@ -3105,12 +3134,16 @@ def admission_batches(life) -> dict:
     return out
 
 
-def check_routed(ref, held: list, what: str) -> dict:
+def check_routed(ref, held: list, what: str, until_flip: bool = False) -> dict:
     """Every token of every stream in ``held`` ((prompt, tokens, its
     admission) each) against the plain MoE trunk teacher-forced on that
     stream behind its replayed admission (``ref``, moe_forced_trunk): a
     step whose logit margin is below FORCED_MARGIN, or whose routing gap is
-    below ROUTE_MARGIN, is skipped, not an end. A mismatch raises. Returns
+    below ROUTE_MARGIN, is skipped, not an end. With ``until_flip`` a
+    stream is held only up to its first skipped step whose token differs:
+    the trunk and the engine parted there, and the trunk's KV of that
+    token may hold another expert's output, so its later steps are not the
+    engine's computation rounded otherwise. A mismatch raises. Returns
     the steps held, the steps skipped by each rule (a step under both counts
     under the logit margin), the skipped steps whose token differs, with the
     widest logit margin among those the logit rule skipped and the widest
@@ -3119,7 +3152,7 @@ def check_routed(ref, held: list, what: str) -> dict:
     out = {"held": 0, "skipped_logit": 0, "skipped_route": 0, "flips": 0,
            "widest_flip": 0.0, "widest_route_flip": 0.0, "steps": []}
     for prompt, toks, admission in held:
-        want, margins, gaps = ref(prompt, toks, admission)
+        want, margins, gaps = ref(prompt, toks, admission, differs=until_flip)
         for i, (got, w, m, g) in enumerate(zip(toks, want, margins, gaps)):
             out["steps"].append([i, int(got == w), m, g])
             if m < FORCED_MARGIN or g < ROUTE_MARGIN:
@@ -3131,6 +3164,8 @@ def check_routed(ref, held: list, what: str) -> dict:
                         out["widest_flip"] = max(out["widest_flip"], m)
                     else:  # a flip only the routing rule skipped
                         out["widest_route_flip"] = max(out["widest_route_flip"], g)
+                    if until_flip:
+                        break
                 continue
             if got != w:
                 raise AssertionError(
@@ -3748,6 +3783,480 @@ def report_families(log, card: str, out: dict, main: dict) -> None:
     log(f"model families phase on {card}: {out['seconds']:.1f} s (MoE {out['moe_seconds']:.1f})")
 
 
+# phase l, disaggregated prefill/decode: the flagship on the pipelined loop on
+# graphs with 256-token chunks; two background streams of DG_BG_TOKENS, then
+# a burst of the six wave prompts of DG_BURST_TOKENS each (the shape of
+# benchmarks/disagg_bench.py's mixed load: steady decode plus a burst past
+# the free slots)
+DG_SERVING = dict(slots=4, prefill_buckets=(1024,), kv_page=128, prefill_chunk=256)
+DG_BG_TOKENS = 128
+DG_BURST_TOKENS = 16
+# the co-scheduled arm's per-tick prompt budget (the reference A/B's arm)
+DG_BUDGET = 2 * 1024
+
+
+def dg_prompts(vocab: int) -> tuple[list, list]:
+    """(two background prompts of 600-1024 tokens from SEED + 5, the six
+    wave prompts)."""
+    rs = np.random.RandomState(SEED + 5)
+    bg = [rs.randint(0, vocab, (int(n),)).astype(np.int32) for n in rs.randint(600, 1025, 2)]
+    return bg, wave_prompts(vocab)
+
+
+def dg_engine(params, cfg, model=None, **kw):
+    """A phase l engine on graphs (``model`` an adapter, else the dense
+    flagship), its state addresses, its graph count, and its chunk timer:
+    each call of the engine's chunk step stamped with the calling thread's
+    host wall ms and CUDA events on that thread's current stream (a
+    worker's own stream, or the loop's): chunk_ms."""
+    from vtpu_torch.serving import ServingConfig, ServingEngine
+
+    serving = ServingConfig(**DG_SERVING, max_new_tokens=DG_BG_TOKENS, **kw)
+    eng = (ServingEngine(serving=serving, model=model) if model is not None
+           else ServingEngine(params, cfg, serving))
+    if eng.decode_graphs is None and eng.loop_graphs is None:
+        raise AssertionError("a phase l engine does not serve on CUDA graphs")
+    chunks = []
+    step = eng._prefill_chunk
+
+    def timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = step(*a, **kw)
+        end.record()
+        chunks.append((threading.current_thread().name, (time.perf_counter() - t0) * 1e3,
+                       start, end))
+        return out
+
+    eng._prefill_chunk = timed
+    return (eng, {k: x.data_ptr() for k, x in eng.state.items()},
+            eng.stats()["graphs_captured"], chunks)
+
+
+def dg_guard(eng) -> None:
+    """The loop's handoff installs and swap dispatches (guard_sync: the
+    evictions a worker's dry pool asks for, the swap-ins, the polling of
+    swap-outs) run under set_sync_debug_mode("error"): a host wait there
+    raises and the loop ends with loop_error. The mode is process-wide, so
+    a prefill worker's chunk dispatch that overlaps those windows is held
+    to it too and would end its request FAULTED; the worker's first-token
+    fetch and its release fence are event waits (cudaEventSynchronize),
+    which the mode does not flag."""
+    guard_sync(eng, SWAP_DISPATCH + ("_install_handoffs",))
+
+
+def chunk_ms(chunks: list, worker: bool) -> dict:
+    """Host ms a chunk (its dispatch's wall time on the calling thread) and
+    stream ms (from the event before its first kernel to the event after
+    its last on that thread's stream: the stream's time for the chunk,
+    gaps while the host enqueues included), median [min, max], of the
+    chunks the workers (``worker``) or the loop thread dispatched; reads
+    the events after a synchronize."""
+    torch.cuda.synchronize()
+    rows = [(h, s.elapsed_time(e)) for name, h, s, e in chunks
+            if name.startswith("vtpu-prefill") == worker]
+    if not rows:
+        return {"n": 0}
+    return {"n": len(rows), "host": spread([h for h, _ in rows]),
+            "stream": spread([d for _, d in rows]),
+            "host_med": sorted(h for h, _ in rows)[len(rows) // 2],
+            "stream_med": sorted(d for _, d in rows)[len(rows) // 2]}
+
+
+def dg_wave(eng, bg_prompts, burst, what: str, loop_k: int = 0) -> dict:
+    """One counted wave: every launch count set to 0 just before it and read
+    just after. The two background streams are submitted and stream two
+    tokens, then the burst is submitted at once. Held: every stream OK with
+    its tokens, one graph replay a dispatch, one fetch a dispatch (a tick;
+    a flush of ``loop_k`` ticks), paged launches = 12 x inner ticks and
+    no other paged kernel, no capture, the pool free at the end; under
+    disaggregation no flash launch (worker chunks take the plain ragged
+    route), a handoff a request and handoff_copies 0. Returns the streams
+    and the wave's figures: burst TTFT, the background ITL while the burst
+    is served, tokens/s, queue wait and prefill exec (the trace's split of
+    TTFT), the counters' deltas and the launches."""
+    from vtpu_torch.ops import _build
+
+    settle(eng)
+    before = eng.stats()
+    reps = [g.replays for g in eng._graph_sets()]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    bg = [Session(eng, p, DG_BG_TOKENS) for p in bg_prompts]
+    for s in bg:
+        s.wait_tokens(2)
+    t_burst = time.perf_counter()
+    bs = [Session(eng, p, DG_BURST_TOKENS) for p in burst]
+    for s in bs + bg:
+        s.join()
+    settle(eng)
+    launches = _build.launches()
+    after = eng.stats()
+    played = sum(g.replays for g in eng._graph_sets()) - sum(reps)
+    d = {k: after[k] - before[k] for k in (
+        "decode_ticks", "loop_flushes", "tick_fetches", "handoffs", "handoff_copies",
+        "prefill_chunks", "admissions", "generated_tokens", "worker_restarts",
+        "faulted_requests", "repartitions")}
+    d["admission_dispatches"] = sum(after["prefill_batch_hist"]) - sum(before["prefill_batch_hist"])
+    for s, n in zip(bg + bs, [DG_BG_TOKENS] * 2 + [DG_BURST_TOKENS] * 6):
+        if len(s.toks) != n:
+            raise AssertionError(f"{what}: a stream delivered {len(s.toks)} of {n} tokens")
+    disagg = after["disagg"]
+    inner = d["decode_ticks"]
+    dispatches = d["loop_flushes"] if loop_k else inner
+    paged = ("paged_decode_attention_int8kv" if "k_scale" in eng.state
+             else "paged_decode_attention")
+    others = {k: n for k, n in launches.items() if k not in (paged, "flash_attention") and n}
+    if launches[paged] != FLAGSHIP["n_layers"] * inner or others:
+        raise AssertionError(f"{what}: {paged} launched {launches[paged]} times over {inner} "
+                             f"inner ticks (expected {FLAGSHIP['n_layers']} each), others {others}")
+    want_flash = 0 if disagg else FLAGSHIP["n_layers"] * d["admission_dispatches"]
+    if launches["flash_attention"] != want_flash:
+        raise AssertionError(f"{what}: flash launched {launches['flash_attention']} times, "
+                             f"expected {want_flash}")
+    if played != dispatches or d["tick_fetches"] != dispatches:
+        raise AssertionError(f"{what}: {played} graph replays and {d['tick_fetches']} tick "
+                             f"fetches for {dispatches} dispatches")
+    gets = after["device_gets_per_tick"]
+    if gets != (1.0 / loop_k if loop_k else 1.0):
+        raise AssertionError(f"{what}: device_gets_per_tick {gets}")
+    if after["graphs_captured"] != before["graphs_captured"]:
+        raise AssertionError(f"{what}: a graph was captured while serving")
+    if after["kv_pool_free"] != after["kv_pool_blocks"]:
+        raise AssertionError(f"{what}: the pool is not free at the end of the wave")
+    if disagg and (d["handoffs"] != 8 or after["handoff_copies"] != 0):
+        raise AssertionError(f"{what}: {d['handoffs']} handoffs for 8 requests, "
+                             f"handoff_copies {after['handoff_copies']}")
+    t_end = max(s.times[-1] for s in bs)
+    gaps = sorted((b - a) * 1e3 for s in bg for a, b in zip(s.times, s.times[1:])
+                  if a >= t_burst and b <= t_end)
+    ttft = sorted((s.times[0] - s.t_submit) * 1e3 for s in bs)
+    spans = eng.trace.spans()
+    split = [spans.get(s.req.rid, {}) for s in bs]
+    wall = max(s.times[-1] for s in bg + bs) - t0
+    total = sum(len(s.toks) for s in bg + bs)
+    return {"streams": [s.toks for s in bg + bs], "ttft_ms": ttft,
+            "ttft_p50_ms": ttft[len(ttft) // 2], "ttft_p99_ms": ttft[-1],
+            "bg_itl_ms": gaps, "bg_itl_p50_ms": gaps[len(gaps) // 2] if gaps else None,
+            "bg_itl_p99_ms": nearest_rank(gaps, 0.99) if gaps else None,
+            "tokens_per_s": total / wall, "wall_s": wall,
+            "queue_wait_ms": sorted(x.get("queue_wait_ms") or 0.0 for x in split),
+            "prefill_exec_ms": sorted(x.get("prefill_exec_ms") or 0.0 for x in split),
+            "launches": launches, "graph_replays": played, **d}
+
+
+def nearest_rank(vals: list, q: float) -> float:
+    """The q-quantile of sorted ``vals`` (nearest rank)."""
+    return vals[min(len(vals) - 1, int(q * len(vals)))]
+
+
+def dg_equal(forced, prompts, streams: list, cosched: list, what: str) -> dict:
+    """Every token of every stream against the plain trunk teacher-forced on
+    it (check_forced), and each stream against the co-scheduled arm's
+    stream of the same prompt: equal token for token up to their first
+    difference, which must come at a step whose margin in that trunk fed
+    the shared tokens is under FORCED_MARGIN (a bf16 near-tie). Returns the
+    tokens equal to the co-scheduled arm's and check_forced's figures."""
+    out = {"equal_tokens": 0, "equal_streams": 0, "differences": [],
+           # first: it forces each whole stream once, and the lookups below
+           # read those runs' steps
+           "forced": check_forced(forced, [(p, t, len(t)) for p, t in zip(prompts, streams)],
+                                  what)}
+    for prompt, toks, other in zip(prompts, streams, cosched):
+        i = next((j for j, (a, b) in enumerate(zip(toks, other)) if a != b), None)
+        if i is None:
+            out["equal_streams"] += 1
+            out["equal_tokens"] += len(toks)
+            continue
+        out["equal_tokens"] += i
+        _, margins = forced(prompt, toks[:i + 1])
+        out["differences"].append([i, margins[i]])
+        if margins[i] >= FORCED_MARGIN:
+            raise AssertionError(f"{what}: token {i} of a stream is {toks[i]}, the co-scheduled "
+                                 f"arm's {other[i]}, at a plain-trunk margin of {margins[i]:.4f}")
+    return out
+
+
+def dg_held(eng, ptrs: dict, captured: int, what: str) -> None:
+    """After the loop stopped: no loop error, no worker fault, no capture
+    while serving, every state tensor at its address."""
+    oc_held(eng, ptrs, captured, what)
+    if eng.stats()["faulted_requests"]:
+        raise AssertionError(f"{what}: {eng.stats()['faulted_requests']} requests faulted")
+
+
+def dg_arm(log, card: str, params, cfg, name: str, prompts, forced, cosched=None,
+           waves: int = 1, model=None, loop_k: int = 0, **kw) -> dict:
+    """``waves`` counted waves (dg_wave) of one engine after a warm-up
+    request, under dg_guard when it disaggregates; streams
+    held against the co-scheduled arm's (``cosched``) and the
+    teacher-forced plain trunk (``forced``), or, for the MoE (``model``),
+    against its plain trunk behind the chunked admission the worker ran
+    (check_routed, each stream up to its first skipped step whose token
+    differs), with waves of phase k's new prompt sets until FAMILY_HELD
+    steps are held (FAMILY_MAX_WAVES at most)."""
+    bg_prompts, burst = prompts
+    t0 = time.perf_counter()
+    eng, ptrs, captured, chunks = dg_engine(params, cfg, model=model, **kw)
+    if eng._disagg is not None:
+        dg_guard(eng)
+    seconds = {"build": time.perf_counter() - t0, "check": 0.0}
+    eng.start()
+    out, routed = [], {}
+    try:
+        Session(eng, burst[0][:64], 2).join()
+        while len(out) < waves or (model is not None and routed["held"] < FAMILY_HELD):
+            if len(out) >= FAMILY_MAX_WAVES:
+                raise AssertionError(f"disagg {name}: {routed['held']} steps held (floor "
+                                     f"{FAMILY_HELD}) after {FAMILY_MAX_WAVES} waves")
+            if out and model is not None:  # a later MoE wave: phase k's new prompt sets
+                bg_prompts = family_prompts(cfg.vocab, 100 + len(out))[:2]
+                burst = family_prompts(cfg.vocab, len(out))
+            out.append(dg_wave(eng, bg_prompts, burst, f"disagg {name}", loop_k))
+            if model is not None:
+                t1 = time.perf_counter()
+                part = check_routed(forced, [(p, t, ("chunks", None)) for p, t in
+                                             zip(bg_prompts + burst, out[-1]["streams"])],
+                                    f"disagg {name}", until_flip=True)
+                seconds["check"] += time.perf_counter() - t1
+                part.pop("steps")
+                out[-1]["routed"] = part
+                routed = add_checks(routed, part)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    dg_held(eng, ptrs, captured, f"disagg {name}")
+    t1 = time.perf_counter()
+    every = bg_prompts + burst
+    for w in out if model is None else ():
+        if cosched is not None:
+            w["held"] = dg_equal(forced, every, w["streams"], cosched, f"disagg {name}")
+        else:
+            w["held"] = {"forced": check_forced(forced, [(p, t, len(t)) for p, t in
+                                                         zip(every, w["streams"])],
+                                                f"disagg {name}")}
+    seconds["check"] += time.perf_counter() - t1
+    seconds["serve"] = time.perf_counter() - t0 - seconds["build"] - seconds["check"]
+    arm = {"waves": out, "routed": routed or None, "seconds": seconds,
+           "worker_chunk_ms": chunk_ms(chunks, True),
+           "loop_chunk_ms": chunk_ms(chunks, False), "worker_restarts": st["worker_restarts"],
+           "repartitions": st["repartitions"], "handoffs": st["handoffs"],
+           "handoff_copies": st["handoff_copies"], "chunks": chunks, "engine": eng}
+    report_dg_arm(log, card, name, arm)
+    return arm
+
+
+def report_dg_arm(log, card: str, name: str, arm: dict) -> None:
+    ws = arm["waves"]
+    held = [w.get("held", {}).get("forced") or w.get("routed") for w in ws]
+    log(f"disagg {name} on {card}: {len(ws)} waves of 2 x {DG_BG_TOKENS} + 6 x "
+        f"{DG_BURST_TOKENS} tokens; burst TTFT p50 {spread([w['ttft_p50_ms'] for w in ws])} "
+        f"p99 {spread([w['ttft_p99_ms'] for w in ws])} ms; background ITL p50 "
+        f"{spread([w['bg_itl_p50_ms'] for w in ws])} p99 "
+        f"{spread([w['bg_itl_p99_ms'] for w in ws])} ms; tokens/s "
+        f"{spread([w['tokens_per_s'] for w in ws])}; queue wait p50 "
+        f"{spread([w['queue_wait_ms'][3] for w in ws])} ms, prefill exec p50 "
+        f"{spread([w['prefill_exec_ms'][3] for w in ws])} ms")
+    wc, lc = arm["worker_chunk_ms"], arm["loop_chunk_ms"]
+    log(f"disagg {name} on {card}: handoffs {arm['handoffs']}, handoff_copies "
+        f"{arm['handoff_copies']}, repartitions {arm['repartitions']}, worker_restarts "
+        f"{arm['worker_restarts']}; worker chunks {wc['n']}"
+        + (f" host {wc['host']} ms, stream {wc['stream']} ms a chunk" if wc["n"] else "")
+        + f"; loop chunks {lc['n']}"
+        + (f" host {lc['host']} ms, stream {lc['stream']} ms a chunk" if lc["n"] else "")
+        + f"; launches a wave {[w['launches'] for w in ws][0]}; inner ticks "
+        f"{[w['decode_ticks'] for w in ws]}, replays {[w['graph_replays'] for w in ws]}; held "
+        + "; ".join(f"{h['held']} steps ({h['flips']} flips skipped, the widest at "
+                    f"{h['widest_flip']})" for h in held if h)
+        + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in arm["seconds"].items()))
+
+
+def dg_overcommit_arm(log, card: str, params, cfg, forced) -> dict:
+    """Disaggregation on phase i's overcommit engine (kv_pool_blocks=37,
+    kv_swap=36): one round of phase i's traffic (overcommit_round), whose
+    second four are claimed by the worker while the first four hold the
+    pool parked, so each of their claims misses, posts its blocks and the
+    loop evicts parked pages to the host tier: handoffs land in blocks an
+    eviction freed. Held: every swapped-in block byte for byte
+    (watch_swaps), every token of every stream against the teacher-forced
+    plain trunk, 8 parks and 8 resumes, blocks evicted, handoffs = 8 and
+    handoff_copies 0, one fetch a tick, one replay a tick, paged launches =
+    12 x ticks, the pool and host tier free, under dg_guard."""
+    from vtpu_torch.serving import DisaggConfig, ServingConfig
+
+    serving = ServingConfig(**OC_SERVING, max_new_tokens=2 * OC_TOKENS, kv_swap=OC_HOST,
+                            disagg=DisaggConfig())
+    eng, lc, ptrs, captured = oc_engine(params, cfg, serving)
+    swaps = watch_swaps(eng)
+    dg_guard(eng)
+    prompts = overcommit_prompts(cfg.vocab)
+    eng.start()
+    try:
+        Session(eng, prompts[0][:64], 2).join()
+        r = overcommit_round(eng, lc, prompts)
+    finally:
+        eng.stop()
+    what = "disagg overcommit"
+    dg_held(eng, ptrs, captured, what)
+    torch.cuda.synchronize()
+    s1, s2 = r["s1"], r["s2"]
+    d = {k: s2[k] - s1[k] for k in ("parks", "resumes", "evicted_blocks", "swap_in_bytes",
+                                    "swap_faults", "fault_recomputes", "decode_ticks",
+                                    "tick_fetches", "handoffs", "pool_blocked_admissions")}
+    bpb = block_bytes(eng)
+    bad, swapped = int(swaps["bad"]), s2["swap_in_bytes"] // bpb
+    if bad or swaps["checked"] != swapped or not swapped:
+        raise AssertionError(f"{what}: {bad} bytes of the {swaps['checked']} blocks held differ "
+                             f"from what left the pool ({swapped} blocks swapped in)")
+    if (d["parks"], d["resumes"], d["handoffs"]) != (8, 8, 8) or not d["evicted_blocks"]:
+        raise AssertionError(f"{what}: counters {d}")
+    if s2["handoff_copies"] or d["tick_fetches"] != d["decode_ticks"]:
+        raise AssertionError(f"{what}: handoff_copies {s2['handoff_copies']}, "
+                             f"{d['tick_fetches']} fetches for {d['decode_ticks']} ticks")
+    if r["replays"] != d["decode_ticks"]:
+        raise AssertionError(f"{what}: {r['replays']} graph replays for {d['decode_ticks']} ticks")
+    launches = r["launches"]
+    others = {k: n for k, n in launches.items()
+              if k not in ("paged_decode_attention", "flash_attention") and n}
+    if launches["paged_decode_attention"] != FLAGSHIP["n_layers"] * d["decode_ticks"] or others:
+        raise AssertionError(f"{what}: launches {launches} over {d['decode_ticks']} ticks")
+    if (s2["kv_pool_free"] != s2["kv_pool_blocks"] or s2["parked_sessions"]
+            or s2["swap_host_free"] != s2["swap_host_blocks"]):
+        raise AssertionError(f"{what}: the pool or the host tier is not free at the end")
+    held = check_forced(forced, [(s.prompt, s.toks, n) for s, n in
+                                 zip(r["sessions"], r["at_park"])], what)
+    unparked = check_forced(forced, [(s.prompt, s.toks, len(s.toks)) for s in r["unparked"]],
+                            f"{what} unparked wave")
+    log(f"{what} on {card}: one round of phase i's traffic on a disaggregated engine: "
+        f"{d['parks']} parks, {d['resumes']} resumes, {d['evicted_blocks']} blocks evicted, "
+        f"{swapped} swapped in, every one byte-equal to what left the pool, "
+        f"{d['fault_recomputes']} rebuilt; worker allocator misses (posted reclaims) "
+        f"{d['pool_blocked_admissions']}; handoffs {d['handoffs']}, handoff_copies 0; "
+        f"launches {launches}; held against the teacher-forced plain trunk {held['held']} "
+        f"tokens ({held['held_after_park']} after a park, {held['flips']} flips skipped), "
+        f"unparked wave {unparked['held']}; eviction wave TTFT p50 "
+        f"{r['eviction_split']['ttft_p50_ms']:.1f} ms, ITL p50 "
+        f"{r['eviction_split']['itl_p50_ms']:.2f} ms")
+    return {"counters": d, "launches": launches, "swap_in_blocks_held": swaps["checked"],
+            "forced": held, "forced_unparked": unparked,
+            "eviction_split": r["eviction_split"], "unparked_split": r["unparked_split"]}
+
+
+def disagg_path(log, card: str, params) -> dict:
+    """Phase l: disaggregated prefill/decode on the flagship at full width
+    and depth, on graphs captured when each engine is built. The A/B:
+    co-scheduled (prefill_budget = 2 x 1024, bucketed admission through
+    flash) and DisaggConfig() (one prefill worker on its own stream,
+    256-token chunks), interleaved, REPEATS waves each; then one wave each
+    of int8 KV, prefill_workers=2, decode_loop_k=8, a worker_death at the
+    counted wave's first claim (one restart, the request re-queued),
+    the overcommit engine of phase i where handoffs race evictions
+    (dg_overcommit_arm), and the MoE of phase k (waves until it holds
+    FAMILY_HELD steps). A loop chunk is timed by a 1024-token prefix build
+    on the idle co-scheduled engine. Every wave is held by dg_wave and its
+    streams by dg_equal (or check_forced, check_routed)."""
+    from vtpu_torch.models import ModelConfig, MoEConfig, init_moe_params
+    from vtpu_torch.serving import DisaggConfig, FaultPlan, FaultSpec, ServingConfig
+    from vtpu_torch.serving.adapters import MoeSlotModel
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    cfg8 = dataclasses.replace(cfg, kv_int8=True)
+    forced = {kv: forced_trunk(params, dataclasses.replace(c, use_kernels=False))
+              for kv, c in (("bf16", cfg), ("int8", cfg8))}
+    prompts = dg_prompts(cfg.vocab)
+    every = prompts[0] + prompts[1]
+    arms = {"cosched": dg_engine(params, cfg, prefill_budget=DG_BUDGET),
+            "disagg": dg_engine(params, cfg, disagg=DisaggConfig())}
+    t1 = time.perf_counter()
+    for name, (eng, *_) in arms.items():
+        if eng._disagg is not None:
+            dg_guard(eng)
+        eng.start()
+        Session(eng, prompts[1][0][:64], 2).join()
+    waves = {name: [] for name in arms}
+    try:
+        for _ in range(REPEATS):
+            for name, (eng, *_) in arms.items():
+                waves[name].append(dg_wave(eng, *prompts, f"{name} A/B"))
+        eng = arms["cosched"][0]
+        pid = eng.register_prefix(prompts[1][5][:1024])
+        eng.unregister_prefix(pid)
+    finally:
+        for eng, *_ in arms.values():
+            eng.stop()
+    out: dict = {}
+    cosched = waves["cosched"][0]["streams"]
+    t2 = time.perf_counter()
+    for name, (eng, ptrs, captured, chunks) in arms.items():
+        dg_held(eng, ptrs, captured, f"{name} A/B")
+        for w in waves[name]:
+            w["held"] = dg_equal(forced["bf16"], every, w["streams"], cosched, f"{name} A/B")
+        st = eng.stats()
+        # the two engines' build and serving, and this arm's checks
+        out[name] = {"waves": waves[name], "seconds": {
+                         "build": t1 - t0, "serve": t2 - t1, "check": time.perf_counter() - t2},
+                     "worker_chunk_ms": chunk_ms(chunks, True),
+                     "loop_chunk_ms": chunk_ms(chunks, False),
+                     "worker_restarts": st["worker_restarts"], "repartitions": st["repartitions"],
+                     "handoffs": st["handoffs"], "handoff_copies": st["handoff_copies"]}
+        report_dg_arm(log, card, name, out[name])
+    loop_chunks = out["cosched"]["loop_chunk_ms"]
+    if not loop_chunks["n"] or not out["disagg"]["worker_chunk_ms"]["n"]:
+        raise AssertionError("phase l timed no loop chunk or no worker chunk")
+    torch.cuda.empty_cache()
+    out["int8"] = dg_arm(log, card, params, cfg8, "int8", prompts, forced["int8"],
+                         disagg=DisaggConfig())
+    out["workers2"] = dg_arm(log, card, params, cfg, "prefill_workers=2", prompts,
+                             forced["bf16"], cosched, disagg=DisaggConfig(prefill_workers=2))
+    out["loop_k"] = dg_arm(log, card, params, cfg, f"decode_loop_k={LOOP_K}", prompts,
+                           forced["bf16"], cosched, loop_k=LOOP_K, decode_loop_k=LOOP_K,
+                           disagg=DisaggConfig())
+    death = dg_arm(log, card, params, cfg, "worker_death", prompts, forced["bf16"], cosched,
+                   disagg=DisaggConfig(), faults=FaultPlan([FaultSpec("worker_death", at=1)]))
+    if death["worker_restarts"] != 1 or death["engine"].stats()["faults_injected"] != 1:
+        raise AssertionError(f"disagg worker_death: {death['worker_restarts']} restarts, "
+                             f"{death['engine'].stats()['faults_injected']} injected; expected "
+                             "one each")
+    out["worker_death"] = death
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["overcommit"] = dg_overcommit_arm(log, card, params, cfg, forced["bf16"])
+    out["overcommit"]["seconds"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    mcfg = MoEConfig(**MOE_FLAGSHIP, dtype=torch.bfloat16)
+    mparams = init_moe_params(SEED, mcfg, device="cuda")
+    mplain = dataclasses.replace(mcfg, use_kernels=False)
+    mforced = moe_forced_trunk(mparams, mcfg, mplain, ServingConfig(**DG_SERVING))
+    out["moe"] = dg_arm(log, card, None, mcfg, "MoE", dg_prompts(mcfg.vocab), mforced,
+                        model=MoeSlotModel(mparams, mcfg, kv_page=128), disagg=DisaggConfig())
+    del mparams
+    for arm in out.values():
+        arm.pop("chunks", None)
+        arm.pop("engine", None)
+    torch.cuda.empty_cache()
+    ab = {name: out[name]["waves"] for name in ("cosched", "disagg")}
+    med = {name: {k: sorted(w[k] for w in ws)[REPEATS // 2]
+                  for k in ("ttft_p50_ms", "ttft_p99_ms", "bg_itl_p50_ms", "bg_itl_p99_ms",
+                            "tokens_per_s")} for name, ws in ab.items()}
+    out["ab_medians"] = med
+    out["seconds"] = time.perf_counter() - t0
+    log(f"disagg A/B on {card} (median of {REPEATS} interleaved waves, co-scheduled -> "
+        f"disaggregated): burst TTFT p50 {med['cosched']['ttft_p50_ms']:.1f} -> "
+        f"{med['disagg']['ttft_p50_ms']:.1f} ms, p99 {med['cosched']['ttft_p99_ms']:.1f} -> "
+        f"{med['disagg']['ttft_p99_ms']:.1f} ms; background ITL p50 "
+        f"{med['cosched']['bg_itl_p50_ms']:.2f} -> {med['disagg']['bg_itl_p50_ms']:.2f} ms, p99 "
+        f"{med['cosched']['bg_itl_p99_ms']:.2f} -> {med['disagg']['bg_itl_p99_ms']:.2f} ms; "
+        f"tokens/s {med['cosched']['tokens_per_s']:.1f} -> {med['disagg']['tokens_per_s']:.1f}; "
+        f"a chunk: worker {out['disagg']['worker_chunk_ms']['host_med']:.2f} ms host / "
+        f"{out['disagg']['worker_chunk_ms']['stream_med']:.2f} ms stream in the waves, loop "
+        f"{loop_chunks['host_med']:.2f} / {loop_chunks['stream_med']:.2f} ms idle")
+    log(f"disaggregation phase on {card}: {out['seconds']:.1f} s (overcommit arm "
+        f"{out['overcommit']['seconds']:.1f} s)")
+    return out
+
+
 def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
     """Tensor-parallel serving: ``tp`` ranks, spawned, serve the main path's
     wave on the flagship model, once with bf16 and once with int8 KV, each
@@ -3900,6 +4409,8 @@ def main() -> int:
     mark("failure domains")
     runs["model_families_path"] = model_families_path(log, card, runs["main_path"])
     mark("model families")
+    runs["disagg_path"] = disagg_path(log, card, params)
+    mark("disaggregation")
     runs["study_path"] = study_path(gen, log)
     mark("study")
     del params

@@ -2,15 +2,16 @@
 in the reference's configuration (tests/test_faults.py): typed terminals,
 deadlines and overload shedding, crash containment, the fault seams of the
 pool and the host tier, the fetch watchdog's ladder, the shed policies'
-signals and the duty supplier, the FaultPlan schedule, and engine death.
+signals and the duty supplier, the FaultPlan schedule, engine death, and
+the prefill workers of a disaggregated engine: worker death (re-queue with
+backoff, bounded retries, restart) and cancels racing a worker's claim.
 
 Held: every stream a fault or shed does not touch equals the JAX engine's
 fault-free stream on the same prompt, up to the first step whose top-1/top-2
 margin is under 1e-4; the typed terminals and the counters equal what the
 JAX engine reports under the same plan (the watchdog's rung-1 flush is a
 one-token flush in the port and a capped k-token flush in the reference,
-so decode_ticks is not among them). The worker-death cases wait for the
-disaggregation slice.
+so decode_ticks is not among them).
 
 No verdict races the loop thread: shed bursts are queued before
 ``start()``; a deadline is rewound, a cancel or an engine death armed, from
@@ -33,16 +34,17 @@ import torch
 from vtpu.models import ModelConfig as JModelConfig, init_params as j_init_params
 from vtpu.models.transformer import decode_step as j_decode_step, prefill as j_prefill
 from vtpu.serving import (
-    FaultPlan as JFaultPlan, FaultSpec as JFaultSpec, ServingConfig as JServingConfig,
-    ServingEngine as JServingEngine,
+    DisaggConfig as JDisaggConfig, FaultPlan as JFaultPlan, FaultSpec as JFaultSpec,
+    ServingConfig as JServingConfig, ServingEngine as JServingEngine,
 )
 from vtpu_torch.convert import params_from_numpy
 from vtpu_torch.models import ModelConfig
 from vtpu_torch.parallel import TpMesh
 from vtpu_torch.parallel.launch import launch_tp, serve_requests
 from vtpu_torch.serving import (
-    EngineSignals, FaultPlan, FaultSpec, PriorityDeadlineShedPolicy, Request, ServingConfig,
-    ServingEngine, ShedPolicy, Status, Terminal, accepts_signals, load_shed_policy,
+    DisaggConfig, EngineSignals, FaultPlan, FaultSpec, PriorityDeadlineShedPolicy, Request,
+    ServingConfig, ServingEngine, ShedPolicy, Status, Terminal, accepts_signals,
+    load_shed_policy,
 )
 
 DIMS = dict(vocab=64, d_model=32, n_heads=2, n_layers=1, d_ff=64, max_seq=64, head_dim=16)
@@ -490,6 +492,109 @@ def test_watchdog_is_one_device_under_a_mesh(weights):
     for field, value in (("fetch_watchdog_ms", 5.0), ("fetch_watchdog_recover_ms", 5.0)):
         with pytest.raises(NotImplementedError, match=field):
             ServingEngine(weights[2], CFG, _serving(**{field: value}), mesh=mesh)
+
+
+# ------------------------------------------------- worker crash recovery
+
+
+def _disagg_engine(weights, side, specs=(), workers=1, **kw):
+    """A disaggregated engine of tests/test_faults.py's configuration
+    (16-token chunks and bucket, pages of 8, a 5 ms retry backoff) on one
+    side, with the plan of ``specs``."""
+    cls = JDisaggConfig if side == "jax" else DisaggConfig
+    kw = dict(prefill_chunk=16, kv_page=8, worker_retry_backoff_ms=5.0,
+              disagg=cls(prefill_workers=workers), **kw)
+    return _engine(weights, side, specs=specs, **kw)
+
+
+def test_worker_death_requeues_and_restarts(weights):
+    """A prefill worker dying as it starts its claim loses one request at
+    most: the loop releases its blocks, re-queues the request after the
+    backoff and restarts the worker, and the stream completes equal to the
+    fault-free stream; the terminal, the restart (traced with the request)
+    and the counters equal the JAX engine's under the same plan."""
+    prompt = _prompt(70, 12)
+    out = {}
+    for side in ("jax", "port"):
+        eng = _disagg_engine(weights, side, specs=(("worker_death", 0),))
+        try:
+            req = eng.submit(prompt, max_new_tokens=6)
+            eng.start()
+            stream = list(req.stream())
+        finally:
+            eng.stop()
+        restarts = [e["rid"] for e in eng.trace.events() if e["event"] == "worker_restart"]
+        st = eng.stats()
+        out[side] = (req.status, restarts == [req.rid], st["worker_restarts"],
+                     st["faulted_requests"], st["faults_injected"], st["handoffs"],
+                     st["kv_pool_free"] == st["kv_pool_blocks"])
+        if side == "port":
+            _agree(stream, _ref(weights, prompt, 6))
+    assert out["port"] == out["jax"] == (Status.OK, True, 1, 0, 1, 1, True)
+
+
+def test_worker_death_bounded_retries_then_faulted(weights):
+    """Past worker_retry_limit deaths the request ends FAULTED with no
+    token, and the restarted worker serves the next request (the plan has
+    run dry); restarts, faults and injections equal the JAX engine's."""
+    limit = 2
+    follow_p = _prompt(72, 12)
+    out = {}
+    for side in ("jax", "port"):
+        eng = _disagg_engine(weights, side, specs=(("worker_death", 0, limit + 1),),
+                             worker_retry_limit=limit)
+        eng.start()
+        try:
+            doomed = eng.submit(_prompt(71, 12), max_new_tokens=6)
+            doomed_toks = list(doomed.stream())
+            follow = eng.submit(follow_p, max_new_tokens=6)
+            follow_toks = list(follow.stream())
+        finally:
+            eng.stop()
+        st = eng.stats()
+        out[side] = (doomed_toks, doomed.status, follow.status, len(follow_toks),
+                     st["worker_restarts"], st["faulted_requests"], st["faults_injected"],
+                     st["kv_pool_free"] == st["kv_pool_blocks"])
+        if side == "port":
+            _agree(follow_toks, _ref(weights, follow_p, 6))
+    assert out["port"] == out["jax"] == (
+        [], Status.FAULTED, Status.OK, 6, limit + 1, 1, limit + 1, True)
+
+
+def test_cancel_vs_disagg_claim_single_typed_terminal(weights):
+    """Cancels racing two prefill workers' claims (tests/test_races.py's
+    case, driven without sleeps): of 16 requests, every 4th is cancelled
+    while queued, every 4th + 1 inside its first token's delivery (on the
+    worker thread, before its handoff), every 4th + 2 inside its 2nd
+    token's (in a slot). Each ends with exactly one typed terminal, the
+    statuses and token counts equal the JAX engine's, the untouched streams
+    equal the fault-free ones, and every pool block comes back."""
+    prompts = [_prompt(100 + i, 12) for i in range(16)]
+    out = {}
+    for side in ("jax", "port"):
+        eng = _disagg_engine(weights, side, workers=2, max_new_tokens=4)
+        reqs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        for i, r in enumerate(reqs):
+            if i % 4 == 0:
+                r.cancel()
+            elif i % 4 in (1, 2):
+                _on_token(r, i % 4, r.cancel)
+        eng.start()
+        try:
+            toks = [list(r.stream()) for r in reqs]
+        finally:
+            eng.stop()
+        st = eng.stats()
+        assert st["kv_pool_free"] == st["kv_pool_blocks"] and st["handoff_copies"] == 0
+        for r in reqs:
+            assert r.out.empty() and r.status in Status.ALL  # the one terminal was read
+        out[side] = ([r.status for r in reqs], [len(t) for t in toks])
+        if side == "port":
+            for i in range(3, 16, 4):
+                _agree(toks[i], _ref(weights, prompts[i], 4))
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == [Status.CANCELLED] * 3 + [Status.OK] + out["port"][0][4:]
+    assert out["port"][1][:4] == [0, 1, 2, 4]
 
 
 # --------------------------------------------------- injection seams: pool

@@ -33,11 +33,16 @@ streams; the MoE and SSM families' decode steps replay bit for bit their
 eager steps (an SSM state written in place, masked by the active flags),
 their engines on graphs stream what their synchronous eager loops stream,
 and MoE routing (comparisons with an arange, no one_hot) captures under
-``set_sync_debug_mode("error")``, drops and pad mask included."""
+``set_sync_debug_mode("error")``, drops and pad mask included; and a
+disaggregated engine's prefill worker chunks on its own stream beside the
+loop's replays, its graphs captured once, with no block it writes ever
+overwritten by the loop stream's work on that block from before its
+release."""
 
 import ctypes
 import dataclasses
 import functools
+import threading
 import time
 
 import numpy as np
@@ -1012,3 +1017,72 @@ def test_moe_routing_captures_under_sync_debug_error(dev):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert float(want[0].sum()) < 128 * cfg.top_k  # the tight capacity dropped choices
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_disagg_worker_stream_beside_replays(dev, kv):
+    """A disaggregated engine on graphs: its graphs are captured once, when
+    it is built, and none while it serves; its prefill worker chunks on a
+    CUDA stream of its own beside the loop's replays, and every stream
+    equals the plain trunk's up to a top-1/top-2 margin below 0.05, with
+    handoff_copies 0, replays = decode ticks and paged launches = n_layers
+    x decode ticks. The pool holds two requests, so each later claim takes
+    blocks a retire released; every release on the loop thread is
+    followed, on the loop's stream and behind a device sleep, by a poison
+    of those blocks (a late tick's write): a worker that wrote a reserved
+    block before its stream waited for the loop's would lose its KV to the
+    poison, and its stream would part from the plain trunk."""
+    from vtpu_torch.models.transformer import kv_keys
+    from vtpu_torch.serving import DisaggConfig
+
+    cfg = _cfg(kv)
+    params = init_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(1, DIMS["vocab"], (48,), generator=gen).numpy() for _ in range(5)]
+    per = -(-(48 + NEW) // PAGE)
+    eng = ServingEngine(params, cfg, ServingConfig(
+        slots=2, prefill_buckets=(64,), max_new_tokens=NEW, kv_page=PAGE, prefill_chunk=32,
+        kv_pool_blocks=2 * per, disagg=DisaggConfig(min_prefill_tokens=32,
+                                                     max_prefill_tokens=64)))
+    captured = eng.stats()["graphs_captured"]
+    assert captured > 0
+    ptrs = {k: x.data_ptr() for k, x in eng.state.items()}
+    release, poisoned = eng._alloc.release, []
+
+    def poison_after(blocks):
+        release(blocks)
+        if blocks and threading.current_thread() is eng._thread:
+            torch.cuda._sleep(int(2e6))  # ~1 ms of the loop's stream
+            idx = torch.tensor(blocks, device=dev)
+            for key in kv_keys(eng.state):
+                eng.state[key].index_fill_(1, idx, 7)
+            poisoned.append(len(blocks))
+
+    eng._alloc.release = poison_after
+    _build.reset_launches()
+    reqs = [eng.submit(p) for p in prompts]
+    eng.start()
+    try:
+        outs = [list(r.stream()) for r in reqs]
+    finally:
+        eng.stop()
+    st = eng.stats()
+    launches = _build.launches()
+    assert eng.loop_error is None and all(r.status == Status.OK for r in reqs)
+    # every retire poisoned its blocks, and five requests of `per` blocks
+    # in a pool of 2 x per took blocks released before them
+    assert poisoned == [per] * 5 and sum(poisoned) > st["kv_pool_blocks"]
+    for out, prompt in zip(outs, prompts):
+        assert len(out) == NEW
+        want, margins = _plain_stream(params, cfg, prompt, NEW)
+        for got, ref, m in zip(out, want, margins):
+            if m < 0.05:
+                break
+            assert got == ref
+    paged = "paged_decode_attention_int8kv" if kv == "int8" else "paged_decode_attention"
+    assert st["handoffs"] == 5 and st["handoff_copies"] == 0
+    assert st["graphs_captured"] == captured and eng.decode_graphs.replays == st["decode_ticks"]
+    assert launches[paged] == cfg.n_layers * st["decode_ticks"]
+    assert launches["flash_attention"] == 0  # the worker's chunks take the plain route
+    assert st["kv_pool_free"] == st["kv_pool_blocks"]
+    assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs

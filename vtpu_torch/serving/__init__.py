@@ -3,9 +3,12 @@ continuous-batching engine over the dense transformer, on one device or
 tensor-parallel over torch.distributed (``mesh=``), and over the MoE and
 selective-SSM families on one device (``ServingEngine(model=...)`` with an
 adapter from vtpu_torch.serving.adapters), with its failure domains
-(deadlines, overload shedding, fault injection, the fetch watchdog)."""
+(deadlines, overload shedding, fault injection, the fetch watchdog) and, on
+one device, disaggregated prefill/decode (``ServingConfig(disagg=
+DisaggConfig(...))``, serving/disagg.py)."""
 
 from vtpu_torch.serving.adapters import TransformerSlotModel
+from vtpu_torch.serving.disagg import DisaggConfig
 from vtpu_torch.serving.engine import (
     BlockAllocator,
     Request,
@@ -36,6 +39,7 @@ from vtpu_torch.serving.shed import (
 
 __all__ = [
     "BlockAllocator",
+    "DisaggConfig",
     "EngineDeath",
     "EngineSignals",
     "FaultInjected",

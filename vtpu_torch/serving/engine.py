@@ -39,11 +39,16 @@ watchdog (``fetch_watchdog_ms``) degrades a stalled engine one rung at a
 time and lifts the rungs once latency recovers. A ``FaultPlan``
 (``ServingConfig.faults``, serving/faults.py) fires each seam on schedule.
 
-What the port has not reached raises instead of being ignored: every
-``ServingConfig`` field named in ``_UNPORTED`` must stay at its default,
+Disaggregated prefill/decode (``disagg``, serving/disagg.py, one device):
+prefill workers, each on a thread and a CUDA stream of its own, claim the
+waiting line, chunk-prefill into slot-less pool blocks and deliver the
+first token; the loop installs each handoff into a free slot with one
+table-row write and no KV copy, and restarts a worker that died.
+
+What the port has not reached raises instead of being ignored:
 ``ModelConfig.kv_int8="auto"`` is refused, and so are chunked prefill,
-prefix registration, speculation, the multi-tick loop, overcommit and the
-fetch watchdog under a mesh. ``kv_int8=True`` serves int8 KV: dense or
+prefix registration, disaggregation, speculation, the multi-tick loop,
+overcommit and the fetch watchdog under a mesh. ``kv_int8=True`` serves int8 KV: dense or
 paged int8 planes with f32 scale planes beside them, written quantized at
 every KV write site here. ``mesh=`` (a vtpu_torch.parallel.TpMesh) serves
 tensor-parallel over torch.distributed: see ``ServingEngine`` for how the
@@ -105,6 +110,7 @@ from vtpu_torch.serving.adapters import (
     multi_tick_decode_step, sampled_decode_step, swap_page_gather, swap_page_scatter,
     verify_step,
 )
+from vtpu_torch.serving.disagg import DisaggConfig, DisaggRuntime
 from vtpu_torch.serving.faults import EngineDeath, FaultInjected, FaultPlan
 from vtpu_torch.serving.graphs import DecodeGraphs
 from vtpu_torch.serving.shed import (
@@ -116,10 +122,8 @@ log = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
-    """The reference's serving knobs, field for field. Fields in
-    ``_UNPORTED`` exist so a config carries over unchanged, and must stay
-    at their defaults in this port until their slice lands. Ported beside
-    these fields: int8 KV (``ModelConfig.kv_int8=True``) and
+    """The reference's serving knobs, field for field, every one served.
+    Beside these fields: int8 KV (``ModelConfig.kv_int8=True``) and
     tensor-parallel serving (``ServingEngine(..., mesh=)``), dense or
     paged, on either paged route.
 
@@ -127,10 +131,10 @@ class ServingConfig:
     loop (unrolled or a fori_loop); the port's layer loop is a Python loop,
     always unrolled, so None, True and False serve the same computation.
 
-    Speculation, the multi-tick loop, KV overcommit and the fetch watchdog
-    are served on one device; under a tensor-parallel mesh their eleven
-    fields raise (the rank-0 broadcast protocol has no verify, flush, swap
-    or route-switch op yet). Deadlines, overload shedding, fault plans and
+    Disaggregation, speculation, the multi-tick loop, KV overcommit and the
+    fetch watchdog are served on one device; under a tensor-parallel mesh
+    their twelve fields raise (the rank-0 broadcast protocol has no chunk,
+    verify, flush, swap or route-switch op yet). Deadlines, overload shedding, fault plans and
     the duty supplier are rank-0 host decisions, served under a mesh too."""
 
     slots: int = 4  # concurrent sequences (the decode batch)
@@ -207,6 +211,10 @@ class ServingConfig:
     # request-trace ring capacity in events; 0 turns the ring off (the
     # latency percentiles in stats() stay live)
     trace_events: int = 16384
+    # disaggregated prefill/decode: a DisaggConfig (serving/disagg.py) runs
+    # prefill workers beside the loop (None: co-scheduled). Needs the paged
+    # pool, prefill_chunk, device sampling, no speculation and batched
+    # admission; one device
     disagg: Optional[Any] = None
     # k decode ticks a dispatch with the sampled token fed back on the
     # device, one fetch a flush (None and 1: one tick a dispatch). Needs
@@ -232,6 +240,9 @@ class ServingConfig:
     # both routes is captured when the engine is built
     fetch_watchdog_ms: float = 0.0
     fetch_watchdog_recover_ms: float = 0.0
+    # a request whose prefill worker died is re-queued after
+    # worker_retry_backoff_ms x 2^(deaths - 1), and ends FAULTED past
+    # worker_retry_limit deaths
     worker_retry_limit: int = 2
     worker_retry_backoff_ms: float = 10.0
     # a FaultPlan (serving/faults.py): its seams fire on schedule; None =
@@ -242,13 +253,10 @@ class ServingConfig:
     duty_supplier: Optional[Any] = None
 
 
-# fields whose features are later slices of the port: a non-default value
-# raises NotImplementedError naming the field
-_UNPORTED = ("disagg", "worker_retry_limit", "worker_retry_backoff_ms")
 # served on one device only: under a mesh a non-default value raises (the
-# rank-0 broadcast protocol has no verify, flush, swap or route-switch op
-# yet)
-_ONE_DEVICE = ("spec_tokens", "spec_ngram", "spec_min_mean", "spec_cooloff_ticks",
+# rank-0 broadcast protocol has no chunk, verify, flush, swap or
+# route-switch op yet)
+_ONE_DEVICE = ("disagg", "spec_tokens", "spec_ngram", "spec_min_mean", "spec_cooloff_ticks",
                "decode_loop_k", "loop_policy", "kv_swap", "kv_swap_stage_blocks",
                "kv_swap_recompute_tokens", "fetch_watchdog_ms", "fetch_watchdog_recover_ms")
 
@@ -256,21 +264,17 @@ _ONE_DEVICE = ("spec_tokens", "spec_ngram", "spec_min_mean", "spec_cooloff_ticks
 def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
     """Refuse what this port has not reached. Every other combination is
     ported, under a tensor-parallel ``mesh`` as on one device, except
-    chunked prefill (and so prefix registration), speculation, the
-    multi-tick loop, KV overcommit and the fetch watchdog, whose rank-0
-    broadcast ops are a later slice: the mesh itself is checked by the
-    adapter (``_validate_serving_mesh``)."""
+    chunked prefill (and so prefix registration and disaggregation),
+    speculation, the multi-tick loop, KV overcommit and the fetch watchdog,
+    whose rank-0 broadcast ops are a later slice: the mesh itself is
+    checked by the adapter (``_validate_serving_mesh``)."""
     for f in dataclasses.fields(ServingConfig):
-        if f.name in _UNPORTED and getattr(serving, f.name) != f.default:
-            raise NotImplementedError(
-                f"ServingConfig.{f.name}={getattr(serving, f.name)!r} is not "
-                "ported to vtpu_torch yet; leave it at its default")
         if mesh is not None and f.name in _ONE_DEVICE and getattr(serving, f.name) != f.default:
             raise NotImplementedError(
                 f"ServingConfig.{f.name}={getattr(serving, f.name)!r} under a tensor-parallel "
                 "mesh= is not ported to vtpu_torch: the rank-0 broadcast protocol has no "
-                "verify, flush, swap or route-switch op yet; serve speculation, "
-                "decode_loop_k, kv_swap and the fetch watchdog on one device")
+                "chunk, verify, flush, swap or route-switch op yet; serve disagg, "
+                "speculation, decode_loop_k, kv_swap and the fetch watchdog on one device")
     if isinstance(getattr(cfg, "kv_int8", False), str):
         raise NotImplementedError(
             f"ModelConfig.kv_int8={cfg.kv_int8!r} is not ported to vtpu_torch: the "
@@ -707,11 +711,11 @@ def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
       :bucket]``, so the chunk's KV lands in the cache in place.
     - Paged pool (``block_ids``, [Wp = bucket // page] block ids, padded
       with the null block 0): the window's pages are gathered into the
-      view, the trunk writes there, and only the page span the chunk can
-      touch, ceil(C/page) + 1 pages from a start page clamped so the span
-      stays in the window, scatters back (a chunk's pool traffic is O(C);
-      a clamp only rewrites pages with their own content). Padding and
-      junk pages land on the null block. Passing the blocks explicitly is
+      view, the trunk writes there, and only the pages the chunk writes
+      scatter back (a chunk's pool traffic is O(C)), so no page before the
+      chunk, a shared prefix page among them, is ever rewritten while
+      another stream reads it. Padding and junk pages land on the null
+      block. Passing the blocks explicitly is
       what lets a prefix build prefill fresh blocks with no slot: ``slot``
       may then be the slot count, and the length write is dropped.
     An int8 cache quantizes the chunk's KV into its scale planes. Pads in
@@ -744,15 +748,14 @@ def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
     logits, new_view = spec_verify_loop(params, cfg, view, chunk, bucket, write_kv,
                                         ffn_fn=ffn_fn)
     if block_ids is not None:
-        span = min(-(-c // page) + 1, wp)
-        p0 = min(offset // page, wp - span)
-        ids_w = ids[p0:p0 + span]
+        p0, p1 = offset // page, min(-(-(offset + c) // page), wp)
         for key in keys:
             pool = cache[key]
             pages = new_view[key].reshape((pool.shape[0], wp, page) + tuple(pool.shape[3:]))
-            pool[:, ids_w] = pages[:, p0:p0 + span]
+            pool[:, ids[p0:p1]] = pages[:, p0:p1]
     if slot < cache["len"].shape[0]:
-        cache["len"][slot] = new_len
+        # a fill, not an item assignment: the host never waits for it
+        cache["len"][slot].fill_(new_len)
     return logits, cache
 
 
@@ -1060,6 +1063,7 @@ class ServingEngine:
         else:
             self._n_blocks = 0
             self._alloc = None
+        self._check_disagg(serving)
         self._slot_blocks: list[list[int]] = [[] for _ in range(b)]
         # leading blocks of each slot's table row that are shared prefix
         # mappings (their refcounts are held elsewhere too)
@@ -1140,6 +1144,8 @@ class ServingEngine:
             # applied and lifted
             "shed_deadline": 0, "shed_overload": 0,
             "watchdog_degrades": 0, "watchdog_recoveries": 0,
+            # dead prefill workers the loop restarted (disagg)
+            "worker_restarts": 0,
         }
         # per-slot token history (prefix + prompt + delivered tokens): the
         # prompt-lookup drafts' source and what a park saves and a
@@ -1177,6 +1183,11 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
         # an exception that ended the loop (its streams were ended CANCELLED)
         self.loop_error: Optional[BaseException] = None
+        # the stream the loop thread dispatches on (a card; set when the loop
+        # starts), which prefill workers order their writes after
+        self._main_stream = None
+        self._disagg = (DisaggRuntime(self, serving.disagg)
+                        if serving.disagg is not None else None)
         # CUDA graphs of the steps this engine's loop dispatches (one card,
         # no mesh), every one captured here and none while serving: the
         # single tick (pipelined loop; the fallback tick of unfused
@@ -1204,6 +1215,29 @@ class ServingEngine:
             if mesh is None:
                 self._capture_graphs()
         self._select_steps()
+
+    def _check_disagg(self, serving: ServingConfig) -> None:
+        """What disaggregation needs, refused as the reference refuses it:
+        a DisaggConfig, the paged pool (workers prefill into slot-less
+        blocks), prefill_chunk (the explicit-block_ids chunk path), device
+        sampling without speculation, and batched admission."""
+        if serving.disagg is None:
+            return
+        if not isinstance(serving.disagg, DisaggConfig):
+            raise ValueError("ServingConfig.disagg must be a DisaggConfig, got "
+                             f"{type(serving.disagg).__name__}")
+        if not self._paged:
+            raise ValueError("disagg requires the paged pool (set kv_page): prefill workers "
+                             "build KV into slot-less pool blocks")
+        if not self._chunk:
+            raise ValueError("disagg requires prefill_chunk: the worker prefills through the "
+                             "explicit-block_ids chunked path")
+        if not self._device_sampling or self._spec_tokens:
+            raise ValueError("disagg requires device sampling (no custom sample= callable) "
+                             "and no active speculation")
+        if not self._async_admission:
+            raise ValueError("disagg requires batched/async admission (the on-device "
+                             "first-token samplers)")
 
     def _init_failure_domains(self, serving: ServingConfig) -> None:
         """Deadlines, overload shedding, the fault plan, the fetch
@@ -1560,6 +1594,9 @@ class ServingEngine:
         self.trace.record("submit", req.rid, -1, n)
         self._pending.put(req)
         self._wake.set()
+        if self._disagg is not None:
+            # a waiting worker finds it once the next tick head drains it
+            self._disagg.notify_work()
         if self._stop.is_set():
             # raced with stop(): an extra terminal is harmless, a missing one
             # hangs the client
@@ -1597,6 +1634,9 @@ class ServingEngine:
     def start(self) -> None:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+        if self._disagg is not None:
+            # they wait for the loop to start before touching the device
+            self._disagg.start()
 
     def stop(self) -> None:
         """End the loop (a pipelined tick still in flight is delivered
@@ -1725,6 +1765,35 @@ class ServingEngine:
             s["kv_pool_blocks"] = s["kv_pool_free"] = None
             s["kv_pool_used"] = s["kv_pool_used_hwm"] = None
             s["kv_pool_occupancy"] = s["read_pages_ratio"] = None
+        # disaggregation: the handoff counters (handoff_copies is the
+        # zero-copy contract), the backlog and share the controller works
+        # on, and the workers' flow counters merged into the engine's
+        # totals so both modes read alike; worker fetches count as
+        # admission fetches, never tick fetches
+        rt = self._disagg
+        s["disagg"] = rt is not None
+        if rt is not None:
+            rtc = rt.counters_snapshot()
+            s["handoffs"] = rtc["handoffs"]
+            s["handoff_copies"] = rtc["handoff_copies"]
+            s["repartitions"] = rt.controller.repartitions
+            s["prefill_backlog"] = rt.backlog()
+            s["prefill_share_tokens"] = rt.controller.prefill_share
+            s["generated_tokens"] += rtc["first_tokens"]
+            s["admissions"] += rtc["worker_retired"]
+            s["queued"] += rt.owned()
+            s["prefill_chunks"] += rtc["prefill_chunks"]
+            s["device_gets"] += rtc["fetches"]
+            s["admission_fetches"] += rtc["fetches"]
+            s["bytes_fetched"] += rtc["bytes_fetched"]
+            s["prefix_blocks_shared"] += rtc["prefix_blocks_shared"]
+            s["prefix_cow_copies"] += rtc["prefix_cow_copies"]
+            s["pool_blocked_admissions"] += rtc["pool_blocked_prefills"]
+            s["shed_deadline"] += rtc["shed_deadline"]
+            s["faulted_requests"] += rtc["faulted_requests"]
+        else:
+            s["handoffs"] = s["handoff_copies"] = s["repartitions"] = s["prefill_backlog"] = 0
+            s["prefill_share_tokens"] = None
         # failure domains: the FaultPlan's own injection count
         s["faults_injected"] = self._faults.injected_total if self._faults is not None else 0
         # process-wide kernel launch counts (the wrappers' counters; a graph
@@ -1743,8 +1812,10 @@ class ServingEngine:
         ShedPolicy reads at an overload shed and a LoopPolicy at a fused
         flush head. Every field is one read of a counter or gauge; ``duty``
         is ``ServingConfig.duty_supplier``'s reading (None without one, and
-        None, logged, when it raises). Features the port has not reached
-        keep their defaults: never draining."""
+        None, logged, when it raises); ``prefill_backlog`` is the prefill
+        workers' backlog under disaggregation, the chunked admissions in
+        flight otherwise. Features the port has not reached keep their
+        defaults: never draining."""
         duty = None
         sup = self.serving.duty_supplier
         if sup is not None:
@@ -1758,7 +1829,8 @@ class ServingEngine:
             pool_free=self._alloc.free_blocks if self._paged else None,
             pool_used_hwm=self._alloc.used_hwm if self._paged else None,
             parked_sessions=len(self._parked),
-            prefill_backlog=len(self._admitting),
+            prefill_backlog=(self._disagg.backlog() if self._disagg is not None
+                             else len(self._admitting)),
             now_ns=time.monotonic_ns(),
             pool_blocks=(self._n_blocks - 1) if self._paged else None,
             duty=duty,
@@ -1777,7 +1849,10 @@ class ServingEngine:
         (CANCELLED — the engine abandoned them), admissions and rebuilds
         mid-chunk, parked sessions (whatever they hold goes back),
         waiters and submissions; a caller waiting in register_prefix gets
-        an error."""
+        an error. Handoffs never installed, and requests the prefill workers
+        held or were to retry, end first."""
+        if self._disagg is not None:
+            self._disagg.drain()
         for slot in range(len(self._slot_req)):
             self._retire(slot, status=Status.CANCELLED)
         for slot, adm in list(self._admitting.items()):
@@ -2149,8 +2224,12 @@ class ServingEngine:
                 # mid-chunked-admission: it parks once admitted. Nowhere at
                 # all: its submit may still sit in _pending (put there after
                 # this pass drained it), so the command is dropped only on
-                # the second pass in a row that finds it nowhere
-                if not any(adm["req"] is req for adm in self._admitting.values()):
+                # the second pass in a row that finds it nowhere. A request a
+                # prefill worker holds, or a handoff awaiting a slot, parks
+                # once it reaches a slot, as a chunked admission does
+                if self._disagg is not None and self._disagg.owns(req):
+                    self._park_unseen.discard(req)
+                elif not any(adm["req"] is req for adm in self._admitting.values()):
                     if req in self._park_unseen:
                         self._want_park.discard(req)
                         self._park_unseen.discard(req)
@@ -2334,6 +2413,38 @@ class ServingEngine:
         self._stats["resumes"] += 1
         return True
 
+    def _install_handoffs(self) -> bool:
+        """Map each finished handoff's filled blocks into a free slot: the
+        entry is shaped as a parked one, so the resume remap is the install
+        (one table-row and length write, ``_finish_resume_slot``) and no KV
+        byte moves. The worker delivered the first token; the next tick
+        feeds it. A cancelled entry releases its blocks and its slot takes
+        the next entry at once. Returns whether any was installed."""
+        rt = self._disagg
+        installed = False
+        for slot in range(self.serving.slots):
+            if self._slot_req[slot] is not None or slot in self._admitting:
+                continue
+            while True:
+                e = rt.pop_ready()
+                if e is None:
+                    return installed
+                req = e["req"]
+                if not req.cancelled:
+                    break
+                # its first token was delivered: it began service
+                self._alloc.release(e["shared"] + e["priv"])
+                self._stats["admissions"] += 1
+                self._end_stream(req, req._abort or Status.CANCELLED)
+            self._finish_resume_slot(slot, e)
+            # the next token's gap counts from the worker's delivery
+            self._itl_last[slot] = e["t_first"]
+            self._stats["admissions"] += 1
+            self.trace.record("pool_install", req.rid, slot, e["n_pages"])
+            self.trace.record("admit", req.rid, slot, e["seq_len"])
+            installed = True
+        return installed
+
     # ----------------------------------------------------------- admission
 
     def _bucket(self, n: int) -> Optional[int]:
@@ -2389,13 +2500,20 @@ class ServingEngine:
             self._stats["prefix_hits"] += 1  # a paged hit is the share itself
         return ok
 
-    def _reserve_paged_locked(self, slot: int, req: Request, entry: Optional[dict]) -> bool:
+    def _reserve_plan(self, req: Request, entry: Optional[dict]) -> tuple[int, int, int, int]:
+        """The page arithmetic slot admission and the prefill workers share:
+        (base, budget, whole prefix pages, private pages to allocate)."""
         page = self._page
         base = entry["len"] if entry is not None else 0
         total = base + int(req.tokens.shape[0])
         budget = min(req.max_new_tokens, self.model.max_context - total)
         full = base // page  # whole prefix pages, shared as they are
-        need_priv = -(-max(total + max(budget, 0), 1) // page) - full
+        return base, budget, full, -(-max(total + max(budget, 0), 1) // page) - full
+
+    def _reserve_paged_locked(self, slot: int, req: Request, entry: Optional[dict]) -> bool:
+        # the share / copy-on-write sequence is mirrored by the prefill
+        # worker's _reserve_locked (serving/disagg.py)
+        base, _, full, need_priv = self._reserve_plan(req, entry)
         shared = entry["blocks"][:full] if entry is not None else []
         # overcommit: a dry free list first evicts parked sessions' private
         # pages before the admission waits
@@ -2406,7 +2524,7 @@ class ServingEngine:
         if shared:
             self._alloc.share(shared)
             self._stats["prefix_blocks_shared"] += len(shared)
-        if base % page:
+        if base % self._page:
             # copy-on-write: logical page `full` starts as a copy of the
             # prefix's boundary block, every layer and plane, in place
             src, dst = entry["blocks"][full], priv[0]
@@ -2917,6 +3035,11 @@ class ServingEngine:
     # ---------------------------------------------------------------- loop
 
     def _loop(self) -> None:
+        if self.device.type == "cuda":
+            self._main_stream = torch.cuda.current_stream(self.device)
+        if self._disagg is not None:
+            # the graphs were captured at construction: workers may start
+            self._disagg.started.set()
         try:
             if self._fused_spec:
                 self._loop_fused()
@@ -2935,6 +3058,11 @@ class ServingEngine:
             log.exception("serving loop failed; ending every stream")
         finally:
             if not self._died:
+                if self._disagg is not None:
+                    # workers first: the sweep owns what they leave (their
+                    # exits release blocks and end streams)
+                    self._stop.set()
+                    self._disagg.join()
                 self._drain_all()
 
     def _tick_head(self) -> bool:
@@ -2947,7 +3075,12 @@ class ServingEngine:
         prompt budget (bypassed while nothing decodes; chunks in flight
         spend first, resumes before new admissions); shed the waiting
         line's overflow, and retire cancelled and deadline-aborted slots.
-        Returns whether anything was admitted."""
+        Under disaggregation the prefill workers own the waiting line: the
+        tick head reclaims the blocks a worker asked for (eviction runs on
+        this thread only), restarts dead workers and re-queues what they
+        held (``DisaggRuntime.watch``), and installs finished handoffs into
+        free slots in place of admitting. Returns whether anything was
+        admitted or installed."""
         t0 = time.perf_counter()
         self._beat_ns = time.monotonic_ns()
         if self._fire_fault("engine_death"):
@@ -2968,13 +3101,23 @@ class ServingEngine:
             self._drain_swap_outs()
             swap_s = time.perf_counter() - t_sw
             self._prof.note("swap_drain", swap_s)
+        if self._disagg is not None and self._swap_enabled:
+            need = self._disagg.take_needed_blocks()
+            if need:
+                self._reclaim(need)
         decoding = any(r is not None for r in self._slot_req)
         budget = (float(self.serving.prefill_budget)
                   if self.serving.prefill_budget and decoding else float("inf"))
         budget = self._advance_admissions(budget)
         if self._swap_enabled:
             budget = self._advance_resumes(budget)
-        admitted, _ = self._admit_waiting(budget)
+        if self._disagg is not None:
+            self._disagg.watch()
+            admitted = self._install_handoffs()
+            if len(self._waiting):
+                self._disagg.notify_work()
+        else:
+            admitted, _ = self._admit_waiting(budget)
         self._shed_overload()
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.cancelled:
@@ -3039,6 +3182,13 @@ class ServingEngine:
                 self._stats["shed_overload"] += 1
                 self.trace.record("shed", req.rid, -1, TERMINAL_CODES[Status.SHED_OVERLOAD])
                 self._end_stream(req, Status.SHED_OVERLOAD)
+
+    def _on_ticks(self, k: int) -> None:
+        """``k`` decode ticks were dispatched: the disaggregation
+        controller refills its prefill allowance once for each."""
+        if self._disagg is not None:
+            for _ in range(k):
+                self._disagg.on_tick()
 
     def _idle_wait(self, admitted: bool) -> None:
         """Nothing to decode or deliver: wait briefly for a submission,
@@ -3119,6 +3269,7 @@ class ServingEngine:
             out, self.state = self._step(
                 self.params, self.state, tokens, active, self._gens, kv_bucket)
             self._stats["decode_ticks"] += 1
+            self._on_ticks(1)
             tick = self._tick(out, list(self._slot_req))
             tick["staged"] = self._stage(self._tick_arrays(tick) + [f["tokens"] for f in firsts])
             disp_s = time.perf_counter() - t_disp
@@ -3293,6 +3444,7 @@ class ServingEngine:
                 out, self.state = self._step(
                     self.params, self.state, tokens, active, self._gens, kv_bucket)
                 self._stats["decode_ticks"] += 1
+                self._on_ticks(1)
                 if inflight is not None:
                     self._stats["pipelined_ticks"] += 1
                 new_inflight = self._tick(out, [self._slot_req[i] if i in live else None
@@ -3422,6 +3574,7 @@ class ServingEngine:
                                         self._upload(pred, torch.int32), self._gens, kv_bucket)
                 self._stats["decode_ticks"] += k
                 self._stats["loop_flushes"] += 1
+                self._on_ticks(k)
                 if inflight is not None:
                     self._stats["pipelined_ticks"] += k
                 toks, counts, carry, lps = out

@@ -30,10 +30,14 @@ Seams the port's engine consults:
 - ``engine_death``    the serving loop thread dies at a flush boundary
                       without any cleanup (no terminals, no releases: the
                       in-process stand-in for a killed engine process)
+- ``worker_death``    a disaggregated prefill worker dies as it starts a
+                      claimed request, without cleanup -> the loop's
+                      supervisor releases its blocks, re-queues the
+                      request with backoff (FAULTED past
+                      worker_retry_limit) and restarts the worker
 
 The rest of the vocabulary names seams of features the port has not
-reached (disaggregated prefill workers, live migration, the fleet's
-health probes and fabric transport). A plan naming them is accepted and
+reached (live migration, the fleet's health probes and fabric transport). A plan naming them is accepted and
 never fires on the port's engine, as on a reference engine without those
 features.
 
@@ -78,7 +82,7 @@ class FaultInjected(RuntimeError):
 
 class WorkerDeath(BaseException):
     """Kills a prefill worker thread without unwinding its cleanup (the
-    disaggregation slice's seam). A BaseException, so an ordinary ``except
+    ``worker_death`` seam). A BaseException, so an ordinary ``except
     Exception`` containment cannot swallow it."""
 
 
