@@ -19,7 +19,8 @@ Phases, any failure exits nonzero:
    paged kernels at the serving tick and the verify shape, the
    dense decode kernel at the study's four T=1 cells; the paged kernels
    (bf16, int8) also on each tp=2 head shard, against their plain versions
-   and, bit for bit, the head slice of the full-pool call;
+   and, bit for bit, the head slice of the full-pool call, at the serving
+   tick, the ragged chunk and the verify shape T=5 (rows 4v), each timed;
 3. the paths, each with every launch count set to 0 just before it and
    read just after:
    a. the main path: the flagship ModelConfig served by ServingEngine on a
@@ -74,8 +75,24 @@ Phases, any failure exits nonzero:
       main path's wave with bf16 and then int8 KV on the pipelined loop
       (eager: no graphs under a mesh), every decode tick through the
       head-local paged kernel on each rank, streams checked against the
-      plain trunk of the same KV type; given four cards, four ranks over
-      NCCL serve the same waves after them;
+      plain trunk of the same KV type; then, in the same world, one
+      16-token wave of each of the broadcast protocol's other paths: h1
+      phase e's chunks and a registered 512-token prefix; h2
+      decode_loop_k=8, h3 spec_tokens=4 (bf16 and int8), h4 fused (8, 4);
+      h5 phase k's MoE (its experts split over the ranks), pipelined and
+      with spec_tokens=4; h6 phase i's overcommit engine, eight sessions
+      parked, evicted and resumed; h7 decode_loop_k=8 under delayed_fetch
+      stalls, down both rungs of the watchdog and back; h8 DisaggConfig()
+      with phase l's two background prompts and burst. Each held as its
+      one-device phase holds it: every stream against the plain trunk of
+      its KV type or family teacher-forced on it (a near-tie skipped), on
+      every rank head-local paged launches = 12 x the inner ticks on the
+      kernel route (verify ticks included) and no single-device paged
+      launch, flash launches = 12 x admission dispatches (none under
+      disaggregation), no install or handoff copy, every swapped-in block
+      byte for byte on each rank's shard, the pool and every rank's host
+      tier free; tokens/s per arm. Given four cards, four ranks over NCCL
+      serve the main path's waves after them;
    i. overcommit (run after g): the flagship on the default pipelined loop
       on graphs with kv_swap, a pool of four sessions of at most 9 pages
       (kv_pool_blocks=37, prefill_chunk=256) and a host tier of 36 pinned
@@ -510,7 +527,7 @@ def dequant(xq: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     return (xq.float() * sc[..., None]).to(torch.bfloat16)
 
 
-def check_paged_tp(gen, log, int8: bool) -> dict:
+def check_paged_tp(gen, log, int8: bool) -> list[dict]:
     """Row 4, the paged kernel on one rank's head shard (the reference's
     ``_shard_body``), in one process: the pools of check_paged (bf16, or
     int8 with scale pools; pages 128, 16 and 48) and q split on heads into
@@ -518,7 +535,10 @@ def check_paged_tp(gen, log, int8: bool) -> dict:
     the ragged copy-on-write chunk, against its plain version (within ATOL)
     and against the head slice of the full-pool call (a mesh call takes the
     split plan of the full head count, so the two must be bitwise equal);
-    then kernel, plain and library times at the head-local serving tick."""
+    then kernel, plain and library times at the head-local serving tick.
+    Rows 4v: the same at the verify shape T = SPEC_K + 1 on the serving
+    pool (each row's five queries ending at the serving tick's lengths),
+    every rank's shard held both ways and timed. Returns [row 4, row 4v]."""
     import torch.nn.functional as F
 
     from vtpu_torch.ops.attention import gather_kv_pages
@@ -565,36 +585,63 @@ def check_paged_tp(gen, log, int8: bool) -> dict:
                     errs.append(err)
                     diffs.append(diff)
         if pg == page:
-            serving = shards[0], wp, table, kv1
-    ps, wp, table, kv1 = serving
-    q = head_shard(torch.randn((4, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16),
-                   -2, meshes[0])
-    ms, host = time_ms(lambda i: fn(q, *ps, table, kv1, i % n_layers, mesh=meshes[0]), 60)
-    plain, _ = time_ms(lambda i: ref(q, *ps, table, kv1, i % n_layers, mesh=meshes[0]), 12,
-                       hold=False)
-    mask = (torch.arange(wp * page, device="cuda")[None, :] < kv1)[:, None, None]
+            serving = shards, pools, wp, table, kv1
+    shards, pools, wp, table, kv1 = serving
+    rows = []
+    for t in (1, SPEC_K + 1):
+        kvl = (kv1 - (t - 1) + torch.arange(t, dtype=torch.int32, device="cuda")[None, :]
+               ).contiguous()
+        q = torch.randn((4, t, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+        errs_t, diffs_t = list(errs), list(diffs)
+        if t > 1:
+            errs_t, diffs_t = [], []
+            for layer in (0, n_layers - 1):
+                whole = fn(q, *pools, table, kvl, layer)
+                for m, ps in zip(meshes, shards):
+                    qs = head_shard(q, -2, m)
+                    got = fn(qs, *ps, table, kvl, layer, mesh=m)
+                    torch.cuda.synchronize()
+                    errs_t.append(max_err(got, ref(qs, *ps, table, kvl, layer, mesh=m)))
+                    diffs_t.append(max_err(got, head_shard(whole, -2, m)))
+            log(f"{name} page {page} verify T={t} on the serving pool, {TP} ranks, layers 0 "
+                f"and {n_layers - 1}: max_abs_err {max(errs_t):.3e} (atol {ATOL}), max diff "
+                f"from the full-pool call's head slice {max(diffs_t):.3e} (must be 0)")
+            if not (max(errs_t) <= ATOL and max(diffs_t) == 0):
+                raise AssertionError(f"{name} at T={t} disagrees: {max(errs_t)} against its "
+                                     f"plain version, {max(diffs_t)} against the full-pool call")
+        ps, qs = shards[0], head_shard(q, -2, meshes[0])
+        ms, host = time_ms(lambda i: fn(qs, *ps, table, kvl, i % n_layers, mesh=meshes[0]), 60)
+        plain, _ = time_ms(lambda i: ref(qs, *ps, table, kvl, i % n_layers, mesh=meshes[0]), 12,
+                           hold=False)
+        # [B, 1, T, W]: query i of row b sees the keys below kv_len[b, i]
+        mask = (torch.arange(wp * page, device="cuda")[None, None, :] < kvl[:, :, None])[:, None]
 
-    def library(i):
-        l = i % n_layers
-        if int8:
-            k = dequant(gather_kv_pages(ps[0][l], table), gather_kv_pages(ps[1][l], table))
-            v = dequant(gather_kv_pages(ps[2][l], table), gather_kv_pages(ps[3][l], table))
-        else:
-            k, v = gather_kv_pages(ps[0][l], table), gather_kv_pages(ps[1][l], table)
-        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), attn_mask=mask)
+        def library(i):
+            l = i % n_layers
+            if int8:
+                k = dequant(gather_kv_pages(ps[0][l], table), gather_kv_pages(ps[1][l], table))
+                v = dequant(gather_kv_pages(ps[2][l], table), gather_kv_pages(ps[3][l], table))
+            else:
+                k, v = gather_kv_pages(ps[0][l], table), gather_kv_pages(ps[1][l], table)
+            return F.scaled_dot_product_attention(qs.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), attn_mask=mask)
 
-    lib, _ = time_ms(library, 20 if int8 else 60)
-    keys, hl = int(kv1.sum()), h // TP
-    per_key = hl * dh * 2 * (1 if int8 else 2) + (hl * 4 * 2 if int8 else 0)
-    nbytes = keys * per_key + 2 * q.numel() * 2 + table.numel() * 4 + kv1.numel() * 4
-    bms, by = bound_ms(nbytes, 4 * keys * hl * dh)
-    return {"name": name, "route": "cuda",
-            "source": "vtpu_torch/csrc/paged_decode_attention.cu",
-            "replaces": "vtpu/ops/decode_attn.py:559", "max_abs_err": max(errs),
-            "max_diff_from_full_pool": max(diffs), "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib, "host_ms": host,
-            "tile": paged_tile(page), "n_split": paged_split_plan(4, h, wp, page)}
+        lib, _ = time_ms(library, 20 if int8 else 60)
+        keys, hl = int(kvl[:, -1].sum()), h // TP  # each row's keys read once
+        per_key = hl * dh * 2 * (1 if int8 else 2) + (hl * 4 * 2 if int8 else 0)
+        nbytes = keys * per_key + 2 * qs.numel() * 2 + table.numel() * 4 + kvl.numel() * 4
+        bms, by = bound_ms(nbytes, 4 * int(kvl.sum()) * hl * dh)
+        log(f"{name} T={t} q [4, {t}, {hl}, {dh}] on one rank's shard of the serving pool: "
+            f"kernel {ms:.4f} ms, gather + SDPA {lib:.4f} ms (kernel/library {ms / lib:.2f}x), "
+            f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        rows.append({"name": name if t == 1 else f"{name}_verify", "route": "cuda",
+                     "source": "vtpu_torch/csrc/paged_decode_attention.cu",
+                     "replaces": "vtpu/ops/decode_attn.py:559", "max_abs_err": max(errs_t),
+                     "max_diff_from_full_pool": max(diffs_t), "ms": ms, "plain_ms": plain,
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib, "host_ms": host,
+                     "shape": [4, t, hl, dh], "tile": paged_tile(page),
+                     "n_split": paged_split_plan(4, h, wp, page)})
+    return rows
 
 
 def study_inputs(gen, b: int, s: int, t: int, int8: bool, copies: int = 1) -> list[dict]:
@@ -4257,27 +4304,281 @@ def disagg_path(log, card: str, params) -> dict:
     return out
 
 
-def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
+# phase h's arms beyond the main path's waves (tp=2 only): 16-token waves
+# in the same world (TP_OPS_TAG on every tokens/s of a gloo world). Each
+# arm holds TP_HELD tokens at least against its plain trunk: it serves
+# TP_FIRST_WAVES of its prompt sets in the first world and, if short, the
+# rest up to FAMILY_MAX_WAVES in a second
+TP_TOKENS = 16
+TP_PARK_AFTER = 8
+TP_WATCHDOG = dict(fetch_watchdog_ms=500.0, fetch_watchdog_recover_ms=1.0)
+TP_STALLS = ("delayed_fetch", 2, 2, 0.75)
+TP_OPS_TAG = "gloo, two ranks on one card: a sharding check, not a TP speed figure"
+TP_HELD = FAMILY_HELD
+TP_FIRST_WAVES = {"dense": 1, "chunked": 1, "moe": 3}
+
+
+def tp_swap_watch(model):
+    """A rank hook of phase h (``Run.hook`` "chip_smoke:tp_swap_watch"):
+    every block this rank swaps in, held byte for byte against a copy of
+    what left its pool at the swap-out to the same host block, taken on the
+    rank's stream before the gather (``swap_checked``, ``swap_differ``).
+    Rank 0 wraps its adapter's swap calls, a follower its run of the swap
+    ops; the null block 0 of the construction's staging pair is skipped."""
+    from vtpu_torch.models.transformer import kv_keys
+    from vtpu_torch.serving.adapters import _OP_SWAP_IN, _OP_SWAP_OUT
+
+    counts = {"swap_checked": 0, "swap_differ": 0}
+    saved = {}
+
+    def out(state, blocks, host):
+        for b, h in zip(blocks, host):
+            if b:
+                saved[h] = {k: state[k][:, b].clone() for k in kv_keys(state)}
+
+    def back(state, blocks, host):
+        for b, h in zip(blocks, host):
+            if b:
+                same = all(torch.equal(state[k][:, b], x) for k, x in saved.pop(h).items())
+                counts["swap_checked"] += 1
+                counts["swap_differ"] += 0 if same else 1
+
+    if model.mesh.rank == 0:
+        swap_out, swap_in = model.swap_out, model.swap_in
+
+        def watched_out(state, blocks, host, stage):
+            out(state, blocks, host)
+            return swap_out(state, blocks, host, stage)
+
+        def watched_in(state, blocks, host, stage):
+            state = swap_in(state, blocks, host, stage)
+            back(state, blocks, host)
+            return state
+
+        model.swap_out, model.swap_in = watched_out, watched_in
+    else:
+        run = model._run
+
+        def watched_run(op, dims, args, state):
+            if op == _OP_SWAP_OUT:
+                out(state, args[0].tolist(), args[1].tolist())
+            state = run(op, dims, args, state)
+            if op == _OP_SWAP_IN:
+                back(state, args[0].tolist(), args[1].tolist())
+            return state
+
+        model._run = watched_run
+    return lambda state: dict(counts)
+
+
+def tp_ops_arms(serving) -> list[tuple]:
+    """Phase h's arms of the broadcast protocol's ops, as (name, what the
+    streams are held against, wave): ``wave(j)`` is the arm's Run on its
+    prompt set j, 0 its one-device phase's prompts and j > 0 the same
+    lengths redrawn from SEED + 300 + j. h1 phase e's chunks and prefix,
+    h2-h4 the loops, h5 the MoE, h6 overcommit, h7 the watchdog, h8
+    disaggregation. ``serving`` is the main path waves'."""
+    from vtpu_torch.models import ModelConfig, MoEConfig
+    from vtpu_torch.parallel.launch import Run, Script
+    from vtpu_torch.serving import DisaggConfig, FaultPlan, FaultSpec
+
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    c8 = dataclasses.replace(cfg, kv_int8=True)
+    moe = MoEConfig(**MOE_FLAGSHIP, dtype=torch.bfloat16)
+    vocab = FLAGSHIP["vocab"]
+    prefix, sufs, longs = chunked_prefix_prompts(vocab)
+    bg, burst = dg_prompts(vocab)
+    rep = dataclasses.replace
+
+    def redraw(prompts, j):
+        if not j:
+            return list(prompts)
+        rs = np.random.RandomState(SEED + 300 + j)
+        return [rs.randint(0, vocab, (len(p),)).astype(np.int32) for p in prompts]
+
+    def fresh(arm_serving):
+        # a wave's own fault plan: a plan counts its arrivals
+        if arm_serving.faults is None:
+            return arm_serving
+        return rep(arm_serving, faults=FaultPlan(arm_serving.faults.specs))
+
+    def arm(name, held_by, arm_cfg, arm_serving, prompts, **script):
+        hook = script.pop("hook", None)
+        return (name, held_by, lambda j: Run(arm_cfg, fresh(arm_serving), redraw(prompts, j),
+                                             TP_TOKENS, script=Script(**script), hook=hook))
+
+    def prefixed(j):
+        pre, *rest = redraw([prefix] + sufs + longs, j)
+        return Run(cfg, rep(serving, prefill_chunk=CHUNK), rest, TP_TOKENS,
+                   script=Script(prefix=tuple(int(x) for x in pre), prefixed=len(sufs)))
+
+    wave = wave_prompts(vocab)
+    spec = dict(spec_tokens=SPEC_K, spec_min_mean=0.0)
+    return [
+        ("h1 chunks + prefix", "chunked", prefixed),
+        arm("h2 decode_loop_k=8", "dense", cfg, rep(serving, decode_loop_k=LOOP_K), wave),
+        arm("h3 spec_tokens=4", "dense", cfg, rep(serving, **spec), wave),
+        arm("h3 spec_tokens=4 int8", "dense", c8, rep(serving, **spec), wave),
+        arm("h4 fused (8, 4)", "dense", cfg, rep(serving, decode_loop_k=LOOP_K, **spec), wave),
+        arm("h5 MoE pipelined", "moe", moe, rep(serving, prefill_batch_sizes=(1,)), wave),
+        arm("h5 MoE spec_tokens=4", "moe", moe, rep(serving, prefill_batch_sizes=(1,), **spec),
+            wave),
+        arm("h6 overcommit", "dense", cfg, rep(serving, **OC_SERVING, kv_swap=OC_HOST),
+            overcommit_prompts(vocab), park_after=TP_PARK_AFTER,
+            hook="chip_smoke:tp_swap_watch"),
+        arm("h7 watchdog", "dense", cfg,
+            rep(serving, decode_loop_k=LOOP_K, **TP_WATCHDOG,
+                faults=FaultPlan([FaultSpec(*TP_STALLS)])), wave),
+        arm("h8 disagg", "dense", cfg, rep(serving, **DG_SERVING, disagg=DisaggConfig()),
+            bg + burst),
+    ]
+
+
+def check_tp_arm(name: str, run, held_by: str, ranks: list, forced: dict, tp: int) -> dict:
+    """Hold one wave of phase h's arms (``run``, its Run) as its one-device
+    phase holds it: every stream OK and against the plain trunk of its KV
+    type or family, teacher-forced on it (check_forced; the MoE through
+    check_routed behind its one-row admission, each stream only up to its
+    first skipped step whose token differs); on every rank head-local paged
+    launches = 12 x the decode ticks on the kernel route under the _tp name
+    and 12 x the verify ticks under the _tp_verify name (the wrapper counts
+    a call with T > 1 there), no single-device paged launch, flash launches
+    = 12 x admission dispatches (a bucketed rebuild may add 12 under
+    overcommit), and the wave's own counters. Returns what it held."""
+    cfg, serving, script = run.cfg, run.serving, run.script
+    lead = ranks[0]
+    st = lead["stats"]
+    n_layers = cfg.n_layers
+    for toks, status in zip(lead["streams"], lead["statuses"]):
+        if status != "OK" or len(toks) != TP_TOKENS:
+            raise AssertionError(f"tp={tp} {name}: a stream ended {status} after {len(toks)} "
+                                 f"of {TP_TOKENS} tokens")
+    if st["tp"] != tp:
+        raise AssertionError(f"tp={tp} {name}: stats report tp {st['tp']}")
+    int8 = bool(getattr(cfg, "kv_int8", False))
+    tp_name = "paged_decode_attention_int8kv_tp" if int8 else "paged_decode_attention_tp"
+    other = "paged_decode_attention_tp" if int8 else "paged_decode_attention_int8kv_tp"
+    ticks, verify = st["paged_attn_kernel_ticks"], st["spec_ticks"]
+    if verify and st["paged_attn_gather_ticks"]:
+        raise AssertionError(f"tp={tp} {name}: a speculating arm served "
+                             f"{st['paged_attn_gather_ticks']} ticks on the gather route")
+    dispatches = sum(st["prefill_batch_hist"])
+    for rank, res in enumerate(ranks):
+        got = res["launches"]
+        extra = got["flash_attention"] - n_layers * dispatches
+        rebuilt = extra % n_layers == 0 and 0 <= extra <= n_layers * st["fault_recomputes"]
+        if (got[tp_name] != n_layers * (ticks - verify)
+                or got[f"{tp_name}_verify"] != n_layers * verify
+                or got[other] or got[f"{other}_verify"] or got["paged_decode_attention"]
+                or got["paged_decode_attention_int8kv"] or not (extra == 0 or rebuilt)):
+            raise AssertionError(
+                f"tp={tp} {name} rank {rank}: launches {got} over {ticks} kernel-route inner "
+                f"ticks ({verify} verify) and {dispatches} admission dispatches (expected "
+                f"{n_layers} {tp_name} a decode tick, {n_layers} {tp_name}_verify a verify "
+                f"tick, none single-device, {n_layers} flash a dispatch)")
+    prefix = script.prefix
+    prompts = [np.asarray(p, np.int32) for p in run.prompts]
+    if held_by == "moe":
+        # one row an admission dispatch (prefill_batch_sizes=(1,))
+        held = check_routed(forced["moe"], [(p, t, ("batch", (p,), 0))
+                                            for p, t in zip(prompts, lead["streams"])],
+                            f"tp={tp} {name}", until_flip=True)
+        skipped = held["skipped_logit"] + held["skipped_route"]
+    else:
+        after = script.park_after or TP_TOKENS
+        if prefix is not None:
+            pre = np.asarray(prefix, np.int32)
+            prompts = [np.concatenate([pre, p]) if i < script.prefixed else p
+                       for i, p in enumerate(prompts)]
+        held = check_forced(forced["int8" if int8 else "bf16"],
+                            [(p, t, after) for p, t in zip(prompts, lead["streams"])],
+                            f"tp={tp} {name}")
+        skipped = held["skipped"]
+    # the wave's own counters: exact values, and those that must be > 0
+    want: dict = {}
+    positive = []
+    pool_held = 0
+    if prefix is not None:
+        pool_held = len(prefix) // serving.kv_page
+        want = {"prefix_install_copies": 0,
+                "prefix_blocks_shared": script.prefixed * pool_held,
+                "prefill_chunks": sum(-(-len(p) // serving.prefill_chunk)
+                                      for p in run.prompts)}
+    if serving.decode_loop_k:
+        positive.append("loop_flushes")
+    if serving.spec_tokens:
+        positive.append("spec_ticks")
+        if serving.decode_loop_k:
+            positive.append("fused_flushes")
+    if serving.kv_swap is not None:
+        want.update(parks=len(run.prompts), resumes=len(run.prompts),
+                    swap_host_free=st["swap_host_blocks"])
+        positive += ["evicted_blocks", "swap_out_bytes"]
+        bpb = block_bytes_of(cfg, tp, serving.kv_page)
+        swapped = st["swap_in_bytes"] // bpb
+        for rank, res in enumerate(ranks):
+            if res["swap_checked"] != swapped or res["swap_differ"]:
+                raise AssertionError(f"tp={tp} {name} rank {rank}: {res['swap_checked']} "
+                                     f"swapped-in blocks checked of {swapped}, "
+                                     f"{res['swap_differ']} differ from what left the pool")
+    if serving.fetch_watchdog_ms:
+        want.update(watchdog_degrades=2, watchdog_recoveries=2)
+        positive.append("paged_attn_gather_ticks")
+    if serving.disagg is not None:
+        want.update(handoffs=len(run.prompts), handoff_copies=0)
+    got = {k: st[k] for k in list(want) + positive}
+    if {k: got[k] for k in want} != want or not all(got[k] > 0 for k in positive):
+        raise AssertionError(f"tp={tp} {name}: counters {got}, expected {want} and "
+                             f"{positive} > 0")
+    if st["paged"] and st["kv_pool_free"] != st["kv_pool_blocks"] - pool_held:
+        raise AssertionError(f"tp={tp} {name}: {st['kv_pool_free']} of {st['kv_pool_blocks']} "
+                             f"pool blocks free at the end ({pool_held} held by the prefix)")
+    total = sum(len(t) for t in lead["streams"])
+    return {"tokens": total, "wall_s": lead["wall_s"], "tokens_per_s": total / lead["wall_s"],
+            "kernel_ticks": ticks, "decode_ticks": st["decode_ticks"], "spec_ticks": verify,
+            "gather_ticks": st["paged_attn_gather_ticks"], "dispatches": dispatches,
+            "counters": got, "held": held["held"], "skipped": skipped,
+            "launches": [r["launches"] for r in ranks],
+            "verify_launches": lead["launches"][f"{tp_name}_verify"],
+            "swap_checked": [r.get("swap_checked") for r in ranks]}
+
+
+def block_bytes_of(cfg, tp: int, page: int) -> int:
+    """Bytes one pool block holds on one rank: every layer's page of its
+    n_heads / tp heads, K and V (and their f32 scales under int8)."""
+    per = cfg.n_layers * page * (cfg.n_heads // tp)
+    int8 = bool(getattr(cfg, "kv_int8", False))
+    return 2 * per * (cfg.head_dim * (1 if int8 else 2) + (4 if int8 else 0))
+
+
+def tp_serving_paths(log, card: str, refs: dict, tp: int = TP, params=None) -> dict:
     """Tensor-parallel serving: ``tp`` ranks, spawned, serve the main path's
-    wave on the flagship model, once with bf16 and once with int8 KV, each
-    after a warm-up request served by an engine of its own. Every launch
-    count is set to 0 on every rank just before the counted wave and read
-    just after; the counts of every rank come back to this process. Streams are held against the single-card plain
-    trunk of the same KV type (``refs``, from serving_path). The kernels
-    were built by this process before: the ranks only load them."""
+    wave on the flagship model, once with bf16 and once with int8 KV, and
+    at tp=2 in the same world phase h's arms (tp_ops_arms), each wave after
+    a warm-up request served by an engine of its own. Every launch count is
+    set to 0 on every rank just before each counted wave and read just
+    after; the counts of every rank come back to this process. The main
+    path's streams are held against the single-card plain trunk of the
+    same KV type (``refs``, from serving_path), the arms' by check_tp_arm
+    (``params``: the flagship's, for the teacher-forced trunks), each arm
+    over TP_HELD tokens at least (a second world serves the prompt sets of
+    the arms still short). The kernels were built by this process before:
+    the ranks only load them."""
     import tempfile
 
-    from vtpu_torch.models import ModelConfig
-    from vtpu_torch.parallel.launch import launch_tp, serve_requests
+    from vtpu_torch.models import ModelConfig, MoEConfig, init_moe_params
+    from vtpu_torch.parallel.launch import Run, launch_tp, serve_requests
     from vtpu_torch.serving import ServingConfig
 
     if torch.cuda.device_count() >= tp:
         backend, devices = "nccl", [f"cuda:{r}" for r in range(tp)]
         how = f"{tp} ranks on {tp} cards over nccl"
+        tag = f"nccl, {tp} ranks on {tp} cards, eager"
     else:
         backend, devices = "gloo", ["cuda:0"] * tp
         how = (f"{tp} ranks sharing one card over gloo (collectives staged through "
                "host memory: a check of the sharding, not a TP speed figure)")
+        tag = TP_OPS_TAG
     log(f"tensor-parallel serving: {how}")
     new_tokens = 16
     serving = ServingConfig(slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens,
@@ -4285,12 +4586,21 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
     cfgs = {kv: ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True,
                             kv_int8=kv == "int8") for kv in ("bf16", "int8")}
     prompts = wave_prompts(FLAGSHIP["vocab"])
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = launch_tp(serve_requests, tp, backend, devices, f"file://{tmp}/store",
-                          args=(SEED, [(cfgs[kv], serving) for kv in cfgs], prompts,
-                                new_tokens, True), timeout=600)
-    log(f"tensor-parallel world: {time.perf_counter() - t0:.1f} s wall, start-up included")
+    arms = tp_ops_arms(serving) if tp == TP else []
+
+    def world(runs):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = launch_tp(serve_requests, tp, backend, devices, f"file://{tmp}/store",
+                              args=([SEED] * len(runs), runs, True), timeout=900)
+        log(f"tensor-parallel world: {time.perf_counter() - t0:.1f} s wall, start-up and "
+            f"{len(runs)} runs included")
+        return ranks
+
+    # (arm, prompt set) of each arm wave in the world
+    pending = [(a, j) for a in arms for j in range(TP_FIRST_WAVES[a[1]])]
+    ranks = world([Run(cfgs[kv], serving, prompts, new_tokens) for kv in cfgs]
+                  + [wave(j) for (_, _, wave), j in pending])
     heads = FLAGSHIP["n_heads"] // tp
     pool = [FLAGSHIP["n_layers"], 41, 128, heads, FLAGSHIP["head_dim"]]
     out = {}
@@ -4315,6 +4625,7 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
         for rank, res in enumerate(r[i] for r in ranks):
             got = res["launches"]
             if (got[tp_name] != FLAGSHIP["n_layers"] * ticks or got[other_tp] != 0
+                    or got[f"{tp_name}_verify"] or got[f"{other_tp}_verify"]
                     or got["paged_decode_attention"] != 0
                     or got["paged_decode_attention_int8kv"] != 0
                     or got["flash_attention"] <= 0 or res["kv_shape"] != pool):
@@ -4325,8 +4636,8 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
         compared, ties = check_streams(lead["streams"], refs[kv], f"tp={tp} {kv}")
         total = sum(len(t) for t in lead["streams"])
         log(f"tp={tp} {kv} serving on {card} ({how}): {len(prompts)} requests, {total} tokens in "
-            f"{lead['wall_s']:.3f} s ({total / lead['wall_s']:.1f} tokens/s); decode ticks "
-            f"{ticks} ({st['pipelined_ticks']} pipelined, eager); per rank {tp_name} "
+            f"{lead['wall_s']:.3f} s ({total / lead['wall_s']:.1f} tokens/s; {tag}); decode "
+            f"ticks {ticks} ({st['pipelined_ticks']} pipelined, eager); per rank {tp_name} "
             f"{[r[i]['launches'][tp_name] for r in ranks]}, KV plane {pool}")
         log(f"tp={tp} {kv} streams vs plain {kv} trunk: {compared} tokens compared equal, "
             f"{ties} streams cut at a top-1/top-2 margin < {MARGIN}")
@@ -4336,6 +4647,64 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP) -> dict:
                    "wall_s": lead["wall_s"],
                    "tokens_per_s": total / lead["wall_s"], "launches": lead["launches"],
                    "compared_tokens": compared, "margin_cuts": ties}
+    if not arms:
+        return out
+    t0 = time.perf_counter()
+    cfg = cfgs["bf16"]
+    moe_cfg = MoEConfig(**MOE_FLAGSHIP, dtype=torch.bfloat16)
+    moe_params = init_moe_params(SEED, moe_cfg, device="cuda")
+    forced = {"bf16": forced_trunk(params, dataclasses.replace(cfg, use_kernels=False)),
+              "int8": forced_trunk(params, dataclasses.replace(cfgs["int8"], use_kernels=False)),
+              "moe": moe_forced_trunk(moe_params, moe_cfg,
+                                      dataclasses.replace(moe_cfg, use_kernels=False), serving)}
+    waves = {name: [] for name, _, _ in arms}
+    results = [r[len(cfgs):] for r in ranks]
+    while True:
+        for k, ((name, held_by, wave), j) in enumerate(pending):
+            res = check_tp_arm(name, wave(j), held_by, [r[k] for r in results], forced, tp)
+            res["prompt_set"] = j
+            waves[name].append(res)
+            local = [la["paged_decode_attention_tp"] + la["paged_decode_attention_int8kv_tp"]
+                     for la in res["launches"]]
+            verify = [la["paged_decode_attention_tp_verify"]
+                      + la["paged_decode_attention_int8kv_tp_verify"] for la in res["launches"]]
+            log(f"tp={tp} {name} prompt set {j} on {card}: {res['tokens']} tokens in "
+                f"{res['wall_s']:.3f} s ({res['tokens_per_s']:.1f} tokens/s; {tag}); "
+                f"kernel-route inner ticks {res['kernel_ticks']} (verify {res['spec_ticks']}), "
+                f"gather {res['gather_ticks']}, admission dispatches {res['dispatches']}; "
+                f"per-rank head-local paged launches {local} at T=1, {verify} at T=5, flash "
+                f"{[la['flash_attention'] for la in res['launches']]}; {res['held']} tokens "
+                f"held against the teacher-forced plain trunk, {res['skipped']} near-ties "
+                f"skipped; counters {res['counters']}"
+                + (f"; swapped-in blocks byte-equal per rank {res['swap_checked']}"
+                   if res["swap_checked"][0] is not None else ""))
+        short = [a for a in arms if sum(w["held"] for w in waves[a[0]]) < TP_HELD]
+        pending = [(a, j) for a in short for j in range(len(waves[a[0]]), FAMILY_MAX_WAVES)]
+        if not short:
+            break
+        if not pending:
+            raise AssertionError(
+                f"tp={tp} phase h: {[a[0] for a in short]} held fewer than {TP_HELD} tokens "
+                f"after {FAMILY_MAX_WAVES} prompt sets")
+        log(f"tp={tp} {[a[0] for a in short]} held fewer than {TP_HELD} tokens: a second "
+            f"world serves prompt sets up to {FAMILY_MAX_WAVES - 1}")
+        results = world([wave(j) for (_, _, wave), j in pending])
+    out["arms"] = {}
+    for name, _, _ in arms:
+        ws = waves[name]
+        tokens, wall = sum(w["tokens"] for w in ws), sum(w["wall_s"] for w in ws)
+        out["arms"][name] = {"waves": ws, "held": sum(w["held"] for w in ws),
+                             "skipped": sum(w["skipped"] for w in ws), "tokens": tokens,
+                             "wall_s": wall, "tokens_per_s": tokens / wall}
+        log(f"tp={tp} {name}: {len(ws)} wave(s), {tokens} tokens at {tokens / wall:.1f} "
+            f"tokens/s ({tag}), {out['arms'][name]['held']} held (floor {TP_HELD})")
+    # rows 4v: the verify calls rank 0's wrappers counted in the speculating arms
+    out["verify_launches"] = {
+        kv: sum(w["verify_launches"] for name, held_by, wave in arms for w in waves[name]
+                if wave(0).serving.spec_tokens
+                and bool(getattr(wave(0).cfg, "kv_int8", False)) == (kv == "int8"))
+        for kv in ("bf16", "int8")}
+    log(f"tp={tp} phase h arms checked in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4369,7 +4738,7 @@ def main() -> int:
     kernels = [check_flash(gen, log), check_paged(gen, log, int8=False),
                check_paged(gen, log, int8=True),
                check_decode(gen, log, int8=False), check_decode(gen, log, int8=True),
-               check_paged_tp(gen, log, int8=False), check_paged_tp(gen, log, int8=True)]
+               *check_paged_tp(gen, log, int8=False), *check_paged_tp(gen, log, int8=True)]
     for kern in kernels:
         log(f"{kern['name']} on {card} (tile {kern['tile']}, {kern['n_split']} splits): kernel "
             f"{kern['ms']:.4f} ms, plain "
@@ -4413,14 +4782,17 @@ def main() -> int:
     mark("disaggregation")
     runs["study_path"] = study_path(gen, log)
     mark("study")
-    del params
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one
     for tp in (TP, 4):
         if tp == TP or torch.cuda.device_count() >= tp:
-            out = tp_serving_paths(log, card, refs, tp)
+            out = tp_serving_paths(log, card, refs, tp, params)
             pre = "tp" if tp == TP else f"tp{tp}"
             runs[f"{pre}_serving_path"], runs[f"{pre}_int8_serving_path"] = out["bf16"], out["int8"]
+            if "arms" in out:
+                runs["tp_ops_path"] = {"arms": out["arms"],
+                                       "verify_launches": out["verify_launches"]}
             mark(f"tp={tp}")
+    del params
     log("phase wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     bf16, int8 = runs["main_path"], runs["int8_serving_path"]
     log(f"serving waves on {card}: bf16 KV {bf16['tokens_per_s']:.1f} tokens/s, TTFT p50 "
@@ -4440,7 +4812,15 @@ def main() -> int:
                "paged_decode_attention_tp": "tp_serving_path",
                "paged_decode_attention_int8kv_tp": "tp_int8_serving_path"}
     for kern in kernels:
-        kern["launches"] = runs[path_of[kern["name"]]]["launches"][kern["name"]]
+        if kern["name"].endswith("_verify"):
+            # rows 4v: what rank 0's wrappers counted at T > 1 in phase h's
+            # speculating arms (held there at n_layers x their verify ticks)
+            kv = "int8" if "int8" in kern["name"] else "bf16"
+            kern["launches"] = runs["tp_ops_path"]["verify_launches"][kv]
+        else:
+            kern["launches"] = runs[path_of[kern["name"]]]["launches"][kern["name"]]
+        if not kern["launches"]:
+            raise AssertionError(f"{kern['name']} was not launched on its path")
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -34,6 +34,7 @@ from vtpu.serving.engine import (
 from vtpu_torch.convert import params_from_numpy
 from vtpu_torch.models import ModelConfig, init_kv_cache, init_paged_kv_cache
 from vtpu_torch.ops import paged_decode_attention, paged_decode_attention_int8kv
+from vtpu_torch.parallel import TpMesh, shard_params
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status
 from vtpu_torch.serving.engine import chunked_prefill_into_slot, pad_to_chunks
 
@@ -235,8 +236,15 @@ def test_chunked_config_validation(weights):
     with pytest.raises(ValueError, match="prefill chunk 16"):
         ServingEngine(tp, cfg, ServingConfig(prefill_buckets=(8,), prefill_chunk=16,
                                              prefill_budget=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="prefill_chunk=8 under a tensor-parallel"):
-        ServingEngine(tp, cfg, _serving("dense"), device="cpu", mesh=object())
+    # served under a mesh since the broadcast protocol's chunk op: a
+    # hand-built mesh reaches the adapter's own checks (the full tree is not
+    # one rank's shard) and, with a shard, the first broadcast, which needs
+    # a process group
+    mesh = TpMesh(rank=0, size=2, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="one rank's shard"):
+        ServingEngine(tp, cfg, _serving("dense"), device="cpu", mesh=mesh)
+    with pytest.raises(RuntimeError, match="joined no process group"):
+        ServingEngine(shard_params(tp, mesh), cfg, _serving("dense"), mesh=mesh)
     eng = ServingEngine(tp, cfg, _serving("dense"), device="cpu")
     try:
         with pytest.raises(ValueError, match="max_context"):

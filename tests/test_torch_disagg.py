@@ -46,6 +46,7 @@ from vtpu.serving.disagg import DisaggController as JDisaggController
 from vtpu_torch.convert import moe_params_from_numpy, params_from_numpy
 from vtpu_torch.models import ModelConfig, MoEConfig
 from vtpu_torch.obs.trace import HANDOFF_SEQUENCE, PREFILL_LANE_TID, subsequence
+from vtpu_torch.parallel import TpMesh, shard_params
 from vtpu_torch.serving import DisaggConfig, ServingConfig, ServingEngine, Status
 from vtpu_torch.serving.adapters import MoeSlotModel, SsmSlotModel
 from vtpu_torch.serving.disagg import DisaggController
@@ -470,15 +471,21 @@ def test_disagg_requires_paged_chunked_device_sampling():
 
 
 def test_disagg_refused_under_a_mesh():
-    """disagg under a tensor-parallel mesh raises NotImplementedError
-    naming the field (checked before the mesh is touched), in place of the
-    reference's tp=2 case, which waits for the broadcast protocol's chunk
-    op."""
+    """disagg is served under a tensor-parallel mesh since the broadcast
+    protocol's chunk and copy ops (tests/test_torch_tp_ops.py holds the
+    reference's tp=2 case on a gloo world): under a hand-built mesh, which
+    joined no world, the engine reaches the adapter's own mesh checks (the
+    full tree is not one rank's shard) and, with a shard, the protocol's
+    first broadcast, which needs a process group; no NotImplementedError
+    names the field."""
     k = _kind("exact")
-    with pytest.raises(NotImplementedError, match="disagg=.*tensor-parallel"):
-        ServingEngine(k.tp, k.cfg, ServingConfig(
-            slots=2, prefill_buckets=(8,), prefill_chunk=8, kv_page=PAGE,
-            disagg=DisaggConfig(**DISAGG)), device="cpu", mesh=object())
+    mesh = TpMesh(rank=0, size=2, device=torch.device("cpu"))
+    serving = ServingConfig(slots=2, prefill_buckets=(8,), prefill_chunk=8, kv_page=PAGE,
+                            disagg=DisaggConfig(**DISAGG))
+    with pytest.raises(ValueError, match="one rank's shard"):
+        ServingEngine(k.tp, k.cfg, serving, device="cpu", mesh=mesh)
+    with pytest.raises(RuntimeError, match="joined no process group"):
+        ServingEngine(shard_params(k.tp, mesh), k.cfg, serving, mesh=mesh)
 
 
 def test_disagg_chrome_trace_has_prefill_worker_lane():

@@ -39,8 +39,8 @@ from vtpu.serving import (
 )
 from vtpu_torch.convert import params_from_numpy
 from vtpu_torch.models import ModelConfig
-from vtpu_torch.parallel import TpMesh
-from vtpu_torch.parallel.launch import launch_tp, serve_requests
+from vtpu_torch.parallel import TpMesh, shard_params
+from vtpu_torch.parallel.launch import Run, launch_tp, serve_requests
 from vtpu_torch.serving import (
     DisaggConfig, EngineSignals, FaultPlan, FaultSpec, PriorityDeadlineShedPolicy, Request,
     ServingConfig, ServingEngine, ShedPolicy, Status, Terminal, accepts_signals,
@@ -426,21 +426,22 @@ def test_dispatch_exception_contained_under_tp(weights, tmp_path):
     _, tree, _ = weights
     prompts = [_prompt(35, 5), _prompt(36, 7)]
     shed_prompts = [_prompt(37 + i, 5) for i in range(5)]
-    runs = [(CFG, _serving(kv_page=8, faults=FaultPlan([FaultSpec("dispatch_exc", at=3)])))]
-    shed_run = (CFG, _serving(slots=1, kv_page=8, shed_queue_depth=1,
-                              duty_supplier=functools.partial(float, 0.5)), None,
-                [dict(priority=3), dict(priority=0, deadline_ms=0), dict(priority=0),
-                 dict(priority=1), dict(priority=2)])
+    run = Run(CFG, _serving(kv_page=8, faults=FaultPlan([FaultSpec("dispatch_exc", at=3)])),
+              prompts, 6)
+    shed_run = Run(CFG, _serving(slots=1, kv_page=8, shed_queue_depth=1,
+                                 duty_supplier=functools.partial(float, 0.5)), shed_prompts, 4,
+                   submit=[dict(priority=3), dict(priority=0, deadline_ms=0), dict(priority=0),
+                           dict(priority=1), dict(priority=2)])
     box = {}
 
     def world():
         try:
             box["faults"] = launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"],
-                                      f"file://{tmp_path}/faults", args=(tree, runs, prompts, 6),
+                                      f"file://{tmp_path}/faults", args=([tree], [run]),
                                       timeout=WORLD_TIMEOUT_S)
             box["shed"] = launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"],
                                     f"file://{tmp_path}/shed",
-                                    args=(tree, [shed_run], shed_prompts, 4),
+                                    args=([tree], [shed_run]),
                                     timeout=WORLD_TIMEOUT_S)
         except Exception as exc:
             box["error"] = exc
@@ -463,7 +464,7 @@ def test_dispatch_exception_contained_under_tp(weights, tmp_path):
                                 faults=JFaultPlan([JFaultSpec("dispatch_exc", at=3)])),
                        prompts, 6)
     j_shed = jax_run(_serving(JServingConfig, slots=1, kv_page=8, shed_queue_depth=1),
-                     shed_prompts, 4, shed_run[3])
+                     shed_prompts, 4, shed_run.submit)
     th.join(timeout=2 * WORLD_TIMEOUT_S + 60)
     assert not th.is_alive(), "the tp=2 worlds outlived their timeout"
     assert "error" not in box, box.get("error")
@@ -486,12 +487,19 @@ def test_dispatch_exception_contained_under_tp(weights, tmp_path):
 
 
 def test_watchdog_is_one_device_under_a_mesh(weights):
-    """The watchdog's route switch would need a broadcast op: under a mesh
-    its fields raise, naming the field."""
+    """The watchdog is served under a mesh since every op's header carries
+    the paged route (tests/test_torch_tp_ops.py drives its ladder on a gloo
+    world): under a hand-built mesh, which joined no world, each field
+    passes and the engine reaches the adapter's own checks (the full tree
+    is not one rank's shard) and, with a shard, the first broadcast, which
+    needs a process group. No NotImplementedError names the field."""
     mesh = TpMesh(rank=0, size=2, device=torch.device("cpu"))
     for field, value in (("fetch_watchdog_ms", 5.0), ("fetch_watchdog_recover_ms", 5.0)):
-        with pytest.raises(NotImplementedError, match=field):
+        with pytest.raises(ValueError, match="one rank's shard"):
             ServingEngine(weights[2], CFG, _serving(**{field: value}), mesh=mesh)
+        with pytest.raises(RuntimeError, match="joined no process group"):
+            ServingEngine(shard_params(weights[2], mesh), CFG, _serving(**{field: value}),
+                          mesh=mesh)
 
 
 # ------------------------------------------------- worker crash recovery

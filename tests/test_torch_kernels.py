@@ -233,7 +233,8 @@ def test_head_local_paged_kernel_matches_full_pool_head_slice(dev, kv, tp):
     equals the head slice of the full-pool kernel's output. A (row, head)'s
     arithmetic depends only on its tiles and the split plan, and a mesh
     call takes the plan of the full head count, so the two run the same
-    arithmetic: held bitwise. Launches count under the _tp names."""
+    arithmetic: held bitwise. Launches count under the _tp_verify names
+    (T = 2; a T = 1 call counts under the _tp names)."""
     rng = np.random.RandomState(5)
     shape = (3, 9, 16, 8, 128)
     table = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 8, 1]], dtype=torch.int32,
@@ -253,12 +254,14 @@ def test_head_local_paged_kernel_matches_full_pool_head_slice(dev, kv, tp):
         whole = fn(q, *pools, table, kv_len, layer)
         for rank in range(tp):
             mesh = TpMesh(rank=rank, size=tp, device=dev)
-            before = _build.launches()[name]
+            before = _build.launches()
             got = fn(head_shard(q, -2, mesh), *(head_shard(x, ax, mesh)
                                                 for x, ax in zip(pools, axes)),
                      table, kv_len, layer, mesh=mesh)
             torch.cuda.synchronize()
-            assert _build.launches()[name] == before + 1
+            after = _build.launches()
+            assert after[f"{name}_verify"] == before[f"{name}_verify"] + 1
+            assert after[name] == before[name]
             assert torch.equal(got, head_shard(whole, -2, mesh))
 
 

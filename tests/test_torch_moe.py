@@ -43,6 +43,7 @@ from vtpu_torch.models import (
     MoEConfig, decode_layer_loop, init_kv_cache, init_moe_params, moe_forward, store_kv,
 )
 from vtpu_torch.models.moe import moe_decode_ffn, moe_ffn, moe_prefill, route
+from vtpu_torch.parallel import TpMesh, shard_moe_params
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status, Terminal
 from vtpu_torch.serving.adapters import MoeSlotModel
 from vtpu_torch.serving.engine import batched_decode_step, chunked_prefill_into_slot
@@ -580,15 +581,22 @@ def test_engine_moe_streams_kernel_equals_gather(weights):
 
 
 def test_refusals(weights):
-    """MoE under a mesh names the family; a ServingConfig that disagrees
-    with the adapter on kv_page or paged_attn raises with the reference's
-    wording; kv_int8="auto" is refused as for the dense family."""
+    """MoeSlotModel(mesh=) builds on one rank's shard (its expert axis
+    split over 'tp', tests/test_torch_tp_ops.py serves it on a gloo world)
+    and refuses the full tree, naming the counts; an engine given another
+    mesh than its adapter's raises; a ServingConfig that disagrees with the
+    adapter on kv_page or paged_attn raises with the reference's wording;
+    kv_int8="auto" is refused as for the dense family."""
     _, tp = weights
-    with pytest.raises(NotImplementedError, match="MoE"):
-        MoeSlotModel(tp, CFGS["f32"], device="cpu", mesh=object())
+    mesh = TpMesh(rank=1, size=2, device=torch.device("cpu"))
+    sharded = MoeSlotModel(shard_moe_params(tp, mesh), CFGS["f32"], mesh=mesh)
+    assert sharded.mesh is mesh and sharded.family == "MoE"
+    assert sharded.params["layers"]["w_gate"].shape[1] == DIMS["n_experts"] // 2
+    with pytest.raises(ValueError, match="one rank's shard"):
+        MoeSlotModel(tp, CFGS["f32"], device="cpu", mesh=mesh)
     model = MoeSlotModel(tp, CFGS["f32"], device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ServingEngine(model=model, serving=ServingConfig(**BASE), mesh=object())
+    with pytest.raises(ValueError, match="not the adapter's mesh"):
+        ServingEngine(model=model, serving=ServingConfig(**BASE), mesh=mesh)
     with pytest.raises(ValueError, match="ServingConfig.kv_page=8 but the provided model "
                                          "adapter was built with kv_page=None"):
         ServingEngine(model=model, serving=ServingConfig(**BASE, kv_page=PAGE))

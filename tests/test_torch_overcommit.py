@@ -46,7 +46,7 @@ from vtpu.serving.adapters import (
 from vtpu_torch.convert import params_from_numpy
 from vtpu_torch.models import ModelConfig
 from vtpu_torch.obs.trace import subsequence
-from vtpu_torch.parallel import TpMesh
+from vtpu_torch.parallel import TpMesh, shard_params
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status, Terminal
 from vtpu_torch.serving.adapters import swap_page_gather, swap_page_scatter
 from vtpu_torch.serving.shed import AdaptiveLoopPolicy
@@ -594,12 +594,18 @@ def test_kv_swap_none_dormant_and_api_refusal(weights):
 
 
 def test_kv_swap_under_a_mesh_raises(weights):
-    """Under mesh= every kv_swap field raises before anything is built
-    (the broadcast protocol has no swap op): a hand-built mesh, no world."""
+    """Every kv_swap field is served under mesh= since the broadcast
+    protocol's swap ops (tests/test_torch_tp_ops.py holds the reference's
+    tp=2 eviction round trip on a gloo world): under a hand-built mesh,
+    which joined no world, each passes and the engine raises only at the
+    adapter's own checks (the full tree is not one rank's shard) or, with
+    a shard, at the first broadcast, which needs a process group."""
     mesh = TpMesh(rank=0, size=2, device=torch.device("cpu"))
     for kw in (dict(kv_swap=4), dict(kv_swap_stage_blocks=2),
                dict(kv_swap_recompute_tokens=16)):
-        field = next(iter(kw))
-        with pytest.raises(NotImplementedError, match=field):
+        with pytest.raises(ValueError, match="one rank's shard"):
             ServingEngine(weights[1]["f32"], CFGS["f32"], ServingConfig(**BASE, **kw),
                           mesh=mesh)
+        with pytest.raises(RuntimeError, match="joined no process group"):
+            ServingEngine(shard_params(weights[1]["f32"], mesh), CFGS["f32"],
+                          ServingConfig(**BASE, **kw), mesh=mesh)

@@ -28,7 +28,7 @@ from vtpu.models.transformer import decode_step as j_decode_step, prefill as j_p
 from vtpu.serving import ServingConfig as JServingConfig, ServingEngine as JServingEngine
 from vtpu_torch.convert import params_from_numpy
 from vtpu_torch.models import ModelConfig
-from vtpu_torch.parallel.launch import launch_tp, serve_requests
+from vtpu_torch.parallel.launch import Run, launch_tp, serve_requests
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status
 
 DIMS = dict(vocab=64, d_model=64, n_heads=2, n_layers=2, d_ff=128, max_seq=32, head_dim=32)
@@ -325,16 +325,18 @@ def test_tp2_world_serves_both_loops(weights, prompts, refs, tmp_path):
     sampler on the host-sampling loop."""
     _, tree, _ = weights
     kinds = [(kv, pipeline) for kv in CFGS for pipeline in (None, False)]
-    runs = [(CFGS[kv], _serving("paged", pipeline_decode=pipeline)) for kv, pipeline in kinds]
+    runs = [Run(CFGS[kv], _serving("paged", pipeline_decode=pipeline), prompts[:3], NEW)
+            for kv, pipeline in kinds]
     api = _serving("paged", logprobs=True, async_admission=False, decode_unroll=False)
-    runs += [(CFGS["f32"], api), (CFGS["f32"], _serving("paged"), np.argmax)]
+    runs += [Run(CFGS["f32"], api, prompts[:3], NEW),
+             Run(CFGS["f32"], _serving("paged"), prompts[:3], NEW, sample=np.argmax)]
     box: dict = {}
 
     def world():
         try:
             box["ranks"] = launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"],
                                      f"file://{tmp_path}/store",
-                                     args=(tree, runs, prompts[:3], NEW),
+                                     args=([tree] * len(runs), runs),
                                      timeout=WORLD_TIMEOUT_S)
         except Exception as exc:  # handed to the assertion below
             box["error"] = exc

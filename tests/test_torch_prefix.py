@@ -132,7 +132,9 @@ def test_empty_suffix_and_validation(weights):
     with pytest.raises(ValueError, match="requires prefill_chunk"):
         eng.register_prefix([1, 2, 3])
     eng.mesh = object()  # what a tensor-parallel engine holds
-    with pytest.raises(NotImplementedError, match="register_prefix under a tensor-parallel"):
+    # served under a mesh since the broadcast protocol's chunk op: the same
+    # check as on one device, no refusal of its own
+    with pytest.raises(ValueError, match="requires prefill_chunk"):
         eng.register_prefix([1, 2, 3])
     eng.mesh = None
     eng.stop()

@@ -40,6 +40,7 @@ from vtpu.serving.engine import (
 from vtpu_torch.convert import params_from_numpy
 from vtpu_torch.models import LOOP_PAD_TOKEN, ModelConfig, ngram_draft
 from vtpu_torch.ops.decode_attn import paged_attn_route
+from vtpu_torch.parallel import TpMesh, shard_params
 from vtpu_torch.serving import ServingConfig, ServingEngine, TransformerSlotModel
 from vtpu_torch.serving.adapters import fused_spec_decode_step
 from vtpu_torch.serving.engine import batched_spec_step, lookup_draft
@@ -626,11 +627,18 @@ def test_wide_verify_chunk_routes_to_gather(weights):
     ("spec_tokens", 2), ("spec_ngram", 4), ("spec_min_mean", 0.0), ("spec_cooloff_ticks", 8),
     ("decode_loop_k", 4), ("loop_policy", FixedLoopPolicy)])
 def test_refused_under_a_mesh(weights, field, value):
-    """Under a tensor-parallel mesh each of the six fields at a non-default
-    value raises NotImplementedError naming it (checked before the mesh is
-    touched, so a stub mesh spawns nothing)."""
-    with pytest.raises(NotImplementedError, match=f"{field}=.*tensor-parallel"):
-        ServingEngine(weights[1]["f32"], CFGS["f32"], _serving(**{field: value}), device="cpu",
-                      mesh=object())
+    """Each of the six fields is served under a tensor-parallel mesh since
+    the broadcast protocol's verify op (tests/test_torch_tp_ops.py serves
+    them on a gloo world): under a hand-built mesh, which joined no world,
+    the engine passes the field and reaches the adapter's own mesh checks
+    (the full tree is refused as not one rank's shard) and, with a shard,
+    the protocol's first broadcast, which needs a process group. Nothing
+    raises NotImplementedError naming the field."""
+    mesh = TpMesh(rank=0, size=2, device=torch.device("cpu"))
+    serving = _serving(**{field: value})
+    with pytest.raises(ValueError, match="one rank's shard"):
+        ServingEngine(weights[1]["f32"], CFGS["f32"], serving, device="cpu", mesh=mesh)
+    with pytest.raises(RuntimeError, match="joined no process group"):
+        ServingEngine(shard_params(weights[1]["f32"], mesh), CFGS["f32"], serving, mesh=mesh)
     assert _port(weights, "f32", _serving(**{field: value}
                                           if field != "loop_policy" else {})).stats() is not None

@@ -19,6 +19,7 @@ kernel route raises on the installed jax (``check_rep``; ROADMAP Queue 3),
 which is why the head-shard calls are held against the single-chip kernel.
 """
 
+import dataclasses
 import multiprocessing
 import threading
 import time
@@ -41,7 +42,7 @@ from vtpu_torch.convert import params_from_numpy
 from vtpu_torch.models import ModelConfig
 from vtpu_torch.ops import _build, paged_decode_attention, paged_decode_attention_int8kv
 from vtpu_torch.parallel import TpMesh, all_reduce_sum, head_shard, make_tp_mesh, shard_params
-from vtpu_torch.parallel.launch import forced_decode_logits, launch_tp, serve_requests
+from vtpu_torch.parallel.launch import Run, forced_decode_logits, launch_tp, serve_requests
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status, TransformerSlotModel
 
 DIMS = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=32, head_dim=8)
@@ -91,7 +92,7 @@ def port_tp(weights, prompts, tmp_path_factory):
     a time, so the file never holds more than five busy processes."""
     _, tree = weights
     store = tmp_path_factory.mktemp("tp_store")
-    runs = [(CFGS[kv], _serving(layout)) for kv, layout in RUNS]
+    runs = [Run(CFGS[kv], _serving(layout), prompts, NEW) for kv, layout in RUNS]
     out: dict = {}
 
     def worlds():
@@ -99,7 +100,8 @@ def port_tp(weights, prompts, tmp_path_factory):
             try:
                 out[tp] = launch_tp(serve_requests, tp, "gloo", ["cpu"] * tp,
                                     f"file://{store}/serve{tp}",
-                                    args=(tree, runs, prompts, NEW), timeout=WORLD_TIMEOUT_S)
+                                    args=([tree] * len(runs), runs),
+                                    timeout=WORLD_TIMEOUT_S)
             except Exception as exc:  # handed to the tests that read this world
                 out[tp] = exc
 
@@ -335,14 +337,15 @@ def test_dead_worker_fails_launch_tp(weights, prompts, tmp_path):
     raise within its timeout, naming the rank, and kill rank 0, which is
     blocked in a collective with it."""
     _, tree = weights
-    runs = [(CFGS["f32"], _serving("paged_kernel"))] * 50  # far more than the test waits for
+    # far more runs than the test waits for
+    runs = [Run(CFGS["f32"], _serving("paged_kernel"), prompts, NEW)] * 50
     box: dict = {}
 
     def run():
         t0 = time.monotonic()
         try:
             launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"], f"file://{tmp_path}/store",
-                      args=(tree, runs, prompts, NEW), timeout=WORLD_TIMEOUT_S)
+                      args=([tree] * len(runs), runs), timeout=WORLD_TIMEOUT_S)
         except RuntimeError as exc:
             box["err"] = exc
         box["s"] = time.monotonic() - t0
@@ -365,14 +368,15 @@ def test_dead_worker_fails_launch_tp(weights, prompts, tmp_path):
 
 
 def test_rank_error_fails_launch_tp_with_its_traceback(weights, prompts, tmp_path):
-    """Rank 0 refuses an unported ServingConfig before its first broadcast
-    while rank 1 waits to follow it: launch_tp raises at once with rank 0's
-    error and leaves no rank running."""
+    """Rank 0 refuses an unported config (kv_int8="auto") before its first
+    broadcast while rank 1 waits to follow it: launch_tp raises at once
+    with rank 0's error and leaves no rank running."""
     _, tree = weights
-    bad = ServingConfig(slots=2, prefill_buckets=(8,), max_new_tokens=NEW, spec_tokens=2)
+    auto = dataclasses.replace(CFGS["f32"], kv_int8="auto")
     t0 = time.monotonic()
-    with pytest.raises(RuntimeError, match=r"rank 0 raised:(.|\n)*spec_tokens"):
+    with pytest.raises(RuntimeError, match=r"rank 0 raised:(.|\n)*kv_int8='auto'"):
         launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"], f"file://{tmp_path}/store",
-                  args=(tree, [(CFGS["f32"], bad)], prompts, NEW), timeout=WORLD_TIMEOUT_S)
+                  args=([tree], [Run(auto, _serving("dense"), prompts, NEW)]),
+                  timeout=WORLD_TIMEOUT_S)
     assert time.monotonic() - t0 < WORLD_TIMEOUT_S / 2
     assert not [p for p in multiprocessing.active_children() if p.name.startswith("tp-rank")]

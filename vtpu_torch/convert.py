@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from vtpu_torch.device import resolve_device
-from vtpu_torch.parallel.sharding import shard_params
+from vtpu_torch.parallel.sharding import shard_moe_params, shard_params
 
 
 def _expected_shapes(cfg) -> dict[str, tuple[int, ...]]:
@@ -90,12 +90,14 @@ def params_from_numpy(tree: dict, cfg, device=None, mesh=None) -> dict:
                      resolve_device(device))
 
 
-def moe_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+def moe_params_from_numpy(tree: dict, cfg, device=None, mesh=None) -> dict:
     """The MoE family's tree (``init_moe_params``' layout) -> the port's
     parameter dict on ``device``: every leaf in ``cfg.dtype`` but the
-    router, which stays float32 as the reference keeps it. One device."""
-    return _to_torch(_checked(tree, _moe_shapes(cfg)), cfg, resolve_device(device),
-                     f32=("router",))
+    router, which stays float32 as the reference keeps it. With ``mesh``
+    only this rank's shard (``shard_moe_params``) is carried over."""
+    full = _checked(tree, _moe_shapes(cfg))
+    return _to_torch(full if mesh is None else shard_moe_params(full, mesh), cfg,
+                     resolve_device(device), f32=("router",))
 
 
 def ssm_params_from_numpy(tree: dict, cfg, device=None) -> dict:

@@ -13,6 +13,15 @@ q/k/v projections and rope, the flash kernel with ``cfg.use_kernels``);
 decode, speculation and chunked prefill run the dense decode trunk with
 ``moe_decode_ffn`` as its post-attention block.
 
+Under a tensor-parallel ``mesh`` (serving) the attention trunk splits as
+the dense family's, and the expert stacks hold this rank's slice of the
+expert axis when tp divides ``n_experts`` (parallel/sharding.py
+``shard_moe_params``; replicated otherwise). Every rank routes every token
+with the replicated router, so each computes the same dispatch and the
+same drops; it runs its own experts only, and the partial combines are
+summed by ``all_reduce_sum`` (the reference's einsum over a split expert
+axis, which XLA reduces over 'tp').
+
 Every one-hot is a comparison with an ``arange``. JAX's ``one_hot`` gives a
 zero row for an index past its class count, which is what a token dropped
 past an expert's capacity needs; ``torch.nn.functional.one_hot`` refuses
@@ -34,6 +43,7 @@ from vtpu_torch.models.transformer import (
     Params, _layer, _rope_tables, attention_block, fill_kv_cache, init_kv_cache,
 )
 from vtpu_torch.ops import rms_norm, scaled_normal
+from vtpu_torch.parallel.collectives import all_reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,27 +153,38 @@ def expert_ffn(lp_e: dict[str, torch.Tensor], slots: torch.Tensor) -> torch.Tens
 
 
 def moe_ffn(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig,
-            capacity: Optional[int] = None, pad_mask: Optional[torch.Tensor] = None):
-    """The MoE block on one device. x: [B, S, D] -> (out [B, S, D], aux).
+            capacity: Optional[int] = None, pad_mask: Optional[torch.Tensor] = None,
+            mesh=None):
+    """The MoE block. x: [B, S, D] -> (out [B, S, D], aux).
     ``capacity`` overrides the config formula (serving decode passes the
     full token count so routing can never drop a token); ``pad_mask``
-    ([B, S] bool, True = real) keeps pads out of routing."""
+    ([B, S] bool, True = real) keeps pads out of routing. Under ``mesh``
+    with the expert axis split (``lp``'s stacks hold n_experts / tp
+    experts) the route is the whole one, each rank dispatches to and
+    combines from its own experts, and the partial outputs are summed."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     cap = capacity or cfg.capacity(b * s)
     dispatch, combine, aux = route(lp["router"], flat, cfg, cap,
                                    pad_mask=None if pad_mask is None else pad_mask.reshape(b * s))
+    local = lp["w_gate"].shape[0]
+    split = local != cfg.n_experts
+    if split:
+        e0 = mesh.rank * local
+        dispatch, combine = dispatch[:, e0:e0 + local], combine[:, e0:e0 + local]
     slots = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), flat)  # [E, C, D]
     out_slots = expert_ffn(lp, slots)
     out = torch.einsum("tec,ecd->td", combine.to(x.dtype), out_slots)
+    if split:
+        out = all_reduce_sum(out, mesh)
     return out.reshape(b, s, d), aux
 
 
-def _moe_layer(cfg: MoEConfig, lp, x, cos, sin, positions, ffn):
+def _moe_layer(cfg: MoEConfig, lp, x, cos, sin, positions, ffn, mesh=None):
     """One MoE decoder block over a full sequence: the dense family's
     attention block, then ``ffn(lp, normed, cfg) -> (out, aux)``. Returns
     (out, aux, (k, v))."""
-    x, kv = attention_block(cfg, lp, x, cos, sin, positions)
+    x, kv = attention_block(cfg, lp, x, cos, sin, positions, mesh)
     moe_out, aux = ffn(lp, rms_norm(x, lp["mlp_norm"]), cfg)
     return x + moe_out, aux, kv
 
@@ -194,7 +215,7 @@ def moe_forward(params: Params, cfg: MoEConfig, tokens: torch.Tensor, ffn=moe_ff
 # ------------------------------------------------------------------ serving
 
 
-def moe_decode_ffn(cfg: MoEConfig):
+def moe_decode_ffn(cfg: MoEConfig, mesh=None):
     """The post-attention block for the shared decode trunk
     (transformer.spec_verify_loop): routed experts in place of the dense
     MLP; the aux term is a training loss, dropped here. Capacity is the full
@@ -202,17 +223,18 @@ def moe_decode_ffn(cfg: MoEConfig):
     slot's stale one too), and a drop triggered by such a token would zero a
     live slot's expert output; with capacity >= tokens nothing can drop. x
     is [B, T, D]: T = 1 for decode, K+1 for a verify chunk, C for a prefill
-    chunk."""
+    chunk. Under ``mesh`` the block owns its all-reduce (``moe_ffn``)."""
 
     def ffn(lp, x):
-        out, _ = moe_ffn(lp, rms_norm(x, lp["mlp_norm"]), cfg, capacity=x.shape[0] * x.shape[1])
+        out, _ = moe_ffn(lp, rms_norm(x, lp["mlp_norm"]), cfg, capacity=x.shape[0] * x.shape[1],
+                         mesh=mesh)
         return out
 
     return ffn
 
 
 def moe_prefill(params: Params, cfg: MoEConfig, tokens: torch.Tensor, true_len=None,
-                logits_at: Optional[torch.Tensor] = None, ffn=moe_ffn):
+                logits_at: Optional[torch.Tensor] = None, ffn=moe_ffn, mesh=None):
     """Full-sequence forward that also fills a KV cache: the serving-side
     sibling of ``moe_forward`` (the aux term dropped). tokens: [B, S] ->
     (logits, cache): [B, S, vocab] f32 logits, or [B, vocab] gathered at
@@ -224,26 +246,31 @@ def moe_prefill(params: Params, cfg: MoEConfig, tokens: torch.Tensor, true_len=N
     which bounds dispatch and combine at the largest buckets; a real
     token's choice past capacity drops, as in training. Without it capacity
     is the full token count and nothing can drop. ``ffn`` is the MoE block
-    (``moe_ffn``'s signature; it is given the pad mask or the capacity). An
-    int8 cache stores the quantized K/V."""
+    (``moe_ffn``'s signature; it is given the pad mask or the capacity, and
+    the mesh under one). An int8 cache stores the quantized K/V. Under
+    ``mesh``: the rank's shard of params in, its head shard of the cache
+    out, logits whole on every rank."""
     b, s = tokens.shape
     dev = tokens.device
     x, cos, sin, positions = _embed(params, cfg, tokens)
+    split = {} if mesh is None else {"mesh": mesh}  # a one-device ffn takes no mesh
     if true_len is not None:
         lens = torch.as_tensor(true_len, device=dev).reshape(-1, 1)
         pad_mask = positions < lens  # [B, S]
 
         def serving_ffn(lp, normed, cfg_):
-            return ffn(lp, normed, cfg_, pad_mask=pad_mask)
+            return ffn(lp, normed, cfg_, pad_mask=pad_mask, **split)
     else:
         def serving_ffn(lp, normed, cfg_):
-            return ffn(lp, normed, cfg_, capacity=normed.shape[0] * normed.shape[1])
+            return ffn(lp, normed, cfg_, capacity=normed.shape[0] * normed.shape[1], **split)
     ks, vs = [], []
     for l in range(cfg.n_layers):
-        x, _, (k, v) = _moe_layer(cfg, _layer(params, l), x, cos, sin, positions, serving_ffn)
+        x, _, (k, v) = _moe_layer(cfg, _layer(params, l), x, cos, sin, positions, serving_ffn,
+                                  mesh)
         ks.append(k)
         vs.append(v)
-    cache = fill_kv_cache(init_kv_cache(cfg, b, device=dev), torch.stack(ks), torch.stack(vs))
+    cache = fill_kv_cache(init_kv_cache(cfg, b, device=dev, mesh=mesh), torch.stack(ks),
+                          torch.stack(vs))
     del ks, vs
     x = rms_norm(x, params["final_norm"])
     if logits_at is not None:

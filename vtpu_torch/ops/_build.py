@@ -33,12 +33,14 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset_launches(); the _tp names
-# count the paged kernels' head-local calls under a tensor-parallel mesh
+# count the paged kernels' head-local calls under a tensor-parallel mesh,
+# a decode tick's (T = 1) under _tp and the longer calls' under _tp_verify
 LAUNCHES: dict[str, int] = {
     "flash_attention": 0, "paged_decode_attention": 0,
     "paged_decode_attention_int8kv": 0, "decode_attention": 0,
     "decode_attention_int8kv": 0, "paged_decode_attention_tp": 0,
-    "paged_decode_attention_int8kv_tp": 0,
+    "paged_decode_attention_int8kv_tp": 0, "paged_decode_attention_tp_verify": 0,
+    "paged_decode_attention_int8kv_tp_verify": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

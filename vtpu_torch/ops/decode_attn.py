@@ -337,6 +337,15 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def _launch_key(name: str, mesh, t: int) -> str:
+    """The launch count a paged call adds to: the kernel's own on one
+    device; under a mesh ``{name}_tp`` for a decode tick (T = 1) and
+    ``{name}_tp_verify`` for a verify or chunk call (T > 1)."""
+    if mesh is None:
+        return name
+    return f"{name}_tp" if t == 1 else f"{name}_tp_verify"
+
+
 def _paged_partials(q: torch.Tensor, pool: torch.Tensor, table: torch.Tensor, mesh):
     """(n_split, part_acc, part_ml) of one paged call: the plan of the full
     head count under a mesh, and its scratch."""
@@ -362,7 +371,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     / tp), tables and lengths replicated, and the same kernel walks the
     head-local pool with no collective, under the split plan of the full
     head count: each rank's output is the head slice of the full-pool call,
-    bit for bit. Its launches count under ``paged_decode_attention_tp``."""
+    bit for bit. Its launches count under ``paged_decode_attention_tp``
+    (T = 1) and ``paged_decode_attention_tp_verify`` (T > 1)."""
     t = q.shape[1]
     kv_len = _norm_kv_len(kv_len, t)
     _check_pool(q, k_pool, table)
@@ -380,7 +390,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
              kv_len.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml), _DTYPES[q.dtype],
              b, t, h, dh, k_pool.shape[1], k_pool.shape[2], table.shape[1], layer, n_split,
              1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.LAUNCHES[name if mesh is None else f"{name}_tp"] += 1
+    _build.LAUNCHES[_launch_key(name, mesh, t)] += 1
     _build.check(err, name)
     return out
 
@@ -396,7 +406,8 @@ def paged_decode_attention_int8kv(q: torch.Tensor, kq_pool: torch.Tensor,
     ``causal_attention_int8kv``. Same table/kv_len/layer contract as
     ``paged_decode_attention``; q (and the output) float32 or bfloat16.
     ``mesh`` as in ``paged_decode_attention``: the scale pools are head
-    shards too, and launches count under ``paged_decode_attention_int8kv_tp``."""
+    shards too, and launches count under ``paged_decode_attention_int8kv_tp``
+    (T = 1) and ``paged_decode_attention_int8kv_tp_verify`` (T > 1)."""
     t = q.shape[1]
     kv_len = _norm_kv_len(kv_len, t)
     _check_pool(q, kq_pool, table)
@@ -417,7 +428,7 @@ def paged_decode_attention_int8kv(q: torch.Tensor, kq_pool: torch.Tensor,
              _ptr(part_acc), _ptr(part_ml), _DTYPES[q.dtype], b, t, h, dh, kq_pool.shape[1],
              kq_pool.shape[2], table.shape[1], layer, n_split, 1.0 / math.sqrt(dh),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.LAUNCHES[name if mesh is None else f"{name}_tp"] += 1
+    _build.LAUNCHES[_launch_key(name, mesh, t)] += 1
     _build.check(err, name)
     return out
 

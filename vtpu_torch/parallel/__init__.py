@@ -10,7 +10,9 @@ parallelism) is a later slice.
 
 from vtpu_torch.parallel.collectives import all_reduce_sum, broadcast_
 from vtpu_torch.parallel.mesh import TpMesh, make_tp_mesh
-from vtpu_torch.parallel.sharding import head_shard, param_shardings, shard_params
+from vtpu_torch.parallel.sharding import (
+    head_shard, moe_param_shardings, param_shardings, shard_moe_params, shard_params,
+)
 
 __all__ = [
     "TpMesh",
@@ -18,6 +20,8 @@ __all__ = [
     "broadcast_",
     "head_shard",
     "make_tp_mesh",
+    "moe_param_shardings",
     "param_shardings",
+    "shard_moe_params",
     "shard_params",
 ]

@@ -5,12 +5,15 @@ controller process. Here every rank is a process. ``launch_tp`` starts
 them with the ``spawn`` start method (CUDA cannot be forked), joins them
 with a deadline, kills the survivors as soon as one rank fails, and raises
 that failure. ``serve_worker`` is the loop of every rank but 0: it follows
-rank 0's ServingEngine step by step (serving/adapters.py). The rank entry
+rank 0's ServingEngine op by op (serving/adapters.py). The rank entry
 functions below live in this package, so a spawned rank imports
-``vtpu_torch`` and nothing else of its parent.
+``vtpu_torch`` and nothing else of its parent. ``serve_requests`` serves
+``Run`` waves of the dense or the MoE family (by the config's type); a
+``Script`` has rank 0 act within a wave (a prefix, parks and resumes, a
+fault armed).
 
     launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"], "file:///tmp/w/store",
-              args=(weights, runs, prompts, 16))
+              args=([weights], [Run(cfg, serving, prompts, 16)]))
 
 On CUDA, build the kernels in the parent first (``_build.build_all()``):
 the ranks then load the libraries instead of each running nvcc.
@@ -18,6 +21,8 @@ the ranks then load the libraries instead of each running nvcc.
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import multiprocessing
 import queue
 import time
@@ -28,7 +33,7 @@ import torch
 
 from vtpu_torch.ops import _build
 from vtpu_torch.parallel.mesh import make_tp_mesh
-from vtpu_torch.parallel.sharding import shard_params
+from vtpu_torch.parallel.sharding import shard_moe_params, shard_params
 
 # how long launch_tp waits for a rank that exited to deliver its result
 _GRACE_S = 2.0
@@ -122,95 +127,241 @@ def launch_tp(fn: Callable, tp: int, backend: str, devices: Sequence, init_metho
     return [out[r] for r in range(tp)]
 
 
-def serve_worker(params, cfg, serving, mesh):
-    """The loop of every rank but 0: build the same adapter as rank 0's
-    ServingEngine (``params`` this rank's shard, the same ModelConfig and
-    ServingConfig) and run rank 0's calls on this rank's shard until
-    rank 0's ``stop()``. Returns the rank's final state."""
-    from vtpu_torch.serving.adapters import TransformerSlotModel
+@dataclasses.dataclass(frozen=True)
+class Script:
+    """What rank 0 does within a wave besides submitting its prompts: a
+    picklable description (``Run.script``).
 
-    model = TransformerSlotModel(params, cfg, kv_page=serving.kv_page,
-                                 kv_pool_blocks=serving.kv_pool_blocks,
-                                 paged_attn=serving.paged_attn, mesh=mesh)
+    prefix       tokens registered with ``register_prefix`` before
+                 ``start()``; the first ``prefixed`` prompts (all with
+                 None) are submitted as its suffixes, the rest as they are
+    drop_prefix  ``unregister_prefix`` once every stream has ended
+    park_after   > 0: the overcommit round. The first half of the prompts
+                 is submitted, and each session parked inside the delivery
+                 of its park_after-th token; once all are parked the second
+                 half likewise; then the first half resumes and streams to
+                 its end, then the second
+    arm          (prompt index, token count, seam): the ServingConfig's
+                 FaultPlan arms ``seam`` inside the delivery of that
+                 prompt's token-count-th token"""
+
+    prefix: Optional[tuple] = None
+    prefixed: Optional[int] = None
+    drop_prefix: bool = False
+    park_after: int = 0
+    arm: Optional[tuple] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Run:
+    """One counted wave of ``serve_requests``, picklable.
+
+    cfg          a ModelConfig or a MoEConfig: the family the ranks serve
+    serving      the ServingConfig of rank 0's engine and every adapter
+    prompts      the wave's prompts, each a token sequence
+    new_tokens   every request's budget
+    sample       a picklable custom sampler for rank 0's engine, or None
+    submit       one dict of ``submit`` keywords a prompt (priority,
+                 deadline_ms), or None; with it every prompt is queued
+                 before the loop starts, so the first tick head sees all
+    script       rank 0's actions within the wave (``Script``)
+    hook         "module:function" or None: imported on every rank and
+                 called with that rank's adapter before the wave; it
+                 returns a function of the rank's final state whose dict
+                 joins the rank's result (a check's instrumentation)"""
+
+    cfg: Any
+    serving: Any
+    prompts: Sequence
+    new_tokens: int
+    sample: Optional[Callable] = None
+    submit: Optional[Sequence[dict]] = None
+    script: Script = Script()
+    hook: Optional[str] = None
+
+
+def _adapter(params, cfg, serving, mesh):
+    """The slot adapter of ``cfg``'s family on this rank's shard: the MoE
+    for a MoEConfig, else the dense transformer."""
+    from vtpu_torch.models.moe import MoEConfig
+    from vtpu_torch.serving.adapters import MoeSlotModel, TransformerSlotModel
+
+    cls = MoeSlotModel if isinstance(cfg, MoEConfig) else TransformerSlotModel
+    return cls(params, cfg, kv_page=serving.kv_page, kv_pool_blocks=serving.kv_pool_blocks,
+               paged_attn=serving.paged_attn, mesh=mesh)
+
+
+def _hook(path: Optional[str], model) -> Callable[[dict], dict]:
+    """``Run.hook`` installed on ``model``: the function of the final state
+    it returns (with None, one that adds nothing)."""
+    if path is None:
+        return lambda state: {}
+    module, _, name = path.partition(":")
+    return getattr(importlib.import_module(module), name)(model)
+
+
+def serve_worker(params, cfg, serving, mesh, hook: Optional[str] = None):
+    """The loop of every rank but 0: build the same adapter as rank 0's
+    ServingEngine (``params`` this rank's shard, the same config and
+    ServingConfig) and run rank 0's calls on this rank's shard until
+    rank 0's ``stop()``. Returns (the rank's final state, what ``hook``'s
+    function of it adds)."""
+    model = _adapter(params, cfg, serving, mesh)
+    done = _hook(hook, model)
     state, running = None, True
     while running:
         running, state = model.follow(state)
-    return state
+    return state, done(state)
 
 
 def _load_weights(weights, cfg, mesh):
-    """This rank's shard of ``weights``: a seed for init_params (every rank
-    draws the same full weights and keeps its slices) or a numpy tree (only
-    this rank's slices are carried over)."""
-    from vtpu_torch.convert import params_from_numpy
+    """This rank's shard of ``weights`` for ``cfg``'s family: a seed for
+    the family's init (every rank draws the same full weights and keeps its
+    slices) or a numpy tree (only this rank's slices are carried over)."""
+    from vtpu_torch.convert import moe_params_from_numpy, params_from_numpy
     from vtpu_torch.models import init_params
+    from vtpu_torch.models.moe import MoEConfig, init_moe_params
 
+    moe = isinstance(cfg, MoEConfig)
     if isinstance(weights, int):
+        if moe:
+            return shard_moe_params(init_moe_params(weights, cfg, device=mesh.device), mesh)
         return shard_params(init_params(weights, cfg, device=mesh.device), mesh)
-    return params_from_numpy(weights, cfg, device=mesh.device, mesh=mesh)
+    convert = moe_params_from_numpy if moe else params_from_numpy
+    return convert(weights, cfg, device=mesh.device, mesh=mesh)
 
 
-def _serve_wave(mesh, params, cfg, serving, prompts: Sequence, new_tokens: int,
-                sample=None, submit: Optional[Sequence[dict]] = None) -> dict:
-    """One engine's life on every rank: rank 0 serves ``prompts``, all
-    submitted at once, and stops the workers; the others follow it. With
-    ``submit`` (one dict of ``submit`` keywords a prompt: priority,
-    deadline_ms) every prompt is queued before the loop starts, so the
-    first tick head sees them all. Every rank's dict holds the shape of its
-    KV plane ``kv_shape``; rank 0's adds ``streams``, ``logprobs``,
-    ``statuses``, ``stats``, ``signals`` and ``wall_s``."""
+def _on_token(req, n: int, action) -> None:
+    """Run ``action()`` on the loop thread right after ``req``'s n-th token
+    is put on its stream (inside that delivery), once."""
+    from vtpu_torch.serving import Terminal
+
+    put, seen = req.out.put, [0]
+
+    def hook(item):
+        put(item)
+        if not isinstance(item, Terminal):
+            seen[0] += 1
+            if seen[0] == n:
+                req.out.put = put
+                action()
+
+    req.out.put = hook
+
+
+def _wait(cond, what: str, timeout: float = 300.0) -> None:
+    """Wait for a state the loop thread reaches on its own; the bound only
+    turns a hang into a failure."""
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise RuntimeError(f"{what} never happened")
+        time.sleep(0.002)
+
+
+def _overcommit_round(eng, prompts: Sequence, new_tokens: int, park_after: int) -> list:
+    """Script.park_after's round; returns the requests in prompt order."""
+    half = len(prompts) // 2
+    groups = [list(prompts[:half]), list(prompts[half:])]
+    reqs: list = []
+    for group in groups:
+        batch = [eng.submit(p, max_new_tokens=new_tokens) for p in group]
+        for req in batch:
+            _on_token(req, park_after, lambda req=req: eng.park(req))
+        _wait(lambda: all(r in eng._parked or r.status is not None for r in batch),
+              "the parks")
+        reqs += batch
+    for part in (reqs[:half], reqs[half:]):
+        for req in part:
+            eng.resume(req)
+        _wait(lambda: all(r.status is not None for r in part), "the resumed streams' ends")
+    return reqs
+
+
+def _serve_wave(mesh, params, run: Run) -> dict:
+    """One engine's life on every rank: rank 0 serves ``run``'s prompts,
+    all submitted at once (or as its script says), and stops the workers;
+    the others follow it. Every rank's dict holds the shape of its KV
+    plane ``kv_shape`` and what the run's hook adds; rank 0's adds
+    ``streams``, ``logprobs``, ``statuses``, ``stats``, ``signals``,
+    ``wall_s`` and, with a prefix on a paged pool, its ``prefix_blocks``."""
     from vtpu_torch.serving import ServingEngine
 
     if mesh.rank != 0:
-        state = serve_worker(params, cfg, serving, mesh)
-        return {"kv_shape": list(state["k"].shape)}
-    eng = ServingEngine(params, cfg, serving, mesh=mesh, sample=sample)
+        state, extra = serve_worker(params, run.cfg, run.serving, mesh, run.hook)
+        return {"kv_shape": list(state["k"].shape), **extra}
+    model = _adapter(params, run.cfg, run.serving, mesh)
+    done = _hook(run.hook, model)
+    eng = ServingEngine(serving=run.serving, model=model, sample=run.sample)
+    script, prompts, new = run.script, list(run.prompts), run.new_tokens
+    out: dict = {}
     try:
         t0 = time.perf_counter()
-        if submit is not None:
-            reqs = [eng.submit(p, max_new_tokens=new_tokens, **kw)
-                    for p, kw in zip(prompts, submit)]
+        kws = ([dict(kw) for kw in run.submit] if run.submit is not None
+               else [{} for _ in prompts])
+        if script.prefix is not None:
+            pid = eng.register_prefix(list(script.prefix))
+            if eng._paged:
+                out["prefix_blocks"] = list(eng._prefixes[pid]["blocks"])
+            n = len(prompts) if script.prefixed is None else script.prefixed
+            for kw in kws[:n]:
+                kw["prefix"] = pid
+        if script.park_after:
+            eng.start()
+            reqs = _overcommit_round(eng, prompts, new, script.park_after)
+        elif run.submit is not None or script.prefix is not None or script.arm is not None:
+            reqs = [eng.submit(p, max_new_tokens=new, **kw) for p, kw in zip(prompts, kws)]
+            if script.arm is not None:
+                i, n, seam = script.arm
+                _on_token(reqs[i], n, lambda: run.serving.faults.arm(seam))
             eng.start()
         else:
             eng.start()
-            reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+            reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
         streams = [list(r.stream()) for r in reqs]
         wall = time.perf_counter() - t0
+        if script.prefix is not None and script.drop_prefix:
+            eng.unregister_prefix(pid)
     finally:
         eng.stop()
     if eng.loop_error is not None:
         raise RuntimeError(f"rank 0's serving loop failed: {eng.loop_error!r}")
-    return {"kv_shape": list(eng.state["k"].shape), "streams": streams,
-            "logprobs": [list(r.logprobs) for r in reqs],
-            "statuses": [r.status for r in reqs], "stats": eng.stats(),
-            "signals": eng.signals().to_dict(), "wall_s": wall}
+    out.update({"kv_shape": list(eng.state["k"].shape), **done(eng.state)})
+    out.update({"streams": streams, "logprobs": [list(r.logprobs) for r in reqs],
+                "statuses": [r.status for r in reqs], "stats": eng.stats(),
+                "signals": eng.signals().to_dict(), "wall_s": wall})
+    return out
 
 
-def serve_requests(mesh, weights, runs: Sequence, prompts: Sequence, new_tokens: int,
+def serve_requests(mesh, weights: Sequence, runs: Sequence[Run],
                    warmup: bool = False) -> list[dict]:
-    """Rank entry: serve ``prompts`` once per ``(ModelConfig,
-    ServingConfig)``, ``(ModelConfig, ServingConfig, sample)`` or
-    ``(ModelConfig, ServingConfig, sample, submit)`` of ``runs``
-    (``sample`` a picklable custom sampler or None, for rank 0's engine;
-    ``submit`` the per-prompt submit keywords of ``_serve_wave``),
-    ``new_tokens`` each, all submitted at once. Rank 0 drives a ServingEngine; the other ranks run serve_worker.
-    With ``warmup`` one prompt is served first by an engine of its own, so
-    the counted wave's engine, stats and launch counts see none of it.
+    """Rank entry: serve each ``Run`` of ``runs`` in turn, run i on the
+    weights ``weights[i]`` (a seed for the family's init or a numpy tree;
+    a run on the same weights object and config as the one before reuses
+    its shard). Rank 0 drives a ServingEngine; the other ranks run
+    serve_worker. With ``warmup`` each run's first prompt is served first
+    by an engine of its own, without the run's fault plan, script or hook,
+    so the counted wave's engine, stats and launch counts see none of it.
     Launch counts are set to 0 on every rank just before the counted
     wave's engine is built and read just after it stops.
 
-    Returns one dict per run. Every rank's holds ``launches`` and the
-    shape of its KV plane ``kv_shape``; rank 0's adds ``streams``,
-    ``logprobs``, ``statuses``, ``stats`` and ``wall_s`` (the counted wave)."""
-    done = []
-    for cfg, serving, *rest in runs:
-        sample = rest[0] if rest else None
-        submit = rest[1] if len(rest) > 1 else None
-        params = _load_weights(weights, cfg, mesh)
+    Returns one dict per run. Every rank's holds ``launches``, the shape
+    of its KV plane ``kv_shape`` and what the run's hook adds; rank 0's
+    adds ``streams``, ``logprobs``, ``statuses``, ``stats`` and ``wall_s``
+    (the counted wave)."""
+    if len(weights) != len(runs):
+        raise ValueError(f"{len(runs)} runs need {len(runs)} weights, got {len(weights)}")
+    done, last, params = [], None, None
+    for w, run in zip(weights, runs):
+        if last is None or last[0] is not w or last[1] != run.cfg:
+            params = _load_weights(w, run.cfg, mesh)
+            last = (w, run.cfg)
         if warmup:
-            _serve_wave(mesh, params, cfg, serving, prompts[:1], new_tokens, sample)
+            _serve_wave(mesh, params, dataclasses.replace(
+                run, serving=dataclasses.replace(run.serving, faults=None),
+                prompts=list(run.prompts)[:1], submit=None, script=Script(), hook=None))
         _build.reset_launches()
-        res = _serve_wave(mesh, params, cfg, serving, prompts, new_tokens, sample, submit)
+        res = _serve_wave(mesh, params, run)
         res["launches"] = _build.launches()
         done.append(res)
     return done
@@ -224,13 +375,12 @@ def forced_decode_logits(mesh, weights, cfg, kv_page, prompt: Sequence[int],
     decoded with slot 1 inactive. Rank 0 returns the per-step logits of
     slot 0 (lists of floats); the other ranks follow and return None."""
     from vtpu_torch.serving import ServingConfig
-    from vtpu_torch.serving.adapters import TransformerSlotModel
 
     params = _load_weights(weights, cfg, mesh)
     if mesh.rank != 0:
         serve_worker(params, cfg, ServingConfig(kv_page=kv_page), mesh)
         return None
-    model = TransformerSlotModel(params, cfg, kv_page=kv_page, mesh=mesh)
+    model = _adapter(params, cfg, ServingConfig(kv_page=kv_page), mesh)
     dev = model.device
     try:
         state = model.init_state(2)

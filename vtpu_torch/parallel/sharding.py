@@ -20,6 +20,12 @@ H, Dh], its scale pools [L, n_blocks, page, H] and the dense cache); page
 tables and lengths are replicated. A rank allocates its head shard directly
 (transformer.init_kv_cache / init_paged_kv_cache with ``mesh``); the
 unsharded pool never exists.
+
+The MoE family (``shard_moe_params``, the reference's
+``moe_tp_param_shardings``): attention as above, the router replicated (f32,
+tiny, and it decides the routing), the expert stacks [L, E, ...] split on
+their expert axis when tp divides n_experts and replicated otherwise, the
+embedding replicated as in the dense rule.
 """
 
 from __future__ import annotations
@@ -62,12 +68,11 @@ def head_shard(x, axis: int, mesh):
     return np.ascontiguousarray(out)
 
 
-def shard_params(params: dict, mesh) -> dict:
-    """This rank's shard of a full parameter tree (tensors or numpy arrays):
-    each leaf sliced per ``param_shardings``, replicated ones as they are."""
+def _shard(params: dict, rules: dict, mesh) -> dict:
+    """This rank's slice of every leaf of ``params`` per ``rules`` (a tree of
+    split axes, None: replicated, kept as it is)."""
     if mesh.size == 1:
         return params
-    rules = param_shardings()
 
     def part(x, axis):
         return x if axis is None else head_shard(x, axis, mesh)
@@ -77,3 +82,31 @@ def shard_params(params: dict, mesh) -> dict:
         "layers": {key: part(x, rules["layers"][key]) for key, x in params["layers"].items()},
         "final_norm": part(params["final_norm"], rules["final_norm"]),
     }
+
+
+def shard_params(params: dict, mesh) -> dict:
+    """This rank's shard of a full parameter tree (tensors or numpy arrays):
+    each leaf sliced per ``param_shardings``, replicated ones as they are."""
+    return _shard(params, param_shardings(), mesh)
+
+
+# the MoE's expert stacks [L, E, d_in, d_out]: the expert axis
+_EXPERT_AXIS = 1
+
+
+def moe_param_shardings(n_experts: int, tp: int) -> dict[str, Any]:
+    """The split axis of every MoE parameter under ``tp`` ranks, as a tree
+    shaped like models.moe.init_moe_params' (None: replicated): the expert
+    stacks split their expert axis only when ``tp`` divides ``n_experts``."""
+    ep = _EXPERT_AXIS if n_experts % tp == 0 else None
+    layers = {key: _LAYER_AXIS[key] for key in ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm")}
+    layers.update(router=None, w_gate=ep, w_up=ep, w_down=ep)
+    return {"embed": None, "layers": layers, "final_norm": None}
+
+
+def shard_moe_params(params: dict, mesh) -> dict:
+    """This rank's shard of a full MoE parameter tree (tensors or numpy
+    arrays), per ``moe_param_shardings`` (n_experts read off the router)."""
+    return _shard(params, moe_param_shardings(params["layers"]["router"].shape[-1], mesh.size),
+                  mesh)
+

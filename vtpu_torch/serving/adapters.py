@@ -27,21 +27,29 @@ The state is updated in place, every tensor at its address (the engine's
 CUDA graphs hold them); the returned dict is the one to keep. The SSM has
 no ``spec_step`` and no ``prefill_chunk_into_slot``: the engine serves it
 without speculation and chunked admission, as the reference does.
-The KV-overcommit staging pair (``swap_page_gather`` /
-``swap_page_scatter``) moves whole pool blocks between the pool and the
-engine's host tier, one device only.
 ``prefill_chunk_into_slot`` with an explicit ``block_ids`` row and the slot
 count as ``slot`` (whose length write is dropped) is the slot-less prefill
 that builds a shared prefix into fresh pool blocks.
 
+The KV families also own every write the engine makes into the KV planes
+outside a step, so that under a mesh each reaches every rank: the
+copy-on-write of a prefix's boundary block (``copy_blocks``), a dense
+prefix's buffers (``build_prefix`` / ``install_prefix`` / ``drop_prefix``)
+and the KV-overcommit host tier (``init_host_tier``, ``swap_out``,
+``swap_in``: whole pool blocks between the pool and a pinned host tier,
+through the staging pair ``swap_page_gather`` / ``swap_page_scatter``).
+
 Under a tensor-parallel mesh rank 0's adapter leads and every other
 rank's follows it (``follow``, run in a loop by
 vtpu_torch.parallel.launch.serve_worker): see ``TransformerSlotModel``.
-The MoE and SSM families serve on one device only.
+The dense and MoE families serve under a mesh; the SSM on one device only,
+as the reference's takes no mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
 import threading
 from typing import Any, Optional
@@ -59,11 +67,98 @@ from vtpu_torch.ops.decode_attn import PAGED_ATTN_ROUTES
 from vtpu_torch.parallel.collectives import broadcast_
 
 # rank 0's calls as the other ranks receive them: a header of _HEADER int64
-# words (op, then up to two sizes), then one int64 payload holding the
-# call's tensor arguments and rank 0's _MIRRORED state planes
-_OP_INIT, _OP_PREFILL, _OP_DECODE, _OP_STOP = range(4)
-_HEADER = 3
+# words (the op, the paged read route rank 0 runs it on as an index of
+# _ROUTES, then up to four sizes), then, for every op but INIT and STOP,
+# one int64 payload holding the call's tensor arguments and rank 0's
+# _MIRRORED state planes
+(_OP_INIT, _OP_PREFILL, _OP_DECODE, _OP_STOP, _OP_CHUNK, _OP_VERIFY, _OP_COPY, _OP_PREFIX,
+ _OP_INSTALL, _OP_DROP, _OP_TIER, _OP_SWAP_OUT, _OP_SWAP_IN) = range(13)
+_HEADER = 6
+_ROUTES = (None,) + PAGED_ATTN_ROUTES
 _MIRRORED = ("table", "len")
+
+
+def _payload_shapes(op: int, dims: list, b: int) -> list:
+    """The shapes of an op's tensor arguments in its payload, from its
+    header's sizes and the slot count ``b``."""
+    if op == _OP_PREFILL:  # (rows, bucket): padded, slots, true_lens
+        return [(dims[0], dims[1]), (dims[0],), (dims[0],)]
+    if op == _OP_DECODE:  # (kv_bucket,): tokens, active
+        return [(b,), (b,)]
+    if op == _OP_VERIFY:  # (T, kv_bucket): draft, active, cap
+        return [(b, dims[0]), (b,), (b,)]
+    if op == _OP_CHUNK:  # (C, kv_bucket, window pages or 0): (slot, offset, new_len), chunk, ids
+        return [(3,), (1, dims[0])] + ([(dims[2],)] if dims[2] else [])
+    if op in (_OP_COPY, _OP_SWAP_OUT, _OP_SWAP_IN):  # (n, ...): two id lists
+        return [(dims[0],), (dims[0],)]
+    if op == _OP_PREFIX:  # (key, padded length, n, C): the padded prompt, each chunk's window
+        return [(1, dims[1]), (dims[1] // dims[3],)]
+    if op in (_OP_INSTALL, _OP_DROP, _OP_TIER):
+        return []
+    raise RuntimeError(f"unknown op {op} from rank 0")
+
+
+def _device_ids(values, device: torch.device) -> torch.Tensor:
+    """Host ids as an int64 tensor on ``device``, without a host wait (on
+    CUDA through pinned memory)."""
+    x = torch.as_tensor(values, dtype=torch.long)
+    if device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
+def _runs(ids: list[int]):
+    """(index, first id, length) of each run of consecutive ids in
+    ``ids``: the host-tier blocks one copy moves."""
+    i = 0
+    while i < len(ids):
+        r = 1
+        while i + r < len(ids) and ids[i + r] == ids[i] + r:
+            r += 1
+        yield i, ids[i], r
+        i += r
+
+
+def to_host(tier: dict, snap: dict, host: list[int], non_blocking: bool) -> None:
+    """Copy a staging snapshot (``swap_page_gather``'s block-major planes)
+    into host-tier blocks ``host``, one copy a plane for each run of
+    consecutive host blocks."""
+    for j, h, r in _runs(host):
+        for key, x in snap.items():
+            tier[key][h:h + r].copy_(x[j:j + r], non_blocking=non_blocking)
+
+
+def copy_blocks(state: dict, src: list[int], dst: list[int]) -> dict:
+    """Pool block ``src[i]`` copied into block ``dst[i]``, every layer and
+    plane (scales included), in place: a prefix's copy-on-write boundary
+    block."""
+    for s, d in zip(src, dst):
+        for key in kv_keys(state):
+            state[key][:, d].copy_(state[key][:, s])
+    return state
+
+
+def restore_pages(state: dict, tier: dict, blocks: list[int], host: list[int],
+                  stage: int) -> dict:
+    """The swap-in of host-tier blocks ``host`` into pool ``blocks`` (same
+    order) on the current stream, ahead of the step that reads them: up to
+    ``stage`` blocks at a time, the pinned host blocks copy non-blocking
+    into a device staging buffer (one copy a plane for each run of
+    consecutive host blocks) and the staging scatter writes them into the
+    pool in place."""
+    dev = state["k"].device
+    cuda = dev.type == "cuda"
+    for i in range(0, len(blocks), stage):
+        grp, hgrp = blocks[i:i + stage], host[i:i + stage]
+        pages = {}
+        for key, plane in tier.items():
+            buf = torch.empty((len(grp),) + tuple(plane.shape[1:]), dtype=plane.dtype,
+                              device=dev)
+            for j, h, r in _runs(hgrp):
+                buf[j:j + r].copy_(plane[h:h + r], non_blocking=cuda)
+            pages[key] = buf
+        swap_page_scatter(state, _device_ids(grp, dev), pages)
+    return state
 
 
 def sampled_decode_step(model: Any, temperature: float, top_k: int, top_p: float,
@@ -214,15 +309,25 @@ class TransformerSlotModel:
     ``init_paged_kv_cache`` lay them out. ``paged_attn`` (None, "kernel",
     "gather") is the paged read-route override.
 
-    With ``mesh`` (a vtpu_torch.parallel.TpMesh) ``params`` is this
-    rank's tensor-parallel shard (``shard_params``, or
-    ``params_from_numpy(..., mesh=)``) and the cache or pool holds its n_heads / tp heads; tables and lengths
-    are whole on every rank. Rank 0's adapter drives: each of
-    ``init_state``, ``prefill_into_slot(s)`` and ``decode_step`` first
-    broadcasts the call (op, shapes, tensor arguments) and rank 0's current
-    table and lengths, then runs it. The other ranks' adapters run the
-    same call on their shards from ``follow``. A lock keeps one call (and
-    its broadcasts) at a time."""
+    With ``mesh`` (a vtpu_torch.parallel.TpMesh) ``params`` is this rank's
+    tensor-parallel shard (``shard_params``, or ``params_from_numpy(...,
+    mesh=)``) and the cache or pool holds its n_heads / tp heads; tables
+    and lengths are whole on every rank. Rank 0's adapter drives: every
+    call of the engine's (each step, and each KV write outside a step:
+    ``copy_blocks``, the dense prefix buffers, the host tier and its swaps)
+    first broadcasts the op with the paged route this adapter runs on, its
+    sizes, its tensor arguments and rank 0's current table and lengths
+    (the engine's own writes of a table row or a length, at a reservation,
+    a resume or a handoff, so reach every rank before the next op reads
+    them), then runs it. The other ranks' adapters run the same op on
+    their shards from ``follow``, one at a time on one stream. A lock keeps
+    one call (and its broadcasts) at a time: the loop thread and the
+    prefill workers both call the adapter, so the lock's order is the
+    followers' order. On one device there is no lock: the calls run as
+    their callers issue them. A flush or a fused flush calls
+    ``decode_step`` or ``spec_step`` once an inner tick, each its own op:
+    rank 0's sampler and n-gram draft decide every tick, and the followers
+    receive the tokens."""
 
     family = "dense transformer"
     supports_kv_buckets = True
@@ -260,8 +365,16 @@ class TransformerSlotModel:
         self.kv_pool_blocks = kv_pool_blocks
         self.paged_attn = paged_attn
         self.n_kv_blocks = None  # usable blocks + the null block, at init_state
-        self._lock = threading.Lock()
+        # one call and its broadcasts at a time, only where they reach
+        # other ranks
+        self._lock = (threading.Lock() if mesh is not None and mesh.size > 1
+                      else contextlib.nullcontext())
         self._stopped = False
+        # dense prefix buffers by key (this rank's head shard), each with
+        # its true length; the host tier of overcommit
+        self._prefixes: dict[int, tuple[dict, int]] = {}
+        self._prefix_keys = itertools.count()
+        self._host_pool: dict[str, torch.Tensor] = {}
 
     # ------------------------------------------------- the engine's calls
 
@@ -289,32 +402,79 @@ class TransformerSlotModel:
 
     def spec_step(self, params, state, draft, active, cap, kv_bucket):
         """One verify tick over a [B, T] draft (engine.py's
-        ``batched_spec_step``): (pred [B, T], count [B], state). One device
-        only: the rank-0 broadcast protocol has no verify op yet."""
-        if self._drives():
-            raise NotImplementedError(
-                "speculation under a tensor-parallel mesh= is not ported to vtpu_torch: "
-                "the rank-0 broadcast protocol has no verify op")
-        from vtpu_torch.serving.engine import batched_spec_step
-
-        return batched_spec_step(params, self.cfg, state, draft, active, cap,
-                                 kv_bucket=kv_bucket, ffn_fn=self._ffn,
-                                 paged_attn=self.paged_attn)
+        ``batched_spec_step``): (pred [B, T], count [B], state)."""
+        with self._lock:
+            self._announce(_OP_VERIFY, (draft.shape[1], kv_bucket), (draft, active, cap), state)
+            return self._verify(params, state, draft, active, cap, kv_bucket)
 
     def prefill_chunk_into_slot(self, params, state, chunk, slot, offset, new_len,
                                 kv_bucket=0, block_ids=None):
         """One [1, C] prompt chunk into *slot* at ``offset`` (engine.py's
-        ``chunked_prefill_into_slot``). One device only: the rank-0
-        broadcast protocol has no chunk op yet."""
-        if self._drives():
-            raise NotImplementedError(
-                "chunked prefill under a tensor-parallel mesh= is not ported to "
-                "vtpu_torch: the rank-0 broadcast protocol has no chunk op")
-        from vtpu_torch.serving.engine import chunked_prefill_into_slot
+        ``chunked_prefill_into_slot``)."""
+        with self._lock:
+            ids = () if block_ids is None else (block_ids,)
+            self._announce(_OP_CHUNK, (chunk.shape[1], kv_bucket, sum(x.numel() for x in ids)),
+                           ([slot, offset, new_len], chunk) + ids, state)
+            return self._chunk(params, state, chunk, slot, offset, new_len, kv_bucket,
+                               block_ids)
 
-        return chunked_prefill_into_slot(params, self.cfg, state, chunk, slot, offset,
-                                         new_len, kv_bucket=kv_bucket, block_ids=block_ids,
-                                         ffn_fn=self._ffn)
+    def copy_blocks(self, state, src: list[int], dst: list[int]):
+        """Pool block ``src[i]`` into ``dst[i]`` on every rank (a prefix's
+        copy-on-write boundary block), on the caller's stream."""
+        with self._lock:
+            self._announce(_OP_COPY, (len(src),), (src, dst), state)
+            return copy_blocks(state, src, dst)
+
+    def build_prefix(self, params, state, padded, n: int, chunk: int,
+                     buckets: list[int]) -> tuple[int, torch.Tensor]:
+        """Chunk-prefill a [1, pad] padded prefix (``n`` true tokens,
+        ``buckets`` each chunk's read window) into a one-row dense cache of
+        its own, never the serving state, on every rank, and keep its
+        padded length's KV (this rank's head shard) under a new key.
+        Returns (the key, the last true position's logits [vocab])."""
+        with self._lock:
+            key = next(self._prefix_keys)
+            self._announce(_OP_PREFIX, (key, padded.shape[1], n, chunk), (padded, buckets),
+                           state)
+            return key, self._build_prefix(params, key, padded, n, chunk, buckets)
+
+    def install_prefix(self, state, key: int, slot: int):
+        """Copy prefix ``key``'s buffers into *slot*'s leading positions
+        and set its length, in place, on every rank."""
+        with self._lock:
+            self._announce(_OP_INSTALL, (key, slot), (), state)
+            return self._install_prefix(state, key, slot)
+
+    def drop_prefix(self, state, key: int) -> None:
+        with self._lock:
+            self._announce(_OP_DROP, (key,), (), state)
+            self._prefixes.pop(key, None)
+
+    def init_host_tier(self, state, blocks: int, pin: bool) -> dict:
+        """The KV-overcommit host tier on every rank: one preallocated
+        plane per KV plane, scale planes included, [blocks, L, page, ...]
+        block-major (each host block one contiguous run; this rank's head
+        shard), pinned when ``pin``. Returns rank 0's tier."""
+        with self._lock:
+            self._announce(_OP_TIER, (blocks, int(pin)), (), state)
+            return self._init_host_tier(state, blocks, pin)
+
+    def swap_out(self, state, blocks: list[int], host: list[int], stage: int) -> list:
+        """The staging gathers of a swap-out of pool ``blocks`` to host-tier
+        blocks ``host``, ``stage`` blocks each: [(index, snapshot)], whose
+        host copies the caller enqueues (rank 0's engine, on its side
+        stream). Every other rank gathers its head shard of the same blocks
+        on its stream and copies it into its own tier behind them."""
+        with self._lock:
+            self._announce(_OP_SWAP_OUT, (len(blocks), stage), (blocks, host), state)
+            return self._gather(state, blocks, stage)
+
+    def swap_in(self, state, blocks: list[int], host: list[int], stage: int):
+        """Host-tier blocks ``host`` back into pool ``blocks``, in place, on
+        every rank from its own tier (``restore_pages``)."""
+        with self._lock:
+            self._announce(_OP_SWAP_IN, (len(blocks), stage), (blocks, host), state)
+            return restore_pages(state, self._host_pool, blocks, host, stage)
 
     def stop_workers(self) -> None:
         """Rank 0: tell the other ranks to leave ``follow`` (once). A no-op
@@ -341,28 +501,30 @@ class TransformerSlotModel:
             return
         if self._stopped:
             raise RuntimeError("the worker ranks were stopped")
-        header = torch.tensor([op, *dims] + [0] * (_HEADER - 1 - len(dims)))
+        header = torch.tensor([op, _ROUTES.index(self.paged_attn), *dims]
+                              + [0] * (_HEADER - 2 - len(dims)))
         broadcast_(header, self.mesh)
         if op == _OP_INIT:
             return
-        parts = list(tensors) + [state[key] for key in _MIRRORED if key in state]
-        broadcast_(torch.cat([x.reshape(-1).to(torch.int64) for x in parts]), self.mesh)
+        parts = [x if torch.is_tensor(x) else torch.tensor(x) for x in tensors]
+        parts += [state[key] for key in _MIRRORED if key in state]
+        broadcast_(torch.cat([x.reshape(-1).to(device=self.device, dtype=torch.int64)
+                              for x in parts]), self.mesh)
 
     def follow(self, state):
         """A non-zero rank's side of rank 0's next call: receive it and run
-        it on this rank's shard, after overwriting the table and lengths
-        with rank 0's. Returns (False, state) when rank 0 stopped the
-        workers, else (True, the new state)."""
+        it on this rank's shard, on the paged route rank 0 runs, after
+        overwriting the table and lengths with rank 0's. Returns (False,
+        state) when rank 0 stopped the workers, else (True, the new
+        state)."""
         header = broadcast_(torch.zeros(_HEADER, dtype=torch.int64), self.mesh)
-        op, d0, d1 = header.tolist()
+        op, route, *dims = header.tolist()
         if op == _OP_STOP:
             return False, state
+        self.paged_attn = _ROUTES[route]
         if op == _OP_INIT:
-            return True, self._init_state(d0)
-        b = state["len"].shape[0]
-        shapes = {_OP_PREFILL: [(d0, d1), (d0,), (d0,)], _OP_DECODE: [(b,), (b,)]}.get(op)
-        if shapes is None:
-            raise RuntimeError(f"unknown op {op} from rank 0")
+            return True, self._init_state(dims[0])
+        shapes = _payload_shapes(op, dims, state["len"].shape[0])
         mirrored = [state[key] for key in _MIRRORED if key in state]
         sizes = [math.prod(shape) for shape in shapes] + [x.numel() for x in mirrored]
         payload = broadcast_(torch.empty(sum(sizes), dtype=torch.int64, device=self.device),
@@ -370,13 +532,48 @@ class TransformerSlotModel:
         parts = torch.split(payload, sizes)
         for x, part in zip(mirrored, parts[len(shapes):]):
             x.copy_(part.view(x.shape))
-        args = [part.view(shape) for part, shape in zip(parts, shapes)]
+        return True, self._run(op, dims, [p.view(s) for p, s in zip(parts, shapes)], state)
+
+    def _run(self, op: int, dims: list, args: list, state):
+        """A follower's run of one op of rank 0's on its own shard."""
+        i32 = torch.int32
         if op == _OP_PREFILL:
             _, state = self._prefill(self.params, state, *args)
-        else:
+        elif op == _OP_DECODE:
             tokens, active = args
-            _, state = self._decode(self.params, state, tokens.to(torch.int32), active.bool(), d0)
-        return True, state
+            _, state = self._decode(self.params, state, tokens.to(i32), active.bool(), dims[0])
+        elif op == _OP_VERIFY:
+            draft, active, cap = args
+            _, _, state = self._verify(self.params, state, draft.to(i32), active.bool(),
+                                       cap.to(i32), dims[1])
+        elif op == _OP_CHUNK:
+            (slot, offset, new_len), chunk = args[0].tolist(), args[1]
+            _, state = self._chunk(self.params, state, chunk.to(i32), slot, offset, new_len,
+                                   dims[1], args[2] if dims[2] else None)
+        elif op == _OP_COPY:
+            state = copy_blocks(state, args[0].tolist(), args[1].tolist())
+        elif op == _OP_PREFIX:
+            self._build_prefix(self.params, dims[0], args[0].to(i32), dims[2], dims[3],
+                               args[1].tolist())
+        elif op == _OP_INSTALL:
+            state = self._install_prefix(state, dims[0], dims[1])
+        elif op == _OP_DROP:
+            self._prefixes.pop(dims[0], None)
+        elif op == _OP_TIER:
+            self._init_host_tier(state, dims[0], bool(dims[1]))
+        elif op == _OP_SWAP_OUT:
+            blocks, host = args[0].tolist(), args[1].tolist()
+            # on this rank's stream, so a later op that writes the blocks
+            # runs after the gather, and a swap-in after the copies
+            for i, snap in self._gather(state, blocks, dims[1]):
+                to_host(self._host_pool, snap, host[i:i + dims[1]],
+                        non_blocking=self.device.type == "cuda")
+        elif op == _OP_SWAP_IN:
+            state = restore_pages(state, self._host_pool, args[0].tolist(), args[1].tolist(),
+                                  dims[1])
+        else:
+            raise RuntimeError(f"unknown op {op} from rank 0")
+        return state
 
     # ------------------------------------------------------- the steps
 
@@ -391,16 +588,17 @@ class TransformerSlotModel:
         return init_paged_kv_cache(self.cfg, slots, self.kv_page, self.n_kv_blocks,
                                    device=self.device, mesh=self.mesh)
 
+    def _prefill_fn(self, true_lens):
+        """The family's full-sequence forward for an admission, gathering
+        each row's final position before the vocab projection (so the
+        [N, bucket, vocab] logits never exist)."""
+        return lambda p, c, t, mesh: prefill(p, c, t, logits_at=true_lens - 1, mesh=mesh)
+
     def _prefill(self, params, state, padded, slots, true_lens):
         from vtpu_torch.serving.engine import prefill_into_slots
 
-        # logits_at: each row's final position is gathered before the vocab
-        # projection, so the [N, bucket, vocab] logits never exist
-        return prefill_into_slots(
-            params, self.cfg, state, padded, slots, true_lens,
-            prefill_fn=lambda p, c, t, mesh: prefill(p, c, t, logits_at=true_lens - 1,
-                                                     mesh=mesh),
-            mesh=self.mesh)
+        return prefill_into_slots(params, self.cfg, state, padded, slots, true_lens,
+                                  prefill_fn=self._prefill_fn(true_lens), mesh=self.mesh)
 
     def _decode(self, params, state, tokens, active, kv_bucket):
         from vtpu_torch.serving.engine import batched_decode_step
@@ -409,11 +607,56 @@ class TransformerSlotModel:
                                    kv_bucket=kv_bucket, ffn_fn=self._ffn,
                                    paged_attn=self.paged_attn, mesh=self.mesh)
 
+    def _verify(self, params, state, draft, active, cap, kv_bucket):
+        from vtpu_torch.serving.engine import batched_spec_step
+
+        return batched_spec_step(params, self.cfg, state, draft, active, cap,
+                                 kv_bucket=kv_bucket, ffn_fn=self._ffn,
+                                 paged_attn=self.paged_attn, mesh=self.mesh)
+
+    def _chunk(self, params, state, chunk, slot, offset, new_len, kv_bucket, block_ids):
+        from vtpu_torch.serving.engine import chunked_prefill_into_slot
+
+        return chunked_prefill_into_slot(params, self.cfg, state, chunk, slot, offset,
+                                         new_len, kv_bucket=kv_bucket, block_ids=block_ids,
+                                         ffn_fn=self._ffn, mesh=self.mesh)
+
+    def _build_prefix(self, params, key: int, padded, n: int, chunk: int,
+                      buckets: list[int]) -> torch.Tensor:
+        scratch = init_kv_cache(self.cfg, 1, device=self.device, mesh=self.mesh)
+        pad = padded.shape[1]
+        logits = None
+        for j, off in enumerate(range(0, pad, chunk)):
+            logits, scratch = self._chunk(params, scratch, padded[:, off:off + chunk], 0, off,
+                                          min(off + chunk, n), buckets[j], None)
+        self._prefixes[key] = ({k: scratch[k][:, 0, :pad].clone() for k in kv_keys(scratch)}, n)
+        return logits[0, (n - 1) - (pad - chunk)]
+
+    def _install_prefix(self, state, key: int, slot: int):
+        buffers, n = self._prefixes[key]
+        for k, buf in buffers.items():
+            state[k][:, slot, :buf.shape[1]].copy_(buf)
+        state["len"][slot].fill_(n)
+        return state
+
+    def _init_host_tier(self, state, blocks: int, pin: bool) -> dict:
+        self._host_pool = {
+            key: torch.empty((blocks, state[key].shape[0]) + tuple(state[key].shape[2:]),
+                             dtype=state[key].dtype, pin_memory=pin)
+            for key in kv_keys(state)}
+        return self._host_pool
+
+    def _gather(self, state, blocks: list[int], stage: int) -> list:
+        return [(i, swap_page_gather(state, _device_ids(blocks[i:i + stage], self.device)))
+                for i in range(0, len(blocks), stage)]
+
 
 def _validate_serving_mesh(mesh: Any, cfg: Any) -> None:
     """Construction-time checks of a tensor-parallel serving mesh; each
     error names the numbers at fault (reference: adapters.py
-    ``_validate_serving_mesh``; a TpMesh has the 'tp' axis only)."""
+    ``_validate_serving_mesh``; a TpMesh has the 'tp' axis only). The dense
+    MLP splits d_ff over 'tp'; the MoE's experts split on their own axis
+    (``MoeSlotModel``)."""
     tp = int(mesh.shape["tp"])
     if cfg.n_heads % tp:
         raise ValueError(
@@ -422,7 +665,7 @@ def _validate_serving_mesh(mesh: Any, cfg: Any) -> None:
             "their head axis over 'tp'"
             + (f", as do the int8 k_scale/v_scale planes (n_heads = {cfg.n_heads})"
                if kv_quantized(cfg) else ""))
-    if cfg.d_ff % tp:
+    if not hasattr(cfg, "n_experts") and cfg.d_ff % tp:
         raise ValueError(f"tp={tp} must divide d_ff={cfg.d_ff}: w_gate/w_up split "
                          "their output axis and w_down its input axis over 'tp'")
 
@@ -445,32 +688,36 @@ class MoeSlotModel(TransformerSlotModel):
     FFN: ``moe_decode_ffn`` in decode, verify and chunk steps (capacity =
     every token of the step, so nothing drops), ``moe_prefill`` with each
     row's true length at admission (pads masked out of routing, capacity by
-    the config's formula). One device only: ``mesh`` raises."""
+    the config's formula).
+
+    With ``mesh`` the attention trunk splits as the dense family's and the
+    expert stacks split their expert axis over 'tp' when it divides
+    ``n_experts`` (``shard_moe_params``; replicated otherwise): every rank
+    routes every token with the same replicated router, so the same
+    choices drop, runs its own experts only, and the partial combines are
+    summed by one all-reduce a layer (none with replicated experts)."""
 
     family = "MoE"
 
     def __init__(self, params: Any, cfg: Any, kv_page: Optional[int] = None,
                  kv_pool_blocks: Optional[int] = None,
                  paged_attn: Optional[str] = None, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the MoE family (MoeSlotModel) under a tensor-parallel mesh= is not ported "
-                "to vtpu_torch: it needs the expert axis split over 'tp' and its ops in the "
-                "rank-0 broadcast protocol; serve it on one device")
         super().__init__(params, cfg, kv_page=kv_page, kv_pool_blocks=kv_pool_blocks,
-                         paged_attn=paged_attn, device=device)
-        self._ffn = moe_decode_ffn(cfg)
+                         paged_attn=paged_attn, device=device, mesh=mesh)
+        if mesh is not None:
+            tp = mesh.size
+            want = cfg.n_experts // tp if cfg.n_experts % tp == 0 else cfg.n_experts
+            got = params["layers"]["w_gate"].shape[1]
+            if got != want:
+                raise ValueError(
+                    f"under tp={tp} the MoE params must be one rank's shard (shard_moe_params): "
+                    f"w_gate holds {got} experts, expected {want} of n_experts={cfg.n_experts}")
+        self._ffn = moe_decode_ffn(cfg, mesh=mesh)
 
-    def _prefill(self, params, state, padded, slots, true_lens):
-        from vtpu_torch.serving.engine import prefill_into_slots
-
-        # true_lens masks each row's pads out of routing; logits_at gathers
-        # each row's final position before the vocab projection (one
-        # device: the mesh is None)
-        return prefill_into_slots(
-            params, self.cfg, state, padded, slots, true_lens,
-            prefill_fn=lambda p, c, t, mesh: moe_prefill(p, c, t, true_len=true_lens,
-                                                         logits_at=true_lens - 1))
+    def _prefill_fn(self, true_lens):
+        # true_lens masks each row's pads out of routing
+        return lambda p, c, t, mesh: moe_prefill(p, c, t, true_len=true_lens,
+                                                 logits_at=true_lens - 1, mesh=mesh)
 
 
 class SsmSlotModel:
@@ -481,7 +728,7 @@ class SsmSlotModel:
     row's state at that row's true length into its slot, and a decode step
     writes the new state masked by ``active`` (an inactive slot keeps its
     state). No speculation, no chunked admission, no paged pool; one
-    device only."""
+    device only (the reference's takes no mesh)."""
 
     family = "selective SSM"
     supports_kv_buckets = False

@@ -57,6 +57,13 @@ the loop's dispatch never catches it. Sampling draws from a per-worker
 ``torch.Generator`` seeded ``sampling_seed + 101 + worker id``: only greedy
 streams are comparable with the reference.
 
+Under a tensor-parallel mesh the workers run on rank 0: a worker's chunk
+and its reservation's copy-on-write are the adapter's chunk and copy ops,
+which every other rank runs on its one stream in the order the adapter's
+lock gave them, so the fences above stay rank 0's and the other ranks need
+none; a handoff install writes only a table row and a length, which reach
+them with the next op.
+
 ``ServingConfig.disagg = None`` keeps all of this dormant: no worker
 threads, and the loop is the co-scheduled one.
 """
@@ -74,7 +81,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vtpu_torch.models.transformer import kv_keys, sample_tokens
+from vtpu_torch.models.transformer import sample_tokens
 from vtpu_torch.obs.trace import TERMINAL_CODES
 from vtpu_torch.serving.faults import WorkerDeath
 
@@ -553,10 +560,8 @@ class PrefillWorker(threading.Thread):
             self._fence_in()
             if base % eng._page:
                 # the prefix's boundary block, every layer and plane, on this
-                # worker's stream
-                src, dst = entry["blocks"][full], priv[0]
-                for key in kv_keys(eng.state):
-                    eng.state[key][:, dst].copy_(eng.state[key][:, src])
+                # worker's stream (under a mesh on every rank)
+                eng.model.copy_blocks(eng.state, [entry["blocks"][full]], [priv[0]])
                 cow = True
         except Exception:
             eng._alloc.release(list(shared) + priv)

@@ -39,25 +39,28 @@ watchdog (``fetch_watchdog_ms``) degrades a stalled engine one rung at a
 time and lifts the rungs once latency recovers. A ``FaultPlan``
 (``ServingConfig.faults``, serving/faults.py) fires each seam on schedule.
 
-Disaggregated prefill/decode (``disagg``, serving/disagg.py, one device):
-prefill workers, each on a thread and a CUDA stream of its own, claim the
+Disaggregated prefill/decode (``disagg``, serving/disagg.py): prefill
+workers, each on a thread and a CUDA stream of its own, claim the
 waiting line, chunk-prefill into slot-less pool blocks and deliver the
 first token; the loop installs each handoff into a free slot with one
 table-row write and no KV copy, and restarts a worker that died.
 
 What the port has not reached raises instead of being ignored:
-``ModelConfig.kv_int8="auto"`` is refused, and so are chunked prefill,
-prefix registration, disaggregation, speculation, the multi-tick loop,
-overcommit and the fetch watchdog under a mesh. ``kv_int8=True`` serves int8 KV: dense or
-paged int8 planes with f32 scale planes beside them, written quantized at
-every KV write site here. ``mesh=`` (a vtpu_torch.parallel.TpMesh) serves
-tensor-parallel over torch.distributed: see ``ServingEngine`` for how the
-ranks split the work.
+``ModelConfig.kv_int8="auto"`` is refused. ``kv_int8=True`` serves int8
+KV: dense or paged int8 planes with f32 scale planes beside them, written
+quantized at every KV write site here. ``mesh=`` (a
+vtpu_torch.parallel.TpMesh) serves every loop and feature above
+tensor-parallel over torch.distributed, for the dense and MoE families:
+see ``ServingEngine`` for how the ranks split the work.
 
 Every write into the engine's state (a chunk's KV, a prefix install, a
 copy-on-write block, a swap-in, a table row, a length) goes into the
 state's own tensors in place: the CUDA graphs of the pipelined loop hold their
-addresses, so a replaced tensor would leave a replay reading stale KV.
+addresses, so a replaced tensor would leave a replay reading stale KV. Every
+write into the KV planes goes through the adapter (a step, or
+``copy_blocks``, ``install_prefix``, ``swap_in``), which under a mesh
+makes it on every rank; a table row and a length are the engine's own
+writes, which reach the other ranks with the adapter's next call.
 
 Writes the reference drops. JAX's ``.at[...].set(..., mode="drop")`` lets an
 out-of-range block id or position vanish (inactive lanes, positions past the
@@ -98,7 +101,7 @@ import torch
 
 from vtpu_torch.device import resolve_device
 from vtpu_torch.models.transformer import (
-    ModelConfig, Params, decode_layer_loop, init_kv_cache, kv_bytes_per_token, kv_keys, prefill,
+    ModelConfig, Params, decode_layer_loop, kv_bytes_per_token, kv_keys, prefill,
     sample_tokens, spec_verify_loop, store_kv,
 )
 from vtpu_torch.obs import RequestTrace, TickProfiler, pct
@@ -107,8 +110,7 @@ from vtpu_torch.ops import _build
 from vtpu_torch.ops.decode_attn import paged_attn_route
 from vtpu_torch.serving.adapters import (
     TransformerSlotModel, batched_admission_step, fused_spec_decode_step,
-    multi_tick_decode_step, sampled_decode_step, swap_page_gather, swap_page_scatter,
-    verify_step,
+    multi_tick_decode_step, sampled_decode_step, to_host, verify_step,
 )
 from vtpu_torch.serving.disagg import DisaggConfig, DisaggRuntime
 from vtpu_torch.serving.faults import EngineDeath, FaultInjected, FaultPlan
@@ -131,11 +133,10 @@ class ServingConfig:
     loop (unrolled or a fori_loop); the port's layer loop is a Python loop,
     always unrolled, so None, True and False serve the same computation.
 
-    Disaggregation, speculation, the multi-tick loop, KV overcommit and the
-    fetch watchdog are served on one device; under a tensor-parallel mesh
-    their twelve fields raise (the rank-0 broadcast protocol has no chunk,
-    verify, flush, swap or route-switch op yet). Deadlines, overload shedding, fault plans and
-    the duty supplier are rank-0 host decisions, served under a mesh too."""
+    Every field is served under a tensor-parallel mesh as on one device.
+    Deadlines, overload shedding, fault plans, the watchdog's rungs, the
+    loop policy and the duty supplier are rank-0 host decisions; the other
+    ranks follow rank 0's ops."""
 
     slots: int = 4  # concurrent sequences (the decode batch)
     prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024)
@@ -214,7 +215,7 @@ class ServingConfig:
     # disaggregated prefill/decode: a DisaggConfig (serving/disagg.py) runs
     # prefill workers beside the loop (None: co-scheduled). Needs the paged
     # pool, prefill_chunk, device sampling, no speculation and batched
-    # admission; one device
+    # admission
     disagg: Optional[Any] = None
     # k decode ticks a dispatch with the sampled token fed back on the
     # device, one fetch a flush (None and 1: one tick a dispatch). Needs
@@ -232,12 +233,12 @@ class ServingConfig:
     # or a "module:attr" string)
     shed_queue_depth: int = 0
     shed_policy: Optional[Any] = None
-    # fetch watchdog (one device): a fetch that waits past this many ms
+    # fetch watchdog: a fetch that waits past this many ms
     # steps the degradation ladder, first decode_loop_k down to one-token
     # flushes, then the paged route down to gather (0 = off); latency back
     # under it for fetch_watchdog_recover_ms lifts one rung at a time, the
-    # last one first (0 = degradation is one-way). On a card every step of
-    # both routes is captured when the engine is built
+    # last one first (0 = degradation is one-way). On one card every step
+    # of both routes is captured when the engine is built
     fetch_watchdog_ms: float = 0.0
     fetch_watchdog_recover_ms: float = 0.0
     # a request whose prefill worker died is re-queued after
@@ -253,38 +254,15 @@ class ServingConfig:
     duty_supplier: Optional[Any] = None
 
 
-# served on one device only: under a mesh a non-default value raises (the
-# rank-0 broadcast protocol has no chunk, verify, flush, swap or
-# route-switch op yet)
-_ONE_DEVICE = ("disagg", "spec_tokens", "spec_ngram", "spec_min_mean", "spec_cooloff_ticks",
-               "decode_loop_k", "loop_policy", "kv_swap", "kv_swap_stage_blocks",
-               "kv_swap_recompute_tokens", "fetch_watchdog_ms", "fetch_watchdog_recover_ms")
-
-
-def _check_ported(serving: ServingConfig, cfg: ModelConfig, mesh) -> None:
-    """Refuse what this port has not reached. Every other combination is
-    ported, under a tensor-parallel ``mesh`` as on one device, except
-    chunked prefill (and so prefix registration and disaggregation),
-    speculation, the multi-tick loop, KV overcommit and the fetch watchdog,
-    whose rank-0 broadcast ops are a later slice: the mesh itself is
-    checked by the adapter (``_validate_serving_mesh``)."""
-    for f in dataclasses.fields(ServingConfig):
-        if mesh is not None and f.name in _ONE_DEVICE and getattr(serving, f.name) != f.default:
-            raise NotImplementedError(
-                f"ServingConfig.{f.name}={getattr(serving, f.name)!r} under a tensor-parallel "
-                "mesh= is not ported to vtpu_torch: the rank-0 broadcast protocol has no "
-                "chunk, verify, flush, swap or route-switch op yet; serve disagg, "
-                "speculation, decode_loop_k, kv_swap and the fetch watchdog on one device")
+def _check_ported(cfg: ModelConfig) -> None:
+    """Refuse what this port has not reached: ``kv_int8="auto"``. Every
+    ServingConfig is ported, under a tensor-parallel mesh as on one device
+    (the mesh itself is checked by the adapter, ``_validate_serving_mesh``)."""
     if isinstance(getattr(cfg, "kv_int8", False), str):
         raise NotImplementedError(
             f"ModelConfig.kv_int8={cfg.kv_int8!r} is not ported to vtpu_torch: the "
             "reference resolves 'auto' with a router measured on a TPU (v5e), and "
             "an H100 router needs an H100 measurement; pass True or False")
-    if mesh is not None and serving.prefill_chunk:
-        raise NotImplementedError(
-            f"ServingConfig.prefill_chunk={serving.prefill_chunk} under a tensor-parallel "
-            "mesh= is not ported to vtpu_torch: the rank-0 broadcast protocol has no "
-            "chunk op yet; serve chunked prefill and prefixes on one device")
 
 
 class BlockAllocator:
@@ -696,7 +674,7 @@ def lookup_draft(history: list, k: int, max_ngram: int) -> Optional[list]:
 def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
                               chunk: torch.Tensor, slot: int, offset: int, new_len: int,
                               kv_bucket: int = 0, block_ids: Optional[torch.Tensor] = None,
-                              ffn_fn=None):
+                              ffn_fn=None, mesh=None):
     """One [1, C] prompt chunk written into *slot* at positions
     offset..offset+C-1, through THE decode trunk (``spec_verify_loop``) at
     T = C: a chunk is a verify pass whose draft is known-correct prompt. One
@@ -723,8 +701,9 @@ def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
     and overwritten before any query reads them. ``new_len`` is the slot's
     length after this chunk. ``ffn_fn`` is the family's post-attention
     block in the trunk (the MoE's ``moe_decode_ffn``; None: the dense
-    MLP). Every write is in place. Returns (logits [1, C, vocab] f32,
-    cache)."""
+    MLP). Under ``mesh`` params and cache are the rank's shards, as in
+    ``batched_decode_step``. Every write is in place. Returns (logits
+    [1, C, vocab] f32, cache)."""
     c = chunk.shape[1]
     bucket = kv_bucket or cfg.max_seq
     if offset + c > bucket:
@@ -746,7 +725,7 @@ def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
         return kv
 
     logits, new_view = spec_verify_loop(params, cfg, view, chunk, bucket, write_kv,
-                                        ffn_fn=ffn_fn)
+                                        ffn_fn=ffn_fn, mesh=mesh)
     if block_ids is not None:
         p0, p1 = offset // page, min(-(-(offset + c) // page), wp)
         for key in keys:
@@ -757,18 +736,6 @@ def chunked_prefill_into_slot(params: Params, cfg: ModelConfig, cache: dict,
         # a fill, not an item assignment: the host never waits for it
         cache["len"][slot].fill_(new_len)
     return logits, cache
-
-
-def _runs(ids: list[int]):
-    """(index, first id, length) of each run of consecutive ids in
-    ``ids``: the host-tier blocks one copy moves."""
-    i = 0
-    while i < len(ids):
-        r = 1
-        while i + r < len(ids) and ids[i + r] == ids[i] + r:
-            r += 1
-        yield i, ids[i], r
-        i += r
 
 
 class ServingEngine:
@@ -792,7 +759,8 @@ class ServingEngine:
     ``spec_tokens`` the fused one. On one CUDA card (no mesh) every
     device-sampled loop replays its steps from CUDA graphs captured when
     the engine is built, one per kv bucket (``decode_graphs`` and its
-    siblings); under a mesh and on the CPU the steps run eagerly.
+    siblings); under a mesh and on the CPU the steps run eagerly, a flush
+    one decode or verify step an inner tick.
     ``sample(row)`` is
     called with one fetched numpy [vocab] f32 logits row (the first token's
     at admission, then each decode tick's) and returns the token id; it
@@ -809,7 +777,7 @@ class ServingEngine:
     copies only the partial boundary page; a dense cache copies the
     prefix's KV into the slot.
 
-    KV overcommit (``kv_swap``, one device): ``park`` and ``resume`` are
+    KV overcommit (``kv_swap``): ``park`` and ``resume`` are
     commands the loop applies at its tick heads (``_process_lifecycle``),
     a park once the slot has no token in flight. Admissions, resumes and
     prefix builds allocate through ``_alloc_reclaim``, which evicts parked
@@ -824,18 +792,21 @@ class ServingEngine:
     admission buffer and logits exist on rank 0 only. Every other rank
     runs ``vtpu_torch.parallel.launch.serve_worker`` with its own shard, the
     same config and ServingConfig: the same adapter on its shard, following
-    rank 0. Each adapter call of rank 0 (``init_state``,
-    ``prefill_into_slots``, ``decode_step``) first broadcasts its op, its
-    shapes and its tensor arguments, and with them rank 0's current page
-    table and lengths, so the engine's direct state writes outside any
-    adapter call (the reservation's ``state["table"][slot]`` and
-    ``state["len"][slot]``) reach every rank before the step that reads
-    them. Then every rank runs the same step on its head shard, with the
-    all-reduces in the trunk. Over gloo that broadcast stages rank 0's
-    device tensors through host memory, one device->host copy per call,
-    which waits for the stream: the pipelined loop then overlaps nothing
-    (it is not counted as a fetch). ``stop()`` sends the workers their
-    stop.
+    rank 0. Each adapter call of rank 0 (every step, a flush's and a fused
+    flush's inner ticks one by one, chunks, the copy-on-write block, dense
+    prefix buffers, the host tier's swaps) first broadcasts its op, the
+    paged route it runs on, its shapes and its tensor arguments, and with
+    them rank 0's current page table and lengths, so the engine's direct
+    state writes outside any adapter call (a reservation's, a resume's or
+    a handoff's ``state["table"][slot]`` and ``state["len"][slot]``) reach
+    every rank before the step that reads them. Then every rank runs the
+    same op on its head shard, with the all-reduces in the trunk. Sampling,
+    drafting, admission, eviction, the watchdog's rungs and the prefill
+    workers' claims are rank 0's: the other ranks receive their outcome.
+    Over gloo that broadcast stages rank 0's device tensors through host
+    memory, one device->host copy per call, which waits for the stream:
+    the pipelined loops then overlap nothing (it is not counted as a
+    fetch). ``stop()`` sends the workers their stop.
 
     Model families (``model=``, the reference's ``engine.py:1185``): pass
     either (params, cfg) for the dense transformer, or a slot-model adapter
@@ -848,19 +819,20 @@ class ServingEngine:
     ``supports_kv_buckets`` False for the SSM: no read windows, one graph a
     step). An adapter without ``spec_step`` serves without speculation
     (``stats()["spec_disabled_reason"]``), one without
-    ``prefill_chunk_into_slot`` without chunked admission. The MoE and SSM
-    families serve on one device: with ``mesh=`` they raise."""
+    ``prefill_chunk_into_slot`` without chunked admission. The MoE serves
+    under a mesh (its adapter built with it); the SSM on one device only:
+    with ``mesh=`` it raises."""
 
     def __init__(self, params: Params = None, cfg: ModelConfig = None,
                  serving: ServingConfig = ServingConfig(), device=None, sample=None,
                  mesh=None, model=None):
         if model is not None:
             if mesh is not None and mesh is not model.mesh:
-                if model.family != TransformerSlotModel.family:
+                if not isinstance(model, TransformerSlotModel):
                     raise NotImplementedError(
                         f"the {model.family} family ({type(model).__name__}) under a "
-                        "tensor-parallel mesh= is not ported to vtpu_torch; serve it on one "
-                        "device")
+                        "tensor-parallel mesh= is not ported to vtpu_torch (the reference's "
+                        "adapter takes no mesh); serve it on one device")
                 raise ValueError("mesh= is not the adapter's mesh: build the adapter with it")
             mesh = model.mesh
             params, cfg = model.params, model.cfg
@@ -869,7 +841,7 @@ class ServingEngine:
             if device is not None and torch.device(device).type != own.type:
                 raise ValueError(f"device {device} is not the adapter's device {own}")
             device = own
-        _check_ported(serving, cfg, mesh)
+        _check_ported(cfg)
         if mesh is not None:
             if mesh.rank != 0:
                 raise ValueError(
@@ -1291,9 +1263,11 @@ class ServingEngine:
         and the host tier: one preallocated plane per KV plane, scale
         planes included, [kv_swap, L, page, ...] block-major (each host
         block one contiguous run), pinned on a card, with its free list, and
-        the side stream its swap-outs copy on. On a card with a host tier
-        the staging pair runs once here (the null block to host block 0 and
-        back), so no first use of its kernels or copies stalls the loop."""
+        the side stream its swap-outs copy on (the adapter holds the
+        tier: under a mesh every rank has one of its head shard). On a card
+        with a host tier the staging pair runs once here (the null block to
+        host block 0 and back), so no first use of its kernels or copies
+        stalls the loop."""
         self._swap_enabled = serving.kv_swap is not None
         self._lifecycle_q: "queue.Queue[tuple[str, Request]]" = queue.Queue()
         self._want_park: set = set()
@@ -1314,10 +1288,9 @@ class ServingEngine:
             for key in kv_keys(self.state):
                 plane = self.state[key]
                 self._block_bytes += plane[:, 0].numel() * plane.element_size()
-                if self._swap_host_blocks:
-                    self._host_pool[key] = torch.empty(
-                        (self._swap_host_blocks, plane.shape[0]) + tuple(plane.shape[2:]),
-                        dtype=plane.dtype, pin_memory=pin)
+            if self._swap_host_blocks:
+                self._host_pool = self.model.init_host_tier(self.state, self._swap_host_blocks,
+                                                            pin)
             if pin:
                 self._copy_stream = torch.cuda.Stream(self.device)
                 if self._swap_host_blocks:
@@ -1410,13 +1383,10 @@ class ServingEngine:
         Paged: the prefix chunk-prefills into fresh pool blocks, which
         admissions map read-only; the build writes the pool, so once the
         loop runs it runs there (this call waits for it), and before
-        ``start()`` it runs here. Dense: it builds into a cache of its own
-        and keeps the KV of its padded length, [L, 1, ceil(n/C)*C, H, Dh] a
-        plane, which admissions copy into their slot."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "register_prefix under a tensor-parallel mesh= is not ported to vtpu_torch: "
-                "it needs chunked prefill, whose rank-0 broadcast op is a later slice")
+        ``start()`` it runs here. Dense: the adapter builds it into a cache
+        of its own and keeps the KV of its padded length, [L, ceil(n/C)*C,
+        H, Dh] a plane (under a mesh on every rank, its head shard), which
+        admissions copy into their slot."""
         if not self._chunk:
             raise ValueError("register_prefix requires prefill_chunk")
         tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
@@ -1454,26 +1424,6 @@ class ServingEngine:
             self._prefixes[pid] = entry
         return pid
 
-    def _run_chunks(self, padded: torch.Tensor, n: int, state: dict, slot: int,
-                    blocks: Optional[list] = None) -> torch.Tensor:
-        """Chunk-prefill a whole padded prefix into ``state`` (the slot
-        sentinel with explicit ``blocks`` for a pool); returns its last
-        true position's logits [vocab]."""
-        c, pad = self._chunk, padded.shape[1]
-        logits = None
-        for off in range(0, pad, c):
-            kv_bucket = self._chunk_bucket(off + c)
-            ids = None
-            if blocks is not None:
-                row = np.zeros((kv_bucket // self._page,), np.int32)
-                m = min(len(blocks), row.shape[0])
-                row[:m] = blocks[:m]
-                ids = self._upload(row, torch.int32)
-            logits, state = self._prefill_chunk(
-                self.params, state, self._upload(padded[:, off:off + c], torch.int32), slot,
-                off, min(off + c, n), kv_bucket=kv_bucket, block_ids=ids)
-        return logits[0, (n - 1) - (pad - c)]
-
     def _build_prefix_paged(self, padded: torch.Tensor, n: int) -> dict:
         """Chunk-prefill a prefix into freshly allocated pool blocks (its
         one compute and write; admissions map them, never copy). Runs on
@@ -1487,8 +1437,18 @@ class ServingEngine:
             # an admin op fails loudly rather than wait behind tenant traffic
             raise RuntimeError(f"kv pool exhausted: prefix needs {pages} blocks, "
                                f"{self._alloc.free_blocks} free")
+        c = self._chunk
         try:
-            last = self._run_chunks(padded, n, self.state, self.serving.slots, blocks)
+            for off in range(0, pad, c):
+                kv_bucket = self._chunk_bucket(off + c)
+                row = np.zeros((kv_bucket // self._page,), np.int32)
+                m = min(len(blocks), row.shape[0])
+                row[:m] = blocks[:m]
+                logits, self.state = self._prefill_chunk(
+                    self.params, self.state, self._upload(padded[:, off:off + c], torch.int32),
+                    self.serving.slots, off, min(off + c, n), kv_bucket=kv_bucket,
+                    block_ids=self._upload(row, torch.int32))
+            last = logits[0, (n - 1) - (pad - c)]
         except Exception:
             self._alloc.release(blocks)  # no entry will ever reference them
             raise
@@ -1496,14 +1456,14 @@ class ServingEngine:
                 "tokens": padded[0, :n].tolist()}
 
     def _build_prefix_dense(self, padded: torch.Tensor, n: int) -> dict:
-        """Chunk-prefill a prefix into a one-row cache of its own (never the
-        serving state, so any thread may build) and keep its padded
-        length's KV."""
-        scratch = init_kv_cache(self.cfg, 1, device=self.device)
-        last = self._run_chunks(padded, n, scratch, 0)
-        pad = padded.shape[1]
-        buffers = {key: scratch[key][:, 0, :pad].clone() for key in kv_keys(scratch)}
-        return {"buffers": buffers, "len": n, "pad": pad, "last_logits": last,
+        """The adapter chunk-prefills a prefix into a one-row cache of its
+        own (never the serving state, so any thread may build) and keeps its
+        padded length's KV under the entry's ``buf`` key."""
+        c, pad = self._chunk, padded.shape[1]
+        key, last = self.model.build_prefix(
+            self.params, self.state, self._upload(padded, torch.int32), n, c,
+            [self._chunk_bucket(off + c) for off in range(0, pad, c)])
+        return {"buf": key, "len": n, "pad": pad, "last_logits": last,
                 "tokens": padded[0, :n].tolist()}
 
     def _drain_prefix_work(self) -> None:
@@ -1535,6 +1495,8 @@ class ServingEngine:
                 raise ValueError(f"unknown prefix id {pid}")
             if self._paged:
                 self._alloc.release(entry["blocks"])
+            else:
+                self.model.drop_prefix(self.state, entry["buf"])
 
     def submit(self, tokens, max_new_tokens: int = 0, prefix: Optional[int] = None,
                priority: int = 0, deadline_ms: Optional[float] = None) -> Request:
@@ -1805,6 +1767,9 @@ class ServingEngine:
         s["decode_attn_int8kv_launches"] = _build.LAUNCHES["decode_attention_int8kv"]
         s["paged_attn_tp_launches"] = _build.LAUNCHES["paged_decode_attention_tp"]
         s["paged_attn_int8kv_tp_launches"] = _build.LAUNCHES["paged_decode_attention_int8kv_tp"]
+        s["paged_attn_tp_verify_launches"] = _build.LAUNCHES["paged_decode_attention_tp_verify"]
+        s["paged_attn_int8kv_tp_verify_launches"] = \
+            _build.LAUNCHES["paged_decode_attention_int8kv_tp_verify"]
         return s
 
     def signals(self) -> EngineSignals:
@@ -2061,36 +2026,30 @@ class ServingEngine:
 
     def _spill(self, blocks: list[int], host: list[int]) -> Optional[torch.cuda.Event]:
         """Enqueue the swap-out of pool ``blocks`` into host-tier blocks
-        ``host`` (same order): the staging gathers run on the main stream,
-        up to ``kv_swap_stage_blocks`` blocks each, and the copies of their
-        snapshots into the pinned host tier on the side stream behind them,
-        non-blocking, one copy a plane for each run of consecutive host
-        blocks. Returns the event that marks the copies done (None on the
-        CPU, where they have run). The side stream holds each snapshot
-        (``record_stream``) until its copy has read it."""
+        ``host`` (same order): the adapter's staging gathers run on the main
+        stream, up to ``kv_swap_stage_blocks`` blocks each (under a mesh
+        every other rank gathers and copies its own shard), and the copies
+        of their snapshots into the pinned host tier on the side stream
+        behind them, non-blocking, one copy a plane for each run of
+        consecutive host blocks. Returns the event that marks the copies
+        done (None on the CPU, where they have run). The side stream holds
+        each snapshot (``record_stream``) until its copy has read it."""
         w = self._swap_stage
-        snaps = []
-        for i in range(0, len(blocks), w):
-            snaps.append((i, swap_page_gather(self.state, self._upload(blocks[i:i + w], torch.long))))
+        snaps = self.model.swap_out(self.state, blocks, host, w)
         cs = self._copy_stream
         if cs is None:
             for i, snap in snaps:
-                self._to_host(snap, host[i:i + w], non_blocking=False)
+                to_host(self._host_pool, snap, host[i:i + w], non_blocking=False)
             return None
         cs.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(cs):
             for i, snap in snaps:
-                self._to_host(snap, host[i:i + w], non_blocking=True)
+                to_host(self._host_pool, snap, host[i:i + w], non_blocking=True)
                 for x in snap.values():
                     x.record_stream(cs)
             done = torch.cuda.Event()
             done.record(cs)
         return done
-
-    def _to_host(self, snap: dict, host: list[int], non_blocking: bool) -> None:
-        for j, h, r in _runs(host):
-            for key, x in snap.items():
-                self._host_pool[key][h:h + r].copy_(x[j:j + r], non_blocking=non_blocking)
 
     def _drain_swap_outs(self) -> None:
         """Retire the swap-outs whose copies are done (an event query, never
@@ -2320,22 +2279,10 @@ class ServingEngine:
     def _restore_pages(self, blocks: list[int], host: list[int]) -> None:
         """Enqueue the swap-in of host-tier blocks ``host`` into pool
         ``blocks`` (same order) on the main stream, ahead of the tick that
-        reads them: up to ``kv_swap_stage_blocks`` blocks at a time, the
-        pinned host blocks copy non-blocking into a device staging buffer
-        (one copy a plane for each run of consecutive host blocks) and the
-        staging scatter writes them into the pool in place."""
-        w = self._swap_stage
-        cuda = self.device.type == "cuda"
-        for i in range(0, len(blocks), w):
-            grp, hgrp = blocks[i:i + w], host[i:i + w]
-            pages = {}
-            for key, plane in self._host_pool.items():
-                stage = torch.empty((len(grp),) + tuple(plane.shape[1:]), dtype=plane.dtype,
-                                    device=self.device)
-                for j, h, r in _runs(hgrp):
-                    stage[j:j + r].copy_(plane[h:h + r], non_blocking=cuda)
-                pages[key] = stage
-            swap_page_scatter(self.state, self._upload(grp, torch.long), pages)
+        reads them (the adapter's ``swap_in``, on every rank under a mesh:
+        up to ``kv_swap_stage_blocks`` blocks at a time, staged and
+        scattered into the pool in place)."""
+        self.state = self.model.swap_in(self.state, blocks, host, self._swap_stage)
 
     def _set_row(self, slot: int, blocks: list[int], length: int) -> None:
         """The slot's device table row and length, in place."""
@@ -2527,23 +2474,13 @@ class ServingEngine:
         if base % self._page:
             # copy-on-write: logical page `full` starts as a copy of the
             # prefix's boundary block, every layer and plane, in place
-            src, dst = entry["blocks"][full], priv[0]
-            for key in kv_keys(self.state):
-                self.state[key][:, dst].copy_(self.state[key][:, src])
+            self.state = self.model.copy_blocks(self.state, [entry["blocks"][full]], [priv[0]])
             self._stats["prefix_cow_copies"] += 1
         blocks = list(shared) + priv
         self._slot_blocks[slot] = blocks
         self._slot_shared[slot] = len(shared)
         self._set_row(slot, blocks, base)
         return True
-
-    def _install_prefix(self, slot: int, entry: dict) -> None:
-        """Dense: copy a registered prefix's KV into *slot*'s leading
-        positions and set its length, in place. Takes the caller's captured
-        entry (a second lookup would reopen the unregister race)."""
-        for key, buf in entry["buffers"].items():
-            self.state[key][:, slot, :buf.shape[1]].copy_(buf)
-        self.state["len"][slot] = entry["len"]
 
     def _admit_waiting(self, budget: float) -> tuple[bool, float]:
         """Fill free slots from the waiting line under the per-tick prompt
@@ -2619,7 +2556,14 @@ class ServingEngine:
         and a blocking first-token fetch."""
         n = int(req.tokens.shape[0])
         if req.prefix is not None:
-            entry = self._prefixes.get(req.prefix)
+            with self._prefix_lock:
+                entry = self._prefixes.get(req.prefix)
+                if entry is not None and not self._paged:
+                    # dense: the prefix's KV copied into the slot's leading
+                    # positions, under the lock, so unregister_prefix cannot
+                    # drop the adapter's buffers first (paged slots mapped
+                    # the prefix at reservation: no copy)
+                    self.state = self.model.install_prefix(self.state, entry["buf"], slot)
             if entry is None:
                 # unregister_prefix raced this submit: fault this request
                 # alone (pages reserved for it go straight back)
@@ -2632,8 +2576,6 @@ class ServingEngine:
                 self._end_stream(req, Status.FAULTED, slot)
                 return
             if not self._paged:
-                # paged slots mapped the prefix at reservation (no copy)
-                self._install_prefix(slot, entry)
                 self._stats["prefix_install_copies"] += 1
                 self._stats["prefix_hits"] += 1
             base = entry["len"]
