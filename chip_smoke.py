@@ -189,6 +189,27 @@ Phases, any failure exits nonzero:
       TTFT p50/p99, background ITL p50/p99 while the burst is served,
       tokens/s, queue wait and prefill exec, a worker chunk's and a loop
       chunk's host and stream ms;
+   m. training (run after the TP phases), every launch count set to 0
+      before it and held at 0 after it (the flash kernel has no backward:
+      training runs with use_kernels=False, as the reference's step sets
+      use_pallas=False). m1: the flagship ModelConfig in bf16, AdamW with
+      optax's defaults, ten steps of make_train_step on one seeded 8 x
+      1024-token batch: the loss finite and falling; the first step's
+      loss and every gradient tensor against an f32 copy of the same
+      weights (loss within TRAIN_LOSS_REL, cosine at least TRAIN_COSINE);
+      the median step, training tokens/s, peak memory and the model-FLOPs
+      share of 989 TFLOP/s (information). m2: phase k's MoE and SSM at
+      full width, bf16, five AdamW steps each on a fixed batch: the loss
+      falls. m3: one spawned 4-rank world (gloo with the ranks on card 0,
+      or nccl with a card each where there are four) at the flagship's
+      widths, depth 4, f32, each arm against the single-device port on the
+      card: the dp2 x tp2 and multislice 2 x 1 x 2 train steps' losses and
+      gradients, a dp2 x tp2 checkpoint (parameters, AdamW moments, step
+      counts) restored byte for byte on dp1 x tp4, ring and Ulysses
+      attention at sp=4 against plain causal attention, sp_loss's and
+      pp_loss's (pp=4) gradients, and the MoE's ep=4 and dp2 x ep2
+      forwards against the dense MoE (capacity factor E / k, so nothing
+      drops);
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -4708,6 +4729,442 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP, params=None) -> d
     return out
 
 
+# ------------------------------------------------------------ m. training
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 10, 1e-3
+# bf16 first-step gradients against the same weights' f32 gradients: each
+# tensor's cosine at least this, the loss within TRAIN_LOSS_REL (measured on
+# an H100 at 700 W: lowest cosine 0.99965, loss rel 1.5e-5)
+TRAIN_COSINE = 0.999
+TRAIN_LOSS_REL = 1e-3
+# phase m2: the other families at full width, a few AdamW steps on a
+# fixed batch each (the SSM's log-depth scan keeps every round's [B, S,
+# d_inner, d_state] f32 tensors for the backward: a short batch)
+FAMILY_TRAIN = {"moe": (4, 512), "ssm": (2, 256)}
+FAMILY_STEPS = 5
+# phase m3: one 4-rank world at the flagship's widths, depth 4, f32, each
+# arm against the single-device port on the card
+M3_RANKS = 4
+M3_DEPTH = 4
+M3_BATCH, M3_SEQ = 4, 512
+M3_MOE_SEQ = 256
+# sequence-parallel attention at the flagship's attention widths
+M3_ATTN = (2, 2048, 8, 128)
+# f32 on the card, different reduction orders: a gradient leaf's largest
+# difference over its largest magnitude, a loss's relative difference, an
+# attention output's absolute difference (measured on an H100 at 700 W over
+# gloo: gradients at most 5.7e-6, losses 0, ring 6.0e-7, Ulysses 0)
+M3_GRAD_REL = 5e-5
+M3_LOSS_REL = 1e-5
+M3_ATTN_ATOL = 1e-5
+# the MoE arms: capacity factor E / k, so no choice drops and the expert
+# route computes the dense route's function (tests/test_moe.py's config)
+M3_MOE_ATOL = 2e-4
+
+
+def tree_items(tree: dict) -> list:
+    return ([("embed", tree["embed"])] + [(f"layers.{k}", w) for k, w in tree["layers"].items()]
+            + [("final_norm", tree["final_norm"])])
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest difference over b's largest magnitude."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float().flatten(), b.float().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+def train_flops_per_token(cfg, seq: int) -> float:
+    """The model's FLOPs a trained token: 6 x the matmul parameters (the
+    layers' and the tied LM head's) plus the attention's 12 x L x H x Dh x
+    S, the whole S x S computed (the plain path masks, it skips nothing)."""
+    d, f, qd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
+    per_layer = 4 * d * qd + 3 * d * f
+    return 6 * (cfg.n_layers * per_layer + cfg.vocab * d) + 12 * cfg.n_layers * qd * seq
+
+
+def dense_train_path(log, card: str, device: str = "cuda") -> dict:
+    """m1: the flagship, bf16, AdamW, ten steps on one fixed batch; the
+    first step's loss and gradients against an f32 copy of the same
+    weights."""
+    from vtpu_torch.models import ModelConfig, init_params
+    from vtpu_torch.parallel import init_train_state, make_train_step, next_token_loss
+
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=False)
+    gen = torch.Generator(device=device).manual_seed(SEED + 500)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                           device=device, dtype=torch.int32)
+    params = init_params(SEED, cfg, device=device)
+    # the f32 reference first, its activations freed before the bf16 run
+    f32_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = {"embed": params["embed"].float().requires_grad_(),
+           "layers": {k: w.float().requires_grad_() for k, w in params["layers"].items()},
+           "final_norm": params["final_norm"].float().requires_grad_()}
+    ref_loss = next_token_loss(ref, f32_cfg, tokens)
+    ref_loss.backward()
+    ref_grads = {path: p.grad for path, p in tree_items(ref)}
+    ref_loss = ref_loss.item()
+    del ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, opt = init_train_state(params, cfg, lr=TRAIN_LR)
+    del params
+    step = make_train_step(cfg, opt)
+    losses, ms = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        losses.append(loss.item())  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            checks = {path: (cosine(p.grad, ref_grads[path]), rel_err(p.grad, ref_grads[path]))
+                      for path, p in tree_items(state["params"])}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, ref_grads
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"m1: ten AdamW steps on one batch did not lower the loss: {losses}")
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    worst = min(checks, key=lambda k: checks[k][0])
+    if loss_rel > TRAIN_LOSS_REL or checks[worst][0] < TRAIN_COSINE:
+        raise AssertionError(
+            f"m1: the bf16 first step against the f32 copy: loss {losses[0]} vs {ref_loss} "
+            f"(rel {loss_rel:.2e}, bound {TRAIN_LOSS_REL}); lowest gradient cosine {worst} "
+            f"{checks[worst][0]:.5f} (bound {TRAIN_COSINE})")
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    mfu = train_flops_per_token(cfg, TRAIN_SEQ) * tokens_per_s / PEAK_BF16_FLOPS
+    log(f"m1 dense train step on {card}: flagship bf16, AdamW lr {TRAIN_LR}, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, use_kernels=False: median step {med:.1f} ms "
+        f"[{min(ms[1:]):.1f}, {max(ms[1:]):.1f}] over steps 2-{TRAIN_STEPS} (first {ms[0]:.1f} "
+        f"ms), {tokens_per_s:.0f} training tokens/s, peak memory {peak:.2f} GiB, model FLOPs "
+        f"{100 * mfu:.1f}% of 989 TFLOP/s (information)")
+    log(f"m1 losses over {TRAIN_STEPS} steps: " + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"m1 first step against the f32 copy: loss {losses[0]:.5f} vs {ref_loss:.5f} (rel "
+        f"{loss_rel:.2e}, bound {TRAIN_LOSS_REL}); gradient cosine min {checks[worst][0]:.5f} "
+        f"({worst}, bound {TRAIN_COSINE}), largest difference over largest magnitude "
+        f"{max(v[1] for v in checks.values()):.3e}")
+    return {"losses": losses, "step_ms": ms, "median_step_ms": med, "tokens_per_s": tokens_per_s,
+            "peak_gib": peak, "mfu": mfu, "f32_loss": ref_loss, "loss_rel": loss_rel,
+            "grad_checks": checks}
+
+
+def family_train_path(log, card: str, device: str = "cuda") -> dict:
+    """m2: the MoE and the SSM of phase k at full width, bf16, a few AdamW
+    steps each on one fixed batch: the loss falls."""
+    from vtpu_torch.models import (
+        MoEConfig, SSMConfig, init_moe_params, init_ssm_params, moe_loss, ssm_loss,
+    )
+    from vtpu_torch.parallel import adamw
+
+    out = {}
+    for name in ("moe", "ssm"):
+        if name == "moe":
+            cfg = MoEConfig(**MOE_FLAGSHIP, dtype=torch.bfloat16, use_kernels=False)
+            params, loss_fn = init_moe_params(SEED, cfg, device=device), moe_loss
+        else:
+            cfg = SSMConfig(**SSM_FLAGSHIP, dtype=torch.bfloat16)
+            params, loss_fn = init_ssm_params(SEED, cfg, device=device), ssm_loss
+        params = {"embed": params["embed"].requires_grad_(),
+                  "layers": {k: w.requires_grad_() for k, w in params["layers"].items()},
+                  "final_norm": params["final_norm"].requires_grad_()}
+        optim = adamw(TRAIN_LR).init(params)
+        b, s = FAMILY_TRAIN[name]
+        gen = torch.Generator(device=device).manual_seed(SEED + 501)
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=device,
+                               dtype=torch.int32)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for _ in range(FAMILY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            optim.zero_grad()
+            loss = loss_fn(params, cfg, tokens)
+            loss.backward()
+            optim.step()
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del params, optim
+        torch.cuda.empty_cache()
+        if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+            raise AssertionError(f"m2 {name}: {FAMILY_STEPS} AdamW steps did not lower the "
+                                 f"loss: {losses}")
+        med = sorted(ms[1:])[len(ms[1:]) // 2]
+        log(f"m2 {name} train steps on {card}: bf16, batch {b} x {s}: median step {med:.1f} "
+            f"ms, {b * s / (med / 1e3):.0f} training tokens/s, peak memory {peak:.2f} GiB; "
+            "losses " + ", ".join(f"{x:.4f}" for x in losses))
+        out[name] = {"losses": losses, "step_ms": ms, "median_step_ms": med, "peak_gib": peak,
+                     "batch": [b, s]}
+    return out
+
+
+def _m3_cfgs():
+    from vtpu_torch.models import ModelConfig, MoEConfig
+
+    dense = ModelConfig(**{**FLAGSHIP, "n_layers": M3_DEPTH}, dtype=torch.float32,
+                        use_kernels=False)
+    moe = MoEConfig(**{**MOE_FLAGSHIP, "n_layers": M3_DEPTH, "capacity_factor": 4.0},
+                    dtype=torch.float32, use_kernels=False)
+    return dense, moe
+
+
+def _m3_check_grads(got: dict, ref: dict, split: dict, coords: dict, axis_of: dict) -> float:
+    """The worst relative difference of a rank's gradient shards against
+    the single-device gradients: a leaf split over a mesh axis compares to
+    the rank's slice along it."""
+    worst = 0.0
+    for path, g in got.items():
+        want = ref[path]
+        ax = split.get(path)
+        if ax is not None:
+            n, i = axis_of["size"], coords[axis_of["name"]]
+            part = want.shape[ax] // n
+            want = want.narrow(ax, i * part, part)
+        worst = max(worst, rel_err(g, want))
+    return worst
+
+
+def training_world(world, root: str) -> dict:
+    """m3's rank program: every arm on the world's ranks, each against the
+    single-device reference the parent saved under ``root``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from vtpu_torch.models import init_moe_params, init_params
+    from vtpu_torch.ops import _build
+    from vtpu_torch.parallel import (
+        TrainCheckpointer, ep_moe_forward, init_train_state, make_axis_mesh, make_dp_ep_mesh,
+        make_mesh, make_multislice_mesh, make_sp_mesh, make_train_step, param_split_axes,
+        place_batch, place_sp_tokens, pp_loss, ring_attention, shard_ep_params, shard_stages,
+        sp_loss, ulysses_attention,
+    )
+
+    _build.reset_launches()
+    dev = world.device
+    cfg, moe_cfg = _m3_cfgs()
+    ref = torch.load(f"{root}/ref.pt", map_location=dev)
+    tokens = ref["tokens"]
+    split = param_split_axes()
+    full = init_params(SEED, cfg, device=dev)
+    out = {"rank": world.rank}
+
+    def trained(mesh, name):
+        state, opt = init_train_state(full, cfg, mesh)
+        state, loss = make_train_step(cfg, opt)(state, place_batch(tokens, mesh))
+        grads = {p: x.grad for p, x in tree_items(state["params"])}
+        out[name] = {"loss": loss.item(), "loss_rel": abs(loss.item() - ref["loss"]) / ref["loss"],
+                     "grad_rel": _m3_check_grads(grads, ref["grads"], split, mesh.coords,
+                                                 {"name": "tp", "size": mesh.shape["tp"]})}
+        return state, opt
+
+    mesh = make_mesh(world, M3_RANKS, tp=2)
+    state, opt = trained(mesh, "dp2_tp2")
+    trained(make_multislice_mesh(world, 2, per_slice=2, tp=2), "multislice")
+
+    # checkpoint: dp2 x tp2 saved, restored on dp1 x tp4, byte for byte: the
+    # parameters, both AdamW moments and the step counts
+    def shards_of(state):
+        optim = state["opt_state"]
+        out = {}
+        for p, x in tree_items(state["params"]):
+            out[p] = x.detach().cpu()
+            for key in ("exp_avg", "exp_avg_sq"):
+                out[f"{key}:{p}"] = optim.state[x][key].detach().cpu()
+        counts = {float(st["step"]) for st in optim.state.values()}
+        return out, counts
+
+    ckpt = TrainCheckpointer(f"{root}/ckpt")
+    ckpt.save(1, state)
+    shards, saved_counts = shards_of(state)
+    torch.save(shards, f"{root}/shards_{world.rank}.pt")
+    del state, shards
+    mesh_b = make_mesh(world, M3_RANKS, tp=4)
+    restored, _ = ckpt.restore(cfg, mesh_b, opt)
+    dist.barrier()
+    tp_b = mesh_b.coords["tp"]
+    # the mesh-a rank (dp 0) whose tp shard holds this rank's quarter
+    src = [r for r in range(M3_RANKS) if (r // 2, r % 2) == (0, tp_b // 2)][0]
+    held = torch.load(f"{root}/shards_{src}.pt")
+    got, counts = shards_of(restored)
+    equal = {"params": True, "moments": True}
+    for name, x in got.items():
+        p = name.split(":")[-1]
+        want = held[name]
+        if split[p] is not None:
+            part = want.shape[split[p]] // 2
+            want = want.narrow(split[p], (tp_b % 2) * part, part)
+        equal["moments" if ":" in name else "params"] &= torch.equal(x, want)
+    out["checkpoint"] = {"byte_equal": bool(equal["params"]),
+                         "moments_equal": bool(equal["moments"]),
+                         "counts": sorted(counts), "saved_counts": sorted(saved_counts),
+                         "step": ckpt.latest_step(),
+                         "digest": hashlib.sha256(b"".join(
+                             x.detach().cpu().numpy().tobytes()
+                             for _, x in tree_items(restored["params"]))).hexdigest()}
+    del restored, held
+
+    # sequence parallelism: ring and Ulysses at sp=4, then sp_loss
+    sp = make_sp_mesh(world, M3_RANKS)
+    q, k, v = (place_sp_tokens(ref[x], sp) for x in ("q", "k", "v"))
+    want = place_sp_tokens(ref["attn"], sp)
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        with torch.no_grad():
+            o = fn(q, k, v, sp)
+        out[name] = float((o - want).abs().max())
+
+    def leaves_of(tree):
+        return {"embed": tree["embed"].detach().clone().requires_grad_(),
+                "layers": {kk: w.detach().clone().requires_grad_()
+                           for kk, w in tree["layers"].items()},
+                "final_norm": tree["final_norm"].detach().clone().requires_grad_()}
+
+    params = leaves_of(full)
+    loss = sp_loss(params, cfg, place_sp_tokens(tokens, sp), sp)
+    loss.backward()
+    out["sp_loss"] = {"loss_rel": abs(loss.item() - ref["loss"]) / ref["loss"],
+                      "grad_rel": max(rel_err(x.grad, ref["grads"][p])
+                                      for p, x in tree_items(params))}
+    del params
+
+    # the pipeline: pp=4, a layer a stage
+    pp = make_axis_mesh(world, "pp", M3_RANKS)
+    params = leaves_of(shard_stages(full, pp))
+    loss = pp_loss(params, cfg, tokens, pp)
+    loss.backward()
+    layer_split = {p: (0 if p.startswith("layers.") else None) for p, _ in tree_items(params)}
+    out["pp_loss"] = {"loss_rel": abs(loss.item() - ref["loss"]) / ref["loss"],
+                      "grad_rel": _m3_check_grads({p: x.grad for p, x in tree_items(params)},
+                                                  ref["grads"], layer_split, pp.coords,
+                                                  {"name": "pp", "size": M3_RANKS})}
+    del params, full
+
+    # experts: ep=4 and dp2 x ep2 against the dense MoE's logits
+    moe_full = init_moe_params(SEED, moe_cfg, device=dev)
+    for name, mesh in (("ep4", make_axis_mesh(world, "ep", M3_RANKS)),
+                       ("dp2_ep2", make_dp_ep_mesh(world, M3_RANKS, ep=2))):
+        with torch.no_grad():
+            logits, aux = ep_moe_forward(shard_ep_params(moe_full, mesh), moe_cfg,
+                                         place_batch(ref["moe_tokens"], mesh), mesh)
+        out[name] = {"max_abs": float((logits - place_batch(ref["moe_logits"], mesh))
+                                      .abs().max()), "aux": float(aux)}
+    out["launches"] = _build.launches()
+    return out
+
+
+def parallel_train_path(log, card: str, device: str = "cuda") -> dict:
+    """m3: one spawned 4-rank world, a sharding check of every training
+    mesh at the flagship's widths, depth 4, f32 (gloo with the ranks on
+    card 0, or nccl with a card each when there are four)."""
+    import tempfile
+
+    from vtpu_torch.models import init_moe_params, init_params, moe_forward
+    from vtpu_torch.ops import causal_attention
+    from vtpu_torch.parallel import next_token_loss
+    from vtpu_torch.parallel.launch import launch
+
+    if device == "cuda" and torch.cuda.device_count() >= M3_RANKS:
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(M3_RANKS)]
+        how = f"{M3_RANKS} ranks on {M3_RANKS} cards over nccl"
+    else:
+        backend, devices = "gloo", [f"{device}:0" if device == "cuda" else device] * M3_RANKS
+        how = (f"{M3_RANKS} ranks sharing one card over gloo (collectives staged through host "
+               "memory: a sharding check, not a speed figure)")
+    cfg, moe_cfg = _m3_cfgs()
+    gen = torch.Generator(device=device).manual_seed(SEED + 502)
+    tokens = torch.randint(0, cfg.vocab, (M3_BATCH, M3_SEQ), generator=gen, device=device,
+                           dtype=torch.int32)
+    params = init_params(SEED, cfg, device=device)
+    params = {"embed": params["embed"].requires_grad_(),
+              "layers": {k: w.requires_grad_() for k, w in params["layers"].items()},
+              "final_norm": params["final_norm"].requires_grad_()}
+    loss = next_token_loss(params, cfg, tokens)
+    loss.backward()
+    q, k, v = (torch.randn(M3_ATTN, generator=gen, device=device) for _ in range(3))
+    moe_tokens = torch.randint(0, moe_cfg.vocab, (M3_BATCH, M3_MOE_SEQ), generator=gen, device=device,
+                               dtype=torch.int32)
+    with torch.no_grad():
+        moe_logits, _ = moe_forward(init_moe_params(SEED, moe_cfg, device=device), moe_cfg,
+                                    moe_tokens)
+        attn = causal_attention(q, k, v)
+    ref = {"tokens": tokens, "loss": loss.item(),
+           "grads": {p: x.grad for p, x in tree_items(params)}, "q": q, "k": k, "v": v,
+           "attn": attn, "moe_tokens": moe_tokens, "moe_logits": moe_logits}
+    with tempfile.TemporaryDirectory() as root:
+        torch.save(ref, f"{root}/ref.pt")
+        del ref, params, moe_logits
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch(training_world, M3_RANKS, backend, devices, f"file://{root}/store",
+                       args=(root,), timeout=600)
+        wall = time.perf_counter() - t0
+    log(f"m3 training world on {card} ({how}): {wall:.1f} s wall, start-up included; flagship "
+        f"widths, depth {M3_DEPTH}, f32")
+    fails = []
+    for r in ranks:
+        for arm in ("dp2_tp2", "multislice", "sp_loss", "pp_loss"):
+            a = r[arm]
+            if not (a["loss_rel"] <= M3_LOSS_REL and a["grad_rel"] <= M3_GRAD_REL):
+                fails.append(f"rank {r['rank']} {arm}: {a}")
+        for arm in ("ring", "ulysses"):
+            if not r[arm] <= M3_ATTN_ATOL:
+                fails.append(f"rank {r['rank']} {arm}: max abs {r[arm]}")
+        for arm in ("ep4", "dp2_ep2"):
+            if not r[arm]["max_abs"] <= M3_MOE_ATOL:
+                fails.append(f"rank {r['rank']} {arm}: {r[arm]}")
+        c = r["checkpoint"]
+        if (not (c["byte_equal"] and c["moments_equal"]) or c["step"] != 1
+                or c["counts"] != c["saved_counts"] or c["counts"] != [1.0]):
+            fails.append(f"rank {r['rank']} checkpoint: {r['checkpoint']}")
+        kern = {k: n for k, n in r["launches"].items() if n}
+        if kern:
+            fails.append(f"rank {r['rank']} launched kernels in phase m: {kern}")
+    for arm in ("dp2_tp2", "multislice", "sp_loss", "pp_loss"):
+        log(f"m3 {arm}: loss rel {max(r[arm]['loss_rel'] for r in ranks):.2e} (bound "
+            f"{M3_LOSS_REL}), gradient max diff / max magnitude "
+            f"{max(r[arm]['grad_rel'] for r in ranks):.2e} (bound {M3_GRAD_REL}) over "
+            f"{M3_RANKS} ranks, against the single-device port")
+    log(f"m3 ring / ulysses at sp={M3_RANKS}, {M3_ATTN}: max abs "
+        f"{max(r['ring'] for r in ranks):.2e} / {max(r['ulysses'] for r in ranks):.2e} against "
+        f"plain causal attention (bound {M3_ATTN_ATOL})")
+    log(f"m3 ep4 / dp2_ep2 MoE logits: max abs {max(r['ep4']['max_abs'] for r in ranks):.2e} / "
+        f"{max(r['dp2_ep2']['max_abs'] for r in ranks):.2e} against the dense MoE (bound "
+        f"{M3_MOE_ATOL})")
+    log(f"m3 checkpoint: dp2 x tp2 saved, dp1 x tp4 restored byte-equal on "
+        f"{sum(r['checkpoint']['byte_equal'] for r in ranks)} of {M3_RANKS} ranks (parameters), "
+        f"{sum(r['checkpoint']['moments_equal'] for r in ranks)} of {M3_RANKS} (AdamW "
+        f"moments); step counts {sorted({x for r in ranks for x in r['checkpoint']['counts']})}")
+    if fails:
+        raise AssertionError("m3: " + "; ".join(fails))
+    return {"backend": backend, "wall_s": wall, "ranks": ranks}
+
+
+def training_path(log, card: str, device: str = "cuda") -> dict:
+    """Phase m: training on one card (m1, m2) and over every mesh (m3),
+    with no kernel launched. (``device`` "cpu" rehearses it at a tiny
+    size, with the torch.cuda calls stubbed.)"""
+    from vtpu_torch.ops import _build
+
+    _build.reset_launches()
+    out = {}
+    for name, fn in (("m1", dense_train_path), ("m2", family_train_path),
+                     ("m3", parallel_train_path)):
+        t0 = time.perf_counter()
+        out[name] = fn(log, card, device)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        log(f"{name}: {out[name]['phase_s']:.1f} s")
+    got = {k: n for k, n in _build.launches().items() if n}
+    if got:
+        raise AssertionError(f"phase m launched kernels: {got}")
+    out["launches"] = _build.launches()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement to this file")
@@ -4793,6 +5250,9 @@ def main() -> int:
                                        "verify_launches": out["verify_launches"]}
             mark(f"tp={tp}")
     del params
+    torch.cuda.empty_cache()
+    runs["training_path"] = training_path(log, card)
+    mark("training")
     log("phase wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     bf16, int8 = runs["main_path"], runs["int8_serving_path"]
     log(f"serving waves on {card}: bf16 KV {bf16['tokens_per_s']:.1f} tokens/s, TTFT p50 "

@@ -18,8 +18,10 @@ No verdict races the loop thread: shed bursts are queued before
 inside the delivery of a chosen token (a hook on the request's queue); the
 watchdog is driven by ``delayed_fetch`` stalls of 0.75 s against a 500 ms
 threshold, far above a healthy fetch of these models, and a recovery window
-of 1 ms that a few healthy fetches cover. A waiting loop only guards
-against a hang. One torch thread."""
+of 1 ms that a few healthy fetches cover; where a case compares the ticks
+each route served, a planned 20 ms fetch ends the recovery streak, so the
+recovery lands on the same fetch on both engines. A waiting loop only
+guards against a hang. One torch thread."""
 
 import queue as _queue
 import threading
@@ -55,6 +57,10 @@ MARGIN = 1e-4
 WATCHDOG_MS = 500.0
 STALL_S = 0.75
 RECOVER_MS = 1.0
+# a healthy fetch held this long (20x RECOVER_MS, 1/25 of the threshold):
+# planned on the fetch after a recovery streak starts, it ends the streak
+# at that fetch on both engines whatever the host's load
+STREAK_S = 0.02
 # the loops the port serves on one device
 LOOPS = {"pipelined": {}, "sync": dict(pipeline_decode=False), "host_sampler": {},
          "device_loop": dict(decode_loop_k=4), "spec": dict(spec_tokens=2),
@@ -759,7 +765,11 @@ def test_watchdog_recovery_restores_paged_attn_route(weights):
         box["port" if "torch" in type(eng).__module__ else "jax"] = eng
         return _sequential(ps, 12)(eng)
 
-    res = _both(weights, run, specs=[("delayed_fetch", 1, 1, STALL_S)],
+    # the stall trips at fetch 1, fetch 2 starts the healthy streak and the
+    # held fetch 3 ends it: the recovery lands on the same tick on both
+    # engines, so their kernel and gather tick counts agree
+    res = _both(weights, run,
+                specs=[("delayed_fetch", 1, 1, STALL_S), ("delayed_fetch", 3, 1, STREAK_S)],
                 **_watchdog(kv_page=8, paged_attn="kernel", max_new_tokens=12,
                             fetch_watchdog_recover_ms=RECOVER_MS))
     streams, events, st = res["port"]

@@ -1,7 +1,8 @@
 """Mixture-of-Experts transformer in PyTorch: the second model family.
 
-Counterpart of vtpu/models/moe.py (its forward and serving side; the loss
-and the expert-parallel paths are later slices). GShard-style top-k routing
+Counterpart of vtpu/models/moe.py: its forward, its loss and its serving
+side (the expert-parallel block is parallel/expert.py's ``make_ep_ffn``,
+``moe_forward``'s ``ffn``). GShard-style top-k routing
 with static shapes: an expert's capacity is a Python int, dispatch and
 combine are dense [T, E, C] one-hot tensors applied by einsum, so nothing
 here reads the device from the host and a decode step can be captured in a
@@ -43,6 +44,7 @@ from vtpu_torch.models.transformer import (
     Params, _layer, _rope_tables, attention_block, fill_kv_cache, init_kv_cache,
 )
 from vtpu_torch.ops import rms_norm, scaled_normal
+from vtpu_torch.ops.loss import next_token_ce
 from vtpu_torch.parallel.collectives import all_reduce_sum
 
 
@@ -210,6 +212,12 @@ def moe_forward(params: Params, cfg: MoEConfig, tokens: torch.Tensor, ffn=moe_ff
         aux = aux + layer_aux
     x = rms_norm(x, params["final_norm"])
     return (x @ params["embed"].T).float(), aux / cfg.n_layers
+
+
+def moe_loss(params: Params, cfg: MoEConfig, tokens: torch.Tensor, ffn=moe_ffn) -> torch.Tensor:
+    """Next-token cross-entropy + 0.01 x the load-balancing aux."""
+    logits, aux = moe_forward(params, cfg, tokens, ffn=ffn)
+    return next_token_ce(logits, tokens) + 0.01 * aux
 
 
 # ------------------------------------------------------------------ serving

@@ -1,8 +1,8 @@
 """Selective state-space (Mamba-style) language model in PyTorch: the third
 model family.
 
-Counterpart of vtpu/models/ssm.py (its forward, prefill and O(1) decode; the
-loss is a later slice). No KV cache: a slot's decode state is a conv window
+Counterpart of vtpu/models/ssm.py: its forward, loss, prefill and O(1)
+decode. No KV cache: a slot's decode state is a conv window
 [K-1, Di] and an SSM state [Di, N] a layer, the same size at any context.
 bf16 activations, an f32 scan accumulator, and ``a_log`` and ``dt_bias``
 kept f32 in a bf16 model.
@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from vtpu_torch.device import resolve_device
 from vtpu_torch.models.transformer import Params, _layer
 from vtpu_torch.ops import rms_norm, scaled_normal
+from vtpu_torch.ops.loss import next_token_ce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,14 +100,14 @@ def _scan_states(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t over axis 1 (h_{-1} = 0), log-depth: round r
     folds each position's running pair into the one 2^r positions before it,
     (a1, b1) then (a2, b2) -> (a1 a2, a2 b1 + b2), so after ceil(log2 S)
-    rounds position t holds the whole prefix. a, b: [B, S, ...] f32."""
-    a, h = a.clone(), b.clone()
+    rounds position t holds the whole prefix. a, b: [B, S, ...] f32. Each
+    round is a new tensor: autograd's backward reads every round's inputs."""
     s = a.shape[1]
-    d = 1
+    h, d = b, 1
     while d < s:
-        h[:, d:] = torch.addcmul(h[:, d:], a[:, d:], h[:, :-d])
+        h = torch.cat([h[:, :d], torch.addcmul(h[:, d:], a[:, d:], h[:, :-d])], dim=1)
         if 2 * d < s:  # the last round's decays are never read
-            a[:, d:] = a[:, d:] * a[:, :-d]
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return h
 
@@ -148,6 +149,11 @@ def ssm_forward(params: Params, cfg: SSMConfig, tokens: torch.Tensor) -> torch.T
         x = ssm_layer(cfg, _layer(params, l), x)
     x = rms_norm(x, params["final_norm"])
     return (x @ params["embed"].T).float()
+
+
+def ssm_loss(params: Params, cfg: SSMConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy of ``ssm_forward``."""
+    return next_token_ce(ssm_forward(params, cfg, tokens), tokens)
 
 
 def ssm_prefill(params: Params, cfg: SSMConfig, tokens: torch.Tensor, true_len,

@@ -21,7 +21,13 @@ Differences from the reference, all PyTorch idiom:
   (parallel/sharding.py), caches and pools hold its n_heads / tp heads, and
   the all-reduces XLA places from the reference's shardings are written out
   (``all_reduce_sum`` after ``wo`` and after ``w_down``). ``mesh=None`` is
-  the single-device path, unchanged.
+  the single-device path, unchanged. ``copy_to_axis`` before each
+  column-parallel projection is the identity forward; under autograd it
+  sums the replicated input's cotangent over the ranks, so training on a
+  mesh's 'tp' axis gets the reference's gradients (collectives.py);
+- training runs the logits-only ``transformer_forward``: ``prefill`` also
+  fills a KV cache, which XLA drops from the reference's loss but which
+  would be real memory here, held for the backward.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from vtpu_torch.ops import (
     paged_decode_attention, paged_decode_attention_int8kv, rms_norm, rope_angles,
     scaled_normal,
 )
-from vtpu_torch.parallel.collectives import all_reduce_sum
+from vtpu_torch.parallel.collectives import all_reduce_sum, copy_to_axis
 
 Params = dict[str, Any]
 
@@ -415,7 +421,7 @@ def _qkv(cfg, lp, x, cos, sin, positions, mesh=None):
     n_heads / tp heads under a mesh)."""
     b, s, _ = x.shape
     h, dh = local_heads(cfg, mesh), cfg.head_dim
-    normed = rms_norm(x, lp["attn_norm"])
+    normed = copy_to_axis(rms_norm(x, lp["attn_norm"]), mesh)
     q = (normed @ lp["wq"]).reshape(b, s, h, dh)
     k = (normed @ lp["wk"]).reshape(b, s, h, dh)
     v = (normed @ lp["wv"]).reshape(b, s, h, dh)
@@ -423,7 +429,7 @@ def _qkv(cfg, lp, x, cos, sin, positions, mesh=None):
 
 
 def _mlp_block(lp, x, mesh=None):
-    normed = rms_norm(x, lp["mlp_norm"])
+    normed = copy_to_axis(rms_norm(x, lp["mlp_norm"]), mesh)
     gate = F.silu((normed @ lp["w_gate"]).float()).to(x.dtype)
     return all_reduce_sum((gate * (normed @ lp["w_up"])) @ lp["w_down"], mesh)
 
@@ -450,6 +456,32 @@ def transformer_layer(cfg: ModelConfig, lp: dict[str, torch.Tensor], x: torch.Te
     return x + _mlp_block(lp, x, mesh), kv
 
 
+def _trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor, mesh, kv: Optional[list]):
+    """The full-sequence layer loop: tokens [B, S] -> the final norm's
+    output [B, S, D]; each layer's (k, v) appended to ``kv`` when given."""
+    b, s = tokens.shape
+    if s > cfg.max_seq:
+        raise ValueError(f"prompt length {s} exceeds max_seq {cfg.max_seq}")
+    dev = tokens.device
+    cos, sin = _rope_tables(cfg.max_seq, cfg.head_dim, str(dev))
+    positions = torch.arange(s, device=dev).expand(b, s)
+    x = params["embed"][tokens].to(cfg.dtype)
+    for l in range(cfg.n_layers):
+        x, layer_kv = transformer_layer(cfg, _layer(params, l), x, cos, sin, positions, mesh)
+        if kv is not None:
+            kv.append(layer_kv)
+    return rms_norm(x, params["final_norm"])
+
+
+def transformer_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                        mesh=None) -> torch.Tensor:
+    """Logits-only full-sequence forward, the training forward: tokens
+    [B, S] -> [B, S, vocab] f32, with no KV cache. Under ``mesh`` (a 'tp'
+    axis) the rank's shard of params in, logits whole on every rank."""
+    x = _trunk(params, cfg, tokens, mesh, None)
+    return (x @ params["embed"].T).float()
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             logits_at: Optional[torch.Tensor] = None, mesh=None):
     """Full-sequence forward. tokens: [B, S] int. Returns (logits, kv_cache):
@@ -459,21 +491,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     Under ``mesh``: the rank's shard of params in, its head shard of the
     cache out, logits whole on every rank."""
     b, s = tokens.shape
-    if s > cfg.max_seq:
-        raise ValueError(f"prompt length {s} exceeds max_seq {cfg.max_seq}")
     dev = tokens.device
-    cos, sin = _rope_tables(cfg.max_seq, cfg.head_dim, str(dev))
-    positions = torch.arange(s, device=dev).expand(b, s)
-    x = params["embed"][tokens].to(cfg.dtype)
-    ks, vs = [], []
-    for l in range(cfg.n_layers):
-        x, (k, v) = transformer_layer(cfg, _layer(params, l), x, cos, sin, positions, mesh)
-        ks.append(k)
-        vs.append(v)
-    cache = fill_kv_cache(init_kv_cache(cfg, b, device=dev, mesh=mesh), torch.stack(ks),
-                          torch.stack(vs))
-    del ks, vs
-    x = rms_norm(x, params["final_norm"])
+    kv: list = []
+    x = _trunk(params, cfg, tokens, mesh, kv)
+    cache = fill_kv_cache(init_kv_cache(cfg, b, device=dev, mesh=mesh),
+                          torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
+    del kv
     if logits_at is not None:
         x = x[torch.arange(b, device=dev), logits_at]
     logits = (x @ params["embed"].T).float()

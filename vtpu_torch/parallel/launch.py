@@ -1,16 +1,18 @@
-"""Start the ranks of a tensor-parallel world, and what each rank runs.
+"""Start the ranks of a world, and what each serving rank runs.
 
-The reference has no counterpart: JAX serves tensor parallelism from one
-controller process. Here every rank is a process. ``launch_tp`` starts
-them with the ``spawn`` start method (CUDA cannot be forked), joins them
-with a deadline, kills the survivors as soon as one rank fails, and raises
-that failure. ``serve_worker`` is the loop of every rank but 0: it follows
-rank 0's ServingEngine op by op (serving/adapters.py). The rank entry
-functions below live in this package, so a spawned rank imports
-``vtpu_torch`` and nothing else of its parent. ``serve_requests`` serves
-``Run`` waves of the dense or the MoE family (by the config's type); a
-``Script`` has rank 0 act within a wave (a prefix, parks and resumes, a
-fault armed).
+The reference has no counterpart: JAX runs every mesh from one controller
+process. Here every rank is a process. ``launch`` starts them with the
+``spawn`` start method (CUDA cannot be forked), hands each its ``World``
+(mesh.py; the rank builds its meshes from it), joins them with a deadline,
+kills the survivors as soon as one rank fails, and raises that failure.
+``launch_tp`` is the same for a serving world: each rank gets its
+``TpMesh``, the world's one axis. ``serve_worker`` is the loop of every
+rank but 0: it follows rank 0's ServingEngine op by op
+(serving/adapters.py). The rank entry functions below live in this
+package, so a spawned rank imports ``vtpu_torch`` and nothing else of its
+parent. ``serve_requests`` serves ``Run`` waves of the dense or the MoE
+family (by the config's type); a ``Script`` has rank 0 act within a wave
+(a prefix, parks and resumes, a fault armed).
 
     launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"], "file:///tmp/w/store",
               args=([weights], [Run(cfg, serving, prompts, 16)]))
@@ -32,49 +34,50 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from vtpu_torch.ops import _build
-from vtpu_torch.parallel.mesh import make_tp_mesh
+from vtpu_torch.parallel.mesh import join_world, whole_world_axis
 from vtpu_torch.parallel.sharding import shard_moe_params, shard_params
 
 # how long launch_tp waits for a rank that exited to deliver its result
 _GRACE_S = 2.0
 
 
-def _rank_main(fn, rank: int, tp: int, backend: str, device: str, init_method: str,
+def _rank_main(fn, rank: int, n: int, backend: str, device: str, init_method: str,
                args: tuple, results) -> None:
-    """A spawned rank: join the world, run ``fn(mesh, *args)``, report. A
+    """A spawned rank: join the world, run ``fn`` on its World, report. A
     failure is reported before the rank leaves the group, so the parent
     hears the cause before the errors it sets off in the other ranks."""
-    mesh = None
+    world = None
     try:
         if torch.device(device).type == "cpu":
             torch.set_num_threads(1)  # the ranks of a CPU world share its cores
-        mesh = make_tp_mesh(tp, backend, init_method, rank, device)
-        out = fn(mesh, *args)
+        world = join_world(n, backend, init_method, rank, device)
+        out = fn(world, *args)
     except Exception:  # the rank's boundary: report to the parent, then fail
         results.put((rank, False, traceback.format_exc()))
         raise
     finally:
-        if mesh is not None:
-            mesh.close()
+        if world is not None:
+            world.close()
     results.put((rank, True, out))
 
 
-def launch_tp(fn: Callable, tp: int, backend: str, devices: Sequence, init_method: str,
-              args: tuple = (), timeout: float = 600.0) -> list:
-    """Run ``fn(mesh, *args)`` on ``tp`` spawned ranks, rank r on
-    ``devices[r]``, joined through ``init_method`` over ``backend``; return
-    the ranks' results in rank order. ``fn`` and ``args`` must pickle (a
-    module-level function). If a rank raises or dies, or the world outlasts
-    ``timeout`` seconds, every rank still running is killed and
-    RuntimeError names each failure (a rank's error often sets off errors
-    in the others: the one that came first is the cause)."""
-    if len(devices) != tp:
-        raise ValueError(f"{tp} ranks need {tp} devices, got {list(devices)}")
+def launch(fn: Callable, n: int, backend: str, devices: Sequence, init_method: str,
+           args: tuple = (), timeout: float = 600.0, name: str = "rank") -> list:
+    """Run ``fn(world, *args)`` on ``n`` spawned ranks (processes named
+    ``name`` and the rank), rank r on ``devices[r]``, joined through
+    ``init_method`` over ``backend``; return the ranks' results in rank
+    order. ``fn`` and ``args`` must pickle (a module-level function). If a
+    rank raises or dies, or the world outlasts ``timeout`` seconds, every
+    rank still running is killed and RuntimeError names each failure (a
+    rank's error often sets off errors in the others: the one that came
+    first is the cause)."""
+    if len(devices) != n:
+        raise ValueError(f"{n} ranks need {n} devices, got {list(devices)}")
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_main, name=f"tp-rank{r}", daemon=True,
-                         args=(fn, r, tp, backend, str(devices[r]), init_method, args, results))
-             for r in range(tp)]
+    procs = [ctx.Process(target=_rank_main, name=f"{name}{r}", daemon=True,
+                         args=(fn, r, n, backend, str(devices[r]), init_method, args, results))
+             for r in range(n)]
     for p in procs:
         p.start()
     out: dict[int, Any] = {}
@@ -84,7 +87,7 @@ def launch_tp(fn: Callable, tp: int, backend: str, devices: Sequence, init_metho
     settle = None  # after the first failure: hear the other ranks until then
     timed_out = False
     try:
-        while len(out) + len(failures) < tp:
+        while len(out) + len(failures) < n:
             now = time.monotonic()
             if settle is not None and now > settle:
                 break
@@ -110,7 +113,7 @@ def launch_tp(fn: Callable, tp: int, backend: str, devices: Sequence, init_metho
             if failures and settle is None:
                 settle = now + _GRACE_S
     finally:
-        failed = bool(failures) or timed_out or len(out) < tp
+        failed = bool(failures) or timed_out or len(out) < n
         for p in procs:
             if failed and p.is_alive():
                 p.kill()
@@ -122,9 +125,22 @@ def launch_tp(fn: Callable, tp: int, backend: str, devices: Sequence, init_metho
     if failed:
         codes = ", ".join(f"rank {r}: {p.exitcode}" for r, p in enumerate(procs))
         why = list(failures.values()) + (
-            [f"the tp={tp} world did not finish within {timeout:.0f} s"] if timed_out else [])
-        raise RuntimeError(f"tensor-parallel world failed ({codes}): " + "\n".join(why))
-    return [out[r] for r in range(tp)]
+            [f"the {n}-rank world did not finish within {timeout:.0f} s"] if timed_out else [])
+        raise RuntimeError(f"{n}-rank world failed ({codes}): " + "\n".join(why))
+    return [out[r] for r in range(n)]
+
+
+def _tp_rank(world, fn: Callable, *args):
+    """launch_tp's rank entry: ``fn`` on the world's one axis."""
+    return fn(whole_world_axis(world), *args)
+
+
+def launch_tp(fn: Callable, tp: int, backend: str, devices: Sequence, init_method: str,
+              args: tuple = (), timeout: float = 600.0) -> list:
+    """``launch`` of a tensor-parallel serving world: ``fn(mesh, *args)``
+    with each rank's TpMesh."""
+    return launch(_tp_rank, tp, backend, devices, init_method, (fn, *args), timeout,
+                  name="tp-rank")
 
 
 @dataclasses.dataclass(frozen=True)

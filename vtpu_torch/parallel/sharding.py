@@ -21,8 +21,8 @@ tables and lengths are replicated. A rank allocates its head shard directly
 (transformer.init_kv_cache / init_paged_kv_cache with ``mesh``); the
 unsharded pool never exists.
 
-The MoE family (``shard_moe_params``, the reference's
-``moe_tp_param_shardings``): attention as above, the router replicated (f32,
+The MoE family under serving's 'tp' (``moe_tp_param_shardings``,
+``shard_moe_params``): attention as above, the router replicated (f32,
 tiny, and it decides the routing), the expert stacks [L, E, ...] split on
 their expert axis when tp divides n_experts and replicated otherwise, the
 embedding replicated as in the dense rule.
@@ -38,8 +38,7 @@ import torch
 # split axis of each per-layer weight over 'tp' (None: replicated), in the
 # layout of transformer.init_params: [L, d_in, d_out]
 _LAYER_AXIS = {
-    "wq": 2, "wk": 2, "wv": 2, "w_gate": 2, "w_up": 2,
-    "wo": 1, "w_down": 1,
+    "wq": 2, "wk": 2, "wv": 2, "wo": 1, "w_gate": 2, "w_up": 2, "w_down": 1,
     "attn_norm": None, "mlp_norm": None,
 }
 
@@ -51,6 +50,13 @@ def param_shardings() -> dict[str, Any]:
     """The split axis of every parameter, as a tree shaped like
     transformer.init_params' (None: replicated)."""
     return {"embed": None, "layers": dict(_LAYER_AXIS), "final_norm": None}
+
+
+def param_split_axes() -> dict[str, Any]:
+    """``param_shardings`` flat: the split axis of each leaf by its path
+    ("embed", "layers.wq", ..., "final_norm"), in init_params' order."""
+    return {"embed": None, **{f"layers.{k}": a for k, a in _LAYER_AXIS.items()},
+            "final_norm": None}
 
 
 def head_shard(x, axis: int, mesh):
@@ -94,7 +100,7 @@ def shard_params(params: dict, mesh) -> dict:
 _EXPERT_AXIS = 1
 
 
-def moe_param_shardings(n_experts: int, tp: int) -> dict[str, Any]:
+def moe_tp_param_shardings(n_experts: int, tp: int) -> dict[str, Any]:
     """The split axis of every MoE parameter under ``tp`` ranks, as a tree
     shaped like models.moe.init_moe_params' (None: replicated): the expert
     stacks split their expert axis only when ``tp`` divides ``n_experts``."""
@@ -106,7 +112,34 @@ def moe_param_shardings(n_experts: int, tp: int) -> dict[str, Any]:
 
 def shard_moe_params(params: dict, mesh) -> dict:
     """This rank's shard of a full MoE parameter tree (tensors or numpy
-    arrays), per ``moe_param_shardings`` (n_experts read off the router)."""
-    return _shard(params, moe_param_shardings(params["layers"]["router"].shape[-1], mesh.size),
-                  mesh)
+    arrays), per ``moe_tp_param_shardings`` (n_experts read off the
+    router)."""
+    return _shard(params, moe_tp_param_shardings(params["layers"]["router"].shape[-1],
+                                                 mesh.size), mesh)
+
+
+# the axes a batch splits over, in mesh order: data parallelism, the slices
+# of a multislice mesh, and the expert axis (each ep rank routes its own rows)
+_BATCH_AXES = ("slice", "dp", "ep")
+
+
+def batch_sharding(mesh) -> tuple[str, ...]:
+    """The mesh axes the batch [B, ...] splits over (the reference's
+    ``P(("slice", "dp"), None)`` on a multislice mesh, ``P("dp", None)``
+    on a dp x tp one): the sequence and every other axis replicated."""
+    return tuple(a for a in mesh.axis_names if a in _BATCH_AXES)
+
+
+def place_batch(tokens, mesh):
+    """This rank's rows of a global batch [B, ...] (a tensor or a numpy
+    array, the same on every rank): its contiguous block over
+    ``batch_sharding``'s axes, the first axis outermost."""
+    axes = batch_sharding(mesh)
+    n = int(np.prod([mesh.shape[a] for a in axes], dtype=np.int64))
+    if tokens.shape[0] % n:
+        raise ValueError(f"batch {tokens.shape[0]} not divisible by {axes} mesh size {n}")
+    block, rows = 0, tokens.shape[0] // n
+    for a in axes:
+        block = block * mesh.shape[a] + mesh.coords[a]
+    return tokens[block * rows:(block + 1) * rows]
 

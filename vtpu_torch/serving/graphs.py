@@ -36,12 +36,15 @@ capture is a recording, not a launch. So the counts a capture adds are
 taken back, kept with the graph, and added again by every replay.
 
 Capture runs under ``torch.cuda.set_sync_debug_mode("error")``: a step
-that reads the device from the host raises there. A failed capture or
+that reads the device from the host raises there. It runs with Python's
+cyclic collector off, after one collection, so no earlier engine's graph
+is destroyed inside it. A failed capture or
 replay raises; nothing falls back to the eager step.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -124,6 +127,16 @@ class DecodeGraphs:
                     graph.register_generator_state(gen)
             before = _build.launches()
             mode = torch.cuda.get_sync_debug_mode()
+            # an unreachable graph of an earlier engine, reclaimed by the
+            # cyclic collector while this capture runs, is reset inside the
+            # capture ("operation not permitted when stream is capturing"),
+            # which invalidates it: the step's next cuBLAS call then fails
+            # with CUBLAS_STATUS_EXECUTION_FAILED. Collect first, as
+            # torch.cuda.graph does, and hold the collector off until the
+            # capture ends
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 graph.capture_begin()
@@ -139,6 +152,8 @@ class DecodeGraphs:
                 graph.capture_end()
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
+                if collecting:
+                    gc.enable()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         recorded = {k: n - before[k] for k, n in _build.launches().items() if n != before[k]}
         for k, n in recorded.items():
