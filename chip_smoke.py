@@ -210,6 +210,28 @@ Phases, any failure exits nonzero:
       pp_loss's (pp=4) gradients, and the MoE's ep=4 and dp2 x ep2
       forwards against the dense MoE (capacity factor E / k, so nothing
       drops);
+   n. migration and drain (run after l): the flagship, bf16, paged, slots
+      4, kv_swap set, on the pipelined loop on graphs; three engines share
+      the card and the seeded weights: a source (a FaultPlan of
+      migrate_src_death at 0), a source with a pool of MG_SMALL_POOL blocks
+      and a host tier, and a destination. Arms: recompute (the source dies
+      after the handshake, the destination rebuilds the session from its
+      token history), resident (a stream parked inside its 16th token's
+      delivery, migrate() from the client), requeue (a request held in the
+      source's queue, parked unstarted by migrate()), host (a parked session
+      evicted to the small source's host tier by a second admission, its
+      payload read from host memory) and drain (a live, a parked and a
+      waiting session and a cancelled one, then src.drain(dst)). Held: every
+      moved stream against the plain trunk (refs["bf16"], the margin rule;
+      the rebuilt one teacher-forced), every report's path, the migration
+      counters, out and in bytes equal, migration_copies 0, every pool and
+      host tier free, the drained source empty with submit refused, the
+      cancelled request CANCELLED, no state tensor moved and no graph
+      captured, one replay and 12 paged launches a decode tick on each
+      engine, every stats() key in the exporter's tables. Printed: each
+      arm's migrate() ms, the pause from the last source token to the first
+      destination token, payload bytes and GB/s, each snapshot's ms, the
+      drain's ms and sessions moved;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -877,22 +899,24 @@ def stream_all(eng, prompts, prefix=None) -> tuple[list[dict], float]:
 
 
 def profile_wave(eng, prompts) -> dict | None:
-    """Stream one more wave under torch.profiler: the device's busy share of
-    the wave's wall time and device time by kernel name. None when the
-    profiler recorded no device activity. The profiler slows the host, so
-    the idle share it shows is an upper bound."""
+    """Stream one more wave under torch.profiler, device activity only: the
+    device's busy share of the wave's wall time and device time by kernel
+    name. None when the profiler recorded no device activity. The profiler
+    slows the host, so the idle share it shows is an upper bound. The
+    profiler's raw events are summed as they come: building its event
+    tree (``prof.events()``) took 20-50 s a wave on the card's host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = stream_all(eng, prompts)
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
             # the template arguments name a walk's tile source: keep them
-            name = evt.name.replace("(anonymous namespace)::", "")[:80]
-            by_name[name] = by_name.get(name, 0.0) + evt.time_range.elapsed_us()
+            name = evt.name().replace("(anonymous namespace)::", "")[:80]
+            by_name[name] = by_name.get(name, 0.0) + evt.duration_ns() / 1e3
     if not by_name:
         return None
     busy_ms = sum(by_name.values()) / 1e3
@@ -1065,6 +1089,23 @@ def spread(vals: list) -> str:
     return f"{vals[len(vals) // 2]:.3f} [{vals[0]:.3f}, {vals[-1]:.3f}]"
 
 
+class Laps:
+    """Wall seconds of a phase's sub-steps, summed by name: ``lap(name)``
+    charges the time since the previous lap (or the start) to ``name``."""
+
+    def __init__(self):
+        self.s: dict = {}
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = self.s.get(name, 0.0) + now - self.t
+        self.t = now
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {v:.1f}" for k, v in self.s.items())
+
+
 def loop_comparison(log, card: str, params, kv_int8: bool, refs: list) -> dict:
     """The flagship wave at COMPARE_TOKENS new tokens a request, served by
     the synchronous eager loop and by the pipelined loop on graphs,
@@ -1078,6 +1119,7 @@ def loop_comparison(log, card: str, params, kv_int8: bool, refs: list) -> dict:
     kv = "int8" if kv_int8 else "bf16"
     serving = ServingConfig(slots=4, prefill_buckets=(1024,), kv_page=128,
                             max_new_tokens=COMPARE_TOKENS)
+    laps = Laps()
     engines = {"sync": ServingEngine(params, cfg, dataclasses.replace(
                    serving, pipeline_decode=False)),
                "pipelined": ServingEngine(params, cfg, serving)}
@@ -1087,17 +1129,21 @@ def loop_comparison(log, card: str, params, kv_int8: bool, refs: list) -> dict:
     prompts = wave_prompts(cfg.vocab)
     waves: dict = {name: [] for name in engines}
     profiles = {}
+    laps.lap("build")
     for eng in engines.values():
         eng.start()
     try:
         for eng in engines.values():
             stream_all(eng, [prompts[0]])
+        laps.lap("warm-up")
         for r in range(REPEATS):
             for name in (("sync", "pipelined") if r % 2 == 0 else ("pipelined", "sync")):
                 waves[name].append(measured_wave(engines[name], prompts, refs,
                                                  f"{kv} {name} loop"))
+                laps.lap(f"timed {name}")
         for name, eng in engines.items():
             profiles[name] = profile_wave(eng, prompts)
+            laps.lap(f"profiled {name}")
     finally:
         for eng in engines.values():
             eng.stop()
@@ -1132,6 +1178,8 @@ def loop_comparison(log, card: str, params, kv_int8: bool, refs: list) -> dict:
             log(f"loop comparison {kv} {name} profiled wave by kernel: " + "; ".join(
                 f"{n} {ms:.2f} ms" for n, ms in prof["top_kernels_ms"]))
         out[name] = {"waves": ws, "profiled_wave": prof}
+    log(f"loop comparison {kv} sub-steps, wall s: {laps.line()}")
+    out["laps_s"] = laps.s
     return out
 
 
@@ -1604,6 +1652,7 @@ def device_loop_spec_path(log, card: str, params, refs: dict) -> dict:
     base = ServingConfig(slots=4, prefill_buckets=(1024,), kv_page=128,
                          max_new_tokens=COMPARE_TOKENS)
     prompts = wave_prompts(cfg.vocab)
+    laps = Laps()
     engines, memory, ptrs, boxes = {}, {}, {}, {}
     for name, kw in LOOPS.items():
         engines[name], memory[name] = build_engine(params, cfg, dataclasses.replace(base, **kw))
@@ -1614,28 +1663,35 @@ def device_loop_spec_path(log, card: str, params, refs: dict) -> dict:
     profiles = {}
     plain = dataclasses.replace(cfg, use_kernels=False)
     periodic = periodic_prompts(cfg.vocab)
+    laps.lap("build")
     periodic_refs = [reference_stream(params, plain, p, COMPARE_TOKENS) for p in periodic]
+    laps.lap("periodic refs")
     extra = {}
     for eng in engines.values():
         eng.start()
     try:
         for eng in engines.values():
             stream_all(eng, [prompts[0]])
+        laps.lap("warm-up")
         order = list(engines)
         for r in range(REPEATS):
             for name in order[r % len(order):] + order[:r % len(order)]:
                 waves[name].append(loop_wave(engines[name], prompts, refs["bf16"],
                                              f"{name} loop", boxes[name], COMPARE_TOKENS))
+                laps.lap(f"timed {name}")
         for name, eng in engines.items():
             profiles[name] = profiled_ticks(eng, prompts)
+            laps.lap(f"profiled {name}")
         for name in ("pipelined", "fused"):
             extra[f"{name}_periodic"] = loop_wave(engines[name], periodic, periodic_refs,
                                                   f"{name} loop, periodic prompts", boxes[name],
                                                   COMPARE_TOKENS)
+            laps.lap(f"periodic {name}")
             # every inner tick of these waves is one kind: a decode tick
             # (pipelined) or, while the fused loop accepts, a verify tick
             _, extra[f"{name}_periodic"]["device_ms_per_inner_tick"], _ = profiled_ticks(
                 engines[name], periodic)
+            laps.lap(f"periodic {name} profiled")
     finally:
         for eng in engines.values():
             eng.stop()
@@ -1673,6 +1729,7 @@ def device_loop_spec_path(log, card: str, params, refs: dict) -> dict:
             raise AssertionError(f"{name} loop: a state tensor moved")
         del eng
         torch.cuda.empty_cache()
+        laps.lap(name)
     if graphs != {"pipelined": 2, "device_loop": 2, "spec": 4, "fused": 4,
                   "fused_policy": 2 * (LOOP_K + 1), "fused_int8": 4}:
         raise AssertionError(f"graphs captured per engine: {graphs}")
@@ -1732,6 +1789,8 @@ def device_loop_spec_path(log, card: str, params, refs: dict) -> dict:
     out["launches"] = {"paged_decode_attention_verify": sum(verify),
                        "paged_decode_attention_int8kv_verify":
                            extra["fused_int8"]["paged_launches_verify"]}
+    log(f"device loop + speculation sub-steps, wall s: {laps.line()}")
+    out["laps_s"] = laps.s
     return out
 
 
@@ -4325,6 +4384,311 @@ def disagg_path(log, card: str, params) -> dict:
     return out
 
 
+# the migration phase: sessions of the serving wave's prompts, each parked
+# inside the delivery of its MG_PARK_AT-th token and moved; MG_BUDGET tokens
+# a stream (the main path's plain-trunk references run COMPARE_TOKENS), the
+# drain arm's live session MG_LIVE_BUDGET. The host arm's source has a pool
+# of MG_SMALL_POOL blocks, so a second session's admission evicts the parked
+# first to its host tier of MG_HOST blocks
+MG_BUDGET = 48
+MG_PARK_AT = 16
+MG_LIVE_BUDGET = 64
+MG_SMALL_POOL = 10
+MG_HOST = 8
+# a held loop thread lets go after this many seconds at most (a hang
+# guard: the phase fails when one expired)
+MG_HOLD_S = 120.0
+MG_EXPIRED_HOLDS: list = []
+
+
+def mg_serving(**kw):
+    """The flagship's serving config of the migration phase: the main
+    path's (pipelined on graphs, paged, slots 4, the 1024 bucket) with
+    kv_swap set, and ``kw``."""
+    from vtpu_torch.serving import ServingConfig
+
+    return ServingConfig(**{**dict(slots=4, prefill_buckets=(1024,), kv_page=128,
+                                   max_new_tokens=MG_BUDGET, kv_swap=0), **kw})
+
+
+def park_asked(eng, req) -> bool:
+    """Whether a park command for ``req`` waits in ``eng``'s lifecycle
+    queue."""
+    return any(kind == "park" and item is req for kind, item in list(eng._lifecycle_q.queue))
+
+
+def hold_loop(held: threading.Event, until):
+    """A delivery action (on_token) that holds the loop thread, setting
+    ``held``, until ``until()`` is true: a request submitted meanwhile stays
+    in the engine's pending queue, and a command the client queues is taken
+    at the next tick head, whatever the host's speed. MG_HOLD_S ends a hold
+    that waits in vain, and the phase then fails (MG_EXPIRED_HOLDS)."""
+    def hold():
+        held.set()
+        t0 = time.perf_counter()
+        while not until():
+            if time.perf_counter() - t0 > MG_HOLD_S:
+                MG_EXPIRED_HOLDS.append(held)
+                return
+            time.sleep(0.0005)
+
+    return hold
+
+
+def wait_event(lc, event: str, s) -> None:
+    """Block until the engine's trace (Lifecycle ``lc``) recorded ``event``
+    for session ``s``."""
+    with lc.cond:
+        if not lc.cond.wait_for(lambda: lc.counts[event, s.req.rid] >= 1, timeout=120):
+            raise AssertionError(f"no {event} event within 120 s")
+
+
+def migration_path(log, card: str, params, refs: dict) -> dict:
+    """Live migration and drain at the flagship's full width and depth,
+    bf16, on the pipelined loop on graphs: three engines on the card with
+    the seeded weights, a source (a FaultPlan of migrate_src_death at 0), a
+    source with a small pool and a host tier, and a destination. Arms, each
+    session parked from inside its MG_PARK_AT-th token's delivery unless
+    said otherwise: recompute (the source dies after the handshake: the
+    destination rebuilds from the token history), resident (pages uploaded
+    into the destination's pool), requeue (a request held in the source's
+    queue by a held loop, parked unstarted by migrate() and admitted on the
+    destination), host (a parked session evicted to the small source's host
+    tier by a second admission, its payload read from host memory), and
+    drain (a live, a parked and a waiting session and a cancelled one, then
+    src.drain(dst)). Held: every moved stream against the plain trunk
+    (refs["bf16"], the margin rule; the rebuilt one teacher-forced,
+    check_forced), each report's path, the migration counters and bytes,
+    migration_copies 0, every pool and host tier free, the drained source
+    empty with submit refused, the cancelled request CANCELLED, no state
+    tensor moved and no graph captured, one replay and 12 paged launches a
+    decode tick on each engine, every stats() key in the exporter's
+    tables."""
+    import importlib
+
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.obs import export
+    from vtpu_torch.ops import _build
+    from vtpu_torch.serving import FaultPlan, FaultSpec, migrate
+
+    t_phase = time.perf_counter()
+    laps = Laps()
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    forced = forced_trunk(params, dataclasses.replace(cfg, use_kernels=False))
+    prompts = wave_prompts(cfg.vocab)
+    wave_refs = refs["bf16"]
+    # the extract's snapshot (staging gathers and the one D2H wait, or the
+    # host tier's read), timed on the source's loop thread
+    mig = importlib.import_module("vtpu_torch.serving.migrate")
+    snapshot, snaps = mig._snapshot_payload, []
+
+    def timed_snapshot(eng, e):
+        t0 = time.perf_counter()
+        out = snapshot(eng, e)
+        snaps.append({"ms": (time.perf_counter() - t0) * 1e3, "pages": e["n_pages"],
+                      "bytes": e["n_pages"] * eng._block_bytes,
+                      "from_host": e["host"] is not None})
+        return out
+
+    mig._snapshot_payload = timed_snapshot
+    E = {"src": oc_engine(params, cfg, mg_serving(
+             faults=FaultPlan([FaultSpec("migrate_src_death", at=0)]))),
+         "host_src": oc_engine(params, cfg, mg_serving(kv_pool_blocks=MG_SMALL_POOL,
+                                                       kv_swap=MG_HOST)),
+         "dst": oc_engine(params, cfg, mg_serving())}
+    engines = {name: e[0] for name, e in E.items()}
+    src, lc = E["src"][0], E["src"][1]
+    hsrc, hlc = E["host_src"][0], E["host_src"][1]
+    dst = engines["dst"]
+    laps.lap("build")
+    for eng in engines.values():
+        eng.start()
+    moves, rows = [], {}
+    try:
+        before = {name: eng.stats() for name, eng in engines.items()}
+        replays = {name: eng.decode_graphs.replays for name, eng in engines.items()}
+        _build.reset_launches()
+
+        def moved(arm, path, sess, rep, n):
+            if rep["path"] != path:
+                raise AssertionError(f"migration {arm} arm: report path {rep['path']!r}, "
+                                     f"expected {path!r}")
+            moves.append((arm, sess, rep, n))
+
+        # recompute: the source's plan fires at its first extract
+        s0 = Session(src, prompts[0], MG_BUDGET, park_at=MG_PARK_AT)
+        lc.wait_parked([s0])
+        drained(s0)
+        n0 = len(s0.toks)
+        moved("recompute", "recompute", s0, migrate(s0.req, src, dst), n0)
+        s0.join()
+        laps.lap("recompute")
+        # requeue and resident: s1's first token holds the loop while w is
+        # submitted and migrate() asks for its park
+        s1 = Session(src, prompts[1], MG_BUDGET, park_at=MG_PARK_AT)
+        held, box = threading.Event(), {}
+        on_token(s1.req, 1, hold_loop(held, lambda: "w" in box
+                                      and park_asked(src, box["w"].req)))
+        if s1.req.delivered:
+            raise AssertionError("a token was delivered before the hold was in place")
+        if not held.wait(120):
+            raise AssertionError("the loop was not held within 120 s")
+        box["w"] = w = Session(src, prompts[2], MG_BUDGET)
+        moved("requeue", "requeue", w, migrate(w.req, src, dst), 0)
+        lc.wait_parked([s1])
+        drained(s1)
+        n1 = len(s1.toks)
+        moved("resident", "resident", s1, migrate(s1.req, src, dst), n1)
+        w.join()
+        s1.join()
+        laps.lap("requeue + resident")
+        # host: y's admission evicts the parked x to the small source's tier
+        x = Session(hsrc, prompts[2], MG_BUDGET, park_at=MG_PARK_AT)
+        hlc.wait_parked([x])
+        y = Session(hsrc, prompts[3], MG_BUDGET)
+        wait_event(hlc, "evict", x)
+        drained(x)
+        nx = len(x.toks)
+        # read from the source's host tier, landed in the destination's pool
+        moved("host", "resident", x, migrate(x.req, hsrc, dst), nx)
+        x.join()
+        y.join()
+        laps.lap("host")
+        # drain: p parked, live held (by its next token) until drain asks
+        # for its park, waiting and cancelled submitted while it is held
+        p = Session(src, prompts[3], MG_BUDGET, park_at=MG_PARK_AT)
+        live = Session(src, prompts[4], MG_LIVE_BUDGET)
+        lc.wait_parked([p])
+        go, held2 = threading.Event(), threading.Event()
+        on_token(live.req, 1, hold_loop(held2, lambda: go.is_set()
+                                        and park_asked(src, live.req)))
+        if not held2.wait(120):
+            raise AssertionError("the loop was not held within 120 s")
+        waiting = Session(src, prompts[5], MG_BUDGET)
+        cancelled = src.submit(prompts[0], max_new_tokens=MG_BUDGET)
+        cancelled.cancel()
+        go.set()
+        t0 = time.perf_counter()
+        report = src.drain(dst)
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            src.submit(prompts[0])
+        except RuntimeError as exc:
+            if "draining" not in str(exc):
+                raise
+        else:
+            raise AssertionError("a drained source accepted a submit")
+        for q in (p, live, waiting):
+            q.join()
+        list(cancelled.stream())
+        if cancelled.status != "CANCELLED":
+            raise AssertionError(f"the cancelled request ended {cancelled.status}")
+        if (report["migrated"] + report["completed"], report["faulted"]) != (3, 0):
+            raise AssertionError(f"drain report {report}: three sessions owed, none faulted")
+        laps.lap("drain")
+        for eng in engines.values():
+            settle(eng)
+        after = {name: eng.stats() for name, eng in engines.items()}
+        launches = _build.launches()
+        played = {name: eng.decode_graphs.replays - replays[name]
+                  for name, eng in engines.items()}
+    finally:
+        mig._snapshot_payload = snapshot
+        for eng in engines.values():
+            eng.stop()
+    if MG_EXPIRED_HOLDS:
+        raise AssertionError("a held loop was never asked for the command it waited for")
+    for name, (eng, _, ptrs, captured) in E.items():
+        oc_held(eng, ptrs, captured, f"migration {name}")
+    # streams: the rebuilt one teacher-forced, every other under the margin rule
+    held_forced = check_forced(forced, [(prompts[0], s0.toks, n0)], "migration recompute arm")
+    streams = [(s1, 1), (w, 2), (x, 2), (y, 3), (p, 3), (live, 4), (waiting, 5)]
+    compared, ties = check_streams([q.toks for q, _ in streams],
+                                   [wave_refs[i] for _, i in streams], "migration")
+    # counters
+    d = {name: {k: after[name][k] - before[name][k] for k in (
+        "decode_ticks", "paged_attn_kernel_ticks", "migrations_out", "migrations_in",
+        "migrate_out_bytes", "migrate_in_bytes", "migration_copies", "migrate_recomputes",
+        "migrate_failures", "faults_injected", "swap_out_bytes")} for name in engines}
+    bpb = block_bytes(dst)
+    shipped = [rep["bytes"] for _, _, rep, _ in moves if rep["path"] == "resident"]
+    want = {"src": {"migrations_out": 3 + report["migrated"], "faults_injected": 1},
+            "host_src": {"migrations_out": 1},
+            "dst": {"migrations_in": 4 + report["migrated"], "migrate_recomputes": 1}}
+    for name, kv in want.items():
+        got = {k: d[name][k] for k in kv}
+        if got != kv:
+            raise AssertionError(f"migration {name}: counters {got}, the moves imply {kv}")
+    out_bytes = d["src"]["migrate_out_bytes"] + d["host_src"]["migrate_out_bytes"]
+    if not (out_bytes == d["dst"]["migrate_in_bytes"] > 0 and len(shipped) == 2
+            and all(b > 0 and b % bpb == 0 for b in shipped) and sum(shipped) <= out_bytes
+            and (out_bytes - sum(shipped)) % bpb == 0):
+        raise AssertionError(f"migration bytes: out {out_bytes}, in "
+                             f"{d['dst']['migrate_in_bytes']}, reports {shipped}")
+    if any(d[n]["migration_copies"] or d[n]["migrate_failures"] for n in engines):
+        raise AssertionError(f"migration copies or failures: {d}")
+    if d["host_src"]["swap_out_bytes"] <= 0 or [sn["from_host"] for sn in snaps].count(True) != 1:
+        raise AssertionError("the host arm's payload was not read from the host tier")
+    for name, s in after.items():
+        if (s["kv_pool_free"] != s["kv_pool_blocks"] or s["parked_sessions"]
+                or s["active_slots"] or s["queued"] or s["admitting_slots"]
+                or (s["swap_host_blocks"] and s["swap_host_free"] != s["swap_host_blocks"])):
+            raise AssertionError(f"migration {name}: not empty at the end: pool "
+                                 f"{s['kv_pool_free']} of {s['kv_pool_blocks']} free, host "
+                                 f"{s['swap_host_free']} of {s['swap_host_blocks']}, "
+                                 f"{s['parked_sessions']} parked, {s['active_slots']} live, "
+                                 f"{s['queued']} queued")
+        if s["draining"] != (name == "src"):
+            raise AssertionError(f"migration {name}: draining {s['draining']}")
+        missing = sorted(k for k in s if k not in set(export.COUNTERS) | set(export.GAUGES)
+                         | set(export.HIST_COUNTERS) | export.SPECIAL | export.ALLOWLIST)
+        if missing:
+            raise AssertionError(f"migration {name}: stats() keys with no exporter family: "
+                                 f"{missing}")
+    ticks = sum(d[n]["decode_ticks"] for n in engines)
+    others = {k: v for k, v in launches.items()
+              if k not in ("paged_decode_attention", "flash_attention") and v}
+    if (launches["paged_decode_attention"] != FLAGSHIP["n_layers"] * ticks or others
+            or launches["flash_attention"] <= 0):
+        raise AssertionError(f"migration: launches {launches} over {ticks} decode ticks")
+    for name in engines:
+        if not (played[name] == d[name]["decode_ticks"] == d[name]["paged_attn_kernel_ticks"]):
+            raise AssertionError(f"migration {name}: {played[name]} replays, "
+                                 f"{d[name]['decode_ticks']} decode ticks, "
+                                 f"{d[name]['paged_attn_kernel_ticks']} on the kernel route")
+    if d["dst"]["decode_ticks"] <= 0:
+        raise AssertionError("the destination decoded no tick")
+    for arm, sess, rep, n in moves:
+        rows[arm] = {"path": rep["path"], "ms": rep["ms"], "bytes": rep["bytes"], "src_died": rep["src_died"],
+                      "gb_per_s": rep["bytes"] / (rep["ms"] * 1e6) if rep["bytes"] else None,
+                      "pause_ms": ((sess.times[n] - sess.times[n - 1]) * 1e3 if n else None),
+                      "tokens_at_move": n}
+    seconds = time.perf_counter() - t_phase
+    for arm, r in rows.items():
+        log(f"migration {arm} arm on {card}: path {r['path']}, migrate() {r['ms']:.2f} ms, "
+            f"payload {r['bytes']} "
+            f"bytes" + (f" ({r['bytes'] / bpb:.0f} blocks of {bpb}, {r['gb_per_s']:.2f} GB/s "
+                        "over the call)" if r["bytes"] else "")
+            + (f", pause {r['pause_ms']:.2f} ms (last source token to first destination "
+               f"token, {r['tokens_at_move']} tokens before the move)" if r["pause_ms"] else "")
+            + (", the source died after the handshake" if r["src_died"] else ""))
+    for sn in snaps:
+        log(f"migration snapshot on {card}: {sn['pages']} blocks, {sn['bytes']} bytes "
+            f"{'from the host tier' if sn['from_host'] else 'gathered and copied to the host'} "
+            f"in {sn['ms']:.2f} ms on the loop thread ({sn['bytes'] / (sn['ms'] * 1e6):.2f} GB/s)")
+    log(f"migration drain on {card}: {drain_ms:.2f} ms, {report['migrated']} sessions moved, "
+        f"{report['completed']} completed on the source, {report['faulted']} faulted")
+    log(f"migration streams: {compared} tokens equal to the plain trunk, {ties} cut at a margin "
+        f"< {MARGIN}; the rebuilt stream teacher-forced: {held_forced['held']} held, "
+        f"{held_forced['skipped']} skipped (widest flip {held_forced['widest_flip']:.4f}); "
+        f"counters {d}; launches {launches}; replays {played}")
+    log(f"migration phase on {card}: {seconds:.1f} s; sub-steps, wall s: {laps.line()}")
+    return {"launches": launches, "moves": rows, "snapshots": snaps,
+            "drain": {**report, "ms": drain_ms}, "counters": d, "replays": played,
+            "compared_tokens": compared, "margin_cuts": ties, "forced": held_forced,
+            "seconds": seconds, "laps_s": laps.s, "block_bytes": bpb}
+
+
 # phase h's arms beyond the main path's waves (tp=2 only): 16-token waves
 # in the same world (TP_OPS_TAG on every tokens/s of a gloo world). Each
 # arm holds TP_HELD tokens at least against its plain trunk: it serves
@@ -5237,6 +5601,8 @@ def main() -> int:
     mark("model families")
     runs["disagg_path"] = disagg_path(log, card, params)
     mark("disaggregation")
+    runs["migration_path"] = migration_path(log, card, params, refs)
+    mark("migration")
     runs["study_path"] = study_path(gen, log)
     mark("study")
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one
@@ -5261,7 +5627,7 @@ def main() -> int:
         f"{int8['ttft_ms'][len(int8['ttft_ms']) // 2]:.1f} ms")
     for kv, cmp in runs["loop_comparison"].items():
         med = {name: sorted(w["tokens_per_s"] for w in cmp[name]["waves"])[REPEATS // 2]
-               for name in cmp}
+               for name in ("pipelined", "sync")}
         log(f"loop comparison {kv} on {card}: median tokens/s pipelined on graphs "
             f"{med['pipelined']:.1f}, synchronous eager {med['sync']:.1f} "
             f"({med['pipelined'] / med['sync']:.2f}x)")

@@ -5,7 +5,9 @@ selective-SSM families on one device (``ServingEngine(model=...)`` with an
 adapter from vtpu_torch.serving.adapters), with its failure domains
 (deadlines, overload shedding, fault injection, the fetch watchdog) and, on
 one device, disaggregated prefill/decode (``ServingConfig(disagg=
-DisaggConfig(...))``, serving/disagg.py)."""
+DisaggConfig(...))``, serving/disagg.py) and live migration between
+engines with drain (``migrate``, ``ServingEngine.drain``,
+serving/migrate.py)."""
 
 from vtpu_torch.serving.adapters import TransformerSlotModel
 from vtpu_torch.serving.disagg import DisaggConfig
@@ -29,6 +31,7 @@ from vtpu_torch.serving.faults import (
     FaultSpec,
     WorkerDeath,
 )
+from vtpu_torch.serving.migrate import MigrationError, drain_engine, migrate
 from vtpu_torch.serving.shed import (
     EngineSignals,
     PriorityDeadlineShedPolicy,
@@ -45,6 +48,7 @@ __all__ = [
     "FaultInjected",
     "FaultPlan",
     "FaultSpec",
+    "MigrationError",
     "PriorityDeadlineShedPolicy",
     "Request",
     "SEAMS",
@@ -58,7 +62,9 @@ __all__ = [
     "WorkerDeath",
     "accepts_signals",
     "batched_decode_step",
+    "drain_engine",
     "load_shed_policy",
+    "migrate",
     "prefill_into_slot",
     "prefill_into_slots",
 ]

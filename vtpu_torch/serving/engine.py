@@ -1118,6 +1118,13 @@ class ServingEngine:
             "watchdog_degrades": 0, "watchdog_recoveries": 0,
             # dead prefill workers the loop restarted (disagg)
             "worker_restarts": 0,
+            # live migration (serving/migrate.py): sessions extracted and
+            # installed, the payload bytes each way, device copies beyond
+            # the staging D2H/H2D pair (the contract: 0), installs rebuilt
+            # through prefill, and installs that ended FAULTED
+            "migrations_out": 0, "migrations_in": 0,
+            "migrate_out_bytes": 0, "migrate_in_bytes": 0,
+            "migration_copies": 0, "migrate_recomputes": 0, "migrate_failures": 0,
         }
         # per-slot token history (prefix + prompt + delivered tokens): the
         # prompt-lookup drafts' source and what a park saves and a
@@ -1150,6 +1157,9 @@ class ServingEngine:
         self._host_ms_ema: Optional[float] = None
         self._admission_ms_ema: Optional[float] = None
         self._req_ctr = itertools.count()
+        # drain: admission closes while the engine evacuates its sessions
+        # to a peer (ServingEngine.drain); submit() then raises
+        self._draining = False
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -1283,9 +1293,12 @@ class ServingEngine:
         self._host_pool: dict[str, torch.Tensor] = {}
         self._copy_stream = None
         self._block_bytes = 0
+        # the KV planes a block spans (scale planes included): what a swap
+        # and a migration payload carry
+        self._swap_planes = tuple(kv_keys(self.state)) if self._paged else ()
         if self._swap_enabled:
             pin = self.device.type == "cuda"
-            for key in kv_keys(self.state):
+            for key in self._swap_planes:
                 plane = self.state[key]
                 self._block_bytes += plane[:, 0].numel() * plane.element_size()
             if self._swap_host_blocks:
@@ -1513,6 +1526,11 @@ class ServingEngine:
             raise ValueError(f"deadline_ms must be >= 0, got {deadline_ms}")
         if self._stop.is_set():
             raise RuntimeError("ServingEngine is stopped")
+        if self._draining:
+            # drain() closed admission: a new stream here would never be
+            # served, so the submitter retargets it
+            raise RuntimeError("ServingEngine is draining (admission closed); submit to the "
+                               "drain destination instead")
         tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
         n = int(tokens.shape[0])
         if n == 0 and prefix is None:
@@ -1592,6 +1610,22 @@ class ServingEngine:
             raise ValueError("resume() requires ServingConfig.kv_swap")
         self._lifecycle_q.put(("resume", req))
         self._wake.set()
+
+    def drain(self, dst: "ServingEngine", timeout: float = 120.0) -> dict:
+        """Evacuate EVERY session this engine holds (live, parked, waiting,
+        mid-admission) onto *dst* by live migration, so the engine can be
+        redeployed without dropping a stream. Admission closes first
+        (submit() raises for the rest of this engine's life); each session
+        parks at its flush boundary, moves as a parked entry (one staged
+        D2H and H2D, no other copy) and resumes on the destination at
+        exactly its next token. Sessions the caller cancelled retire here
+        with their typed terminal: drain never ends a stream. Returns the
+        report ({"migrated", "completed", "faulted", "ms"}); raises
+        MigrationError if the evacuation cannot finish inside *timeout*.
+        Call it from a client thread, never from a token's delivery."""
+        from vtpu_torch.serving.migrate import drain_engine
+
+        return drain_engine(self, dst, timeout=timeout)
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -1712,6 +1746,9 @@ class ServingEngine:
         s["parked_sessions"] = len(self._parked)
         s["swap_host_blocks"] = self._swap_host_blocks if self._swap_enabled else None
         s["swap_host_free"] = len(self._host_free) if self._swap_enabled else None
+        # live migration: whether admission is closed for a drain (the flow
+        # counters ride the _stats copy above)
+        s["draining"] = self._draining
         if self._paged:
             usable = self._n_blocks - 1
             free = self._alloc.free_blocks
@@ -1779,8 +1816,7 @@ class ServingEngine:
         is ``ServingConfig.duty_supplier``'s reading (None without one, and
         None, logged, when it raises); ``prefill_backlog`` is the prefill
         workers' backlog under disaggregation, the chunked admissions in
-        flight otherwise. Features the port has not reached keep their
-        defaults: never draining."""
+        flight otherwise; ``draining`` once drain() closed admission."""
         duty = None
         sup = self.serving.duty_supplier
         if sup is not None:
@@ -1798,6 +1834,7 @@ class ServingEngine:
                              else len(self._admitting)),
             now_ns=time.monotonic_ns(),
             pool_blocks=(self._n_blocks - 1) if self._paged else None,
+            draining=self._draining,
             duty=duty,
             spec_mean_accepted=(round(self._spec_ema, 3) if self._spec_tokens else None))
 
@@ -1846,6 +1883,16 @@ class ServingEngine:
             except queue.Empty:
                 break
             self._end_stream(req, req._abort or Status.CANCELLED)
+        # unserved lifecycle commands die with the engine, but a migrate
+        # ticket has a caller blocked on it: fail it, so migrate() and
+        # drain() see the stop instead of waiting out their timeout
+        while True:
+            try:
+                kind, item = self._lifecycle_q.get_nowait()
+            except queue.Empty:
+                break
+            if kind in ("migrate_out", "migrate_in"):
+                item.fail(RuntimeError("engine stopped mid-migration"))
 
     def _retire(self, slot: int, status: Optional[str] = None) -> None:
         req = self._slot_req[slot]
@@ -2136,15 +2183,24 @@ class ServingEngine:
         self.trace.record("park", req.rid, slot, len(blocks))
 
     def _process_lifecycle(self) -> None:
-        """Take the park and resume commands of client threads, apply the
-        parks whose slots have settled, and release cancelled parked
-        sessions (everything they hold goes back, as a live slot's cancel
-        does)."""
+        """Take the park and resume commands of client threads and the
+        migrate tickets, apply the parks whose slots have settled, and
+        release cancelled parked sessions (everything they hold goes back,
+        as a live slot's cancel does)."""
         while True:
             try:
                 kind, req = self._lifecycle_q.get_nowait()
             except queue.Empty:
                 break
+            if kind in ("migrate_out", "migrate_in"):
+                # a live migration's extract or install (serving/migrate.py),
+                # served here on the loop thread, the owner of the parked
+                # set, the allocator and the state; ``req`` is the ticket,
+                # and the handler answers it without raising
+                from vtpu_torch.serving.migrate import handle_migrate_command
+
+                handle_migrate_command(self, kind, req)
+                continue
             if kind == "park":
                 if req in self._parked and req in self._want_resume:
                     # a park overtook a queued resume: the session stays parked

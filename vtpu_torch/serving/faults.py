@@ -35,11 +35,18 @@ Seams the port's engine consults:
                       supervisor releases its blocks, re-queues the
                       request with backoff (FAULTED past
                       worker_retry_limit) and restarts the worker
+- ``migrate_src_death``    a live migration's source dies after the
+                      metadata handshake (at its extract) -> the payload
+                      never ships and the destination rebuilds the
+                      session from its token history
+- ``migrate_payload_loss`` a migration's payload is lost in transit (at
+                      the destination's install) -> the same rebuild, or
+                      a typed FAULTED where none is possible
 
 The rest of the vocabulary names seams of features the port has not
-reached (live migration, the fleet's health probes and fabric transport). A plan naming them is accepted and
-never fires on the port's engine, as on a reference engine without those
-features.
+reached (the fleet's health probes and fabric transport). A plan naming
+them is accepted and never fires on the port's engine, as on a reference
+engine without those features.
 
 Thread-safe: each ``fire`` takes the plan's lock (a seam costs one
 attribute check when no plan is configured). Timing-coupled seams
