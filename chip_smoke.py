@@ -232,6 +232,28 @@ Phases, any failure exits nonzero:
       arm's migrate() ms, the pause from the last source token to the first
       destination token, payload bytes and GB/s, each snapshot's ms, the
       drain's ms and sessions moved;
+   o. the engine fleet (run after n): three flagship engines (bf16, paged,
+      slots 4, kv_swap and prefill_chunk set) on the pipelined loop on
+      graphs share the card and the seeded weights behind one EngineFleet
+      (members a, b, c; c with an engine_death FaultPlan, the fleet a
+      probe_loss plan). Arms: suspect (b walks to SUSPECT and back, no
+      failover), route (the wave prompts through fleet.submit), cold (a
+      prefix spilled to the fleet's host tier and installed on the route's
+      winner by a pid submit), prefix (a prefix registered on a, two
+      prefix-aware submits routed onto it, hot replication onto a peer),
+      failover (c dies at a tick head holding a live, a parked and a
+      prefix-backed session, each rebuilt on a survivor, the prefix-backed
+      one around a resident copy of its prefix), drain (b's sessions placed
+      on the survivor), export (register_fleet and one scrape). Held: every
+      stream against the plain trunk (the rebuilt ones teacher-forced), the
+      fleet counters and health states, prefix_install_copies 0, one prefix
+      reuse recomputing the tail alone, one replay and 12 paged launches a
+      decode tick on each member, no graph captured while serving, every
+      pool and host tier free at the end (the corpse reaped), the corpse's
+      post-mortem bundle valid, every stats() key in the exporter's
+      tables. Printed: detection ms (c's last beat to DEAD), rebuild ms per
+      session, the pause across the failover, each prefix export and
+      install's ms and bytes, the drain's ms, and the phase's seconds;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -1839,20 +1861,21 @@ def park_after(eng, req, n: int) -> None:
 
 class Session:
     """One request of the overcommit phase, read by a thread of its own that
-    stamps each token; with ``park_at`` parked after that many tokens.
-    ``parks`` counts the parks asked of it. Waits on it block on a
-    condition the reader notifies: a waiter that polled would take the
-    interpreter lock from the loop thread in the middle of the waves it
-    times."""
+    stamps each token; with ``park_at`` parked after that many tokens (by
+    ``parker``, the engine that serves it: ``eng`` unless ``eng`` is a
+    fleet). ``parks`` counts the parks asked of it; ``submit_kw`` go to
+    ``eng.submit``. Waits on it block on a condition the reader notifies: a
+    waiter that polled would take the interpreter lock from the loop thread
+    in the middle of the waves it times."""
 
-    def __init__(self, eng, prompt, budget: int, park_at: int = 0):
-        self.eng, self.prompt = eng, prompt
+    def __init__(self, eng, prompt, budget: int, park_at: int = 0, parker=None, **submit_kw):
+        self.eng, self.prompt = parker or eng, prompt
         self.toks, self.times = [], []
         self.ended = False
         self.parks = 0
         self.cond = threading.Condition()
         self.t_submit = time.perf_counter()
-        self.req = eng.submit(prompt, max_new_tokens=budget)
+        self.req = eng.submit(prompt, max_new_tokens=budget, **submit_kw)
         if park_at:
             self.park_after(park_at)
             if self.req.delivered:
@@ -4689,6 +4712,382 @@ def migration_path(log, card: str, params, refs: dict) -> dict:
             "seconds": seconds, "laps_s": laps.s, "block_bytes": bpb}
 
 
+# phase o, the engine fleet: three flagship engines behind one EngineFleet
+# on the card. FL_BUDGET tokens a stream (the failover arm's FL_LONG), a
+# host tier of FL_HOST blocks a member; the doomed member's sessions are
+# parked at FL_PARK_AT and the death armed once the live one has delivered
+# FL_KILL_AT. Prefix-backed requests ride a PREFIX_LEN-token prefix with
+# suffixes of FL_SUFFIXES tokens. FL_QUEUE_SLOT_MS prices a millisecond of
+# avoided prefill as one queue slot of pressure, so a resident wins the
+# route against a peer one queue slot less busy per ms its build took
+FL_BUDGET = 32
+FL_LONG = 64
+FL_HOST = 16
+FL_PARK_AT = 4
+FL_KILL_AT = 12
+FL_SUFFIXES = (96, 160)
+FL_QUEUE_SLOT_MS = 1.0
+
+
+def fl_serving(**kw):
+    """The flagship's serving config of the fleet phase: the main path's
+    (pipelined on graphs, paged, slots 4, the 1024 bucket) with kv_swap
+    and prefill_chunk set, and ``kw``."""
+    from vtpu_torch.serving import ServingConfig
+
+    return ServingConfig(**{**dict(slots=4, prefill_buckets=(1024,), kv_page=128,
+                                   prefill_chunk=CHUNK, max_new_tokens=FL_LONG,
+                                   kv_swap=FL_HOST), **kw})
+
+
+class SteerPolicy:
+    """The fleet's route policy in phase o: LeastPressureRoutePolicy,
+    except that while ``pin`` names an engine that engine wins (the arm
+    that fills the member it then kills)."""
+
+    def __init__(self):
+        from vtpu_torch.serving import LeastPressureRoutePolicy
+
+        self.base, self.pin = LeastPressureRoutePolicy(), None
+
+    def score(self, name, signals):
+        s = self.base.score(name, signals)
+        if s is None or self.pin is None:
+            return s
+        return s + (100.0 if name == self.pin else 0.0)
+
+
+def fl_prompts(vocab: int) -> tuple:
+    """(the prefix, the suffixes, a second prefix for the spill arm) of the
+    fleet phase from SEED."""
+    rs = np.random.RandomState(SEED + 7)
+    prefix = rs.randint(0, vocab, (PREFIX_LEN,)).astype(np.int32)
+    sufs = [rs.randint(0, vocab, (n,)).astype(np.int32) for n in FL_SUFFIXES]
+    cold = rs.randint(0, vocab, (PREFIX_LEN,)).astype(np.int32)
+    return prefix, sufs, cold
+
+
+def fleet_path(log, card: str, params, refs: dict) -> dict:
+    """The engine fleet at the flagship's full width and depth, bf16, on
+    the pipelined loop on graphs: three engines on the card with the seeded
+    weights behind one EngineFleet (members a, b and c; c carries an
+    engine_death FaultPlan; the fleet a probe_loss plan eating b's probes
+    in its first two rounds). Arms: suspect (b walks to SUSPECT and back,
+    no failover), route (the wave prompts through fleet.submit), prefix (a
+    prefix registered on a, prefix-aware submits routed onto its resident,
+    hot replication onto a peer through chunked prefill, a second prefix
+    spilled cold to the host tier and installed on the route's winner),
+    failover (c holds a live, a parked and a prefix-backed session when its
+    loop dies at a tick head; each is rebuilt on a survivor, the
+    prefix-backed one around a resident copy of its prefix), drain (b's
+    sessions placed on the best survivor), export (register_fleet and one
+    scrape). Held: every stream against the plain trunk (refs["bf16"] or
+    its own plain reference under the margin rule; the rebuilt ones
+    teacher-forced, check_forced), the fleet counters and health states
+    the arms imply, prefix_install_copies 0, failover_prefix_reuses with a
+    rebuild of the tail alone, one replay and 12 paged launches a decode
+    tick on each member, no graph captured while serving and no state
+    tensor moved, every pool and host tier free at the end (the corpse
+    reaped), the corpse's post-mortem bundle valid, every fleet and member
+    stats() key in the exporter's tables."""
+    import importlib
+
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.obs import ServingCollector, export
+    from vtpu_torch.obs.fleettrace import validate_bundle
+    from vtpu_torch.ops import _build
+    from vtpu_torch.serving import EngineFleet, FaultPlan, FaultSpec, FleetConfig
+
+    t_phase = time.perf_counter()
+    laps = Laps()
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    forced = forced_trunk(params, plain)
+    prompts = wave_prompts(cfg.vocab)
+    wave_refs = refs["bf16"]
+    prefix, sufs, cold = fl_prompts(cfg.vocab)
+    full = [np.concatenate([prefix, s]) for s in sufs]
+    cold_full = np.concatenate([cold, sufs[0]])
+    pre_refs = [reference_stream(params, plain, p, FL_BUDGET) for p in full + [cold_full]]
+    laps.lap("references")
+    # the prefix movement (export on a donor's loop, install on the
+    # destination's) and every rebuild, timed where the fleet calls them
+    fl_mod = importlib.import_module("vtpu_torch.serving.fleet")
+    export_fn, install_fn, moves = fl_mod.export_prefix, fl_mod.install_prefix, []
+
+    def timed_export(eng, lid, timeout=30.0):
+        t0 = time.perf_counter()
+        meta, payload = export_fn(eng, lid, timeout=timeout)
+        moves.append({"op": "export", "ms": (time.perf_counter() - t0) * 1e3,
+                      "bytes": sum(x.numel() * x.element_size() for x in payload.values())})
+        return meta, payload
+
+    def timed_install(eng, meta, payload, timeout=30.0):
+        t0 = time.perf_counter()
+        res = install_fn(eng, meta, payload, timeout=timeout)
+        moves.append({"op": "install", "ms": (time.perf_counter() - t0) * 1e3,
+                      "bytes": sum(x.numel() * x.element_size() for x in payload.values()),
+                      "installed": res.get("installed", True)})
+        return res
+
+    fl_mod.export_prefix, fl_mod.install_prefix = timed_export, timed_install
+    death = FaultPlan()
+    E = {"a": oc_engine(params, cfg, fl_serving()), "b": oc_engine(params, cfg, fl_serving()),
+         "c": oc_engine(params, cfg, fl_serving(faults=death))}
+    engines = {name: e[0] for name, e in E.items()}
+    for name in engines:
+        # the rebuilds' fault_recompute events (val: positions recomputed)
+        E[name] = (E[name][0], Lifecycle(engines[name], ("park", "fault_recompute")),
+                   *E[name][2:])
+    a, b, c = engines["a"], engines["b"], engines["c"]
+    policy = SteerPolicy()
+    # probes walk the members in name order each round: arrivals 1 and 4
+    # are b's probes in the first two rounds
+    probes = FaultPlan([FaultSpec("probe_loss", at=1), FaultSpec("probe_loss", at=4)])
+    fleet = EngineFleet(engines, FleetConfig(route_policy=policy, faults=probes,
+                                             prefix_queue_slot_ms=FL_QUEUE_SLOT_MS))
+    rebuilds = []
+    note_rebuild = fleet.trace.note_rebuild
+
+    def timed_rebuild(seconds):
+        rebuilds.append(seconds * 1e3)
+        note_rebuild(seconds)
+
+    fleet.trace.note_rebuild = timed_rebuild
+    laps.lap("build")
+    out: dict = {}
+    try:
+        before = {name: eng.stats() for name, eng in engines.items()}
+        replays = {name: eng.decode_graphs.replays for name, eng in engines.items()}
+        _build.reset_launches()
+        fleet.start()
+
+        def wait_for(cond, what: str, timeout: float = 120.0):
+            t0 = time.perf_counter()
+            while not cond():
+                if time.perf_counter() - t0 > timeout:
+                    raise AssertionError(f"fleet: {what} did not happen within {timeout:.0f} s")
+                time.sleep(0.002)
+
+        # suspect: b's first two probes are eaten; it recovers at its next beat
+        wait_for(lambda: fleet.stats(include_engines=False)["suspects"] >= 1, "b's SUSPECT")
+        wait_for(lambda: fleet.stats(include_engines=False)["engine_states"]["b"] == "HEALTHY",
+                 "b's recovery")
+        laps.lap("suspect")
+        # route: the wave through the front door, least pressure first
+        wave = [Session(fleet, p, FL_BUDGET) for p in prompts]
+        placed = collections.Counter(fleet._assigned.get(s.req, "done") for s in wave)
+        for s in wave:
+            s.join()
+        laps.lap("route")
+        # cold: a prefix registered on b and never used spills to the host
+        # tier (the only prefix registered, so the only candidate); a pid
+        # submit then installs it on the route's winner, and it is dropped
+        # there again so it never competes in the hot arm
+        qpid = fleet.register_prefix(cold, engine="b")
+        fleet.fleet = dataclasses.replace(fleet.fleet, prefix_spill_idle_s=0.2)
+        wait_for(lambda: fleet.prefixdir.in_host_tier(qpid)
+                 and not fleet.prefixdir.residents(qpid), "the cold spill")
+        fleet.fleet = dataclasses.replace(fleet.fleet, prefix_spill_idle_s=None)
+        tiered = Session(fleet, sufs[0], FL_BUDGET, pid=qpid)
+        tier_at = fleet._assigned.get(tiered.req)
+        tiered.join()
+        engines[tier_at].unregister_prefix(fleet.prefixdir.residents(qpid)[tier_at])
+        # prefix: registered on a, then routed onto its resident
+        cpid = fleet.register_prefix(prefix, engine="a")
+        routed = [Session(fleet, s, FL_BUDGET, prefix_tokens=prefix) for s in sufs]
+        route_at = [fleet._assigned.get(s.req) for s in routed]
+        for s in routed:
+            s.join()
+        # hot: past one hit it replicates onto the least-pressured peer
+        # through chunked prefill
+        fleet.fleet = dataclasses.replace(fleet.fleet, prefix_replicate_hits=1,
+                                          prefix_max_replicas=2)
+        wait_for(lambda: len(fleet.prefixdir.residents(cpid)) == 2, "the hot replication")
+        fleet.fleet = dataclasses.replace(fleet.fleet, prefix_replicate_hits=None)
+        replica = sorted(set(fleet.prefixdir.residents(cpid)) - {"a"})[0]
+        laps.lap("prefix")
+        # failover: c holds a live session, a parked one and a prefix-backed
+        # one; its loop dies at the tick head after the live one's
+        # FL_KILL_AT-th token, once the park settled
+        if "c" not in fleet.prefixdir.residents(cpid):
+            fleet.register_prefix(prefix, engine="c")
+        policy.pin = "c"
+        live = Session(fleet, prompts[0], FL_LONG)
+        parked = Session(fleet, prompts[1], FL_LONG, park_at=FL_PARK_AT, parker=c)
+        pref = Session(fleet, sufs[1], FL_LONG, prefix_tokens=prefix)
+        policy.pin = None
+        doomed = [live, parked, pref]
+        if any(fleet._assigned.get(s.req) != "c" for s in doomed):
+            raise AssertionError("fleet failover arm: a session was not placed on c")
+        armed = []
+        put = live.req.out.put
+
+        def arm_death(item):
+            # inside the live session's delivery, on c's loop thread: the
+            # next tick head records the ledger, beats, and dies
+            put(item)
+            if (not armed and live.req.delivered >= FL_KILL_AT and parked.req in c._parked
+                    and pref.req.delivered >= 2):
+                armed.append([s.req.delivered for s in doomed])
+                death.arm("engine_death")
+
+        live.req.out.put = arm_death
+        for s in doomed:
+            s.join()
+        if not armed:
+            raise AssertionError("fleet failover arm: the death was never armed")
+        wait_for(lambda: fleet.stats(include_engines=False)["failovers"] >= 1, "the failover")
+        laps.lap("failover")
+        # drain: b's sessions (pinned there) land on the best survivor
+        policy.pin = "b"
+        drained_s = [Session(fleet, prompts[j], FL_BUDGET) for j in (2, 3)]
+        policy.pin = None
+        t0 = time.perf_counter()
+        report = fleet.drain("b")
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        for s in drained_s:
+            s.join()
+        try:
+            b.submit(prompts[0])
+        except RuntimeError as exc:
+            if "draining" not in str(exc):
+                raise
+        else:
+            raise AssertionError("a drained member accepted a submit")
+        laps.lap("drain")
+        # export: one scrape of the registered fleet
+        col = ServingCollector()
+        col.register_fleet("fleet", fleet)
+        fams = list(col.collect())
+        col.unregister_fleet("fleet")
+        for eng in (a, b):
+            settle(eng)
+        fs = fleet.stats()
+        after = {name: eng.stats() for name, eng in engines.items()}
+        launches = _build.launches()
+        played = {name: eng.decode_graphs.replays - replays[name]
+                  for name, eng in engines.items()}
+    finally:
+        fl_mod.export_prefix, fl_mod.install_prefix = export_fn, install_fn
+        fleet.stop()
+    # every prefix still registered (the corpse's included) goes, then every
+    # pool and host tier must read free
+    for eng in engines.values():
+        for lid in list(eng._prefixes):
+            eng.unregister_prefix(lid)
+    for name, (eng, _, ptrs, captured) in E.items():
+        oc_held(eng, ptrs, captured, f"fleet {name}")
+        s = eng.stats()
+        if (s["kv_pool_free"] != s["kv_pool_blocks"] or s["parked_sessions"]
+                or s["active_slots"] or s["queued"] or s["admitting_slots"]
+                or s["swap_host_free"] != s["swap_host_blocks"]):
+            raise AssertionError(f"fleet {name}: not empty at the end: pool {s['kv_pool_free']} "
+                                 f"of {s['kv_pool_blocks']} free, host {s['swap_host_free']} of "
+                                 f"{s['swap_host_blocks']}, {s['parked_sessions']} parked, "
+                                 f"{s['active_slots']} live, {s['queued']} queued")
+    # streams: the route wave and the drained under the margin rule, the
+    # prefixed against their own plain references, the rebuilt teacher-forced
+    compared, ties = check_streams([s.toks for s in wave], wave_refs, "fleet route")
+    n2, t2 = check_streams([s.toks for s in drained_s], [wave_refs[2], wave_refs[3]],
+                           "fleet drain")
+    n3, t3 = check_streams([s.toks for s in routed + [tiered]], pre_refs, "fleet prefix")
+    compared, ties = compared + n2 + n3, ties + t2 + t3
+    held_forced = check_forced(forced, [(prompts[0], live.toks, armed[0][0]),
+                                        (prompts[1], parked.toks, armed[0][1]),
+                                        (full[1], pref.toks, armed[0][2])], "fleet failover")
+    # counters and health: two SUSPECT transitions, b's and c's on its way
+    # to DEAD
+    want = {"failovers": 1, "failover_sessions": 3, "failover_faulted": 0, "suspects": 2,
+            "prefix_replications": 1, "prefix_spills": 1, "dead_engines": 1,
+            "healthy_engines": 2, "draining_engines": 1, "postmortem_bundles": 1}
+    got = {k: fs[k] for k in want}
+    if got != want or fs["engine_states"] != {"a": "HEALTHY", "b": "HEALTHY", "c": "DEAD"}:
+        raise AssertionError(f"fleet counters {got}, states {fs['engine_states']}: the arms "
+                             f"imply {want}")
+    if route_at != ["a", "a"] or fs["prefix_routes"] != 4 or fs["prefix_installs"] < 1:
+        raise AssertionError(f"fleet prefix routes: {route_at}, prefix_routes "
+                             f"{fs['prefix_routes']}, installs {fs['prefix_installs']}")
+    if (report["faulted"], report["migrated"] + report["completed"]) != (0, 2):
+        raise AssertionError(f"fleet drain report {report}: two sessions owed, none faulted")
+    d = {name: {k: after[name][k] - before[name][k] for k in (
+        "decode_ticks", "paged_attn_kernel_ticks", "prefix_install_copies",
+        "prefix_tier_installs", "prefix_exports", "failover_prefix_reuses",
+        "migration_copies")} for name in engines}
+    if any(d[n]["prefix_install_copies"] or d[n]["migration_copies"] for n in engines):
+        raise AssertionError(f"fleet: staged copies beyond the contract: {d}")
+    reuses = sum(d[n]["failover_prefix_reuses"] for n in engines)
+    tails = [val for n in ("a", "b") for ev, _, val in E[n][1].events("fault_recompute")]
+    bundle = fleet.trace.bundles().get("c")
+    if not validate_bundle(bundle):
+        raise AssertionError("fleet: the corpse's post-mortem bundle is not valid")
+    # the prefix-backed session's cache length at death, from the corpse's
+    # ledger census: its rebuild recomputed exactly the positions past the
+    # prefix
+    (census,) = [e for e in bundle["ledger"] if e["jid"] == pref.req.jid]
+    tail = census["seq_len"] - PREFIX_LEN
+    if reuses != 1 or tail not in tails:
+        raise AssertionError(f"fleet failover: {reuses} prefix reuses, rebuilt tails {tails}; "
+                             f"expected one of {tail} positions")
+    journeys = fleet.trace.journeys()
+    doomed_j = [journeys[s.req.jid] for s in doomed]
+    if any([h["kind"] for h in j["hops"]] != ["route", "failover"] or not j["conserved"]
+           for j in doomed_j):
+        raise AssertionError("fleet failover journeys: "
+                             f"{[[h['kind'] for h in j['hops']] for j in doomed_j]}")
+    fleet_keys = (set(export.FLEET_COUNTERS) | set(export.FLEET_GAUGES)
+                  | export.FLEET_SPECIAL | export.FLEET_ALLOWLIST)
+    engine_keys = (set(export.COUNTERS) | set(export.GAUGES) | set(export.HIST_COUNTERS)
+                   | export.SPECIAL | export.ALLOWLIST)
+    missing = sorted(k for k in fs if k not in fleet_keys) + sorted(
+        {k for s in after.values() for k in s if k not in engine_keys})
+    names = [f.name for f in fams]
+    if missing or len(names) != len(set(names)) or not any(
+            n.startswith("vtpu_serving_fleet_") for n in names):
+        raise AssertionError(f"fleet export: unmapped keys {missing}, {len(names)} families "
+                             f"({len(set(names))} names)")
+    ticks = sum(d[n]["decode_ticks"] for n in engines)
+    others = {k: v for k, v in launches.items()
+              if k not in ("paged_decode_attention", "flash_attention") and v}
+    if (launches["paged_decode_attention"] != FLAGSHIP["n_layers"] * ticks or others
+            or launches["flash_attention"] <= 0):
+        raise AssertionError(f"fleet: launches {launches} over {ticks} decode ticks")
+    for name in engines:
+        if not (played[name] == d[name]["decode_ticks"] == d[name]["paged_attn_kernel_ticks"]):
+            raise AssertionError(f"fleet {name}: {played[name]} replays, "
+                                 f"{d[name]['decode_ticks']} decode ticks, "
+                                 f"{d[name]['paged_attn_kernel_ticks']} on the kernel route")
+    # figures: detection (c's last beat -> DEAD), rebuilds, the pauses
+    dead_ev = [e for e in fleet.trace.events() if e["event"] == "dead"]
+    detect_ms = ((dead_ev[0]["ts_ns"] - c._beat_ns) / 1e6) if dead_ev else None
+    pauses = [bo["ms"] for j in doomed_j for bo in j["blackouts"] if bo["ms"] is not None]
+    seconds = time.perf_counter() - t_phase
+    out = {"launches": launches, "placed": dict(placed), "prefix_routes_at": route_at,
+           "replica": replica, "tier_install_at": tier_at, "counters": d,
+           "fleet": {k: fs[k] for k in want}, "detect_ms": detect_ms, "rebuild_ms": rebuilds,
+           "pause_ms": pauses, "drain": {**report, "ms": drain_ms}, "prefix_moves": moves,
+           "replays": played, "compared_tokens": compared, "margin_cuts": ties,
+           "forced": held_forced, "tails": tails, "prefix_tail": tail, "seconds": seconds,
+           "laps_s": laps.s}
+    log(f"fleet route wave on {card}: {sum(placed.values())} requests placed {dict(placed)} by "
+        f"least pressure; prefix routes {route_at}, replicated onto {replica}, the spilled "
+        f"prefix installed from the host tier on {tier_at}")
+    log(f"fleet failover on {card}: detection {detect_ms:.1f} ms (c's last beat to DEAD), "
+        f"rebuild ms per session {[round(x, 2) for x in rebuilds]}, pause across the failover "
+        f"(last token on c to first on the survivor) ms {[round(x, 2) for x in pauses]}, "
+        f"tokens at death {armed[0]}, rebuilt tails {tails}")
+    for m in moves:
+        log(f"fleet prefix {m['op']} on {card}: {m['ms']:.2f} ms, {m['bytes']} bytes "
+            f"({m['bytes'] / (m['ms'] * 1e6):.2f} GB/s over the call)")
+    log(f"fleet drain on {card}: {drain_ms:.2f} ms, {report['migrated']} moved, "
+        f"{report['completed']} completed on the source")
+    log(f"fleet streams: {compared} tokens equal to the plain trunk, {ties} cut at a margin "
+        f"< {MARGIN}; rebuilt streams teacher-forced: {held_forced['held']} held, "
+        f"{held_forced['skipped']} skipped; counters {d}; launches {launches}; replays {played}")
+    log(f"fleet phase on {card}: {seconds:.1f} s; sub-steps, wall s: {laps.line()}")
+    return out
+
+
 # phase h's arms beyond the main path's waves (tp=2 only): 16-token waves
 # in the same world (TP_OPS_TAG on every tokens/s of a gloo world). Each
 # arm holds TP_HELD tokens at least against its plain trunk: it serves
@@ -5603,6 +6002,8 @@ def main() -> int:
     mark("disaggregation")
     runs["migration_path"] = migration_path(log, card, params, refs)
     mark("migration")
+    runs["fleet_path"] = fleet_path(log, card, params, refs)
+    mark("fleet")
     runs["study_path"] = study_path(gen, log)
     mark("study")
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one

@@ -8,7 +8,7 @@ text, scale, label) and the port adds only its own eleven keys; every key
 a port engine's ``stats()`` reports has a family, on the engines the
 reference's coverage test builds (paged, ``kv_swap``, chunked) and on a
 disaggregated and an MoE engine, where the key sets of the two packages'
-engines differ by exactly the port's keys and the prefix directory's;
+engines differ by exactly the port's keys;
 ``serving_families`` over a port engine and a JAX engine that served the
 same request: the same family names apart from the port's own, none
 twice, equal values for every counter that does not depend on timing, the
@@ -56,8 +56,6 @@ PORT_COUNTERS = ("flash_launches", "paged_attn_launches", "paged_attn_int8kv_lau
                  "paged_attn_tp_verify_launches", "paged_attn_int8kv_tp_verify_launches",
                  "decode_attn_launches", "decode_attn_int8kv_launches")
 PORT_KEYS = set(PORT_COUNTERS) | {"graphs_captured"}
-# the reference's keys of the prefix directory, a slice the port has not reached
-PREFIXDIR_KEYS = {"prefix_exports", "prefix_tier_installs", "failover_prefix_reuses"}
 # counters whose value depends on the host's timing (how many ticks ran
 # while an admission was pending, how many events the ring took), not on
 # what was served
@@ -151,8 +149,8 @@ def test_port_family_names_are_unique():
 def test_exporter_covers_every_stats_key(weights, case):
     """Every key a port engine's stats() reports maps to a family (the
     reference's coverage check), and its key set differs from the JAX
-    engine's of the same configuration by exactly the port's own keys and
-    the prefix directory's (not ported yet)."""
+    engine's of the same configuration by exactly the port's own keys (the
+    prefix directory's three keys are reported by both)."""
     jeng, eng = _engines(weights, case)
     try:
         keys, jkeys = set(eng.stats()), set(jeng.stats())
@@ -164,7 +162,7 @@ def test_exporter_covers_every_stats_key(weights, case):
     missing = sorted(k for k in keys if k not in mapped)
     assert not missing, f"stats() keys with no vtpu_serving_* family: {missing}"
     assert keys - jkeys == PORT_KEYS
-    assert jkeys - keys == PREFIXDIR_KEYS
+    assert jkeys - keys == set()
 
 
 # ---------------------------------------------------------------- families
@@ -208,10 +206,6 @@ def test_serving_families_shape(weights):
     tokens = fams["vtpu_serving_tokens_generated"]
     assert tokens.samples[0].labels["engine"] == "engine0" and tokens.samples[0].value == 4.0
     for key, (suffix, _) in jexport.COUNTERS.items():
-        if key in PREFIXDIR_KEYS:
-            # not reported by the port yet: the family, without a sample
-            assert not fams[jexport.PREFIX + suffix].samples
-            continue
         if key in TIMING_COUNTERS:
             continue
         got = [(s.labels, s.value) for s in fams[jexport.PREFIX + suffix].samples]

@@ -7,15 +7,21 @@ no device sync).
                retire) with derived per-request spans, JSONL export, a
                Chrome ``trace_event`` dump, and the ITL/TTFT/queue-wait
                reservoirs the engine's ``stats()`` percentiles read.
+- fleettrace.py: the fleet half: stitched cross-engine request journeys
+               (the token-conservation contract), the fleet control-event
+               ring, the dead engine's flight recorder and the merged
+               multi-engine Chrome dump.
 - tickprof.py: per-tick decode-loop phase attribution (admission, dispatch,
                fetch, deliver, swap drain) into bounded histograms: where
                ``host_ms_per_tick`` goes.
 - export.py:   the ``vtpu_serving_*`` Prometheus family set over
-               ``ServingEngine.stats()`` and the span/phase histograms; its
-               mapping tables import without ``prometheus_client``.
+               ``ServingEngine.stats()`` and the span/phase histograms, and
+               the ``vtpu_serving_fleet_*`` set over ``EngineFleet.stats()``;
+               its mapping tables import without ``prometheus_client``.
 - summary.py:  the one-line stdout summary a benchmark ends with.
 """
 
+from vtpu_torch.obs.fleettrace import FleetTrace
 from vtpu_torch.obs.summary import print_summary, summary_line
 from vtpu_torch.obs.tickprof import BoundedHistogram, TickProfiler
 from vtpu_torch.obs.trace import RequestTrace, pct
@@ -29,6 +35,7 @@ except ImportError:  # pragma: no cover
 
 __all__ = [
     "BoundedHistogram",
+    "FleetTrace",
     "RequestTrace",
     "ServingCollector",
     "TickProfiler",

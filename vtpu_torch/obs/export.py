@@ -14,7 +14,9 @@ neither mapped nor allowlisted. They carry the reference's entries
 unchanged, the keys of features the port has not reached included (a key
 an engine does not report skips its sample, the family is still
 emitted), plus the port's own: the kernel wrappers' launch counters and
-``graphs_captured``. The fleet's families come with the fleet.
+``graphs_captured``. The fleet half (``FLEET_*``, ``fleet_families``)
+maps every ``EngineFleet.stats()`` key to a ``vtpu_serving_fleet_*``
+family labelled by fleet name, the reference's entries unchanged.
 
 The tables import without ``prometheus_client``; building families needs
 it, and imports it at first use.
@@ -318,6 +320,242 @@ ALLOWLIST: set = {
 }
 
 
+# ------------------------------------------------------------------- fleet
+# EngineFleet.stats() keys -> vtpu_serving_fleet_* families, labelled by
+# fleet name. Same exhaustive-and-checkable discipline as the engine
+# tables: tests/test_obs.py walks a live fleet's stats() keys and fails on
+# any key that is neither mapped nor in FLEET_SPECIAL/FLEET_ALLOWLIST.
+FLEET_COUNTERS = {
+    "failovers": ("fleet_failovers",
+                  "DEAD engines failed over to survivors"),
+    "failover_sessions": ("fleet_failover_sessions",
+                          "Sessions rebuilt on survivors after an engine "
+                          "death"),
+    "failover_faulted": ("fleet_failover_faulted",
+                         "Sessions no survivor could rebuild (typed "
+                         "FAULTED terminals)"),
+    "reroutes": ("fleet_reroutes",
+                 "Submits retargeted off a draining/stopping engine"),
+    "rebalance_migrations": ("fleet_rebalance_migrations",
+                             "Background pool-pressure rebalancing "
+                             "migrations"),
+    "probe_misses": ("fleet_probe_misses",
+                     "Health probes counted as missed (ladder fuel)"),
+    "probes": ("fleet_probes", "Monitor probe rounds completed"),
+    "suspects": ("fleet_suspects",
+                 "HEALTHY->SUSPECT ladder transitions"),
+    "journeys_ended": ("fleet_journeys_ended",
+                       "Stitched request journeys closed at a terminal"),
+    "journeys_conserved": ("fleet_journeys_conserved",
+                           "Ended journeys whose per-hop token counts sum "
+                           "to exactly the delivered tokens (the stitch "
+                           "correctness contract; single-hop journeys "
+                           "count by construction — no seam to lose "
+                           "tokens at)"),
+    "journeys_truncated": ("fleet_journeys_truncated",
+                           "Ended multi-hop journeys whose stitch was "
+                           "voided by a wrapped engine trace ring"),
+    "fleet_trace_events_recorded": ("fleet_trace_events_recorded",
+                                    "Fleet control events recorded into "
+                                    "the bounded ring"),
+    "fleet_trace_events_dropped": ("fleet_trace_events_dropped",
+                                   "Fleet control events the bounded ring "
+                                   "overwrote"),
+    # fabric transport counters (vtpu/serving/fabric): summed over the
+    # fleet's HostClient channels, all-zero for an all-local fleet
+    "fabric_msgs_sent": ("fleet_fabric_msgs_sent",
+                         "Fabric messages sent to engine hosts"),
+    "fabric_msgs_recv": ("fleet_fabric_msgs_recv",
+                         "Fabric messages received from engine hosts"),
+    "fabric_bytes_sent": ("fleet_fabric_bytes_sent",
+                          "Fabric bytes sent (framing included)"),
+    "fabric_bytes_recv": ("fleet_fabric_bytes_recv",
+                          "Fabric bytes received (framing included)"),
+    "fabric_payload_bytes": ("fleet_fabric_payload_bytes",
+                             "Migration payload bytes moved across the "
+                             "fabric (the honest cross-host copy count — "
+                             "in-proc moves stay zero-copy)"),
+    "fabric_retries": ("fleet_fabric_retries",
+                       "Fabric ask retries (idempotent ops only)"),
+    "fabric_timeouts": ("fleet_fabric_timeouts",
+                        "Fabric asks that timed out (typed failures, "
+                        "never hangs)"),
+    "fabric_resends": ("fleet_fabric_resends",
+                       "Token-stream resend requests after a detected "
+                       "sequence gap"),
+    "fabric_checksum_faults": ("fleet_fabric_checksum_faults",
+                               "Payload chunks that failed their CRC32 "
+                               "(converted to recompute-on-fault)"),
+    # prefix gravity (vtpu/serving/prefixdir): the fleet-owned directory
+    "prefix_routes": ("fleet_prefix_routes",
+                      "Prefix submits placed on (or installed onto) a "
+                      "resident engine"),
+    "prefix_replications": ("fleet_prefix_replications",
+                            "Hot prefixes replicated to another engine by "
+                            "the gravity pass"),
+    "prefix_spills": ("fleet_prefix_spills",
+                      "Cold prefixes spilled to the shared host tier"),
+    "prefix_installs": ("fleet_prefix_installs",
+                        "Prefix installs served from the host tier or a "
+                        "donor engine"),
+    "prefix_directory_hits": ("fleet_prefix_directory_hits",
+                              "Directory-recorded prefix attach hits "
+                              "across the fleet"),
+    "prefix_directory_misses": ("fleet_prefix_directory_misses",
+                                "Prefix submits the directory could not "
+                                "place anywhere (full-prompt fallback)"),
+}
+# key -> (family suffix, help, scale) — same convention as engine GAUGES
+FLEET_GAUGES = {
+    "fleet_engines": ("fleet_engines", "Engines registered in the fleet",
+                      1),
+    "healthy_engines": ("fleet_healthy_engines",
+                        "Engines currently HEALTHY", 1),
+    "suspect_engines": ("fleet_suspect_engines",
+                        "Engines currently SUSPECT (deprioritized, never "
+                        "failed over)", 1),
+    "dead_engines": ("fleet_dead_engines",
+                     "Engines declared DEAD (fenced, failed over, "
+                     "reaped)", 1),
+    "draining_engines": ("fleet_draining_engines",
+                         "Engines with admission closed for a drain", 1),
+    "ledger_sessions": ("fleet_ledger_sessions",
+                        "Started sessions currently recorded in the "
+                        "recovery ledger", 1),
+    "journeys_open": ("fleet_journeys_open",
+                      "Stitched request journeys still in flight", 1),
+    "postmortem_bundles": ("fleet_postmortem_bundles",
+                           "Flight-recorder post-mortem bundles held "
+                           "(bounded set)", 1),
+    "failover_blackout_p50_ms": ("fleet_failover_blackout_p50_seconds",
+                                 "Failover blackout p50: last delivered "
+                                 "token on the corpse -> first on the "
+                                 "survivor", 1e-3),
+    "failover_blackout_p99_ms": ("fleet_failover_blackout_p99_seconds",
+                                 "Failover blackout p99", 1e-3),
+    "migration_blackout_p50_ms": ("fleet_migration_blackout_p50_seconds",
+                                  "Migration blackout p50: last token on "
+                                  "the source hop -> first on the "
+                                  "destination", 1e-3),
+    "migration_blackout_p99_ms": ("fleet_migration_blackout_p99_seconds",
+                                  "Migration blackout p99", 1e-3),
+    "rebuild_p50_ms": ("fleet_rebuild_p50_seconds",
+                       "Failover rebuild latency p50 (claim -> resumed "
+                       "on the survivor)", 1e-3),
+    "rebuild_p99_ms": ("fleet_rebuild_p99_seconds",
+                       "Failover rebuild latency p99", 1e-3),
+    "remote_engines": ("fleet_remote_engines",
+                       "Fleet members served across the fabric "
+                       "(RemoteEngine proxies)", 1),
+    "fabric_links_down": ("fleet_fabric_links_down",
+                          "HostClient links currently down (broken or "
+                          "closed channels)", 1),
+    "fabric_rtt_ms": ("fleet_fabric_rtt_seconds",
+                      "Mean fabric heartbeat round-trip EMA over "
+                      "connected hosts", 1e-3),
+    "fabric_gbps": ("fleet_fabric_gbps",
+                    "Mean measured fabric payload bandwidth (Gbit/s) "
+                    "over connected hosts", 1),
+    "prefix_pids": ("fleet_prefix_pids",
+                    "Distinct content prefixes the directory tracks", 1),
+    "prefix_resident_replicas": ("fleet_prefix_resident_replicas",
+                                 "Engine-resident prefix replicas summed "
+                                 "over pids", 1),
+    "prefix_host_tier": ("fleet_prefix_host_tier",
+                         "Prefixes held in the shared host tier", 1),
+    "prefix_live_refs": ("fleet_prefix_live_refs",
+                         "Live sessions currently attached to a directory "
+                         "prefix", 1),
+    "prefix_ms_per_token": ("fleet_prefix_seconds_per_token",
+                            "Measured per-token prefix build cost EMA "
+                            "(the route-bonus denominator)", 1e-3),
+}
+# handled specially (engine_states -> the per-engine health gauge below;
+# engines -> each engine's snapshot joins the ordinary vtpu_serving_*
+# families under a "fleet/engine" label)
+FLEET_SPECIAL = {"engine_states", "engines"}
+FLEET_ALLOWLIST: set = set()
+
+# engine_states values -> numeric health gauge (vtpu_serving_fleet_
+# engine_health{fleet, engine}): 1 healthy, 0.5 suspect, 0 dead — a
+# dashboard's sum() over engines reads as effective capacity.
+_HEALTH_VALUE = {"HEALTHY": 1.0, "SUSPECT": 0.5, "DEAD": 0.0}
+
+
+def fleet_families(fleets: dict[str, object]) -> Iterable:
+    """Yield the vtpu_serving_fleet_* families for *fleets*
+    ({fleet_name: EngineFleet-like}). Each family carries one sample per
+    fleet; per-engine health rides a (fleet, engine)-labelled gauge.
+    Member engines' OWN families come from the collect() sources path —
+    the flat-counters-only snapshot here avoids computing every member's
+    stats() twice per scrape."""
+    from prometheus_client.core import (
+        CounterMetricFamily,
+        GaugeMetricFamily,
+        HistogramMetricFamily,
+    )
+
+    snaps = {name: f.stats(include_engines=False)
+             for name, f in fleets.items()}
+    for key, (suffix, help_) in FLEET_COUNTERS.items():
+        fam = CounterMetricFamily(PREFIX + suffix, help_, labels=("fleet",))
+        for name, s in snaps.items():
+            v = s.get(key)
+            if v is not None:
+                fam.add_metric((name,), float(v))
+        yield fam
+    for key, (suffix, help_, scale) in FLEET_GAUGES.items():
+        fam = GaugeMetricFamily(PREFIX + suffix, help_, labels=("fleet",))
+        for name, s in snaps.items():
+            v = s.get(key)
+            if v is not None:
+                fam.add_metric((name,), float(v) * scale)
+        yield fam
+    fam = GaugeMetricFamily(
+        PREFIX + "fleet_engine_health",
+        "Per-engine supervision state (1 healthy, 0.5 suspect, 0 dead)",
+        labels=("fleet", "engine"))
+    for name, s in snaps.items():
+        for ename, state in sorted((s.get("engine_states") or {}).items()):
+            fam.add_metric((name, ename), _HEALTH_VALUE.get(state, 0.0))
+    yield fam
+    # stitched-SLO histogram families off each fleet's FleetTrace
+    # substrate (monotonic bucket counters, the trace.py span-hist
+    # convention): blackout windows by kind, rebuild latency, and the
+    # hops-per-request labelled counter
+    slo_hists = (
+        ("fleet_failover_blackout_seconds",
+         "Failover blackout: last delivered token on the corpse -> first "
+         "on the survivor", "failover_blackout_hist"),
+        ("fleet_migration_blackout_seconds",
+         "Migration blackout: last token on the source hop -> first on "
+         "the destination", "migration_blackout_hist"),
+        ("fleet_rebuild_seconds",
+         "Failover rebuild latency (claim -> resumed on the survivor)",
+         "rebuild_hist"),
+    )
+    for suffix, help_, attr in slo_hists:
+        fam = HistogramMetricFamily(PREFIX + suffix, help_,
+                                    labels=("fleet",))
+        for name, f in fleets.items():
+            hist = getattr(getattr(f, "trace", None), attr, None)
+            if hist is not None:
+                buckets, total = hist.prom_buckets()
+                fam.add_metric((name,), buckets, total)
+        yield fam
+    fam = CounterMetricFamily(
+        PREFIX + "fleet_journey_hops",
+        "Ended journeys by hop count (1 = the stream never moved)",
+        labels=("fleet", "hops"))
+    for name, f in fleets.items():
+        trace = getattr(f, "trace", None)
+        hops = trace.hops_snapshot() if trace is not None else {}
+        for n, count in sorted(hops.items()):
+            if count:
+                fam.add_metric((name, str(n)), float(count))
+    yield fam
+
+
 def _hist_family(name: str, help_: str, label: str, per_engine: dict):
     """ONE family carrying every engine's samples: a family per engine
     would repeat the family name once a second engine registers (an
@@ -407,13 +645,20 @@ def serving_families(sources: dict[str, object]) -> Iterable:
 
 
 class ServingCollector(Collector):
-    """A prometheus Collector over a registry of live engines. Register it
-    directly, or hand it to a monitor's collector (``serving=``) so one
-    scrape endpoint serves the device's and the engines' telemetry."""
+    """A prometheus Collector over a registry of live engines AND fleets.
+    Register it directly, or hand it to a monitor's collector
+    (``serving=``) so one scrape endpoint serves the device's and the
+    engines' telemetry. A registered fleet contributes twice: every member
+    engine joins the ordinary ``vtpu_serving_*`` families under an
+    ``engine="<fleet>/<name>"`` label, and the fleet-level counters and
+    gauges (failovers, reroutes, probe misses, health states) export as
+    ``vtpu_serving_fleet_*`` families under a ``fleet`` label."""
 
-    def __init__(self, engines: dict[str, object] | None = None):
+    def __init__(self, engines: dict[str, object] | None = None,
+                 fleets: dict[str, object] | None = None):
         self._lock = threading.Lock()
         self._engines: dict[str, object] = dict(engines or {})
+        self._fleets: dict[str, object] = dict(fleets or {})
 
     def register_engine(self, name: str, engine) -> None:
         with self._lock:
@@ -423,7 +668,21 @@ class ServingCollector(Collector):
         with self._lock:
             self._engines.pop(name, None)
 
+    def register_fleet(self, name: str, fleet) -> None:
+        with self._lock:
+            self._fleets[name] = fleet
+
+    def unregister_fleet(self, name: str) -> None:
+        with self._lock:
+            self._fleets.pop(name, None)
+
     def collect(self):
         with self._lock:
             sources = dict(self._engines)
+            fleets = dict(self._fleets)
+        for fname, fleet in fleets.items():
+            for ename, eng in fleet.engines.items():
+                sources[f"{fname}/{ename}"] = eng
         yield from serving_families(sources)
+        if fleets:
+            yield from fleet_families(fleets)

@@ -7,7 +7,9 @@ adapter from vtpu_torch.serving.adapters), with its failure domains
 one device, disaggregated prefill/decode (``ServingConfig(disagg=
 DisaggConfig(...))``, serving/disagg.py) and live migration between
 engines with drain (``migrate``, ``ServingEngine.drain``,
-serving/migrate.py)."""
+serving/migrate.py), and the engine fleet (``EngineFleet``: supervision,
+routing and failover, serving/fleet.py) with its content-addressed prefix
+directory (serving/prefixdir.py)."""
 
 from vtpu_torch.serving.adapters import TransformerSlotModel
 from vtpu_torch.serving.disagg import DisaggConfig
@@ -31,7 +33,20 @@ from vtpu_torch.serving.faults import (
     FaultSpec,
     WorkerDeath,
 )
+from vtpu_torch.serving.fleet import (
+    EngineFleet,
+    FleetConfig,
+    LeastPressureRoutePolicy,
+    RoutePolicy,
+    load_route_policy,
+)
 from vtpu_torch.serving.migrate import MigrationError, drain_engine, migrate
+from vtpu_torch.serving.prefixdir import (
+    PrefixDirectory,
+    export_prefix,
+    install_prefix,
+    prefix_id,
+)
 from vtpu_torch.serving.shed import (
     EngineSignals,
     PriorityDeadlineShedPolicy,
@@ -44,13 +59,18 @@ __all__ = [
     "BlockAllocator",
     "DisaggConfig",
     "EngineDeath",
+    "EngineFleet",
     "EngineSignals",
     "FaultInjected",
     "FaultPlan",
     "FaultSpec",
+    "FleetConfig",
+    "LeastPressureRoutePolicy",
     "MigrationError",
+    "PrefixDirectory",
     "PriorityDeadlineShedPolicy",
     "Request",
+    "RoutePolicy",
     "SEAMS",
     "ServingConfig",
     "ServingEngine",
@@ -63,8 +83,12 @@ __all__ = [
     "accepts_signals",
     "batched_decode_step",
     "drain_engine",
+    "export_prefix",
+    "install_prefix",
+    "load_route_policy",
     "load_shed_policy",
     "migrate",
     "prefill_into_slot",
     "prefill_into_slots",
+    "prefix_id",
 ]

@@ -94,7 +94,7 @@ import logging
 import queue
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -440,6 +440,9 @@ class Request:
     # past it the request ends SHED_DEADLINE at the next tick head
     deadline_ns: Optional[int] = None
     rid: int = -1  # engine-unique id assigned by submit()
+    # fleet journey id, stamped by EngineFleet.submit() and kept across
+    # engines (the rid is fresh on each); -1 outside a fleet
+    jid: int = -1
     t_submit_ns: int = 0
     t_depart_ns: int = 0  # left the waiting line (admitted)
     out: "queue.Queue" = dataclasses.field(default_factory=queue.Queue)
@@ -1040,6 +1043,10 @@ class ServingEngine:
         # leading blocks of each slot's table row that are shared prefix
         # mappings (their refcounts are held elsewhere too)
         self._slot_shared = [0] * b
+        # the prefix those shares came from, as (content pid, prefix
+        # length): it follows the blocks through park and resume, so a fleet
+        # directory's refcounts and a failover rebuild can name it
+        self._slot_pid: list[Optional[tuple[str, int]]] = [None] * b
         # slots mid-chunked-admission: slot -> {req, padded, n, off, base};
         # the loop advances one chunk per slot a pass, between decode ticks
         self._admitting: dict[int, dict] = {}
@@ -1051,6 +1058,14 @@ class ServingEngine:
         self._prefixes: dict[int, dict] = {}
         self._prefix_lock = threading.Lock()
         self._next_prefix_id = 0
+        # content-addressed index over the registry (prefixdir.prefix_id of
+        # the tokens -> local id): a fleet install is idempotent on it, and a
+        # failover rebuild finds the same prompt without the dead engine's ids
+        self._pid_index: dict[str, int] = {}
+        # a fleet's prefix directory listener (serving/prefixdir.py): told
+        # of every register, unregister, hit (a share) and release; None
+        # outside a fleet
+        self._prefix_listener: Optional[Callable] = None
         # paged prefix builds write the pool, so they run on the loop
         # thread: register_prefix parks a work item here and waits
         self._prefix_work: "queue.Queue[dict]" = queue.Queue()
@@ -1082,6 +1097,11 @@ class ServingEngine:
             # pool blocks mapped read-only, cow copies the boundary blocks
             "prefix_hits": 0, "prefix_misses": 0, "prefix_install_copies": 0,
             "prefix_blocks_shared": 0, "prefix_cow_copies": 0,
+            # whole prefixes moved between engines and a fleet's host tier
+            # (the staged D2H export, the staged H2D install), and failover
+            # rebuilds that shared a resident prefix instead of recomputing
+            # its positions (serving/prefixdir.py)
+            "prefix_exports": 0, "prefix_tier_installs": 0, "failover_prefix_reuses": 0,
             "faulted_requests": 0,
             "prefill_batch_hist": [0] * (max(self._admit_sizes) + 1),
             # decode ticks dispatched while the previous tick was in flight
@@ -1266,6 +1286,10 @@ class ServingEngine:
         # exited without its cleanup
         self._beat_ns = 0
         self._died = False
+        # a fleet's session-ledger hook (serving/fleet.py), called with the
+        # engine at every tick head on the loop thread, the one writer of
+        # the slots, the parked set and the histories; None outside a fleet
+        self._ledger_hook: Optional[Callable] = None
 
     def _init_swap_tier(self, serving: ServingConfig) -> None:
         """Overcommit state (``kv_swap``): the lifecycle queue of park and
@@ -1431,10 +1455,19 @@ class ServingEngine:
                 entry = self._build_prefix_paged(padded, n)
         else:
             entry = self._build_prefix_dense(padded, n)
+        # the content address a fleet's directory names the prefix by:
+        # the same tokens registered on any engine are one entry there
+        from vtpu_torch.serving.prefixdir import prefix_id
+
+        entry["pid"] = cpid = prefix_id(tokens)
         with self._prefix_lock:
             pid = self._next_prefix_id
             self._next_prefix_id += 1
             self._prefixes[pid] = entry
+            self._pid_index[cpid] = pid
+        if self._prefix_listener is not None:
+            self._prefix_listener("register", cpid, lid=pid, tokens=entry["tokens"], length=n,
+                                  build_ms=entry["build_ms"])
         return pid
 
     def _build_prefix_paged(self, padded: torch.Tensor, n: int) -> dict:
@@ -1451,6 +1484,7 @@ class ServingEngine:
             raise RuntimeError(f"kv pool exhausted: prefix needs {pages} blocks, "
                                f"{self._alloc.free_blocks} free")
         c = self._chunk
+        t0 = time.perf_counter()
         try:
             for off in range(0, pad, c):
                 kv_bucket = self._chunk_bucket(off + c)
@@ -1466,18 +1500,30 @@ class ServingEngine:
             self._alloc.release(blocks)  # no entry will ever reference them
             raise
         return {"blocks": blocks, "len": n, "pad": pad, "last_logits": last,
-                "tokens": padded[0, :n].tolist()}
+                "tokens": padded[0, :n].tolist(), "build_ms": self._build_ms(t0)}
+
+    def _build_ms(self, t0: float) -> float:
+        """Wall ms of a prefix build begun at ``t0``, its device work
+        included: the per-token prefill cost a fleet's route bonus is
+        priced from. On a card the host waits once for an event recorded
+        after the build (an event wait, not a stream sync)."""
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        return (time.perf_counter() - t0) * 1e3
 
     def _build_prefix_dense(self, padded: torch.Tensor, n: int) -> dict:
         """The adapter chunk-prefills a prefix into a one-row cache of its
         own (never the serving state, so any thread may build) and keeps its
         padded length's KV under the entry's ``buf`` key."""
         c, pad = self._chunk, padded.shape[1]
+        t0 = time.perf_counter()
         key, last = self.model.build_prefix(
             self.params, self.state, self._upload(padded, torch.int32), n, c,
             [self._chunk_bucket(off + c) for off in range(0, pad, c)])
         return {"buf": key, "len": n, "pad": pad, "last_logits": last,
-                "tokens": padded[0, :n].tolist()}
+                "tokens": padded[0, :n].tolist(), "build_ms": self._build_ms(t0)}
 
     def _drain_prefix_work(self) -> None:
         """Run queued paged prefix builds on the loop thread, the pool's
@@ -1506,10 +1552,15 @@ class ServingEngine:
             entry = self._prefixes.pop(pid, None)
             if entry is None:
                 raise ValueError(f"unknown prefix id {pid}")
+            cpid = entry.get("pid")
+            if cpid is not None and self._pid_index.get(cpid) == pid:
+                del self._pid_index[cpid]
             if self._paged:
                 self._alloc.release(entry["blocks"])
             else:
                 self.model.drop_prefix(self.state, entry["buf"])
+        if cpid is not None and self._prefix_listener is not None:
+            self._prefix_listener("unregister", cpid, lid=pid)
 
     def submit(self, tokens, max_new_tokens: int = 0, prefix: Optional[int] = None,
                priority: int = 0, deadline_ms: Optional[float] = None) -> Request:
@@ -1891,7 +1942,7 @@ class ServingEngine:
                 kind, item = self._lifecycle_q.get_nowait()
             except queue.Empty:
                 break
-            if kind in ("migrate_out", "migrate_in"):
+            if kind in ("migrate_out", "migrate_in", "prefix_out", "prefix_in"):
                 item.fail(RuntimeError("engine stopped mid-migration"))
 
     def _retire(self, slot: int, status: Optional[str] = None) -> None:
@@ -1915,6 +1966,11 @@ class ServingEngine:
         if self._paged and self._slot_blocks[slot]:
             self._alloc.release(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
+        if self._slot_pid[slot] is not None:
+            if self._slot_shared[slot] and self._prefix_listener is not None:
+                # the directory's live refcount follows the allocator's
+                self._prefix_listener("release", self._slot_pid[slot][0])
+            self._slot_pid[slot] = None
         self._slot_shared[slot] = 0
 
     def _contain_fault(self, slot: int) -> None:
@@ -2128,6 +2184,8 @@ class ServingEngine:
         if e["shared"]:
             self._alloc.release(e["shared"])
             e["shared"] = []
+            if e.get("pid") is not None and self._prefix_listener is not None:
+                self._prefix_listener("release", e["pid"])
         if e["priv"]:
             self._alloc.release(e["priv"])
             e["priv"] = []
@@ -2160,6 +2218,7 @@ class ServingEngine:
         blocks = self._slot_blocks[slot]
         n = self._slot_len[slot]
         exact = self._slot_hist_exact[slot]
+        spid = self._slot_pid[slot]
         self._parked[req] = {
             "req": req, "tokens": list(self._history[slot][:-1]),
             "pending": self._history[slot][-1], "budget": self._slot_budget[slot],
@@ -2168,13 +2227,19 @@ class ServingEngine:
             "priv": blocks[nshared:],    # this session's own KV: evictable
             "host": None, "pend": None, "dropped": False,
             "recompute_ok": self._can_recompute(n) and exact, "hist_exact": exact,
-            "priority": req.priority, "seq": self._park_seq}
+            "priority": req.priority, "seq": self._park_seq,
+            # the prefix identity rides the park (its holds move to the
+            # entry, no release): a rebuild elsewhere can share the same
+            # content pid instead of recomputing its positions
+            "pid": spid[0] if spid is not None else None,
+            "prefix_len": spid[1] if spid is not None else 0}
         self._park_seq += 1
         self._slot_req[slot] = None
         self._slot_budget[slot] = 0
         self._slot_len[slot] = 0
         self._slot_blocks[slot] = []
         self._slot_shared[slot] = 0
+        self._slot_pid[slot] = None
         self._history[slot] = []
         self._slot_hist_exact[slot] = True
         self._itl_last[slot] = None
@@ -2200,6 +2265,13 @@ class ServingEngine:
                 from vtpu_torch.serving.migrate import handle_migrate_command
 
                 handle_migrate_command(self, kind, req)
+                continue
+            if kind in ("prefix_out", "prefix_in"):
+                # a whole prefix's export or install (serving/prefixdir.py),
+                # on the loop thread for the same reasons
+                from vtpu_torch.serving.prefixdir import handle_prefix_command
+
+                handle_prefix_command(self, kind, req)
                 continue
             if kind == "park":
                 if req in self._parked and req in self._want_resume:
@@ -2354,6 +2426,9 @@ class ServingEngine:
         blocks = e["shared"] + e["priv"]
         self._slot_blocks[slot] = blocks
         self._slot_shared[slot] = len(e["shared"])
+        if e.get("pid") is not None and e["shared"]:
+            # the entry's prefix holds move back onto the slot
+            self._slot_pid[slot] = (e["pid"], e["prefix_len"])
         e["shared"], e["priv"] = [], []
         self._set_row(slot, blocks, e["seq_len"])
         self._restore_slot(slot, e)
@@ -2388,6 +2463,14 @@ class ServingEngine:
         req = e["req"]
         n = e["seq_len"]
         need = e["n_pages"]
+        if not e["shared"]:
+            # a payload-less entry whose content pid is registered here
+            # shares the prefix's blocks and recomputes only its private
+            # tail (an entry still holding shares, a local eviction's park,
+            # releases them and recomputes everything below)
+            got = self._try_prefix_reuse(slot, e)
+            if got is not None:
+                return got
         priv = self._alloc_reclaim(need, exclude=req)
         if priv is None:
             self._stats["pool_blocked_resumes"] += 1
@@ -2412,6 +2495,70 @@ class ServingEngine:
             "req": req, "padded": pad_to_chunks(toks, n, self._chunk), "n": n, "off": 0,
             "base": 0, "resume": {"req": req, "pending": e["pending"], "budget": e["budget"],
                                   "seq_len": n, "tokens": toks}}
+        del self._parked[req]
+        self._stats["resumes"] += 1
+        return True
+
+    def _try_prefix_reuse(self, slot: int, e: dict) -> Optional[bool]:
+        """Rebuild a payload-less entry around a prefix registered here
+        under its content pid: share the registry's whole pages (copying
+        the partial boundary page on write, as an admission does) and
+        chunk-prefill only the private tail: a failover survivor serves a
+        shared system prompt without recomputing its positions. None falls
+        through to the whole-sequence rebuild (pid not resident here, tokens
+        diverged, inexact history, no chunked prefill); False when the pool
+        cannot cover the tail yet (the entry stays parked and is retried at
+        the next tick head); True once the rebuild is under way."""
+        pid = e.get("pid")
+        plen = int(e.get("prefix_len") or 0)
+        if pid is None or plen <= 0 or not self._chunk or not e.get("hist_exact", True):
+            return None
+        req, n, need = e["req"], e["seq_len"], e["n_pages"]
+        full = plen // self._page
+        if plen > n or full == 0 or need <= full:
+            return None
+        toks = e["tokens"]
+        with self._prefix_lock:
+            lid = self._pid_index.get(pid)
+            entry = self._prefixes.get(lid) if lid is not None else None
+            if entry is None or entry["len"] != plen or entry["tokens"] != list(toks[:plen]):
+                return None
+            priv = self._alloc_reclaim(need - full, exclude=req)
+            if priv is None:
+                self._stats["pool_blocked_resumes"] += 1
+                return False
+            shared = list(entry["blocks"][:full])
+            self._alloc.share(shared)
+            self._stats["prefix_blocks_shared"] += len(shared)
+            if plen % self._page:
+                # the boundary page: logical page `full` is priv[0]
+                self.state = self.model.copy_blocks(self.state, [entry["blocks"][full]],
+                                                    [priv[0]])
+                self._stats["prefix_cow_copies"] += 1
+        blocks = shared + priv
+        self._slot_blocks[slot] = blocks
+        self._slot_shared[slot] = len(shared)
+        self._slot_pid[slot] = (pid, plen)
+        self._set_row(slot, blocks, plen)
+        self._release_parked(e)  # host pages left unread (it holds nothing else)
+        ns = n - plen
+        self._stats["swap_faults"] += 1
+        self._stats["fault_recomputes"] += 1
+        self._stats["failover_prefix_reuses"] += 1
+        self._stats["prefix_hits"] += 1
+        if self._prefix_listener is not None:
+            self._prefix_listener("hit", pid)
+        # val: the tail length, the prefix's positions shared, not rebuilt
+        self.trace.record("fault_recompute", req.rid, slot, ns)
+        if ns == 0:
+            # the whole cache was the prefix: nothing to rebuild
+            self._restore_slot(slot, e)
+            return True
+        self._admitting[slot] = {
+            "req": req, "padded": pad_to_chunks(toks[plen:], ns, self._chunk), "n": n,
+            "off": 0, "base": plen,
+            "resume": {"req": req, "pending": e["pending"], "budget": e["budget"],
+                       "seq_len": n, "tokens": toks}}
         del self._parked[req]
         self._stats["resumes"] += 1
         return True
@@ -2501,6 +2648,12 @@ class ServingEngine:
             ok = self._reserve_paged_locked(slot, req, entry)
         if ok:
             self._stats["prefix_hits"] += 1  # a paged hit is the share itself
+            if entry.get("pid") is not None:
+                self._slot_pid[slot] = (entry["pid"], entry["len"])
+                # a sub-page prefix shares no block, so it takes no ref the
+                # release would drop
+                if self._slot_shared[slot] and self._prefix_listener is not None:
+                    self._prefix_listener("hit", entry["pid"])
         return ok
 
     def _reserve_plan(self, req: Request, entry: Optional[dict]) -> tuple[int, int, int, int]:
@@ -3064,9 +3217,10 @@ class ServingEngine:
                 self._drain_all()
 
     def _tick_head(self) -> bool:
-        """Stamp the heartbeat (then the engine_death seam), run queued
-        paged prefix builds, drain submissions into the waiting line, shed
-        requests past their deadlines; under overcommit apply park and
+        """Call a fleet's ledger hook, stamp the heartbeat (then the
+        engine_death seam), run queued paged prefix builds, drain
+        submissions into the waiting line, shed requests past their
+        deadlines; under overcommit apply park and
         resume commands and retire finished swap-outs (no wait: the
         swap_drain phase); advance chunked admissions and rebuilds, bring
         resumed sessions back, then admit into free slots, all under one
@@ -3080,6 +3234,16 @@ class ServingEngine:
         free slots in place of admitting. Returns whether anything was
         admitted or installed."""
         t0 = time.perf_counter()
+        # a fleet's supervision, in the order ledger, heartbeat, death: the
+        # ledger records every session as of the last delivery (a dispatch
+        # in flight dies with a crash and its rebuild regenerates it), so at
+        # the seam's death the ledger is as fresh as the client's stream
+        hook = self._ledger_hook
+        if hook is not None:
+            try:
+                hook(self)
+            except Exception:  # a fleet's fault must not end the loop
+                log.exception("session-ledger hook raised; continuing")
         self._beat_ns = time.monotonic_ns()
         if self._fire_fault("engine_death"):
             self._died = True

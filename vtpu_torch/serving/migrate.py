@@ -427,9 +427,9 @@ def _do_migrate_out(eng, ticket: _Ticket) -> None:
         "n_pages": e["n_pages"],
         "hist_exact": bool(e.get("hist_exact", True)),
         "priority": e["priority"],
-        # content-addressed prefix identity: none in the port yet (the
-        # prefix directory is a later slice), so a destination never
-        # re-shares a resident replica and rebuilds every position
+        # the content-addressed prefix the session rides: a destination
+        # holding the same pid rebuilds a payload-less session around it,
+        # recomputing only the tail (ServingEngine._try_prefix_reuse)
         "pid": e.get("pid"),
         "prefix_len": int(e.get("prefix_len") or 0),
     }
