@@ -254,6 +254,30 @@ Phases, any failure exits nonzero:
       tables. Printed: detection ms (c's last beat to DEAD), rebuild ms per
       session, the pause across the failover, each prefix export and
       install's ms and bytes, the drain's ms, and the phase's seconds;
+   p. the fabric (run after o): members of one EngineFleet in other
+      processes. A child engine host is spawned first (spawn_host: a fresh
+      interpreter serving the flagship from the same seed on the card,
+      phase o's serving config, its decode throttled by delayed_fetch at
+      FB_THROTTLE_S a fetch) and dialed over TCP as r1 (host "h0"); then an
+      in-proc EngineHost over a loopback link serves a flagship engine as
+      r0, beside a local engine l. p1 (pinned to r0): the wave's six
+      prompts at 32 tokens through the proxy; a session migrated r0 -> l
+      and back; a 512-token prefix exported from l and installed on r0
+      over the wire, a suffix streamed there. p2: a session migrated l ->
+      r1 and back over TCP; a stream pinned to r1, the child SIGKILLed
+      after its FB_KILL_AT-th token, the stream finished on l. Held: every
+      stream against the plain trunk (the rebuilt one teacher-forced),
+      flash launches = 12 x r0's admission dispatches and paged launches =
+      12 x its decode ticks as r0's stats() report them over the wire, the
+      child's launch counts nonzero in r1's stats(), every migration
+      resident, migration_copies and prefix_install_copies 0,
+      fabric_checksum_faults 0, the child's exit by SIGKILL,
+      fabric_links_down 1, the failed-over journey's hops tagged h0 then
+      local, no graph captured and no state tensor moved in this process,
+      every pool free. Printed: spawn to port line and to first beat, each
+      link's RTT EMA, each migration's and the prefix install's bytes, ms
+      and GB/s, detection (r1's last beat to DEAD), the pause across the
+      failover, and the phase's seconds;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -4729,15 +4753,18 @@ FL_SUFFIXES = (96, 160)
 FL_QUEUE_SLOT_MS = 1.0
 
 
+# the flagship's serving config of the fleet phases: the main path's
+# (pipelined on graphs, paged, slots 4, the 1024 bucket) with kv_swap and
+# prefill_chunk set
+FL_SERVING = dict(slots=4, prefill_buckets=(1024,), kv_page=128, prefill_chunk=CHUNK,
+                  max_new_tokens=FL_LONG, kv_swap=FL_HOST)
+
+
 def fl_serving(**kw):
-    """The flagship's serving config of the fleet phase: the main path's
-    (pipelined on graphs, paged, slots 4, the 1024 bucket) with kv_swap
-    and prefill_chunk set, and ``kw``."""
+    """FL_SERVING as a ServingConfig, with ``kw``."""
     from vtpu_torch.serving import ServingConfig
 
-    return ServingConfig(**{**dict(slots=4, prefill_buckets=(1024,), kv_page=128,
-                                   prefill_chunk=CHUNK, max_new_tokens=FL_LONG,
-                                   kv_swap=FL_HOST), **kw})
+    return ServingConfig(**{**FL_SERVING, **kw})
 
 
 class SteerPolicy:
@@ -5085,6 +5112,340 @@ def fleet_path(log, card: str, params, refs: dict) -> dict:
         f"< {MARGIN}; rebuilt streams teacher-forced: {held_forced['held']} held, "
         f"{held_forced['skipped']} skipped; counters {d}; launches {launches}; replays {played}")
     log(f"fleet phase on {card}: {seconds:.1f} s; sub-steps, wall s: {laps.line()}")
+    return out
+
+
+# phase p, the fabric: the child's decode stalls FB_THROTTLE_S a fetch (so a
+# SIGKILL lands mid-stream: its token rate is no speed figure), and is
+# killed once the stream pinned to it has delivered FB_KILL_AT tokens
+FB_THROTTLE_S = 0.01
+FB_KILL_AT = 3
+FB_SPAWN_TIMEOUT_S = 120.0
+
+
+def hook_submits(eng, action_for):
+    """Run ``action_for(req)`` on every request ``eng.submit`` queues, before
+    the loop can see it (the engine's pending queue's put is wrapped): a
+    hook installed there races no delivery. Returns the unhook function."""
+    put = eng._pending.put
+
+    def hooked(req, *a, **kw):
+        action_for(req)
+        return put(req, *a, **kw)
+
+    eng._pending.put = hooked
+
+    def unhook():
+        eng._pending.put = put
+
+    return unhook
+
+
+def on_loop_token(req, eng, n: int, action) -> None:
+    """on_token counting only the tokens ``eng``'s loop thread puts on
+    ``req``'s stream (a migrated stream is fed by several engines, a fabric
+    proxy's from its receive thread)."""
+    put, seen = req.out.put, [0]
+
+    def hook(item):
+        put(item)
+        if isinstance(item, int) and threading.current_thread() is eng._thread:
+            seen[0] += 1
+            if seen[0] == n:
+                action()
+
+    req.out.put = hook
+
+
+def fabric_path(log, card: str, params, refs: dict) -> dict:
+    """The fabric at the flagship's full width and depth, bf16, on the
+    pipelined loop on graphs: a spawned child engine host on the card over
+    TCP (r1, host h0), an in-proc EngineHost over a loopback link (r0) and a
+    local engine (l), behind one EngineFleet. See phase p in the module
+    docstring for the arms, what is held and what is printed."""
+    import os
+    import signal
+
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.ops import _build
+    from vtpu_torch.serving import (
+        EngineFleet,
+        EngineHost,
+        FleetConfig,
+        connect_host,
+        export_prefix,
+        install_prefix,
+        loopback_pair,
+        spawn_host,
+        tcp_connect,
+    )
+
+    t_phase = time.perf_counter()
+    laps = Laps()
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    forced = forced_trunk(params, plain)
+    prompts = wave_prompts(cfg.vocab)
+    wave_refs = refs["bf16"]
+    prefix, sufs, _ = fl_prompts(cfg.vocab)
+    pre_ref = reference_stream(params, plain, np.concatenate([prefix, sufs[0]]), FL_BUDGET)
+    laps.lap("references")
+    # p2's child first, alone on the host's side of the card: its start-up
+    # (interpreter, CUDA context, the seeded weights, graph capture) is timed
+    # without this process competing
+    spec = {"model": {**FLAGSHIP, "dtype": "bfloat16", "use_kernels": True}, "seed": SEED,
+            "device": "cuda",
+            "engines": {"r1": {**FL_SERVING, "prefill_buckets": list(FL_SERVING[
+                "prefill_buckets"]), "faults": [dict(seam="delayed_fetch", at=0, count=10 ** 6,
+                                                     arg=FB_THROTTLE_S)]}}}
+    t0 = time.perf_counter()
+    proc, port = spawn_host(spec, timeout=FB_SPAWN_TIMEOUT_S)
+    fleet = tcp_client = lo_client = srv = None
+    E: dict = {}
+    try:
+        spawn_ms = (time.perf_counter() - t0) * 1e3
+        tcp_client, tcp_engines = connect_host(tcp_connect("127.0.0.1", port), host="h0",
+                                               proc=proc)
+        r1 = tcp_engines["r1"]
+        while r1._beat_ns == 0:
+            if time.perf_counter() - t0 > FB_SPAWN_TIMEOUT_S:
+                raise AssertionError("the child's engine never beat")
+            time.sleep(0.001)
+        beat_ms = (time.perf_counter() - t0) * 1e3
+        laps.lap("spawn")
+        E = {"h": oc_engine(params, cfg, fl_serving()), "l": oc_engine(params, cfg, fl_serving())}
+        h, l = E["h"][0], E["l"][0]
+        h.start()
+        srv = EngineHost({"r0": h})
+        a, b, _ = loopback_pair(delay_s=0.0)
+        threading.Thread(target=srv.serve_channel, args=(b,), daemon=True).start()
+        lo_client, lo_engines = connect_host(a, host="loopback")
+        r0 = lo_engines["r0"]
+        policy = SteerPolicy()
+        policy.pin = "r0"
+        fleet = EngineFleet({"r0": r0, "r1": r1, "l": l}, FleetConfig(route_policy=policy))
+        fleet.start()
+
+        def join(sess, what):
+            """Session.join with a short hang guard that says where the
+            stream stands."""
+            with sess.cond:
+                if not sess.cond.wait_for(lambda: sess.ended, timeout=60):
+                    fs_ = fleet.stats()
+                    raise AssertionError(
+                        f"fabric {what}: the stream holds {len(sess.toks)} tokens after 60 s "
+                        f"(status {sess.req.status}, placed on "
+                        f"{fleet._assigned.get(sess.req)}); states {fs_['engine_states']}; "
+                        + "; ".join(f"{n}: live {st['active_slots']}, parked "
+                                    f"{st['parked_sessions']}, migrations in/out "
+                                    f"{st['migrations_in']}/{st['migrations_out']}"
+                                    for n, st in fs_["engines"].items()))
+            return sess.join()
+        while r0._beat_ns == 0:
+            time.sleep(0.001)
+        laps.lap("build")
+        _build.reset_launches()
+        before = {"h": r0.stats(), "l": l.stats()}
+        replays = {name: e[0].decode_graphs.replays for name, e in E.items()}
+        # p1 route: the wave through the proxy r0
+        wave = [Session(fleet, p, FL_BUDGET) for p in prompts]
+        for s in wave:
+            join(s, "route wave")
+        settle(h)
+        wave_stats = r0.stats()
+        laps.lap("p1 route")
+        # p1 migrate: a stream on r0 parks inside its FL_PARK_AT-th token on
+        # h's loop (held there until the park is asked), moves to l, parks
+        # inside its FL_PARK_AT-th token on l and moves back
+        held1, held2 = threading.Event(), threading.Event()
+        mirrors = []
+
+        def hold_mirror(req):
+            mirrors.append(req)
+            on_token(req, FL_PARK_AT, hold_loop(held1, lambda: park_asked(h, req)))
+
+        unhook = hook_submits(h, hold_mirror)
+        m = Session(fleet, prompts[0], FL_LONG)
+        unhook()
+        on_loop_token(m.req, l, FL_PARK_AT, hold_loop(held2, lambda: park_asked(l, m.req)))
+        if not held1.wait(120):
+            raise AssertionError("fabric: r0's loop was not held within 120 s")
+        lo_moves = [fleet.migrate_session(m.req, "l")]
+        if not held2.wait(120):
+            raise AssertionError("fabric: l's loop was not held within 120 s")
+        lo_moves.append(fleet.migrate_session(m.req, "r0"))
+        join(m, f"loopback migration {[r['path'] for r in lo_moves]}")
+        laps.lap("p1 migrate")
+        # p1 prefix: registered on l, exported there, installed on r0 over
+        # the wire, a suffix streamed through the proxy
+        lid = l.register_prefix(prefix)
+        t0 = time.perf_counter()
+        meta, payload = export_prefix(l, lid)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        pre_bytes = sum(x.numel() * x.element_size() for x in payload.values())
+        t0 = time.perf_counter()
+        inst = install_prefix(r0, meta, payload)
+        install_ms = (time.perf_counter() - t0) * 1e3
+        pre = Session(r0, sufs[0], FL_BUDGET, prefix=inst["lid"])
+        join(pre, "prefix")
+        l.unregister_prefix(lid)
+        r0.unregister_prefix(inst["lid"])
+        laps.lap("p1 prefix")
+        # p2 migrate: l -> r1 -> l over TCP, the park on l held as above;
+        # the child's throttled decode keeps the stream live on r1
+        held3 = threading.Event()
+        policy.pin = "l"
+        unhook = hook_submits(l, lambda req: on_token(
+            req, FL_PARK_AT, hold_loop(held3, lambda: park_asked(l, req))))
+        z = Session(fleet, prompts[1], FL_LONG)
+        unhook()
+        if not held3.wait(120):
+            raise AssertionError("fabric: l's loop was not held within 120 s")
+        tcp_moves = [fleet.migrate_session(z.req, "r1")]
+        log(f"fabric: l -> r1 {tcp_moves[0]}, {len(z.toks)} tokens")
+        tcp_moves.append(fleet.migrate_session(z.req, "l"))
+        log(f"fabric: r1 -> l {tcp_moves[1]}, {len(z.toks)} tokens")
+        join(z, f"TCP migration {[r['path'] for r in tcp_moves]}")
+        laps.lap("p2 migrate")
+        # p2 kill: a stream pinned to r1, the child SIGKILLed after
+        # FB_KILL_AT tokens; the fleet fails it over onto l
+        policy.pin = "r1"
+        k = Session(fleet, prompts[2], FL_LONG)
+        k.wait_tokens(FB_KILL_AT)
+        child = r1.stats()
+        policy.pin = "l"
+        rate = (len(k.toks) - 1) / (k.times[-1] - k.times[0]) if len(k.toks) > 1 else None
+        at_kill = k.req.delivered
+        os.kill(proc.pid, signal.SIGKILL)
+        rc = proc.wait(timeout=30)
+        join(k, "failover")
+        wait_s = time.perf_counter()
+        while not fleet.trace.journeys()[k.req.jid]["ended"]:
+            if time.perf_counter() - wait_s > 60:
+                raise AssertionError("fabric: the failed-over journey did not close")
+            time.sleep(0.002)
+        laps.lap("p2 kill")
+        settle(h)
+        settle(l)
+        fs = fleet.stats(include_engines=False)
+        after = {"h": r0.stats(), "l": l.stats()}
+        launches = _build.launches()
+        played = {name: e[0].decode_graphs.replays - replays[name] for name, e in E.items()}
+        journeys = fleet.trace.journeys()
+        dead_ev = [e for e in fleet.trace.events() if e["event"] == "dead"]
+        detect_ms = ((dead_ev[0]["ts_ns"] - r1._beat_ns) / 1e6) if dead_ev else None
+        rtt = {"loopback": lo_client.rtt_ms, "tcp": tcp_client.rtt_ms}
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        for c in (lo_client, tcp_client):
+            if c is not None:
+                c.close()
+        if srv is not None:
+            srv.stop()
+        for e in E.values():
+            e[0].stop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if MG_EXPIRED_HOLDS:
+        raise AssertionError("fabric: a held loop was never asked for the park it waited for")
+    for name, (eng, _, ptrs, captured) in E.items():
+        oc_held(eng, ptrs, captured, f"fabric {name}")
+    # streams: the route wave, the migrated ones and the prefixed one under
+    # the margin rule, the failed-over one teacher-forced
+    compared, ties = check_streams([s.toks for s in wave] + [m.toks, z.toks],
+                                   wave_refs + [wave_refs[0], wave_refs[1]], "fabric")
+    n2, t2 = check_streams([pre.toks], [pre_ref], "fabric prefix")
+    compared, ties = compared + n2, ties + t2
+    held_forced = check_forced(forced, [(prompts[2], k.toks, at_kill)], "fabric failover")
+    # r0's launches as its stats() report them over the wire: the process's
+    # counts over the wave, which l (idle) and the child (another process)
+    # add nothing to
+    d = {key: wave_stats[key] - before["h"][key]
+         for key in ("decode_ticks", "flash_launches", "paged_attn_launches")}
+    d["admission_dispatches"] = (sum(wave_stats["prefill_batch_hist"])
+                                 - sum(before["h"]["prefill_batch_hist"]))
+    n_layers = FLAGSHIP["n_layers"]
+    if (d["flash_launches"] != n_layers * d["admission_dispatches"]
+            or d["paged_attn_launches"] != n_layers * d["decode_ticks"]
+            or not d["admission_dispatches"]):
+        raise AssertionError(f"fabric: r0's stats() report launches {d} over the wave")
+    if not (child["flash_launches"] > 0 and child["paged_attn_launches"] > 0):
+        raise AssertionError(f"fabric: the child reports flash {child['flash_launches']}, "
+                             f"paged {child['paged_attn_launches']} launches")
+    paths = [rep["path"] for rep in lo_moves + tcp_moves]
+    if paths != ["resident"] * 4 or not inst.get("installed", True):
+        raise AssertionError(f"fabric: migration paths {paths}, prefix install {inst}")
+    copies = {name: {key: after[name][key] - before[name][key]
+                     for key in ("migration_copies", "prefix_install_copies",
+                                 "prefix_tier_installs", "migrations_in", "migrations_out")}
+              for name in after}
+    if any(c["migration_copies"] or c["prefix_install_copies"] for c in copies.values()):
+        raise AssertionError(f"fabric: staged copies beyond the contract: {copies}")
+    if copies["h"]["prefix_tier_installs"] != 1:
+        raise AssertionError(f"fabric: the prefix did not install on r0's host: {copies}")
+    hops = [(hp["kind"], hp["host"]) for hp in journeys[k.req.jid]["hops"]]
+    if (rc != -signal.SIGKILL or fs["fabric_links_down"] != 1 or fs["fabric_checksum_faults"]
+            or fs["failovers"] != 1 or fs["engine_states"]["r1"] != "DEAD"
+            or hops != [("route", "h0"), ("failover", "local")]
+            or not journeys[k.req.jid]["conserved"]):
+        raise AssertionError(
+            f"fabric failover: exit code {rc}, links down {fs['fabric_links_down']}, checksum "
+            f"faults {fs['fabric_checksum_faults']}, failovers {fs['failovers']}, states "
+            f"{fs['engine_states']}, hops {hops}")
+    for name in ("h", "l"):
+        st = after[name]
+        if (st["kv_pool_free"] != st["kv_pool_blocks"] or st["parked_sessions"]
+                or st["active_slots"] or st["queued"] or st["admitting_slots"]
+                or st["swap_host_free"] != st["swap_host_blocks"]):
+            raise AssertionError(f"fabric {name}: not empty at the end: pool "
+                                 f"{st['kv_pool_free']} of {st['kv_pool_blocks']} free, "
+                                 f"{st['parked_sessions']} parked, {st['active_slots']} live")
+    for name in E:
+        dt = after[name]["decode_ticks"] - before[name]["decode_ticks"]
+        if played[name] != dt:
+            raise AssertionError(f"fabric {name}: {played[name]} replays, {dt} decode ticks")
+    pauses = [bo["ms"] for bo in journeys[k.req.jid]["blackouts"] if bo["ms"] is not None]
+
+    def move_row(rep):
+        return {"path": rep["path"], "ms": rep["ms"], "bytes": rep["bytes"],
+                "gb_per_s": rep["bytes"] / (rep["ms"] * 1e6) if rep["bytes"] else None}
+
+    seconds = time.perf_counter() - t_phase
+    out = {"spawn_to_port_ms": spawn_ms, "spawn_to_beat_ms": beat_ms, "rtt_ms": rtt,
+           "loopback_moves": [move_row(r) for r in lo_moves],
+           "tcp_moves": [move_row(r) for r in tcp_moves],
+           "prefix": {"bytes": pre_bytes, "export_ms": export_ms, "install_ms": install_ms},
+           "r0_wave": d, "child_launches": {k_: child[k_] for k_ in (
+               "flash_launches", "paged_attn_launches", "decode_ticks", "admissions")},
+           "launches": launches, "throttled_tokens_per_s": rate, "tokens_at_kill": at_kill,
+           "detect_ms": detect_ms, "pause_ms": pauses, "copies": copies, "replays": played,
+           "fabric": {k_: fs[k_] for k_ in fs if k_.startswith(("fabric", "remote"))},
+           "compared_tokens": compared, "margin_cuts": ties, "forced": held_forced,
+           "exit_code": rc, "seconds": seconds, "laps_s": laps.s}
+    log(f"fabric child on {card}: spawn to port line {spawn_ms:.1f} ms, to first beat "
+        f"{beat_ms:.1f} ms (interpreter, CUDA context, seeded weights, graph capture); RTT "
+        f"EMA loopback {rtt['loopback']:.3f} ms, TCP {rtt['tcp']:.3f} ms")
+    for what, rows in (("loopback r0", out["loopback_moves"]), ("TCP r1", out["tcp_moves"])):
+        for r, way in zip(rows, ("there", "back")):
+            log(f"fabric migration over {what} ({way}) on {card}: path {r['path']}, "
+                f"{r['bytes']} bytes, {r['ms']:.2f} ms ({r['gb_per_s']:.3f} GB/s over the call)")
+    log(f"fabric prefix on {card}: {pre_bytes} bytes exported from l in {export_ms:.2f} ms, "
+        f"installed on r0 over the loopback wire in {install_ms:.2f} ms "
+        f"({pre_bytes / (install_ms * 1e6):.3f} GB/s)")
+    log(f"fabric launches: r0's stats() over the wave {d}; the child's stats() "
+        f"{out['child_launches']}")
+    log(f"fabric failover on {card}: child exit {rc}, {at_kill} tokens delivered at the kill "
+        f"(throttled at {FB_THROTTLE_S * 1e3:.0f} ms a fetch: "
+        f"{rate if rate is None else round(rate, 1)} tokens/s, not a speed figure), detection "
+        f"{detect_ms if detect_ms is None else round(detect_ms, 1)} ms (r1's last beat to "
+        f"DEAD), pause {[round(x, 2) for x in pauses]} ms, hops {hops}")
+    log(f"fabric streams: {compared} tokens equal to the plain trunk, {ties} cut at a margin "
+        f"< {MARGIN}; the failed-over stream teacher-forced: {held_forced['held']} held, "
+        f"{held_forced['skipped']} skipped; fabric counters {out['fabric']}; copies {copies}; "
+        f"replays {played}")
+    log(f"fabric phase on {card}: {seconds:.1f} s; sub-steps, wall s: {laps.line()}")
     return out
 
 
@@ -6004,6 +6365,8 @@ def main() -> int:
     mark("migration")
     runs["fleet_path"] = fleet_path(log, card, params, refs)
     mark("fleet")
+    runs["fabric_path"] = fabric_path(log, card, params, refs)
+    mark("fabric")
     runs["study_path"] = study_path(gen, log)
     mark("study")
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one

@@ -287,6 +287,45 @@ def test_exporter_covers_every_fleet_stats_key(weights):
     assert not [k for k in out["port"]["engine_keys"] if k not in engine_mapped]
 
 
+def test_exporter_covers_a_remote_member(weights):
+    """A fleet with a fabric member (an engine behind an in-proc host over a
+    loopback link) reports the JAX fleet's keys, the fabric's counters
+    counting the one remote member and its live link; the proxy's stats()
+    are its host engine's keys, every one mapped, plus the two link keys the
+    reference's proxy adds (``fabric_link_ok``, ``fabric_host``)."""
+    mapped = (set(export.FLEET_COUNTERS) | set(export.FLEET_GAUGES) | export.FLEET_SPECIAL
+              | export.FLEET_ALLOWLIST)
+    engine_mapped = (set(export.COUNTERS) | set(export.GAUGES) | set(export.HIST_COUNTERS)
+                     | export.SPECIAL | export.ALLOWLIST)
+
+    def scenario(k):
+        t = k.remote()
+        fleet = k.Fleet({"r0": t.rem, "a": k.engine()}, k.FleetConfig(**k.fc))
+        k.fleets.append(fleet)
+        fleet.start()
+        wait(lambda: t.rem._beat_ns != 0, "the remote's warm-up beat")
+        got = list(fleet.submit(prompt(1, 5), max_new_tokens=4).stream())
+        s = fleet.stats()
+        fleet.stop()
+        remote, local = set(s["engines"]["r0"]), set(s["engines"]["a"])
+        return {"keys": sorted(s), "stream_len": len(got),
+                "fabric": (s["remote_engines"], s["fabric_links_down"],
+                           s["fabric_msgs_sent"] > 0, s["fabric_msgs_recv"] > 0,
+                           s["fabric_rtt_ms"] > 0),
+                "extra": sorted(remote - local), "missing": sorted(local - remote),
+                "link": (s["engines"]["r0"]["fabric_link_ok"],
+                         s["engines"]["r0"]["fabric_host"]),
+                "unmapped": sorted(k_ for k_ in local if k_ not in engine_mapped)}
+
+    out = both(weights, scenario, BASE, FC)
+    assert out["port"] == {**out["jax"], "unmapped": out["port"]["unmapped"]}
+    p = out["port"]
+    assert not [k for k in p["keys"] if k not in mapped] and not p["unmapped"]
+    assert p["fabric"] == (1, 0, True, True, True) and p["stream_len"] == 4
+    assert p["extra"] == ["fabric_host", "fabric_link_ok"] and not p["missing"]
+    assert p["link"] == (True, "h0")
+
+
 def test_fleet_families_shape(weights):
     """A registered fleet exports twice: its members join the ordinary
     vtpu_serving_* families under "fleet/engine" labels, and its counters

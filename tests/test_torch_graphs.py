@@ -29,7 +29,9 @@ on a state that never swapped; the engine's own swap-out and swap-in
 KV and scale plane while the released blocks are overwritten at once; and
 an overcommit engine parks, evicts to its pinned host tier and resumes on
 its graphs, streaming token for token what a twin engine that never parks
-streams; the MoE and SSM families' decode steps replay bit for bit their
+streams; a lost restore rebuilds through one bucket prefill inside the
+swap-in dispatch with no host wait (that dispatch runs under
+``set_sync_debug_mode("error")``); the MoE and SSM families' decode steps replay bit for bit their
 eager steps (an SSM state written in place, masked by the active flags),
 their engines on graphs stream what their synchronous eager loops stream,
 and MoE routing (comparisons with an arange, no one_hot) captures under
@@ -706,6 +708,73 @@ def test_overcommit_engine_serves_on_its_graphs(dev):
     assert st["graphs_captured"] == captured and eng.decode_graphs.replays == st["decode_ticks"]
     assert launches == cfg.n_layers * st["decode_ticks"]
     assert {k: x.data_ptr() for k, x in eng.state.items()} == ptrs
+
+
+def test_lost_restore_rebuilds_in_the_swap_in_without_a_host_wait(dev):
+    """swap_h2d_loss on the overcommit engine above: the parked request's
+    restore is lost, so its swap-in dispatch rebuilds it through one prefill
+    into the 128 bucket that covers its 66 tokens. That dispatch runs under
+    ``set_sync_debug_mode("error")``, as every swap dispatch of an engine
+    serving live streams must: a host wait in it raises and ends the loop.
+    Both streams are held against the plain trunk's greedy streams up to a
+    top-1/top-2 margin below 0.05 (bf16); one fault, one rebuild, both
+    pools free."""
+    from vtpu_torch.serving import FaultPlan, FaultSpec, Terminal
+
+    cfg = _cfg("bf16")
+    params = init_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(1, DIMS["vocab"], (64,), generator=gen).numpy() for _ in range(2)]
+    eng = ServingEngine(params, cfg, ServingConfig(
+        slots=4, prefill_buckets=(64, 128), max_new_tokens=NEW, kv_page=PAGE, kv_pool_blocks=5,
+        kv_swap=8, faults=FaultPlan([FaultSpec("swap_h2d_loss")])))
+    swap_in, rebuilds = eng._swap_in, []
+
+    def guarded(slot, e):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return swap_in(slot, e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            rebuilds.append(e["dropped"])
+
+    eng._swap_in = guarded
+    r1 = eng.submit(prompts[0])
+    put, seen = r1.out.put, [0]
+
+    def park_at_second(item):
+        put(item)
+        if not isinstance(item, Terminal):
+            seen[0] += 1
+            if seen[0] == 2:
+                eng.park(r1)
+
+    r1.out.put = park_at_second
+    eng.start()
+    try:
+        t0 = time.monotonic()
+        while r1 not in eng._parked:
+            assert time.monotonic() - t0 < 120, "the park never settled"
+            time.sleep(0.002)
+        r2 = eng.submit(prompts[1])
+        out2 = list(r2.stream())
+        eng.resume(r1)
+        out1 = list(r1.stream())
+    finally:
+        eng.stop()
+    assert eng.loop_error is None and r1.status == r2.status == Status.OK
+    assert rebuilds == [True]
+    for out, prompt in zip((out1, out2), prompts):
+        assert len(out) == NEW
+        want, margins = _plain_stream(params, cfg, prompt, NEW)
+        for got, ref, m in zip(out, want, margins):
+            if m < 0.05:
+                break
+            assert got == ref
+    st = eng.stats()
+    assert st["faults_injected"] == st["fault_recomputes"] == st["swap_faults"] == 1
+    assert st["evicted_blocks"] == 5 and st["swap_in_bytes"] == 0
+    assert st["kv_pool_free"] == 5 and st["swap_host_free"] == 8
 
 
 def _held_streams(outs, twins, params, cfg, prompts):

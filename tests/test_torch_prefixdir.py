@@ -9,14 +9,15 @@ scenario on JAX engines and on the port's and holds both runs to the same
 outcome: streams equal to the JAX single-engine references, the same fleet
 and engine prefix counters, the same residents, and
 ``prefix_install_copies`` 0 everywhere. The cases are tests/
-test_prefixdir.py's eleven local ones (its two remote cases need engines
-on other hosts, which the port has not reached): content addressing, the
-directory's lifecycle, the route bonus, the hot and cold candidates,
-routing onto a resident with the full-prompt fallback, ties by name, the
-pid API, hot replication, export and install, cold spill and a tier
-install, and failover around a survivor's resident prefix (the rebuild
-recomputes only the tail: ``failover_prefix_reuses`` 1, its trace value
-the tail length).
+test_prefixdir.py's thirteen: content addressing, the directory's
+lifecycle, the route bonus, the hot and cold candidates, routing onto a
+resident with the full-prompt fallback, ties by name, the pid API, hot
+replication, export and install, cold spill and a tier install, failover
+around a survivor's resident prefix (the rebuild recomputes only the tail:
+``failover_prefix_reuses`` 1, its trace value the tail length), and the two
+remote ones, a fabric member behind an in-proc host over a loopback link:
+a payload-carrying install and a wire registration through the proxy, and
+a remote resident as the route's target.
 
 Nothing races the loop threads (tests/torch_fleet_kit.py): a prefixed
 request is submitted while its engine's loop is held at a tick head, and
@@ -37,6 +38,7 @@ from tests.torch_fleet_kit import (
     PinPolicy,
     TickGate,
     both,
+    clean,
     fleet_counters,
     held,
     make_weights,
@@ -450,6 +452,74 @@ def test_cold_spill_then_any_engine_installs(weights, prefix_refs):
     e = out["port"]["engines"]
     assert e["a"]["prefix_tier_installs"] == 1
     assert all(e[n]["prefix_install_copies"] == 0 for n in "ab")
+
+
+# ----------------------------------------------------- fabric round-trips
+
+
+def test_remote_prefix_install_token_equal(weights, prefix_refs):
+    """Both wire paths: a payload-carrying ``prefix_in`` ask installs a
+    locally exported prefix on a loopback remote (idempotent on a second
+    install), and a wire ``register_prefix`` builds one host-side; each
+    serves its suffix stream through the proxy, and the proxy mirrors the
+    registration's tokens (what a failover rebuild replays)."""
+    def scenario(k):
+        ex, inst = ((j_export_prefix, j_install_prefix) if k.side == "jax"
+                    else (export_prefix, install_prefix))
+        t = k.remote()
+        a = k.engine()
+        a.start()
+        lid = a.register_prefix(PRE)
+        meta, payload = ex(a, lid)
+        res = inst(t.rem, meta, payload)
+        got = list(t.rem.submit(SUF, prefix=res["lid"], max_new_tokens=STEPS).stream())
+        res2 = inst(t.rem, meta, payload)
+        lid2 = t.rem.register_prefix(OPRE)
+        got2 = list(t.rem.submit(SUF, prefix=lid2, max_new_tokens=STEPS).stream())
+        sh = t.eng.stats()
+        wait(lambda: clean(t.eng), "the host's pool reading free")
+        return {"installed": [res["installed"], res2["installed"]],
+                "same_lid": res2["lid"] == res["lid"], "pid": res["pid"],
+                "streams": [got, got2], "mirror": t.rem._prefix_meta[lid2]["tokens"],
+                "host": (sh["prefix_tier_installs"], sh["prefix_install_copies"],
+                         sh["prefix_hits"])}
+
+    out = run(weights, scenario)
+    held(out, {"installed": [True, False], "same_lid": True, "pid": prefix_id(PRE),
+               "streams": [prefix_refs["prefix"], prefix_refs["other"]], "mirror": OPRE,
+               "host": (1, 0, 2)})
+
+
+def test_remote_fleet_prefix_route(weights, prefix_refs):
+    """A remote resident is a first-class route target: the wire
+    registration mirrors into the directory (its build cost included), the
+    pid submit steers to the proxy over an idle local peer, and the hit is
+    stamped at route time (a remote's loop thread reports on its host)."""
+    def scenario(k):
+        t = k.remote()
+        e1 = k.engine()
+        fleet = k.Fleet({"r0": t.rem, "e1": e1}, k.FleetConfig(**FC))
+        k.fleets.append(fleet)
+        fleet.start()
+        wait(lambda: t.rem._beat_ns != 0, "the remote's warm-up beat")
+        cpid = fleet.register_prefix(PRE, engine="r0")
+        res = sorted(fleet.prefixdir.residents(cpid))
+        measured = fleet.prefixdir.ms_per_token() is not None
+        req = fleet.submit(SUF, pid=cpid, max_new_tokens=STEPS)
+        got = list(req.stream())
+        s = fleet.stats(include_engines=False)
+        fleet.stop()
+        return {"residents": res, "measured": measured, "stream": got,
+                "routes": s["prefix_routes"],
+                "directory": (s["prefix_directory_hits"], s["prefix_directory_misses"]),
+                "remote_engines": s["remote_engines"],
+                "hops": [(h["kind"], h["engine"], h["host"])
+                         for h in fleet.trace.journeys()[req.jid]["hops"]]}
+
+    out = run(weights, scenario)
+    held(out, {"residents": ["r0"], "measured": True, "stream": prefix_refs["prefix"],
+               "routes": 1, "directory": (1, 0), "remote_engines": 1,
+               "hops": [("route", "r0", "h0")]})
 
 
 # --------------------------------------------------------------- failover

@@ -16,10 +16,16 @@ How the scenarios avoid racing the loop threads:
 - A wall clock only guards against a hang (``wait``); no verdict rests on
   one. Death detection takes ``miss_ms`` of a stopped heartbeat, wide
   enough that a live loop is never fenced.
+- A fabric member (``Kit.remote``) is an engine behind an in-proc
+  ``EngineHost`` over a loopback link, proxied by a ``RemoteEngine``; the
+  host-side mirror of a client's request is caught as the host engine's
+  submit makes it (``catch_submits``), so a hook on its deliveries acts on
+  the host's loop thread, ahead of anything the wire carries.
 """
 
 import threading
 import time
+import types
 
 import jax
 import numpy as np
@@ -34,19 +40,27 @@ from vtpu.serving import (
     ServingConfig as JServingConfig,
     ServingEngine as JServingEngine,
 )
+from vtpu.serving.fabric import (
+    EngineHost as JEngineHost,
+    connect_host as j_connect_host,
+    loopback_pair as j_loopback_pair,
+)
 from vtpu.serving.fleet import load_route_policy as j_load_route_policy
 from vtpu.serving.shed import EngineSignals as JEngineSignals
 from vtpu_torch.convert import params_from_numpy
 from vtpu_torch.models import ModelConfig
 from vtpu_torch.serving import (
     EngineFleet,
+    EngineHost,
     FaultPlan,
     FaultSpec,
     FleetConfig,
     RoutePolicy,
     ServingConfig,
     ServingEngine,
+    connect_host,
     load_route_policy,
+    loopback_pair,
 )
 from vtpu_torch.serving.shed import EngineSignals
 
@@ -89,19 +103,21 @@ class Kit:
     port's, behind the same names. Every fleet and engine it built stops
     when the scenario ends."""
 
-    def __init__(self, side: str, weights, base: dict, fc: dict):
+    def __init__(self, side: str, weights, base: dict, fc: dict, cfgs=(JCFG, CFG)):
         self.side, self.base, self.fc = side, base, fc
-        self.fleets, self.engines = [], []
+        self.fleets, self.engines, self.links = [], [], []
         if side == "jax":
-            self._make = lambda sc: JServingEngine(weights[0], JCFG, sc)
+            self._make = lambda sc: JServingEngine(weights[0], cfgs[0], sc)
             self.Config, self.Plan, self.Spec = JServingConfig, JFaultPlan, JFaultSpec
             self.Fleet, self.FleetConfig = JEngineFleet, JFleetConfig
             self.Signals, self.load_route_policy = JEngineSignals, j_load_route_policy
+            self._fabric = (JEngineHost, j_loopback_pair, j_connect_host)
         else:
-            self._make = lambda sc: ServingEngine(weights[1], CFG, sc, device="cpu")
+            self._make = lambda sc: ServingEngine(weights[1], cfgs[1], sc, device="cpu")
             self.Config, self.Plan, self.Spec = ServingConfig, FaultPlan, FaultSpec
             self.Fleet, self.FleetConfig = EngineFleet, FleetConfig
             self.Signals, self.load_route_policy = EngineSignals, load_route_policy
+            self._fabric = (EngineHost, loopback_pair, connect_host)
 
     def engine(self, **kw):
         eng = self._make(self.Config(**{**self.base, **kw}))
@@ -120,19 +136,42 @@ class Kit:
         self.fleets.append(fleet)
         return fleet, engines
 
+    def remote(self, name="r0", host="h0", link_faults=None, **engine_kw):
+        """A started engine (``engine_kw``: ServingConfig fields) behind an
+        in-proc EngineHost over a loopback link (``link_faults``: the link's
+        FaultPlan), proxied as a RemoteEngine.
+        Returns a namespace: the host-side engine ``eng``, the ``host``,
+        the ``link`` (partition toggle), the host's end of it
+        ``host_chan``, the ``client`` and the proxy ``rem``."""
+        Host, pair, connect = self._fabric
+        eng = self.engine(**engine_kw)
+        eng.start()
+        srv = Host({name: eng})
+        a, b, link = pair(faults=link_faults, delay_s=0.0)
+        threading.Thread(target=srv.serve_channel, args=(b,), daemon=True).start()
+        client, engines = connect(a, host=host)
+        t = types.SimpleNamespace(eng=eng, host=srv, link=link, host_chan=b, client=client,
+                                  rem=engines[name])
+        self.links.append(t)
+        return t
+
     def close(self):
         for fleet in self.fleets:
             fleet.stop()
+        for t in self.links:
+            t.client.close()
+            t.host.stop()
         for eng in self.engines:
             eng.stop()
 
 
-def both(weights, scenario, base: dict, fc: dict) -> dict:
-    """Run ``scenario(kit)`` on the JAX package and on the port; returns
-    {"jax": ..., "port": ...}. Everything stops, whatever happens."""
+def both(weights, scenario, base: dict, fc: dict, cfgs=(JCFG, CFG)) -> dict:
+    """Run ``scenario(kit)`` on the JAX package and on the port (``cfgs``:
+    each side's model config); returns {"jax": ..., "port": ...}.
+    Everything stops, whatever happens."""
     out = {}
     for side in ("jax", "port"):
-        kit = Kit(side, weights, base, fc)
+        kit = Kit(side, weights, base, fc, cfgs)
         try:
             out[side] = scenario(kit)
         finally:
@@ -182,6 +221,21 @@ def on_token_when(req, cond, action) -> None:
                 action()
 
     req.out.put = hook
+
+
+def catch_submits(eng) -> list:
+    """The requests ``eng.submit`` makes, in order: on a fabric host, the
+    server mirrors of clients' requests. Submit while the engine's loop is
+    held (``TickGate``) and hook the caught request before releasing it."""
+    caught, submit = [], eng.submit
+
+    def catching(*args, **kw):
+        req = submit(*args, **kw)
+        caught.append(req)
+        return req
+
+    eng.submit = catching
+    return caught
 
 
 def hold_until(until, held_ev: threading.Event = None):

@@ -9,7 +9,9 @@ DisaggConfig(...))``, serving/disagg.py) and live migration between
 engines with drain (``migrate``, ``ServingEngine.drain``,
 serving/migrate.py), and the engine fleet (``EngineFleet``: supervision,
 routing and failover, serving/fleet.py) with its content-addressed prefix
-directory (serving/prefixdir.py)."""
+directory (serving/prefixdir.py), whose members may serve in another
+process or on another host behind the fabric (``EngineHost``,
+``RemoteEngine``, ``spawn_host``: serving/fabric)."""
 
 from vtpu_torch.serving.adapters import TransformerSlotModel
 from vtpu_torch.serving.disagg import DisaggConfig
@@ -24,6 +26,16 @@ from vtpu_torch.serving.engine import (
     batched_decode_step,
     prefill_into_slot,
     prefill_into_slots,
+)
+from vtpu_torch.serving.fabric import (
+    EngineHost,
+    HostClient,
+    RemoteEngine,
+    TransportError,
+    connect_host,
+    loopback_pair,
+    spawn_host,
+    tcp_connect,
 )
 from vtpu_torch.serving.faults import (
     SEAMS,
@@ -60,15 +72,18 @@ __all__ = [
     "DisaggConfig",
     "EngineDeath",
     "EngineFleet",
+    "EngineHost",
     "EngineSignals",
     "FaultInjected",
     "FaultPlan",
     "FaultSpec",
     "FleetConfig",
+    "HostClient",
     "LeastPressureRoutePolicy",
     "MigrationError",
     "PrefixDirectory",
     "PriorityDeadlineShedPolicy",
+    "RemoteEngine",
     "Request",
     "RoutePolicy",
     "SEAMS",
@@ -78,17 +93,22 @@ __all__ = [
     "Status",
     "Terminal",
     "TransformerSlotModel",
+    "TransportError",
     "WaitQueue",
     "WorkerDeath",
     "accepts_signals",
     "batched_decode_step",
+    "connect_host",
     "drain_engine",
     "export_prefix",
     "install_prefix",
     "load_route_policy",
     "load_shed_policy",
+    "loopback_pair",
     "migrate",
     "prefill_into_slot",
     "prefill_into_slots",
     "prefix_id",
+    "spawn_host",
+    "tcp_connect",
 ]

@@ -384,10 +384,10 @@ class TransformerSlotModel:
             return self._init_state(slots)
 
     def prefill_into_slot(self, params, state, padded, slot, true_len):
+        # a rebuild inside a swap dispatch calls this: no host wait
         dev = padded.device
         last, state = self.prefill_into_slots(
-            params, state, padded, torch.tensor([slot], device=dev),
-            torch.tensor([true_len], device=dev))
+            params, state, padded, _device_ids([slot], dev), _device_ids([true_len], dev))
         return last[0], state
 
     def prefill_into_slots(self, params, state, padded, slots, true_lens):
@@ -750,10 +750,10 @@ class SsmSlotModel:
         return init_ssm_state(self.cfg, slots, device=self.device)
 
     def prefill_into_slot(self, params, state, padded, slot, true_len):
+        # a rebuild inside a swap dispatch calls this: no host wait
         dev = padded.device
         last, state = self.prefill_into_slots(
-            params, state, padded, torch.tensor([slot], device=dev),
-            torch.tensor([true_len], device=dev))
+            params, state, padded, _device_ids([slot], dev), _device_ids([true_len], dev))
         return last[0], state
 
     def prefill_into_slots(self, params, state, padded, slots, true_lens):

@@ -43,10 +43,19 @@ Seams the port's engine consults:
                       the destination's install) -> the same rebuild, or
                       a typed FAULTED where none is possible
 
-The rest of the vocabulary names seams of features the port has not
-reached (the fleet's health probes and fabric transport). A plan naming
-them is accepted and never fires on the port's engine, as on a reference
-engine without those features.
+Seams consulted outside the engine:
+
+- ``probe_loss``      a fleet health probe is LOST (the fleet monitor,
+                      once per engine per probe round in sorted-name
+                      order): the probe counts as a miss though the engine
+                      is healthy, which drives the SUSPECT-but-alive path
+- ``fabric_msg_loss`` / ``fabric_delay`` / ``fabric_payload_corrupt``
+                      the loopback fabric link (serving/fabric/
+                      transport.py), on every send from either end: drop
+                      the message, defer its delivery, or flip a payload
+                      byte after the CRCs were computed (the receiver's
+                      checksum verify turns it into the recompute path,
+                      never into wrong tokens)
 
 Thread-safe: each ``fire`` takes the plan's lock (a seam costs one
 attribute check when no plan is configured). Timing-coupled seams

@@ -54,11 +54,14 @@ requests, unserved lifecycle tickets), so a dead engine's invariants
 (allocator free == capacity, nothing parked, no slots) hold as a stopped
 engine's do.
 
-The port's members are one-device engines in this process. Fabric proxies
-(engines on other hosts) are not ported: the reference's branches that
-only a proxy takes are left out, and ``stats()`` still reports the
-fabric's keys, zero for an all-local fleet. An engine under ``mesh=``
-cannot join a fleet: its sessions cannot migrate.
+Members are one-device engines in this process or fabric proxies
+(``vtpu_torch.serving.fabric.RemoteEngine``: an engine in another process
+or on another host behind an ``EngineHost``), which route, drain,
+rebalance and fail over through the same code path: a proxy's ledger is
+its client-side mirror of the tokens delivered across the wire, its reap
+drops that mirror, and ``stats()`` sums its channel's ``fabric_*``
+counters. An engine under ``mesh=`` cannot join a fleet: its sessions
+cannot migrate.
 """
 
 from __future__ import annotations
@@ -298,6 +301,67 @@ def _unstarted_meta(req: Request) -> dict:
             "priority": req.priority}
 
 
+def sweep_corpse(eng: ServingEngine, finish=None) -> None:
+    """Release everything a dead engine's loop held: slot blocks and
+    rows, admissions in flight, parked entries and their host-tier pages,
+    the waiting line and pending submits, prefix builds (failed) and
+    unserved lifecycle tickets (failed), so a corpse's invariants
+    (allocator free == capacity, nothing parked, no slots) hold as a
+    stopped engine's do. ``finish(req)`` sees every request met on the way
+    (the fleet's reap delivers the typed terminals it owes there); None
+    sweeps silently, as an engine host supervising its own corpse does.
+    Only the caller may touch the engine's structures: its loop is gone."""
+    eng._stop.set()
+    fin = finish if finish is not None else (lambda req: None)
+    for slot in range(eng.serving.slots):
+        fin(eng._slot_req[slot])
+        eng._free_slot_blocks(slot)
+        eng._slot_req[slot] = None
+        eng._slot_budget[slot] = 0
+        eng._slot_len[slot] = 0
+        eng._history[slot] = []
+        eng._slot_hist_exact[slot] = True
+        eng._itl_last[slot] = None
+        eng._admit_mask[slot] = False
+    for slot, adm in list(eng._admitting.items()):
+        fin(adm["req"])
+    eng._admitting.clear()
+    eng._pending_firsts = []
+    eng._inflight_slots = set()
+    for req in list(eng._parked):
+        fin(req)
+        eng._release_parked(eng._parked.pop(req))
+    eng._want_park.clear()
+    eng._park_unseen.clear()
+    eng._want_resume.clear()
+    eng._swap_pending.clear()
+    for req in eng._waiting:
+        fin(req)
+    eng._waiting.clear()
+    while True:
+        try:
+            req = eng._pending.get_nowait()
+        except queue.Empty:
+            break
+        fin(req)
+    while True:
+        try:
+            item = eng._prefix_work.get_nowait()
+        except queue.Empty:
+            break
+        item["error"] = RuntimeError("engine died")
+        item["done"].set()
+    while True:
+        try:
+            kind, item = eng._lifecycle_q.get_nowait()
+        except queue.Empty:
+            break
+        if kind in ("migrate_out", "migrate_in",
+                    "prefix_out", "prefix_in"):
+            item.fail(RuntimeError(
+                "engine died before serving the ticket"))
+
+
 class EngineFleet:
     """N ServingEngines behind one ``submit()`` front door, with
     health-checked supervision, signal-driven routing, and automatic
@@ -428,9 +492,12 @@ class EngineFleet:
         for name in sorted(self._engines):
             eng = self._engines[name]
             eng._ledger_hook = self._make_hook(name)
-            # members report prefix register/hit/release events straight
-            # into the directory, from their loop threads
-            eng._prefix_listener = self._make_prefix_listener(name)
+            if not getattr(eng, "is_remote", False):
+                # local members report prefix register/hit/release events
+                # straight into the directory; remote members' events stay
+                # on their host, so the fleet updates the directory from the
+                # ask results and route bookkeeping instead
+                eng._prefix_listener = self._make_prefix_listener(name)
             if eng._thread is None:
                 eng.start()
         self._mon = threading.Thread(target=self._monitor, daemon=True)
@@ -451,7 +518,12 @@ class EngineFleet:
 
     def _make_hook(self, name: str):
         def hook(eng, _name=name):
-            entries = _ledger_entries(eng)
+            # a fabric proxy derives its ledger from the client-side mirror
+            # (tokens actually delivered across the wire): the host's own
+            # ledger is unreadable once the host is SIGKILLed, which is
+            # exactly when this matters
+            fn = getattr(eng, "ledger_entries", None)
+            entries = fn() if fn is not None else _ledger_entries(eng)
             with self._mu:
                 self._ledger[_name] = entries
         return hook
@@ -504,6 +576,11 @@ class EngineFleet:
     def _route_order(self, exclude: Iterable[str] = ()) -> List[str]:
         return [name for name, _ in self._route_ranked(exclude)]
 
+    def _host_of(self, name: str) -> str:
+        """The placement host a journey hop records: a fabric proxy
+        carries its EngineHost's label, an in-proc member is 'local'."""
+        return getattr(self._engines[name], "host", "local")
+
     def submit(self, tokens, max_new_tokens: int = 0, priority: int = 0,
                deadline_ms: Optional[float] = None, prefix_tokens=None,
                pid: Optional[str] = None) -> Request:
@@ -545,7 +622,8 @@ class EngineFleet:
             # stamped, or a fast-finishing request would leak an
             # unclosable journey. The winning score sits in the route
             # event so the policy verdict is auditable.
-            req.jid = self.trace.begin_journey(name, req.rid)
+            req.jid = self.trace.begin_journey(name, req.rid,
+                                               host=self._host_of(name))
             self.trace.control("route", engine=name, jid=req.jid,
                                score=score)
             with self._mu:
@@ -611,7 +689,15 @@ class EngineFleet:
             name = order[0]
         else:
             name = self._resolve(engine)
-        self._engines[name].register_prefix(toks)
+        eng = self._engines[name]
+        lid = eng.register_prefix(toks)
+        if getattr(eng, "is_remote", False):
+            # a remote build reported to ITS host, not to this directory:
+            # mirror the registration from the proxy's client-side record
+            meta = eng._prefix_meta[lid]
+            self.prefixdir.on_event(
+                name, "register", cpid, lid=lid, tokens=toks,
+                length=meta["len"], build_ms=meta.get("build_ms"))
         return cpid
 
     def _submit_prefix(self, tokens, max_new_tokens: int, priority: int,
@@ -692,14 +778,18 @@ class EngineFleet:
                 self.trace.control("reroute", engine=name)
                 continue
             if lid is not None:
-                # the resident stamps the hit at the share (its loop
-                # thread's listener)
                 with self._mu:
                     self._fstats["prefix_routes"] += 1
+                if getattr(eng, "is_remote", False):
+                    # local residents stamp the hit at the share (the
+                    # loop-thread listener); a remote's share happens on
+                    # another host, so the route stamps it here
+                    self.prefixdir.note_route_hit(cpid, name)
             else:
                 self.prefixdir.note_miss()
-            req.jid = self.trace.begin_journey(name, req.rid,
-                                               prefix=lid is not None and b > 0)
+            req.jid = self.trace.begin_journey(
+                name, req.rid, host=self._host_of(name),
+                prefix=lid is not None and b > 0)
             self.trace.control("route", engine=name, jid=req.jid,
                                score=total, bonus=b)
             with self._mu:
@@ -727,6 +817,10 @@ class EngineFleet:
             log.warning("host-tier prefix install of %s on %s failed: "
                         "%s", cpid, name, exc)
             return None
+        if getattr(eng, "is_remote", False):
+            self.prefixdir.on_event(
+                name, "register", cpid, lid=res["lid"],
+                tokens=meta["tokens"], length=meta["len"])
         if res.get("installed", True):
             with self._mu:
                 self._fstats["prefix_installs"] += 1
@@ -738,7 +832,7 @@ class EngineFleet:
         """Make *cpid* resident on engine *name* from wherever it still
         lives: already resident -> done; host tier -> staged install;
         another live resident -> cross-engine copy over the prefix_out/
-        prefix_in pair. Raises only
+        prefix_in pair (fabric asks for remote members). Raises only
         MigrationError-shaped failures the caller treats as advisory."""
         residents = self.prefixdir.residents(cpid)
         if name in residents:
@@ -755,6 +849,10 @@ class EngineFleet:
                                       timeout=self.fleet.failover_timeout)
         res = install_prefix(self._engines[name], meta, payload,
                              timeout=self.fleet.failover_timeout)
+        if getattr(self._engines[name], "is_remote", False):
+            self.prefixdir.on_event(
+                name, "register", cpid, lid=res["lid"],
+                tokens=meta["tokens"], length=meta["len"])
         if res.get("installed", True):
             with self._mu:
                 self._fstats["prefix_installs"] += 1
@@ -774,7 +872,8 @@ class EngineFleet:
             if rep["path"] in ("resident", "host", "recompute", "requeue"):
                 with self._mu:
                     self._assigned[req] = dst_name
-                self.trace.hop(req.jid, dst_name, req.rid, "rescue")
+                self.trace.hop(req.jid, dst_name, req.rid, "rescue",
+                               host=self._host_of(dst_name))
                 self.trace.control("reroute", engine=dst_name, jid=req.jid)
             return
 
@@ -815,7 +914,8 @@ class EngineFleet:
         def placed(req, target):
             with self._mu:
                 self._assigned[req] = names[target]
-            self.trace.hop(req.jid, names[target], req.rid, "drain")
+            self.trace.hop(req.jid, names[target], req.rid, "drain",
+                           host=self._host_of(names[target]))
 
         self.trace.control("drain_start", engine=name)
         try:
@@ -849,7 +949,8 @@ class EngineFleet:
         if rep["path"] in ("resident", "host", "recompute", "requeue"):
             with self._mu:
                 self._assigned[request] = dst_name
-            self.trace.hop(request.jid, dst_name, request.rid, "migrate")
+            self.trace.hop(request.jid, dst_name, request.rid, "migrate",
+                           host=self._host_of(dst_name))
         return rep
 
     # ----------------------------------------------------------- supervision
@@ -952,7 +1053,14 @@ class EngineFleet:
                 target = next((n for n in self._route_order()
                                if n not in residents), None)
                 if target is not None:
-                    self._engines[target].register_prefix(toks)
+                    dst = self._engines[target]
+                    lid = dst.register_prefix(toks)
+                    if getattr(dst, "is_remote", False):
+                        meta = dst._prefix_meta[lid]
+                        self.prefixdir.on_event(
+                            target, "register", pid, lid=lid, tokens=toks,
+                            length=meta["len"],
+                            build_ms=meta.get("build_ms"))
                     with self._mu:
                         self._fstats["prefix_replications"] += 1
                     self.trace.control("prefix_replicate", engine=target,
@@ -968,6 +1076,9 @@ class EngineFleet:
                         eng, lid, timeout=fc.failover_timeout)
                     self.prefixdir.put_host(pid, meta, payload)
                 eng.unregister_prefix(lid)
+                if getattr(eng, "is_remote", False):
+                    self.prefixdir.on_event(name, "unregister", pid,
+                                            lid=lid)
                 with self._mu:
                     self._fstats["prefix_spills"] += 1
                 self.trace.control("prefix_spill", engine=name,
@@ -1130,7 +1241,8 @@ class EngineFleet:
                     # rid (migrate_in reassigned it); rebuild latency =
                     # claim -> resumed on the survivor
                     self.trace.note_rebuild(time.perf_counter() - t0)
-                    self.trace.hop(req.jid, dst_name, req.rid, "failover")
+                    self.trace.hop(req.jid, dst_name, req.rid, "failover",
+                                   host=self._host_of(dst_name))
                     self.trace.control("failover_rebuild", engine=dst_name,
                                        jid=req.jid, val=1)
                 elif res["path"] == "faulted":
@@ -1171,53 +1283,14 @@ class EngineFleet:
                     return
             req.finish(req._abort or Status.FAULTED)
 
-        for slot in range(eng.serving.slots):
-            finish_unspared(eng._slot_req[slot])
-            eng._free_slot_blocks(slot)
-            eng._slot_req[slot] = None
-            eng._slot_budget[slot] = 0
-            eng._slot_len[slot] = 0
-            eng._history[slot] = []
-            eng._slot_hist_exact[slot] = True
-            eng._itl_last[slot] = None
-            eng._admit_mask[slot] = False
-        for slot, adm in list(eng._admitting.items()):
-            finish_unspared(adm["req"])
-        eng._admitting.clear()
-        eng._pending_firsts = []
-        eng._inflight_slots = set()
-        for req in list(eng._parked):
-            finish_unspared(req)
-            eng._release_parked(eng._parked.pop(req))
-        eng._want_park.clear()
-        eng._park_unseen.clear()
-        eng._want_resume.clear()
-        eng._swap_pending.clear()
-        for req in eng._waiting:
-            finish_unspared(req)
-        eng._waiting.clear()
-        while True:
-            try:
-                req = eng._pending.get_nowait()
-            except queue.Empty:
-                break
-            finish_unspared(req)
-        while True:
-            try:
-                item = eng._prefix_work.get_nowait()
-            except queue.Empty:
-                break
-            item["error"] = RuntimeError("engine died")
-            item["done"].set()
-        while True:
-            try:
-                kind, item = eng._lifecycle_q.get_nowait()
-            except queue.Empty:
-                break
-            if kind in ("migrate_out", "migrate_in",
-                        "prefix_out", "prefix_in"):
-                item.fail(RuntimeError(
-                    "engine died before serving the ticket"))
+        reaper = getattr(eng, "fleet_reap", None)
+        if reaper is not None:
+            # a fabric proxy owns only its client-side mirrors; the
+            # host's own resources died with the host (or its shutdown
+            # sweep reclaims them on a mere link death)
+            reaper(finish_unspared)
+            return
+        sweep_corpse(eng, finish_unspared)
 
     # ------------------------------------------------------------- rebalance
 
@@ -1245,17 +1318,27 @@ class EngineFleet:
         if hi_f - lo_f < thr:
             return
         hi, lo = self._engines[hi_name], self._engines[lo_name]
-        victim = next(
-            (r for r in list(hi._slot_req)
-             if r is not None and r.status is None and not r.cancelled),
-            None)
-        if victim is None:
-            for req in _snaplist(hi._parked):
-                e = hi._parked.get(req)
-                if (e is not None and req.status is None
-                        and not req.cancelled and not e.get("unstarted")):
-                    victim = req
-                    break
+        live = getattr(hi, "live_sessions", None)
+        if live is not None:
+            # a fabric proxy: pick from its mirror (streaming sessions
+            # first; a parked mirror entry carries "unstarted")
+            victim = next(
+                (r for r in live()
+                 if r.status is None and not r.cancelled
+                 and not hi._parked.get(r, {}).get("unstarted")),
+                None)
+        else:
+            victim = next(
+                (r for r in list(hi._slot_req)
+                 if r is not None and r.status is None and not r.cancelled),
+                None)
+            if victim is None:
+                for req in _snaplist(hi._parked):
+                    e = hi._parked.get(req)
+                    if (e is not None and req.status is None
+                            and not req.cancelled and not e.get("unstarted")):
+                        victim = req
+                        break
         if victim is None:
             return
         try:
@@ -1269,7 +1352,8 @@ class EngineFleet:
             with self._mu:
                 self._fstats["rebalance_migrations"] += 1
                 self._assigned[victim] = lo_name
-            self.trace.hop(victim.jid, lo_name, victim.rid, "rebalance")
+            self.trace.hop(victim.jid, lo_name, victim.rid, "rebalance",
+                           host=self._host_of(lo_name))
             self.trace.control("rebalance", engine=lo_name, jid=victim.jid,
                                score=hi_f - lo_f)
 
@@ -1310,10 +1394,11 @@ class EngineFleet:
         return out
 
     def _fabric_stats(self) -> dict:
-        """The fabric's flat keys, ALWAYS emitted so dashboards and the
-        exporter see the reference's schema: zero for an all-local fleet,
-        which every fleet of the port is (fabric proxies are not ported)."""
-        return {
+        """The fabric's flat keys, ALWAYS emitted (zero for an all-local
+        fleet, so dashboards and the exporter see a stable schema).
+        Channel counters are per HostClient — two proxies sharing one
+        host share one channel — so aggregation dedups by client."""
+        out = {
             "remote_engines": 0,
             "fabric_msgs_sent": 0, "fabric_msgs_recv": 0,
             "fabric_bytes_sent": 0, "fabric_bytes_recv": 0,
@@ -1323,3 +1408,32 @@ class EngineFleet:
             "fabric_links_down": 0,
             "fabric_rtt_ms": 0.0, "fabric_gbps": 0.0,
         }
+        clients = {}
+        for eng in self._engines.values():
+            if getattr(eng, "is_remote", False):
+                out["remote_engines"] += 1
+                clients[id(eng._client)] = eng._client
+        rtts, gbps = [], []
+        for client in clients.values():
+            c = client.fabric_stats()
+            out["fabric_msgs_sent"] += c["msgs_sent"]
+            out["fabric_msgs_recv"] += c["msgs_recv"]
+            out["fabric_bytes_sent"] += c["bytes_sent"]
+            out["fabric_bytes_recv"] += c["bytes_recv"]
+            out["fabric_payload_bytes"] += (c["payload_bytes_sent"]
+                                            + c["payload_bytes_recv"])
+            out["fabric_retries"] += c["retries"]
+            out["fabric_timeouts"] += c["timeouts"]
+            out["fabric_resends"] += c["resends"]
+            out["fabric_checksum_faults"] += c["checksum_faults"]
+            if not c["link_ok"]:
+                out["fabric_links_down"] += 1
+            if c["rtt_ms"] is not None:
+                rtts.append(c["rtt_ms"])
+            if c["gbps"] is not None:
+                gbps.append(c["gbps"])
+        if rtts:
+            out["fabric_rtt_ms"] = sum(rtts) / len(rtts)
+        if gbps:
+            out["fabric_gbps"] = sum(gbps) / len(gbps)
+        return out

@@ -43,7 +43,9 @@ device state. On one card both engines enqueue on the same stream, so
 their work is serialized in stream order.
 
 The payload is the port's own block-major layout (the reference's is
-layer-major): payloads never cross packages. An engine under ``mesh=``
+layer-major): payloads never cross packages. Either engine may be a fabric
+proxy (``vtpu_torch.serving.fabric.RemoteEngine``): its tickets are asks
+over the wire, its payload crosses CRC-chunked. An engine under ``mesh=``
 cannot migrate yet: its head shards need a broadcast op of their own.
 """
 
@@ -119,9 +121,23 @@ class _Ticket:
 
 def _block_shape(eng, key) -> tuple:
     """One plane's per-block geometry: the pool plane [L, blocks, page,
-    ...] without its block axis."""
+    ...] without its block axis. A fabric proxy advertises its host's
+    shapes (``_plane_shapes``, from the hello frame); a local engine reads
+    its own pool tensor."""
+    shapes = getattr(eng, "_plane_shapes", None)
+    if shapes is not None:
+        return tuple(shapes[key])
     s = eng.state[key].shape
     return (int(s[0]),) + tuple(int(x) for x in s[2:])
+
+
+def _plane_dtype(eng, key) -> torch.dtype:
+    """One plane's dtype: a fabric proxy's advertised name, or the local
+    pool tensor's."""
+    dtypes = getattr(eng, "_plane_dtypes", None)
+    if dtypes is not None:
+        return getattr(torch, dtypes[key])
+    return eng.state[key].dtype
 
 
 def _compat_check(src, dst) -> None:
@@ -156,11 +172,11 @@ def _compat_check(src, dst) -> None:
             f"{dst._swap_planes} (quantization layouts differ)")
     for key in src._swap_planes:
         s_shape, d_shape = _block_shape(src, key), _block_shape(dst, key)
-        if s_shape != d_shape or src.state[key].dtype != dst.state[key].dtype:
+        s_dtype, d_dtype = _plane_dtype(src, key), _plane_dtype(dst, key)
+        if s_shape != d_shape or s_dtype != d_dtype:
             raise MigrationError(
                 f"block geometry mismatch on plane {key!r}: per-block {s_shape} "
-                f"{src.state[key].dtype} vs {d_shape} {dst.state[key].dtype}: the engines "
-                "serve different models")
+                f"{s_dtype} vs {d_shape} {d_dtype}: the engines serve different models")
 
 
 def _ask(eng, kind: str, ticket: _Ticket, timeout: float) -> dict:
@@ -168,7 +184,13 @@ def _ask(eng, kind: str, ticket: _Ticket, timeout: float) -> dict:
     timeout the ticket is ABANDONED (``_Ticket.abandon``), unless the
     answer landed meanwhile, which is then used. The wait is a watched
     slice loop: a loop thread that died fails the ask at once instead of
-    stranding the caller until the timeout."""
+    stranding the caller until the timeout.
+
+    A fabric proxy serves the ticket over the wire (``eng.ask``): the
+    remote side owns its own retry discipline and fails typed the moment
+    the link is known dead."""
+    if getattr(eng, "is_remote", False):
+        return eng.ask(kind, ticket, timeout)
     eng._lifecycle_q.put((kind, ticket))
     eng._wake.set()
     served = ticket.done.wait(0.0)
@@ -280,7 +302,12 @@ def _live_sessions(src) -> list:
     """Every session the source still owes a stream: live slots, chunked
     admissions, parked entries, the waiting line. Worker-owned (disagg) and
     still-pending submits surface in these within a tick or two: drain's
-    outer loop snapshots again until the engine reads empty."""
+    outer loop snapshots again until the engine reads empty. A fabric proxy
+    keeps its own mirror of what it is owed (``live_sessions``): the slot,
+    park and waiting structures live across the wire."""
+    fn = getattr(src, "live_sessions", None)
+    if fn is not None:
+        return [r for r in fn() if r.status is None]
     seen, out = set(), []
 
     def add(r):
