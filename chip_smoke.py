@@ -83,8 +83,22 @@ Phases, any failure exits nonzero:
       with spec_tokens=4; h6 phase i's overcommit engine, eight sessions
       parked, evicted and resumed; h7 decode_loop_k=8 under delayed_fetch
       stalls, down both rungs of the watchdog and back; h8 DisaggConfig()
-      with phase l's two background prompts and burst. Each held as its
-      one-device phase holds it: every stream against the plain trunk of
+      with phase l's two background prompts and burst; h9 migration under
+      the mesh, two rounds of 48-token sessions moved at their 16th token
+      (tp_move_rounds): bf16, tp engines src, small (phase n's small pool
+      and host tier) and dst, each on a process group of its own, and a
+      one-device engine on this card: a live move src -> dst, a move onto
+      dst's pool read dry (alloc_exhaust) into every rank's host tier,
+      resumed by swap-in, src -> one device -> dst, a session evicted to
+      every rank's tier on small moved to dst, and src drained into dst
+      (parked, live, waiting); int8 KV, a fleet of two tp engines, a live
+      move and fleet.drain. h9 holds its streams against the plain trunk
+      teacher-forced, the moves' paths, migration_copies 0, every payload
+      pages x the whole-head block bytes, on each rank the launch
+      identities (the one-device engine's ticks through the single-device
+      paged kernel, on rank 0 only) and every rank's pool and tier free,
+      and prints each move's ms, bytes and GB/s. Each
+      of h1-h8 held as its one-device phase holds it: every stream against the plain trunk of
       its KV type or family teacher-forced on it (a near-tie skipped), on
       every rank head-local paged launches = 12 x the inner ticks on the
       kernel route (verify ticks included) and no single-device paged
@@ -5522,7 +5536,8 @@ def tp_ops_arms(serving) -> list[tuple]:
     prompt set j, 0 its one-device phase's prompts and j > 0 the same
     lengths redrawn from SEED + 300 + j. h1 phase e's chunks and prefix,
     h2-h4 the loops, h5 the MoE, h6 overcommit, h7 the watchdog, h8
-    disaggregation. ``serving`` is the main path waves'."""
+    disaggregation (h9, migration, is tp_move_rounds' and runs in the same
+    world). ``serving`` is the main path waves'."""
     from vtpu_torch.models import ModelConfig, MoEConfig
     from vtpu_torch.parallel.launch import Run, Script
     from vtpu_torch.serving import DisaggConfig, FaultPlan, FaultSpec
@@ -5577,6 +5592,217 @@ def tp_ops_arms(serving) -> list[tuple]:
         arm("h8 disagg", "dense", cfg, rep(serving, **DG_SERVING, disagg=DisaggConfig()),
             bg + burst),
     ]
+
+
+# phase h9: migration under the mesh, two rounds in phase h's tp=2 world.
+# Sessions of MG_BUDGET tokens, moved at their MG_PARK_AT-th token; the
+# spilling source has phase n's small pool and host tier, the destination
+# of round A a pool and a host tier that hold every session moved onto it
+H9_DST = dict(slots=8, kv_pool_blocks=64, kv_swap=OC_HOST)
+# the round runner h9 shares with the CPU tests (tests/torch_move_kit.py,
+# no jax), imported by the world's rank 0 from tests/ on its sys.path
+MOVE_RUNNER = "torch_move_kit:port_round"
+
+
+def tp_tier_watch(model):
+    """A rank hook of phase h9 (``Run.hook`` "chip_smoke:tp_tier_watch"):
+    this rank's host tier across a migration round. A block a swap-out or
+    a tier upload fills is held until a swap-in or a snapshot reads it
+    back; ``tier_held`` is the blocks still held at the end ([] when the
+    tier is free). Rank 0 wraps its adapter's calls, a follower its run of
+    the ops. (The CPU tests' hook also compares the tier byte for byte
+    around each op: tests/torch_tp_hooks.py.)"""
+    from vtpu_torch.serving.adapters import _OP_SNAPSHOT, _OP_SWAP_IN, _OP_SWAP_OUT, _OP_UPLOAD
+
+    held: set = set()
+
+    def seen(op, ids):
+        if op in (_OP_SWAP_OUT, _OP_UPLOAD):
+            held.update(ids)
+        else:
+            held.difference_update(ids)
+
+    if model.mesh.rank == 0:
+        swap_out, swap_in = model.swap_out, model.swap_in
+        snapshot, upload = model.snapshot, model.upload
+
+        def watched_out(state, blocks, host, stage):
+            seen(_OP_SWAP_OUT, host)
+            return swap_out(state, blocks, host, stage)
+
+        def watched_in(state, blocks, host, stage):
+            seen(_OP_SWAP_IN, host)
+            return swap_in(state, blocks, host, stage)
+
+        def watched_snapshot(state, blocks, host, stage):
+            seen(_OP_SNAPSHOT, host)
+            return snapshot(state, blocks, host, stage)
+
+        def watched_upload(state, payload, ids, stage, tier=False):
+            if tier:
+                seen(_OP_UPLOAD, ids)
+            return upload(state, payload, ids, stage, tier)
+
+        model.swap_out, model.swap_in = watched_out, watched_in
+        model.snapshot, model.upload = watched_snapshot, watched_upload
+    else:
+        run = model._run
+
+        def watched_run(op, dims, args, state):
+            if op in (_OP_SWAP_OUT, _OP_SWAP_IN, _OP_SNAPSHOT):
+                seen(op, args[1].tolist())
+            elif op == _OP_UPLOAD and dims[2]:
+                seen(op, args[0].tolist())
+            return run(op, dims, args, state)
+
+        model._run = watched_run
+    return lambda state: {"tier_held": sorted(held)}
+
+
+def tp_move_rounds() -> list[tuple]:
+    """Phase h9's rounds, as (name, Run, the direct moves' paths): the
+    flagship on the main path's serving config with kv_swap (phase n's
+    mg_serving), MG_BUDGET tokens a session. Round A, bf16: tp engines
+    src, small (phase n's small pool and host tier) and dst (H9_DST; its
+    second pool reservation reads dry, alloc_exhaust), and the one-device
+    engine one on rank 0's card. A live move src -> dst (held inside its
+    16th token until the move asks its park), a parked session moved onto
+    dst's dry pool (into every rank's host tier, resumed by swap-in), src
+    -> one -> dst (parked at 16 and 32), a session parked on small and
+    evicted to every rank's tier by the next admission, moved to dst, then
+    src drained into dst (a parked, a live and a waiting session). Round
+    B, int8 KV: tp engines a and b under an EngineFleet pinned to a, a
+    live move a -> b, then fleet.drain("a") (a parked, a live and a
+    waiting session)."""
+    import os
+
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.parallel.launch import Moves, Run, Script
+    from vtpu_torch.serving import FaultPlan, FaultSpec
+
+    # a spawned rank starts on this process's sys.path
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    p = wave_prompts(FLAGSHIP["vocab"])
+    at = MG_PARK_AT
+    hook = "chip_smoke:tp_tier_watch"
+    dry = FaultPlan([FaultSpec("alloc_exhaust", at=1)])
+    a = Moves(
+        runner=MOVE_RUNNER,
+        engines=(("src", {}), ("small", dict(kv_pool_blocks=MG_SMALL_POOL, kv_swap=MG_HOST)),
+                 ("dst", dict(H9_DST, faults=dry)), ("one", {})),
+        one_device=("one",),
+        steps=(("submit", 0, "src"), ("park_at", 0, at), ("submit", 1, "src"),
+               ("hold_at", 1, at), ("submit", 4, "src"), ("park_at", 4, at),
+               ("park_at", 4, 2 * at), ("submit", 2, "small"), ("park_at", 2, at), ("start",),
+               # dst's first reservation: the live move, resident
+               ("held", 1), ("move", 1, "dst"),
+               # its second reads dry: every rank's host tier
+               ("parked", 0), ("move", 0, "dst"),
+               ("parked", 4), ("move", 4, "one"), ("parked", 4), ("move", 4, "dst"),
+               ("parked", 2), ("submit", 3, "small"), ("evicted", 2), ("move", 2, "dst"),
+               ("submit", 5, "src"), ("park_at", 5, at), ("parked", 5), ("submit", 6, "src"),
+               ("hold_at", 6, 1), ("held", 6), ("submit", 7, "src"), ("drain", "src", "dst")))
+    b = Moves(
+        runner=MOVE_RUNNER, engines=(("a", {}), ("b", {})), fleet=("a", "b"),
+        steps=(("start",), ("gate", "a"), ("submit", 0, "fleet"), ("hold_at", 0, at),
+               ("submit", 1, "fleet"), ("park_at", 1, at // 2), ("ungate", "a"),
+               ("parked", 1), ("held", 0), ("move", 0, "b"),
+               ("submit", 2, "fleet"), ("hold_at", 2, 1), ("held", 2), ("submit", 3, "fleet"),
+               ("drain", "a", None)))
+    return [
+        ("h9 moves bf16", Run(cfg, mg_serving(), p + [p[1], p[0]], MG_BUDGET,
+                              script=Script(moves=a), hook=hook),
+         [(1, "src", "dst", "resident"), (0, "src", "dst", "host"),
+          (4, "src", "one", "resident"), (4, "one", "dst", "resident"),
+          (2, "small", "dst", "resident")]),
+        ("h9 fleet int8", Run(dataclasses.replace(cfg, kv_int8=True), mg_serving(),
+                              [p[1], p[5], p[4], p[0]], MG_BUDGET, script=Script(moves=b),
+                              hook=hook),
+         [(0, "a", "b", "resident")]),
+    ]
+
+
+def check_tp_moves(name: str, run, paths: list, ranks: list, forced: dict, tp: int) -> dict:
+    """Hold one round of phase h9: every stream OK and MG_BUDGET tokens
+    long, each against the plain trunk of its KV type teacher-forced on it
+    (check_forced, a near-tie skipped); the direct moves' paths; every
+    moved payload pages x the whole-head block bytes (a session holds its
+    prompt and budget's pages), out and in bytes equal over the engines;
+    migration_copies 0; the drain's three sessions moved or completed,
+    none faulted (and under the fleet, one engine draining, no failover);
+    every engine's pool and host tier free on rank 0 and every rank's tier
+    free (tp_tier_watch); and on each rank
+    12 x the tp engines' kernel-route ticks head-local paged launches, 12
+    x the one-device engine's ticks single-device paged launches (rank 0
+    only), 12 x its engines' admission dispatches flash launches. Returns
+    what it held and each move's figures."""
+    lead = ranks[0]
+    moves = run.script.moves
+    int8 = bool(run.cfg.kv_int8)
+    for toks, status in zip(lead["streams"], lead["statuses"]):
+        if status != "OK" or len(toks) != MG_BUDGET:
+            raise AssertionError(f"tp={tp} {name}: a stream ended {status} after {len(toks)} "
+                                 f"of {MG_BUDGET} tokens")
+    got = [m[:4] for m in lead["moves"]]
+    if got != paths:
+        raise AssertionError(f"tp={tp} {name}: moves {got}, expected {paths}")
+    bpb = block_bytes_of(run.cfg, run.serving.kv_page)
+    rows = []
+    for i, src, dst, path, nbytes, ms in lead["moves"]:
+        pages = -(-(len(run.prompts[i]) + MG_BUDGET) // run.serving.kv_page)
+        if nbytes != pages * bpb:
+            raise AssertionError(f"tp={tp} {name}: session {i} {src} -> {dst} moved {nbytes} "
+                                 f"bytes, expected {pages} pages x {bpb} (whole heads)")
+        rows.append({"session": i, "from": src, "to": dst, "path": path, "bytes": nbytes,
+                     "ms": ms, "gb_per_s": nbytes / ms / 1e6})
+    st = lead["stats"]
+    out_b = sum(s["migrate_out_bytes"] for s in st.values())
+    in_b = sum(s["migrate_in_bytes"] for s in st.values())
+    if out_b != in_b or out_b <= 0 or any(s["migration_copies"] or s["migrate_failures"]
+                                          for s in st.values()):
+        raise AssertionError(f"tp={tp} {name}: out {out_b} and in {in_b} bytes, copies and "
+                             f"failures {[(s['migration_copies'], s['migrate_failures']) for s in st.values()]}")
+    ((migrated, completed, faulted, drain_ms),) = lead["drains"]
+    if (migrated + completed, faulted) != (3, 0):
+        raise AssertionError(f"tp={tp} {name}: drain moved {migrated}, completed {completed}, "
+                             f"faulted {faulted} of three")
+    if moves.fleet and (lead["fleet"]["draining_engines"], lead["fleet"]["failovers"]) != (1, 0):
+        raise AssertionError(f"tp={tp} {name}: fleet {lead['fleet']}")
+    for eng, s in st.items():
+        if (s["kv_pool_free"] != s["kv_pool_blocks"] or s["parked_sessions"] or s["queued"]
+                or (s["swap_host_blocks"] and s["swap_host_free"] != s["swap_host_blocks"])):
+            raise AssertionError(f"tp={tp} {name} {eng}: not empty at the end: {s}")
+    tp_names = [n for n, _ in moves.engines if n not in moves.one_device]
+    for rank, res in enumerate(ranks):
+        for eng in tp_names:
+            if res["hooks"][eng]["tier_held"]:
+                raise AssertionError(f"tp={tp} {name} rank {rank} {eng}: host tier blocks "
+                                     f"{res['hooks'][eng]['tier_held']} still held")
+        mine = [n for n in st if rank == 0 or n in tp_names]
+        ticks = sum(st[n]["paged_attn_kernel_ticks"] for n in tp_names)
+        one = sum(st[n]["paged_attn_kernel_ticks"] for n in mine if n in moves.one_device)
+        dispatches = sum(sum(st[n]["prefill_batch_hist"]) for n in mine)
+        L = run.cfg.n_layers
+        kern = "paged_decode_attention_int8kv" if int8 else "paged_decode_attention"
+        want = {f"{kern}_tp": L * ticks, kern: L * one, "flash_attention": L * dispatches}
+        have = {k: res["launches"][k] for k in want}
+        others = {k: v for k, v in res["launches"].items() if v and k not in want}
+        if have != want or others:
+            raise AssertionError(f"tp={tp} {name} rank {rank}: launches {have} (and {others}), "
+                                 f"expected {want}")
+    held = check_forced(forced["int8" if int8 else "bf16"],
+                        [(np.asarray(pr, np.int32), t, MG_PARK_AT)
+                         for pr, t in zip(run.prompts, lead["streams"])], f"tp={tp} {name}")
+    return {"moves": rows, "drain_ms": drain_ms, "wall_s": lead["wall_s"],
+            "held": held["held"], "skipped": held["skipped"],
+            "launches": [r["launches"] for r in ranks],
+            "counters": {n: {k: s[k] for k in ("migrations_out", "migrations_in",
+                                                "migrate_out_bytes", "migrate_in_bytes",
+                                                "swap_out_bytes", "swap_in_bytes", "tp")}
+                         for n, s in st.items()}}
 
 
 def check_tp_arm(name: str, run, held_by: str, ranks: list, forced: dict, tp: int) -> dict:
@@ -5659,7 +5885,8 @@ def check_tp_arm(name: str, run, held_by: str, ranks: list, forced: dict, tp: in
         want.update(parks=len(run.prompts), resumes=len(run.prompts),
                     swap_host_free=st["swap_host_blocks"])
         positive += ["evicted_blocks", "swap_out_bytes"]
-        bpb = block_bytes_of(cfg, tp, serving.kv_page)
+        # the swap byte counters count whole heads, blocks every rank swaps
+        bpb = block_bytes_of(cfg, serving.kv_page)
         swapped = st["swap_in_bytes"] // bpb
         for rank, res in enumerate(ranks):
             if res["swap_checked"] != swapped or res["swap_differ"]:
@@ -5688,10 +5915,11 @@ def check_tp_arm(name: str, run, held_by: str, ranks: list, forced: dict, tp: in
             "swap_checked": [r.get("swap_checked") for r in ranks]}
 
 
-def block_bytes_of(cfg, tp: int, page: int) -> int:
-    """Bytes one pool block holds on one rank: every layer's page of its
-    n_heads / tp heads, K and V (and their f32 scales under int8)."""
-    per = cfg.n_layers * page * (cfg.n_heads // tp)
+def block_bytes_of(cfg, page: int) -> int:
+    """Bytes one pool block holds across every rank: every layer's page of
+    all n_heads heads, K and V (and their f32 scales under int8), the unit
+    of the swap and migration byte counters."""
+    per = cfg.n_layers * page * cfg.n_heads
     int8 = bool(getattr(cfg, "kv_int8", False))
     return 2 * per * (cfg.head_dim * (1 if int8 else 2) + (4 if int8 else 0))
 
@@ -5732,20 +5960,32 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP, params=None) -> d
                             kv_int8=kv == "int8") for kv in ("bf16", "int8")}
     prompts = wave_prompts(FLAGSHIP["vocab"])
     arms = tp_ops_arms(serving) if tp == TP else []
+    # own_group is gloo only (several engines' NCCL groups driven at once
+    # have no common collective order): h9 runs where the ranks share a card
+    rounds = tp_move_rounds() if tp == TP and backend == "gloo" else []
+    if tp == TP and not rounds:
+        log(f"tp={tp} h9 (migration between tp engines) not run: its engines' process "
+            "groups are gloo only, and this world runs nccl")
 
     def world(runs):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             ranks = launch_tp(serve_requests, tp, backend, devices, f"file://{tmp}/store",
                               args=([SEED] * len(runs), runs, True), timeout=900)
-        log(f"tensor-parallel world: {time.perf_counter() - t0:.1f} s wall, start-up and "
-            f"{len(runs)} runs included")
+        wall = time.perf_counter() - t0
+        runs_s = [r["run_s"] for r in ranks[0]]
+        moves_s = sum(t for t, run in zip(runs_s, runs) if run.script.moves is not None)
+        log(f"tensor-parallel world: {wall:.1f} s wall, start-up and {len(runs)} runs "
+            f"included; rank 0's runs {sum(runs_s):.1f} s (migration rounds {moves_s:.1f} s), "
+            f"start-up and exit {wall - sum(runs_s):.1f} s")
         return ranks
 
     # (arm, prompt set) of each arm wave in the world
     pending = [(a, j) for a in arms for j in range(TP_FIRST_WAVES[a[1]])]
     ranks = world([Run(cfgs[kv], serving, prompts, new_tokens) for kv in cfgs]
-                  + [wave(j) for (_, _, wave), j in pending])
+                  + [wave(j) for (_, _, wave), j in pending] + [run for _, run, _ in rounds])
+    moved = [r[len(ranks[0]) - len(rounds):] for r in ranks]
+    ranks = [r[:len(ranks[0]) - len(rounds)] for r in ranks]
     heads = FLAGSHIP["n_heads"] // tp
     pool = [FLAGSHIP["n_layers"], 41, 128, heads, FLAGSHIP["head_dim"]]
     out = {}
@@ -5850,6 +6090,28 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP, params=None) -> d
                 and bool(getattr(wave(0).cfg, "kv_int8", False)) == (kv == "int8"))
         for kv in ("bf16", "int8")}
     log(f"tp={tp} phase h arms checked in {time.perf_counter() - t0:.1f} s")
+    out["moves"] = {}
+    for k, (name, run, paths) in enumerate(rounds):
+        t_check = time.perf_counter()
+        res = check_tp_moves(name, run, paths, [r[k] for r in moved], forced, tp)
+        lead = moved[0][k]
+        res["check_s"] = time.perf_counter() - t_check
+        # what the round adds to phase h: its run in the world (a weights
+        # load, the groups, engines, round and stops) and its checks here
+        res["seconds"] = lead["run_s"] + res["check_s"]
+        out["moves"][name] = res
+        for m in res["moves"]:
+            log(f"tp={tp} {name} on {card}: session {m['session']} {m['from']} -> {m['to']} "
+                f"{m['path']} in {m['ms']:.1f} ms, {m['bytes']} bytes "
+                f"({m['gb_per_s']:.3f} GB/s; {tag})")
+        log(f"tp={tp} {name} on {card}: drain {res['drain_ms']:.1f} ms; {res['held']} tokens "
+            f"held against the teacher-forced plain trunk, {res['skipped']} near-ties skipped; "
+            f"per-rank launches {res['launches']}; counters {res['counters']}; every rank's "
+            f"pool and tier free; {res['seconds']:.1f} s (in the world {lead['run_s']:.1f} s: "
+            f"groups {lead['groups_s']:.1f}, engines built {lead['build_s']:.1f}, round "
+            f"{lead['wall_s']:.1f}, stops {lead['stop_s']:.1f}; checks "
+            f"{res['check_s']:.1f} s)")
+    out["h9_seconds"] = sum(r["seconds"] for r in out["moves"].values())
     return out
 
 
@@ -6378,7 +6640,10 @@ def main() -> int:
             if "arms" in out:
                 runs["tp_ops_path"] = {"arms": out["arms"],
                                        "verify_launches": out["verify_launches"]}
+                runs["tp_moves_path"] = out["moves"]
             mark(f"tp={tp}")
+            if "h9_seconds" in out:
+                phase_s["h9 (within tp=2)"] = out["h9_seconds"]
     del params
     torch.cuda.empty_cache()
     runs["training_path"] = training_path(log, card)

@@ -52,6 +52,7 @@ from tests.torch_fleet_kit import (
     both,
     catch_submits,
     clean,
+    count_tokens,
     hold_until,
     make_weights,
     on_token,
@@ -379,7 +380,11 @@ def test_payload_corruption_downgrades_to_recompute(weights):
     intact run after it ships the pages and installs them resident, its
     bytes counted on the wire. Each session is still live on the host when
     its park is asked (the host's loop holds inside its first token until
-    then)."""
+    then), and moves once the park took effect and the client holds every
+    token the host delivered: the reference's host sends the extract's
+    reply without waiting for the session's pump, so a token still on its
+    way is dropped with the client's mirror (the port's host ships it
+    first)."""
     refs = {"corrupt": _ref(weights, JCFG, P2), "intact": _ref(weights, JCFG, P3)}
 
     def scenario(k):
@@ -395,11 +400,14 @@ def test_payload_corruption_downgrades_to_recompute(weights):
             held = threading.Event()
             with TickGate(t.eng):
                 req = t.rem.submit(prompt, max_new_tokens=STEPS)
+                seen = count_tokens(req)
                 mirror = caught[-1]
                 on_token(mirror, 1, hold_until(lambda m=mirror: m in asked, held))
             wait(held.is_set, "the host's loop held inside token 1")
             if name == "corrupt":
                 plan.arm("fabric_payload_corrupt", count=1)
+            t.rem.park(req)
+            wait(lambda: seen[0] == mirror.delivered, "every delivered token at the client")
             rep = mig.migrate(req, t.rem, dst)
             got = list(req.stream())
             out[name] = (rep["path"], _agree(got, refs[name]), req.status)

@@ -34,6 +34,7 @@ from tests.torch_fleet_kit import (
     JCFG,
     PAGE,
     PinPolicy,
+    ProbeGate,
     TickGate,
     both,
     fleet_counters,
@@ -100,11 +101,14 @@ def _reaped(fleet, eng):
 # ------------------------------------------------------------- validation
 
 
-def test_fleet_validation(weights):
+def test_fleet_validation(weights, refs):
     """Fewer than two engines, an engine without kv_swap, another page
     size, a ladder out of order and a fault plan of the wrong type fail at
-    construction, with the reference's messages; the port also refuses an
-    engine under mesh= (its sessions cannot migrate)."""
+    construction, with the reference's messages. An engine under mesh=
+    joins a fleet as the reference's does (the port refused it before its
+    sessions could migrate): a one-rank-mesh member beside a one-device
+    one serves a pinned session, and the fleet's drain moves it across,
+    the stream equal to the JAX engine's."""
     def scenario(k):
         one, two = k.engine(), k.engine()
         no_swap = k.engine(kv_swap=None)
@@ -121,13 +125,27 @@ def test_fleet_validation(weights):
     out = run(weights, scenario)
     held(out, {})
     from vtpu_torch.parallel import TpMesh
-    from vtpu_torch.serving import EngineFleet, ServingConfig, ServingEngine
+    from vtpu_torch.serving import EngineFleet, FleetConfig, ServingConfig, ServingEngine
 
     mesh = TpMesh(rank=0, size=1, device=torch.device("cpu"))
     tp = ServingEngine(weights[1], CFG, ServingConfig(**BASE), mesh=mesh)
     one = ServingEngine(weights[1], CFG, ServingConfig(**BASE), device="cpu")
-    with pytest.raises(ValueError, match="mesh="):
-        EngineFleet({"a": one, "b": tp})
+    fleet = EngineFleet({"a": tp, "b": one}, FleetConfig(**FC, route_policy=PinPolicy("a")))
+    fleet.start()
+    try:
+        with TickGate(tp):
+            req = fleet.submit(P1, max_new_tokens=STEPS)
+            on_token(req, 2, lambda: tp.park(req))
+        wait(lambda: req in tp._parked, "the park")
+        report = fleet.drain("a")
+        assert list(req.stream()) == refs[0]
+        assert (report["migrated"], report["faulted"]) == (1, 0)
+        assert fleet._assigned.get(req, "b") == "b"
+        assert settle_clean(tp, one)
+        s = fleet.stats(include_engines=False)
+        assert s["draining_engines"] == 1 and s["failovers"] == 0
+    finally:
+        fleet.stop()
 
 
 def test_route_policy_loading(weights):
@@ -313,9 +331,12 @@ def test_suspect_recovery_never_fails_over(weights, refs):
         # 'a', 1, 3, 5, ... 'b': eat b's probes in rounds 0 and 1 only
         plan = k.Plan([k.Spec("probe_loss", at=1), k.Spec("probe_loss", at=3)])
         fleet, E = k.fleet(("a", "b"), fc={"route_policy": PinPolicy("b"), "faults": plan})
-        fleet.start()
-        req = fleet.submit(P1, max_new_tokens=STEPS)
-        where = fleet._assigned[req]
+        # no probe round before the placement: two of them would make b
+        # SUSPECT first, and the router prefers HEALTHY a
+        with ProbeGate(fleet):
+            fleet.start()
+            req = fleet.submit(P1, max_new_tokens=STEPS)
+            where = fleet._assigned[req]
         wait(lambda: fleet.stats()["suspects"] >= 1, "the SUSPECT transition")
         wait(lambda: fleet.stats()["engine_states"]["b"] == "HEALTHY", "the recovery")
         got = list(req.stream())

@@ -34,6 +34,7 @@ swap-in dispatch with no host wait (that dispatch runs under
 ``set_sync_debug_mode("error")``); the MoE and SSM families' decode steps replay bit for bit their
 eager steps (an SSM state written in place, masked by the active flags),
 their engines on graphs stream what their synchronous eager loops stream,
+an SSM prompt admitted beside another yields the logits it yields alone,
 and MoE routing (comparisons with an arange, no one_hot) captures under
 ``set_sync_debug_mode("error")``, drops and pad mask included; and a
 disaggregated engine's prefill worker chunks on its own stream beside the
@@ -1047,6 +1048,63 @@ def test_family_engines_on_graphs_stream_what_the_eager_loop_streams(dev, family
         assert launches["flash_attention"] > 0
     else:
         assert sum(launches.values()) == 0
+
+
+# the serving flagship SSM's widths (chip_smoke.py's SSM_FLAGSHIP)
+SSM_WIDE = dict(vocab=8192, d_model=1024, n_layers=12, d_state=16)
+# chip_smoke.py's FORCED_MARGIN: the logit margin under which its greedy
+# check stops holding a token
+PAIR_DRIFT = 0.125
+
+
+def test_ssm_admission_in_a_pair_matches_one_row(dev):
+    """Six prompts of 600-1024 tokens at the flagship SSM's widths, each
+    admitted into a four-slot state in a [2, 1024] batch beside another
+    prompt and in a [1, 1024] batch alone (the engine's two admission
+    sizes), then decoded four slots a step as the engine decodes: the first
+    token's logits and those of 15 decode steps fed the same greedy tokens
+    stay within PAIR_DRIFT of each other. When _selective_mix's skinny
+    x_proj product (33 columns over 2048) ran as a bf16 GEMM, cuBLAS split
+    it at the pair's shape and reduced the partial sums in bf16: one
+    prompt's logits then moved by 2.4 and its greedy tokens flipped at
+    margins up to 0.83, so a stream's tokens hung on which prompts the
+    engine happened to admit together."""
+    cfg = SSMConfig(**SSM_WIDE, dtype=torch.bfloat16)
+    params = init_ssm_params(0, cfg, device=dev)
+    model = SsmSlotModel(params, cfg, device=dev)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, cfg.vocab, (int(n),)).astype(np.int32)
+               for n in rs.randint(600, 1025, 6)]
+
+    def admit(rows):
+        """rows into slots 0.. of a four-slot state, as the engine admits."""
+        padded = np.zeros((len(rows), 1024), np.int32)
+        for j, p in enumerate(rows):
+            padded[j, :len(p)] = p
+        state = model.init_state(4)
+        last, state = model.prefill_into_slots(
+            params, state, torch.from_numpy(padded).to(dev),
+            torch.arange(len(rows), device=dev),
+            torch.tensor([len(p) for p in rows], device=dev))
+        return last, state
+
+    def step(state, tok, n):
+        active = torch.arange(4, device=dev) < n
+        logits, state = model.decode_step(params, state, tok.repeat(4), active, 0)
+        return logits[0], state
+
+    drift = []
+    for i, p in enumerate(prompts):
+        last1, alone = admit([p])
+        last2, pair = admit([p, prompts[(i + 1) % len(prompts)]])
+        row1, row2, worst = last1[0], last2[0], 0.0
+        for _ in range(16):
+            worst = max(worst, float((row2 - row1).abs().max()))
+            tok = torch.argmax(row1).to(torch.int32).reshape(1)
+            row1, alone = step(alone, tok, 1)
+            row2, pair = step(pair, tok, 2)
+        drift.append(worst)
+    assert max(drift) <= PAIR_DRIFT, drift
 
 
 def test_moe_routing_captures_under_sync_debug_error(dev):

@@ -13,7 +13,8 @@ mid-stream, parked and spilled, a waiting request, source death, payload
 loss (rebuilt, and FAULTED where nothing can rebuild it), cancels before
 the extract and between extract and install, the pair checks, drain, and
 drain with a waiting prefix-backed request; and one of the port's own: an
-engine under ``mesh=`` refuses to migrate.
+engine under ``mesh=`` migrates and drains both ways, and two engines'
+adapters cannot drive one process group.
 
 Nothing races the loop thread. A park is asked inside the delivery of a
 chosen token (``_on_token``); a request is made to wait by queueing it
@@ -460,28 +461,59 @@ def test_migrate_validation_errors(weights):
     _held(out, {"stream_len": STEPS, "status": "OK", "moved": 0})
 
 
-def test_migrate_under_a_mesh_raises(weights):
-    """The port's own rule: an engine under ``mesh=`` refuses to migrate
-    (its head shards need a broadcast op of their own, a later slice).
-    A one-rank mesh builds without a process group, so the check is
-    reached without spawning ranks."""
+def test_migrate_under_a_mesh_raises(weights, refs):
+    """Under ``mesh=`` sessions migrate and drain as on one device (the
+    reference refuses neither): a session parked on a one-rank-mesh engine
+    moves to a one-device engine, one moves back, and a parked one is
+    drained across, each stream equal to the JAX engine's stay-put stream,
+    every move resident with its bytes equal each way. What still raises
+    under a mesh is two engines' adapters driving one process group (their
+    broadcasts would interleave on its followers): the second is refused,
+    naming ``own_group``. A one-rank mesh builds without a process group,
+    so the moves run without spawning ranks; tests/test_torch_tp_migrate.py
+    holds them at tp=2."""
+    from vtpu_torch.parallel import shard_params
+    from vtpu_torch.serving.adapters import TransformerSlotModel
+
     mesh = TpMesh(rank=0, size=1, device=torch.device("cpu"))
-    src = ServingEngine(weights[1], CFG, ServingConfig(**BASE), mesh=mesh)
-    dst = ServingEngine(weights[1], CFG, ServingConfig(**BASE), device="cpu")
-    src.start()
-    dst.start()
+    tp = ServingEngine(weights[1], CFG, ServingConfig(**BASE), mesh=mesh)
+    one = ServingEngine(weights[1], CFG, ServingConfig(**BASE), device="cpu")
+    tp.start()
+    one.start()
     try:
-        req = src.submit(P1, max_new_tokens=STEPS)
-        for a, b in ((src, dst), (dst, src)):
-            with pytest.raises(MigrationError, match="mesh="):
-                migrate(req, a, b)
-        with pytest.raises(MigrationError, match="mesh="):
-            src.drain(dst)
-        assert not src.stats()["draining"]
-        assert list(req.stream()) and src.stats()["migrations_out"] == 0
+        streams, reports = [], []
+        for src, dst, p in ((tp, one, P1), (one, tp, P2)):
+            req = src.submit(p, max_new_tokens=STEPS)
+            _on_token(req, 2, lambda src=src, req=req: src.park(req))
+            _wait(lambda: req in src._parked, "the park")
+            reports.append(migrate(req, src, dst))
+            streams.append(list(req.stream()))
+        req = tp.submit(P3, max_new_tokens=STEPS)
+        _on_token(req, 1, lambda: tp.park(req))
+        _wait(lambda: req in tp._parked, "the park")
+        drained = tp.drain(one)
+        streams.append(list(req.stream()))
+        _settle_clean(tp, one)
+        assert streams == [refs[0], refs[1], refs[2]]
+        assert [r["path"] for r in reports] == ["resident", "resident"]
+        assert (drained["migrated"], drained["faulted"]) == (1, 0)
+        assert tp.stats()["draining"] and tp.stats()["tp"] == 1
+        c = _counters(tp, one)
+        assert c["src"]["migrations_out"] == c["dst"]["migrations_in"] == 2
+        assert c["src"]["migrations_in"] == c["dst"]["migrations_out"] == 1
+        assert (c["src"]["migrate_out_bytes"] + c["dst"]["migrate_out_bytes"]
+                == c["src"]["migrate_in_bytes"] + c["dst"]["migrate_in_bytes"] > 0)
+        assert c["dst"]["migrate_out_bytes"] == reports[1]["bytes"] > 0
+        assert c["src"]["migration_copies"] == c["dst"]["migration_copies"] == 0
     finally:
-        src.stop()
-        dst.stop()
+        tp.stop()
+        one.stop()
+    half = TpMesh(rank=0, size=2, device=torch.device("cpu"), group=object())
+    shard = shard_params(weights[1], half)
+    first = TransformerSlotModel(shard, CFG, kv_page=PAGE, mesh=half)
+    with pytest.raises(ValueError, match="drives this process group.*own_group"):
+        TransformerSlotModel(shard, CFG, kv_page=PAGE, mesh=half)
+    assert first.mesh is half
 
 
 # ------------------------------------------------------------------- drain

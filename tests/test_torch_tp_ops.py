@@ -17,7 +17,9 @@ tensor-parallel gates, served by the port:
 Held: each arm's streams equal the JAX TP engine's (paged on its gather
 route: its kernel route raises on the installed jax, ROADMAP Queue 3) and
 the port's single-device engine's, and the gate's own counters; every
-rank's swapped-in blocks equal what left its pool, byte for byte. A
+rank's swapped-in blocks equal what left its pool, byte for byte, and the
+overcommit arm's swap byte counters, whole heads, equal the JAX TP
+engine's over the same parks and resumes. A
 watchdog arm (no reference gate): ``delayed_fetch`` stalls past a 500 ms
 threshold drive both rungs down and back up; its streams equal the same
 engine's healthy tp=2 run and its rung counters the single-device port's
@@ -46,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_move_kit import move_round
 from vtpu.models import ModelConfig as JModelConfig, init_params as j_init_params
 from vtpu.models.moe import MoEConfig as JMoEConfig, init_moe_params as j_init_moe_params
 from vtpu.parallel.mesh import make_axis_mesh
@@ -349,6 +352,31 @@ def test_overcommit_swaps_every_rank_byte_for_byte(world):
     assert st["swap_host_free"] == st["swap_host_blocks"]
     for r in ranks:
         assert r["swap_checked"] == st["evicted_blocks"] and r["swap_differ"] == 0
+
+
+def test_overcommit_swap_bytes_count_whole_heads_as_jax(world, weights):
+    """The overcommit arm's swap byte counters under tp=2 count whole
+    heads (a block's bytes across every rank), equal to the JAX TP
+    engine's over the same round: each session parked inside its first
+    token, the second's admission evicting the first, both resumed in
+    turn (``move_round``'s steps on the JAX engine). The blocks evicted
+    and the streams agree too."""
+    _, _, prompts, new, script = ARMS["overcommit"]
+    eng = JServingEngine(weights["dense"][0], JCFG, _serving("overcommit", JServingConfig),
+                         mesh=make_axis_mesh("tp", 2))
+    at = script["park_after"]
+    steps = (("start",), ("submit", 0, "e"), ("park_at", 0, at), ("parked", 0),
+             ("submit", 1, "e"), ("park_at", 1, at), ("parked", 1),
+             ("resume", 0), ("end", 0), ("resume", 1), ("end", 1))
+    try:
+        ref = move_round({"e": eng}, prompts, new, steps, None)
+    finally:
+        eng.stop()
+    lead, want = world("overcommit")[0], ref["stats"]["e"]
+    keys = ("swap_out_bytes", "swap_in_bytes", "evicted_blocks")
+    assert {k: lead["stats"][k] for k in keys} == {k: want[k] for k in keys}
+    assert want["swap_out_bytes"] > 0 and want["swap_in_bytes"] > 0
+    assert lead["streams"] == ref["streams"]
 
 
 def test_disagg_handoffs_under_the_mesh(world):

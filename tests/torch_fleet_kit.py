@@ -13,6 +13,9 @@ How the scenarios avoid racing the loop threads:
 - ``on_token`` runs an action on the loop thread inside the delivery of a
   chosen token (arming ``engine_death``, asking a park, cancelling), and
   ``hold_until`` holds the loop there until the client's command is queued.
+- ``ProbeGate`` holds the fleet's monitor before its probe rounds while
+  the client places a request, so a probe_loss plan cannot walk an engine
+  to SUSPECT before the placement it is meant to follow.
 - A wall clock only guards against a hang (``wait``); no verdict rests on
   one. Death detection takes ``miss_ms`` of a stopped heartbeat, wide
   enough that a live loop is never fenced.
@@ -223,6 +226,20 @@ def on_token_when(req, cond, action) -> None:
     req.out.put = hook
 
 
+def count_tokens(req) -> list:
+    """A one-element list counting the tokens put on ``req``'s stream from
+    now on (install it before the first arrives)."""
+    seen, put = [0], req.out.put
+
+    def hook(item):
+        put(item)
+        if isinstance(item, (int, np.integer)):
+            seen[0] += 1
+
+    req.out.put = hook
+    return seen
+
+
 def catch_submits(eng) -> list:
     """The requests ``eng.submit`` makes, in order: on a fabric host, the
     server mirrors of clients' requests. Submit while the engine's loop is
@@ -298,6 +315,32 @@ class TickGate:
     def __exit__(self, *exc):
         self.closed.clear()
         self.at.clear()
+        self.go.set()
+        return False
+
+
+class ProbeGate:
+    """Hold ``fleet``'s monitor before its next probe round while the
+    client acts: ``with ProbeGate(fleet): ...``. Install it before
+    ``fleet.start()`` so the first round waits too: a placement then sees
+    every engine as the client left it, however slowly the client runs
+    against ``probe_interval_ms``."""
+
+    def __init__(self, fleet):
+        self.go = threading.Event()
+        probe = fleet._probe_round
+
+        def gated():
+            if not self.go.wait(HANG_S):
+                EXPIRED.append(self)
+            probe()
+
+        fleet._probe_round = gated
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
         self.go.set()
         return False
 

@@ -5,7 +5,9 @@ rank's final state whose dict joins the rank's result."""
 
 import torch
 
-from vtpu_torch.serving.adapters import _OP_SWAP_IN, _OP_SWAP_OUT
+from vtpu_torch.serving.adapters import (
+    _OP_SNAPSHOT, _OP_SWAP_IN, _OP_SWAP_OUT, _OP_UPLOAD,
+)
 
 PLANES = ("k", "v", "k_scale", "v_scale")
 
@@ -65,3 +67,76 @@ def kv_state(model):
     return lambda state: {
         "pool": {k: x.float().cpu().numpy() for k, x in state.items() if k in PLANES},
         "prefix_keys": sorted(model._prefixes)}
+
+
+def tier_watch(model):
+    """This rank's host tier across a migration round: every block a
+    swap-out or a tier upload fills is held until a swap-in or a snapshot
+    reads it back (``tier_held``, the blocks still held after the round:
+    [] when the tier is free), and around every snapshot and upload op the
+    whole tier is compared byte for byte: a snapshot writes no block, an
+    upload only its own tier blocks (``tier_foreign``, blocks written
+    otherwise, over ``tier_ops`` ops). Rank 0 wraps its adapter's calls, a
+    follower its run of the ops."""
+    held: set = set()
+    counts = {"tier_ops": 0, "tier_foreign": 0}
+
+    def copy():
+        return {k: x.clone() for k, x in model._host_pool.items()}
+
+    def written(prev) -> set:
+        now = model._host_pool
+        blocks = len(next(iter(now.values()))) if now else 0  # kv_swap=0: no tier
+        return {h for h in range(blocks)
+                if any(not torch.equal(prev[k][h].view(torch.uint8), x[h].view(torch.uint8))
+                       for k, x in now.items())}
+
+    def watched(op, ids, tier, call):
+        """``call()`` under watch; ``ids`` the op's host-tier blocks."""
+        if op == _OP_SWAP_OUT or (op == _OP_UPLOAD and tier):
+            held.update(ids)
+        elif op in (_OP_SWAP_IN, _OP_SNAPSHOT):
+            held.difference_update(ids)
+        if op not in (_OP_SNAPSHOT, _OP_UPLOAD):
+            return call()
+        prev = copy()
+        out = call()
+        counts["tier_ops"] += 1
+        counts["tier_foreign"] += len(written(prev) - (set(ids) if tier else set()))
+        return out
+
+    if model.mesh.rank == 0:
+        swap_out, swap_in = model.swap_out, model.swap_in
+        snapshot, upload = model.snapshot, model.upload
+        model.swap_out = lambda state, blocks, host, stage: watched(
+            _OP_SWAP_OUT, host, False, lambda: swap_out(state, blocks, host, stage))
+        model.swap_in = lambda state, blocks, host, stage: watched(
+            _OP_SWAP_IN, host, False, lambda: swap_in(state, blocks, host, stage))
+        model.snapshot = lambda state, blocks, host, stage: watched(
+            _OP_SNAPSHOT, host, False, lambda: snapshot(state, blocks, host, stage))
+        model.upload = lambda state, payload, ids, stage, tier=False: watched(
+            _OP_UPLOAD, ids if tier else [], tier,
+            lambda: upload(state, payload, ids, stage, tier))
+    else:
+        run = model._run
+
+        def watched_run(op, dims, args, state):
+            if op in (_OP_SWAP_OUT, _OP_SWAP_IN, _OP_SNAPSHOT):
+                ids, tier = args[1].tolist(), False
+            elif op == _OP_UPLOAD:
+                tier = bool(dims[2])
+                ids = args[0].tolist() if tier else []
+            else:
+                return run(op, dims, args, state)
+            return watched(op, ids, tier, lambda: run(op, dims, args, state))
+
+        model._run = watched_run
+    return lambda state: {"tier_held": sorted(held), **counts}
+
+
+def fail_follower(model):
+    """A rank hook that fails every follower before it follows: a world's
+    check that a follower thread's error fails its rank."""
+    if model.mesh.rank != 0:
+        raise RuntimeError("no follower here")
+    return lambda state: {}

@@ -87,7 +87,13 @@ def _selective_mix(lp: dict[str, torch.Tensor], x: torch.Tensor):
     """Input-dependent SSM coefficients from x: [B, S, Di]: per-step decay a
     and drive b [B, S, Di, N] (f32) and the readout C [B, S, N]."""
     n = lp["a_log"].shape[-1]
-    proj = (x @ lp["x_proj"]).float()  # [B, S, 2N+1]
+    # f32 operands, rounded to x's dtype once after an f32 sum, as the
+    # reference's x @ x_proj is. A bf16 GEMM this skinny (2N+1 columns over
+    # Di) may be split along Di by cuBLAS with its partial sums reduced in
+    # bf16 (torch's default allow_bf16_reduced_precision_reduction): on an
+    # H100 a [2, 1024]-token admission then moved dt far enough to flip
+    # greedy tokens at logit margins near 0.8
+    proj = (x.float() @ lp["x_proj"].float()).to(x.dtype).float()  # [B, S, 2N+1]
     b_in, c_out, dt = proj[..., :n], proj[..., n:2 * n], proj[..., -1:]
     dt = F.softplus(dt + lp["dt_bias"])  # [B, S, 1], > 0
     a = -torch.exp(lp["a_log"])  # [Di, N], negative: a stable decay

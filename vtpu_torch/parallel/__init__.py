@@ -4,10 +4,12 @@ rank over ``torch.distributed``, where JAX runs one controller over a mesh.
 - ``mesh``: the world a rank joins (``World``, ``join_world``) and its
   meshes, dp x tp, sp, pp, multislice and dp x ep, one process group per
   axis; ``AxisMesh`` is a mesh's view of one axis, and ``TpMesh`` (the
-  same class) serving's ('tp',) mesh.
+  same class) serving's ('tp',) mesh, ``own_group`` the same ranks on a
+  group of their own (a second engine in the world).
 - ``collectives``: every collective, with the backward JAX differentiates
   by (the Megatron pair ``copy_to_axis`` / ``all_reduce_sum``,
-  ``ppermute``, ``all_to_all``).
+  ``ppermute``, ``all_to_all``), and serving's ``broadcast_`` and
+  ``all_gather``.
 - ``sharding``: which slice of each parameter a rank holds, and its rows
   of a batch.
 - ``train``: the AdamW train step on one card and over dp x tp and
@@ -27,11 +29,11 @@ that shard of ``jax.grad``'s.
 """
 
 from vtpu_torch.parallel.collectives import (
-    all_reduce_sum, all_to_all, broadcast_, copy_to_axis, ppermute,
+    all_gather, all_reduce_sum, all_to_all, broadcast_, copy_to_axis, ppermute,
 )
 from vtpu_torch.parallel.mesh import (
     AxisMesh, Mesh, TpMesh, World, join_world, make_axis_mesh, make_dp_ep_mesh, make_mesh,
-    make_multislice_mesh, make_sp_mesh, make_tp_mesh, mesh_shape_for,
+    make_multislice_mesh, make_sp_mesh, make_tp_mesh, mesh_shape_for, own_group,
 )
 from vtpu_torch.parallel.sharding import (
     batch_sharding, head_shard, moe_tp_param_shardings, param_shardings, param_split_axes,
@@ -58,6 +60,7 @@ __all__ = [
     "TrainCheckpointer",
     "World",
     "adamw",
+    "all_gather",
     "all_reduce_sum",
     "all_to_all",
     "batch_sharding",
@@ -81,6 +84,7 @@ __all__ = [
     "moe_param_shardings",
     "moe_tp_param_shardings",
     "next_token_loss",
+    "own_group",
     "param_shardings",
     "param_split_axes",
     "pipeline_apply",

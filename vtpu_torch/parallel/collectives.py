@@ -1,8 +1,9 @@
 """Every collective of the port goes through here, serving's and training's.
 
-Serving runs two kinds: the all-reduce of the row-parallel partial sums
-(after ``wo`` and after ``w_down`` in every layer), and the broadcast of
-rank 0's step calls to the other ranks (serving/adapters.py). Training
+Serving runs three kinds: the all-reduce of the row-parallel partial sums
+(after ``wo`` and after ``w_down`` in every layer), the broadcast of rank
+0's step calls to the other ranks (serving/adapters.py), and the
+all-gather of a migrating session's head shards. Training
 adds the collectives JAX differentiates through in ``shard_map`` bodies:
 ``ppermute`` (ring attention, the pipeline), ``all_to_all`` (Ulysses, the
 expert exchange) and ``psum``. JAX's single controller needs none of them
@@ -194,10 +195,19 @@ def all_to_all(x: torch.Tensor, split: int, concat: int, mesh) -> torch.Tensor:
 
 
 def broadcast_(x: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:
-    """Overwrite ``x`` on every rank with rank ``src``'s ``x``, in place.
-    Returns x."""
+    """Overwrite ``x`` on every rank with the ``x`` of the mesh's rank
+    ``src``, in place. Returns x."""
     buf = _staged(x, mesh)
-    dist.broadcast(buf, src=src, group=_group(mesh))
+    dist.broadcast(buf, src=_peer(mesh, src), group=_group(mesh))
     if buf is not x:
         x.copy_(buf)
     return x
+
+
+def all_gather(x: torch.Tensor, mesh) -> list[torch.Tensor]:
+    """Every rank's ``x`` (the same shape and dtype on each), in the mesh's
+    rank order, on x's device."""
+    buf = _staged(x.contiguous(), mesh)
+    out = [torch.empty_like(buf) for _ in range(mesh.size)]
+    dist.all_gather(out, buf, group=_group(mesh))
+    return [o.to(x.device) for o in out]

@@ -12,7 +12,10 @@ rank but 0: it follows rank 0's ServingEngine op by op
 package, so a spawned rank imports ``vtpu_torch`` and nothing else of its
 parent. ``serve_requests`` serves ``Run`` waves of the dense or the MoE
 family (by the config's type); a ``Script`` has rank 0 act within a wave
-(a prefix, parks and resumes, a fault armed).
+(a prefix, parks and resumes, a fault armed, or with ``Moves`` a migration
+round between several engines of the world, each tensor-parallel one on a
+process group of its own and followed on every other rank by a thread of
+its own; the round's runner is loaded by import path, as a rank hook is).
 
     launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"], "file:///tmp/w/store",
               args=([weights], [Run(cfg, serving, prompts, 16)]))
@@ -27,6 +30,7 @@ import dataclasses
 import importlib
 import multiprocessing
 import queue
+import threading
 import time
 import traceback
 from typing import Any, Callable, Optional, Sequence
@@ -34,7 +38,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from vtpu_torch.ops import _build
-from vtpu_torch.parallel.mesh import join_world, whole_world_axis
+from vtpu_torch.parallel.mesh import join_world, own_group, whole_world_axis
 from vtpu_torch.parallel.sharding import shard_moe_params, shard_params
 
 # how long launch_tp waits for a rank that exited to deliver its result
@@ -144,6 +148,27 @@ def launch_tp(fn: Callable, tp: int, backend: str, devices: Sequence, init_metho
 
 
 @dataclasses.dataclass(frozen=True)
+class Moves:
+    """A migration round (``Script.moves``), picklable. Rank 0 builds one
+    engine a name of ``engines``, each on the Run's ServingConfig with its
+    overrides (a dict of fields: a pool size, a FaultPlan), serving the
+    Run's config on the Run's weights: every engine not named in
+    ``one_device`` under the mesh on a process group of its own
+    (``own_group``, in this order on every rank), each named one on rank
+    0's device with the whole weights. Rank 0's client thread then calls
+    ``runner`` ("module:function", imported there, as ``Run.hook`` is)
+    with {name: engine} and the Run; the runner reads ``steps`` and
+    ``fleet`` (the names it serves through one EngineFleet), builds and
+    stops whatever it adds, and returns the round's results."""
+
+    runner: str
+    engines: tuple = (("src", {}), ("dst", {}))
+    steps: tuple = ()
+    one_device: tuple = ()
+    fleet: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
 class Script:
     """What rank 0 does within a wave besides submitting its prompts: a
     picklable description (``Run.script``).
@@ -159,13 +184,16 @@ class Script:
                  its end, then the second
     arm          (prompt index, token count, seam): the ServingConfig's
                  FaultPlan arms ``seam`` inside the delivery of that
-                 prompt's token-count-th token"""
+                 prompt's token-count-th token
+    moves        a migration round (``Moves``) in place of the wave: the
+                 prompts are its sessions"""
 
     prefix: Optional[tuple] = None
     prefixed: Optional[int] = None
     drop_prefix: bool = False
     park_after: int = 0
     arm: Optional[tuple] = None
+    moves: Optional[Moves] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,15 +224,22 @@ class Run:
     hook: Optional[str] = None
 
 
-def _adapter(params, cfg, serving, mesh):
-    """The slot adapter of ``cfg``'s family on this rank's shard: the MoE
-    for a MoEConfig, else the dense transformer."""
+def _adapter(params, cfg, serving, mesh, device=None):
+    """The slot adapter of ``cfg``'s family on this rank's shard (with no
+    mesh, the whole ``params`` on ``device``): the MoE for a MoEConfig,
+    else the dense transformer."""
     from vtpu_torch.models.moe import MoEConfig
     from vtpu_torch.serving.adapters import MoeSlotModel, TransformerSlotModel
 
     cls = MoeSlotModel if isinstance(cfg, MoEConfig) else TransformerSlotModel
     return cls(params, cfg, kv_page=serving.kv_page, kv_pool_blocks=serving.kv_pool_blocks,
-               paged_attn=serving.paged_attn, mesh=mesh)
+               paged_attn=serving.paged_attn, device=device, mesh=mesh)
+
+
+def _by_path(path: str) -> Callable:
+    """The function a "module:function" path names."""
+    module, _, name = path.partition(":")
+    return getattr(importlib.import_module(module), name)
 
 
 def _hook(path: Optional[str], model) -> Callable[[dict], dict]:
@@ -212,8 +247,37 @@ def _hook(path: Optional[str], model) -> Callable[[dict], dict]:
     it returns (with None, one that adds nothing)."""
     if path is None:
         return lambda state: {}
-    module, _, name = path.partition(":")
-    return getattr(importlib.import_module(module), name)(model)
+    return _by_path(path)(model)
+
+
+def _follow_engines(params, cfg, workers: dict, hook: Optional[str]) -> dict:
+    """A non-zero rank's side of a migration round: one ``serve_worker``
+    thread an engine of ``workers`` ({name: (ServingConfig, its mesh on a
+    group of its own)}), joined. A thread that raises fails the rank at
+    once with its traceback (launch then stops the world), so rank 0 never
+    waits on a broadcast nobody follows. Returns {name: serve_worker's
+    result}."""
+    out: dict = {}
+    failed: list = []
+
+    def follow(name, serving, mesh):
+        try:
+            out[name] = serve_worker(params, cfg, serving, mesh, hook)
+        except BaseException:  # the thread's boundary: the rank's main thread raises it
+            failed.append(f"the follower of engine {name!r} raised:\n"
+                          + traceback.format_exc())
+
+    threads = [threading.Thread(target=follow, args=(name, serving, mesh),
+                                name=f"follow-{name}", daemon=True)
+               for name, (serving, mesh) in workers.items()]
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads) and not failed:
+        for t in threads:
+            t.join(timeout=0.05)
+    if failed:
+        raise RuntimeError(failed[0])
+    return out
 
 
 def serve_worker(params, cfg, serving, mesh, hook: Optional[str] = None):
@@ -230,21 +294,23 @@ def serve_worker(params, cfg, serving, mesh, hook: Optional[str] = None):
     return state, done(state)
 
 
-def _load_weights(weights, cfg, mesh):
+def _load_weights(weights, cfg, mesh, whole: bool = False):
     """This rank's shard of ``weights`` for ``cfg``'s family: a seed for
     the family's init (every rank draws the same full weights and keeps its
-    slices) or a numpy tree (only this rank's slices are carried over)."""
+    slices) or a numpy tree (only this rank's slices are carried over).
+    With ``whole``, all of them, on the rank's device."""
     from vtpu_torch.convert import moe_params_from_numpy, params_from_numpy
     from vtpu_torch.models import init_params
     from vtpu_torch.models.moe import MoEConfig, init_moe_params
 
     moe = isinstance(cfg, MoEConfig)
     if isinstance(weights, int):
-        if moe:
-            return shard_moe_params(init_moe_params(weights, cfg, device=mesh.device), mesh)
-        return shard_params(init_params(weights, cfg, device=mesh.device), mesh)
+        full = (init_moe_params if moe else init_params)(weights, cfg, device=mesh.device)
+        if whole:
+            return full
+        return shard_moe_params(full, mesh) if moe else shard_params(full, mesh)
     convert = moe_params_from_numpy if moe else params_from_numpy
-    return convert(weights, cfg, device=mesh.device, mesh=mesh)
+    return convert(weights, cfg, device=mesh.device, mesh=None if whole else mesh)
 
 
 def _on_token(req, n: int, action) -> None:
@@ -275,6 +341,59 @@ def _wait(cond, what: str, timeout: float = 300.0) -> None:
         time.sleep(0.002)
 
 
+def _move_wave(mesh, params, weights, run: Run) -> dict:
+    """``Script.moves``' round on every rank: every rank builds each
+    tensor-parallel engine's group in the same order; rank 0 builds the
+    engines and runs the round's runner on a client thread of its own
+    (this one), the other ranks follow each engine on a thread of its own.
+    Rank 0's dict is the runner's result with ``kv_shape``, its seconds
+    (``groups_s`` the groups, ``build_s`` the engines and weights,
+    ``wall_s`` the runner, ``stop_s`` the engines' stops) and, per
+    tensor-parallel engine, what the run's hook adds under ``hooks``; a
+    follower's holds ``kv_shape`` and ``hooks``."""
+    from vtpu_torch.serving import ServingEngine
+
+    moves = run.script.moves
+    t0 = time.perf_counter()
+    servings = {name: dataclasses.replace(run.serving, **dict(over))
+                for name, over in moves.engines}
+    meshes = {name: own_group(mesh) for name in servings if name not in moves.one_device}
+    if mesh.rank != 0:
+        followed = _follow_engines(params, run.cfg, {n: (servings[n], meshes[n])
+                                                     for n in meshes}, run.hook)
+        return {"kv_shape": list(followed[next(iter(meshes))][0]["k"].shape),
+                "hooks": {name: extra for name, (_, extra) in followed.items()}}
+    runner = _by_path(moves.runner)
+    grouped = time.perf_counter()
+    whole = _load_weights(weights, run.cfg, mesh, whole=True) if moves.one_device else None
+    engines, done = {}, {}
+    try:
+        for name, serving in servings.items():
+            if name in meshes:
+                model = _adapter(params, run.cfg, serving, meshes[name])
+                done[name] = _hook(run.hook, model)
+            else:
+                model = _adapter(whole, run.cfg, serving, None, device=mesh.device)
+            engines[name] = ServingEngine(serving=serving, model=model, sample=run.sample)
+        # the round's counts start here: a one-device engine's graph
+        # capture ran its step once, eagerly, before recording it
+        _build.reset_launches()
+        built = time.perf_counter()
+        out = runner(engines, run)
+        ran = time.perf_counter()
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    for name, eng in engines.items():
+        if eng.loop_error is not None:
+            raise RuntimeError(f"engine {name}'s serving loop failed: {eng.loop_error!r}")
+    out.update(groups_s=grouped - t0, build_s=built - grouped, wall_s=ran - built,
+               stop_s=time.perf_counter() - ran)
+    out["hooks"] = {name: fn(engines[name].state) for name, fn in done.items()}
+    out["kv_shape"] = list(engines[next(iter(meshes))].state["k"].shape)
+    return out
+
+
 def _overcommit_round(eng, prompts: Sequence, new_tokens: int, park_after: int) -> list:
     """Script.park_after's round; returns the requests in prompt order."""
     half = len(prompts) // 2
@@ -294,7 +413,7 @@ def _overcommit_round(eng, prompts: Sequence, new_tokens: int, park_after: int) 
     return reqs
 
 
-def _serve_wave(mesh, params, run: Run) -> dict:
+def _serve_wave(mesh, params, run: Run, weights=None) -> dict:
     """One engine's life on every rank: rank 0 serves ``run``'s prompts,
     all submitted at once (or as its script says), and stops the workers;
     the others follow it. Every rank's dict holds the shape of its KV
@@ -303,6 +422,8 @@ def _serve_wave(mesh, params, run: Run) -> dict:
     ``wall_s`` and, with a prefix on a paged pool, its ``prefix_blocks``."""
     from vtpu_torch.serving import ServingEngine
 
+    if run.script.moves is not None:
+        return _move_wave(mesh, params, weights, run)
     if mesh.rank != 0:
         state, extra = serve_worker(params, run.cfg, run.serving, mesh, run.hook)
         return {"kv_shape": list(state["k"].shape), **extra}
@@ -357,28 +478,34 @@ def serve_requests(mesh, weights: Sequence, runs: Sequence[Run],
     its shard). Rank 0 drives a ServingEngine; the other ranks run
     serve_worker. With ``warmup`` each run's first prompt is served first
     by an engine of its own, without the run's fault plan, script or hook,
-    so the counted wave's engine, stats and launch counts see none of it.
+    so the counted wave's engine, stats and launch counts see none of it
+    (not before a migration round, whose counts start once its engines are
+    built).
     Launch counts are set to 0 on every rank just before the counted
-    wave's engine is built and read just after it stops.
+    wave's engine is built (on rank 0 again once a migration round's
+    engines are built) and read just after it stops.
 
     Returns one dict per run. Every rank's holds ``launches``, the shape
     of its KV plane ``kv_shape`` and what the run's hook adds; rank 0's
     adds ``streams``, ``logprobs``, ``statuses``, ``stats`` and ``wall_s``
-    (the counted wave)."""
+    (the counted wave). Every rank's ``run_s`` is the run's seconds on that
+    rank, a weights load and the warm-up included."""
     if len(weights) != len(runs):
         raise ValueError(f"{len(runs)} runs need {len(runs)} weights, got {len(weights)}")
     done, last, params = [], None, None
     for w, run in zip(weights, runs):
+        t0 = time.perf_counter()
         if last is None or last[0] is not w or last[1] != run.cfg:
             params = _load_weights(w, run.cfg, mesh)
             last = (w, run.cfg)
-        if warmup:
+        if warmup and run.script.moves is None:
             _serve_wave(mesh, params, dataclasses.replace(
                 run, serving=dataclasses.replace(run.serving, faults=None),
                 prompts=list(run.prompts)[:1], submit=None, script=Script(), hook=None))
         _build.reset_launches()
-        res = _serve_wave(mesh, params, run)
+        res = _serve_wave(mesh, params, run, w)
         res["launches"] = _build.launches()
+        res["run_s"] = time.perf_counter() - t0
         done.append(res)
     return done
 

@@ -24,7 +24,8 @@ host tensors, and every collective stages through host memory
 (collectives.py).
 
 Serving's mesh is an ``AxisMesh`` over a ``('tp',)`` world of its own
-(``make_tp_mesh``), under its serving name ``TpMesh``.
+(``make_tp_mesh``), under its serving name ``TpMesh``; each further engine
+of that world takes the same ranks on a group of its own (``own_group``).
 """
 
 from __future__ import annotations
@@ -122,6 +123,34 @@ def whole_world_axis(world: World, axis: str = "tp") -> AxisMesh:
     """The AxisMesh whose one axis is the whole of the joined ``world``."""
     return AxisMesh(rank=world.rank, size=world.size, device=world.device,
                     backend=world.backend, group=dist.group.WORLD, axis=axis)
+
+
+def own_group(mesh: AxisMesh) -> AxisMesh:
+    """``mesh`` on a process group of its own over the same ranks: a second
+    serving engine's broadcast protocol in the same world runs on it, so
+    the two engines' collectives never interleave. ``dist.new_group``'s
+    rule holds: every rank of the world calls this, in the same order.
+
+    Gloo only. Each engine's group is driven by a thread of its own on
+    every rank, so collectives of different groups run concurrently in no
+    order common to the ranks; NCCL communicators used so can deadlock
+    (as can a synchronizing call, a pinned allocation or a blocking copy,
+    made while another communicator's kernel spins). NCCL waits for a
+    per-rank order of every engine's collectives."""
+    if mesh.backend == "nccl":
+        raise ValueError(
+            f"{mesh.axis}={mesh.size}: a process group of its own for a further engine is "
+            "gloo only; several engines' NCCL groups driven concurrently have no "
+            "collective order common to the ranks and can deadlock")
+    group = mesh.group
+    if group is None:
+        raise RuntimeError(f"{mesh.axis}={mesh.size} rank {mesh.rank}: this mesh joined no "
+                           "process group to split")
+    ranks = [r if group is dist.group.WORLD else dist.get_global_rank(group, r)
+             for r in range(mesh.size)]
+    fresh = dist.new_group(ranks=ranks, backend=mesh.backend,
+                           timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    return dataclasses.replace(mesh, group=fresh)
 
 
 def make_tp_mesh(tp: int, backend: str, init_method: str, rank: int, device) -> TpMesh:

@@ -52,6 +52,7 @@ import contextlib
 import itertools
 import math
 import threading
+import weakref
 from typing import Any, Optional
 
 import torch
@@ -64,18 +65,24 @@ from vtpu_torch.models.transformer import (
     multi_tick_spec_decode, prefill, sample_tokens,
 )
 from vtpu_torch.ops.decode_attn import PAGED_ATTN_ROUTES
-from vtpu_torch.parallel.collectives import broadcast_
+from vtpu_torch.parallel.collectives import all_gather, broadcast_
 
 # rank 0's calls as the other ranks receive them: a header of _HEADER int64
 # words (the op, the paged read route rank 0 runs it on as an index of
 # _ROUTES, then up to four sizes), then, for every op but INIT and STOP,
 # one int64 payload holding the call's tensor arguments and rank 0's
-# _MIRRORED state planes
+# _MIRRORED state planes. A migration's snapshot and upload move their KV
+# bytes in a collective of their own after that (_to_bytes)
 (_OP_INIT, _OP_PREFILL, _OP_DECODE, _OP_STOP, _OP_CHUNK, _OP_VERIFY, _OP_COPY, _OP_PREFIX,
- _OP_INSTALL, _OP_DROP, _OP_TIER, _OP_SWAP_OUT, _OP_SWAP_IN) = range(13)
+ _OP_INSTALL, _OP_DROP, _OP_TIER, _OP_SWAP_OUT, _OP_SWAP_IN, _OP_SNAPSHOT,
+ _OP_UPLOAD) = range(15)
 _HEADER = 6
 _ROUTES = (None,) + PAGED_ATTN_ROUTES
 _MIRRORED = ("table", "len")
+# rank 0's adapter that drives each process group, by the group's id: two
+# engines' calls on one group would interleave on its followers
+_GROUP_OWNERS: "weakref.WeakValueDictionary[int, TransformerSlotModel]" = (
+    weakref.WeakValueDictionary())
 
 
 def _payload_shapes(op: int, dims: list, b: int) -> list:
@@ -91,6 +98,10 @@ def _payload_shapes(op: int, dims: list, b: int) -> list:
         return [(3,), (1, dims[0])] + ([(dims[2],)] if dims[2] else [])
     if op in (_OP_COPY, _OP_SWAP_OUT, _OP_SWAP_IN):  # (n, ...): two id lists
         return [(dims[0],), (dims[0],)]
+    if op == _OP_SNAPSHOT:  # (pool blocks, host blocks, stage): the two id lists
+        return [(dims[0],), (dims[1],)]
+    if op == _OP_UPLOAD:  # (n, stage, into the host tier): the n pool or host ids
+        return [(dims[0],)]
     if op == _OP_PREFIX:  # (key, padded length, n, C): the padded prompt, each chunk's window
         return [(1, dims[1]), (dims[1] // dims[3],)]
     if op in (_OP_INSTALL, _OP_DROP, _OP_TIER):
@@ -126,6 +137,44 @@ def to_host(tier: dict, snap: dict, host: list[int], non_blocking: bool) -> None
     for j, h, r in _runs(host):
         for key, x in snap.items():
             tier[key][h:h + r].copy_(x[j:j + r], non_blocking=non_blocking)
+
+
+def head_axis_concat(shards: list[dict], out: dict) -> dict:
+    """Whole-head block-major planes from every rank's head shard, in rank
+    order: axis 3 of [n, L, page, heads, Dh] and of the scale planes'
+    [n, L, page, heads] alike, into ``out``'s planes."""
+    for key, buf in out.items():
+        torch.cat([shard[key] for shard in shards], dim=3, out=buf)
+    return out
+
+
+def head_slice(planes: dict, rank: int, size: int, pin: bool = False) -> dict:
+    """Rank ``rank``'s heads of whole-head block-major planes (axis 3), each
+    contiguous on the host (pinned with ``pin``): the inverse of
+    ``head_axis_concat``."""
+    out = {}
+    for key, x in planes.items():
+        h = x.shape[3] // size
+        part = x.narrow(3, rank * h, h)
+        out[key] = torch.empty(part.shape, dtype=part.dtype, pin_memory=pin).copy_(part)
+    return out
+
+
+def _to_bytes(planes: dict) -> torch.Tensor:
+    """Planes as one flat uint8 tensor, plane after plane: what the
+    migration ops' collectives carry (the header's int64 payload carries
+    ids only)."""
+    return torch.cat([x.reshape(-1).view(torch.uint8) for x in planes.values()])
+
+
+def _from_bytes(flat: torch.Tensor, like: dict) -> dict:
+    """``_to_bytes``' inverse for planes shaped as ``like``'s."""
+    out, at = {}, 0
+    for key, x in like.items():
+        n = x.numel() * x.element_size()
+        out[key] = flat[at:at + n].view(x.dtype).view(x.shape)
+        at += n
+    return out
 
 
 def copy_blocks(state: dict, src: list[int], dst: list[int]) -> dict:
@@ -357,6 +406,8 @@ class TransformerSlotModel:
         if mesh is not None:
             _validate_serving_mesh(mesh, cfg)
             _check_rank_shard(params, cfg, mesh)
+            if mesh.size > 1 and mesh.rank == 0 and mesh.group is not None:
+                _claim_group(self, mesh)
         self.cfg = cfg
         self.params = params
         self.mesh = mesh
@@ -476,6 +527,32 @@ class TransformerSlotModel:
             self._announce(_OP_SWAP_IN, (len(blocks), stage), (blocks, host), state)
             return restore_pages(state, self._host_pool, blocks, host, stage)
 
+    def snapshot(self, state, blocks: list[int], host: list[int], stage: int):
+        """A migrating session's pages as host memory, block-major, whole
+        heads: pool ``blocks`` (through the staging gathers, ``stage``
+        blocks each) then host-tier blocks ``host``, [n, L, page, ...] a
+        plane, pinned on a card. Every rank gathers its own head shard of
+        the pool blocks and reads its own tier's, and rank 0 assembles the
+        heads (``head_axis_concat``) from an all-gather of the shards'
+        bytes. No rank's host tier is written. Rank 0 gets the payload;
+        the caller makes sure its own tier's spills of ``host`` landed."""
+        with self._lock:
+            self._announce(_OP_SNAPSHOT, (len(blocks), len(host), stage), (blocks, host),
+                           state)
+            return self._snapshot(state, blocks, host, stage)
+
+    def upload(self, state, payload: dict, ids: list[int], stage: int, tier: bool = False):
+        """A migrating session's whole-head payload (``snapshot``'s layout)
+        onto every rank's head shard: into pool ``ids`` through the
+        staging scatters (``restore_pages``), or with ``tier`` into host-
+        tier blocks ``ids``. Rank 0 broadcasts the payload's bytes and each
+        rank keeps its own heads (``head_slice``); no rank builds the whole
+        pool. On a card the caller makes sure no spill into those host
+        blocks is still in flight on its side stream."""
+        with self._lock:
+            self._announce(_OP_UPLOAD, (len(ids), stage, int(tier)), (ids,), state)
+            return self._upload(state, payload, ids, stage, tier)
+
     def stop_workers(self) -> None:
         """Rank 0: tell the other ranks to leave ``follow`` (once). A no-op
         without a mesh."""
@@ -483,6 +560,8 @@ class TransformerSlotModel:
             if self._drives() and not self._stopped:
                 self._stopped = True
                 broadcast_(torch.tensor([_OP_STOP] + [0] * (_HEADER - 1)), self.mesh)
+                if _GROUP_OWNERS.get(id(self.mesh.group)) is self:
+                    del _GROUP_OWNERS[id(self.mesh.group)]
 
     # ------------------------------------------------------ rank 0 / others
 
@@ -571,6 +650,10 @@ class TransformerSlotModel:
         elif op == _OP_SWAP_IN:
             state = restore_pages(state, self._host_pool, args[0].tolist(), args[1].tolist(),
                                   dims[1])
+        elif op == _OP_SNAPSHOT:
+            self._snapshot(state, args[0].tolist(), args[1].tolist(), dims[2])
+        elif op == _OP_UPLOAD:
+            state = self._upload(state, None, args[0].tolist(), dims[1], bool(dims[2]))
         else:
             raise RuntimeError(f"unknown op {op} from rank 0")
         return state
@@ -649,6 +732,78 @@ class TransformerSlotModel:
     def _gather(self, state, blocks: list[int], stage: int) -> list:
         return [(i, swap_page_gather(state, _device_ids(blocks[i:i + stage], self.device)))
                 for i in range(0, len(blocks), stage)]
+
+    def _split(self) -> bool:
+        """Whether the heads are split over more than one rank."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _snapshot(self, state, blocks: list[int], host: list[int], stage: int):
+        cuda = self.device.type == "cuda"
+        n = len(blocks) + len(host)
+        mine = {key: torch.empty((n, state[key].shape[0]) + tuple(state[key].shape[2:]),
+                                 dtype=state[key].dtype, pin_memory=cuda)
+                for key in kv_keys(state)}
+        for i, snap in self._gather(state, blocks, stage):
+            to_host(mine, snap, list(range(i, min(i + stage, len(blocks)))),
+                    non_blocking=cuda)
+        if cuda and (blocks or self._split()):
+            # the gathers' copies, and on a follower the spills its stream
+            # queued into its own tier, have landed before the host reads
+            torch.cuda.current_stream(self.device).synchronize()
+        done = len(blocks)
+        for j, h, r in _runs(host):
+            for key, buf in mine.items():
+                buf[done + j:done + j + r].copy_(self._host_pool[key][h:h + r])
+        if not self._split():
+            return mine
+        shards = all_gather(_to_bytes(mine), self.mesh)
+        if self.mesh.rank != 0:
+            return None
+        whole = {key: torch.empty(x.shape[:3] + (x.shape[3] * self.mesh.size,) + x.shape[4:],
+                                  dtype=x.dtype, pin_memory=cuda) for key, x in mine.items()}
+        return head_axis_concat([_from_bytes(b, mine) for b in shards], whole)
+
+    def _upload(self, state, payload: Optional[dict], ids: list[int], stage: int,
+                tier: bool):
+        cuda = self.device.type == "cuda"
+        if self._split():
+            size, rank = self.mesh.size, self.mesh.rank
+            # the whole-head planes' shapes, without their memory
+            like = {key: torch.empty((len(ids), state[key].shape[0])
+                                     + tuple(state[key].shape[2:3])
+                                     + (state[key].shape[3] * size,)
+                                     + tuple(state[key].shape[4:]),
+                                     dtype=state[key].dtype, device="meta")
+                    for key in kv_keys(state)}
+            if rank == 0:
+                flat = _to_bytes({key: payload[key] for key in like})
+            else:
+                flat = torch.empty(sum(x.numel() * x.element_size() for x in like.values()),
+                                   dtype=torch.uint8)
+            broadcast_(flat, self.mesh)
+            payload = head_slice(_from_bytes(flat, like), rank, size, pin=cuda)
+        if not tier:
+            return restore_pages(state, payload, ids, list(range(len(ids))), stage)
+        if cuda and self.mesh is not None and self.mesh.rank != 0:
+            # a follower's spills copy on its own stream: land them before
+            # the host writes
+            torch.cuda.current_stream(self.device).synchronize()
+        for j, h, r in _runs(ids):
+            for key, plane in self._host_pool.items():
+                plane[h:h + r].copy_(payload[key][j:j + r])
+        return state
+
+
+def _claim_group(model: "TransformerSlotModel", mesh: Any) -> None:
+    """Make ``model`` the one owner of its mesh's process group, or refuse
+    while another live adapter drives it."""
+    other = _GROUP_OWNERS.get(id(mesh.group))
+    if other is not None and other.mesh.group is mesh.group and not other._stopped:
+        raise ValueError(
+            f"another engine's adapter drives this process group (tp={mesh.size}): two "
+            "engines' broadcasts on one group would interleave on its followers; give each "
+            "engine its own group (vtpu_torch.parallel.own_group)")
+    _GROUP_OWNERS[id(mesh.group)] = model
 
 
 def _validate_serving_mesh(mesh: Any, cfg: Any) -> None:

@@ -91,6 +91,7 @@ import dataclasses
 import functools
 import itertools
 import logging
+import math
 import queue
 import threading
 import time
@@ -638,6 +639,18 @@ def prefill_into_slots(params: Params, cfg: ModelConfig, cache: dict, tokens: to
     if logits.dim() == 2:
         return logits, cache
     return logits[torch.arange(tokens.shape[0], device=logits.device), true_lens - 1], cache
+
+
+def block_geometry(plane: torch.Tensor, mesh=None) -> tuple:
+    """One pool plane's per-block shape across every rank: the plane [L,
+    blocks, page, heads, ...] without its block axis, its head axis counted
+    whole under a mesh (each rank holds heads / tp of it). What a migration
+    payload's blocks and the swap and migration byte counters are in, as
+    the reference's global shapes are."""
+    shape = [int(plane.shape[0])] + [int(x) for x in plane.shape[2:]]
+    if mesh is not None:
+        shape[2] *= mesh.size
+    return tuple(shape)
 
 
 def pad_to_chunks(tokens, n: int, c: int) -> torch.Tensor:
@@ -1322,9 +1335,12 @@ class ServingEngine:
         self._swap_planes = tuple(kv_keys(self.state)) if self._paged else ()
         if self._swap_enabled:
             pin = self.device.type == "cuda"
+            # bytes one block holds across layers and planes, whole heads
+            # under a mesh: the unit of the swap and migration byte counters
             for key in self._swap_planes:
                 plane = self.state[key]
-                self._block_bytes += plane[:, 0].numel() * plane.element_size()
+                self._block_bytes += (math.prod(block_geometry(plane, self.mesh))
+                                      * plane.element_size())
             if self._swap_host_blocks:
                 self._host_pool = self.model.init_host_tier(self.state, self._swap_host_blocks,
                                                             pin)

@@ -62,12 +62,14 @@ _ACK_IDLE_REAP_S = 30.0
 
 def _engine_geom(eng) -> dict:
     """The compat-check geometry a RemoteEngine advertises in the fleet:
-    page size, KV plane names, per-block plane shapes and dtypes (what
-    ``migrate._compat_check`` compares), block bytes."""
+    page size, KV plane names, per-block plane shapes (whole heads under a
+    mesh) and dtypes (what ``migrate._compat_check`` compares), block
+    bytes."""
+    from vtpu_torch.serving.engine import block_geometry
+
     shapes, dtypes = {}, {}
     for key in eng._swap_planes:
-        s = eng.state[key].shape
-        shapes[key] = [int(s[0])] + [int(x) for x in s[2:]]
+        shapes[key] = list(block_geometry(eng.state[key], eng.mesh))
         dtypes[key] = str(eng.state[key].dtype).removeprefix("torch.")
     return {"page": int(eng._page), "planes": list(eng._swap_planes),
             "plane_shapes": shapes, "plane_dtypes": dtypes,
@@ -214,10 +216,15 @@ class EngineHost:
                                          "gone"):
                         # the session left this host (or settled): stop
                         # its pump without a terminal; the stream, if it
-                        # lives, continues on the destination engine
+                        # lives, continues on the destination engine. The
+                        # pump ships every token delivered before the
+                        # extract first: the client drops the session's
+                        # mirror on this reply, and a token that reached
+                        # the wire after it would be lost
                         with mu:
                             sessions.pop(msg["cid"], None)
                         req.out.put(_PUMP_STOP)
+                        sess["pump"].join(timeout)
                 elif op == "migrate_in":
                     meta = msg["meta"]
                     req = Request(

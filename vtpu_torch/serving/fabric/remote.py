@@ -266,6 +266,10 @@ class HostClient:
             sess.next_seq += 1
 
     def _deliver(self, sess: _Session, msg: dict) -> None:
+        with sess.eng._deliver_mu:
+            self._deliver_locked(sess, msg)
+
+    def _deliver_locked(self, sess: _Session, msg: dict) -> None:
         eng = sess.eng
         req = sess.req
         if sess.done:
@@ -492,14 +496,23 @@ class HostClient:
 class _StopWaiter(threading.Thread):
     """A joinable stand-in for a local engine's loop thread: the fleet's
     fence is ``_stop.set(); _thread.join(timeout)`` — for a proxy there
-    is no loop to join, only the stop event to observe."""
+    is no loop to join, only the stop event to observe, and a delivery
+    already past its stop check (``gate``, held by ``_deliver``) to let
+    land, its ledger record included: the fence then reads a ledger that
+    holds exactly the tokens the client got."""
 
-    def __init__(self, stop_ev: threading.Event, name: str):
+    def __init__(self, stop_ev: threading.Event, gate, name: str):
         super().__init__(daemon=True, name=name)
         self._ev = stop_ev
+        self._gate = gate
 
     def run(self) -> None:
         self._ev.wait()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        super().join(timeout)
+        if self._gate.acquire(timeout=-1 if timeout is None else timeout):
+            self._gate.release()
 
 
 class RemoteEngine:
@@ -533,13 +546,15 @@ class RemoteEngine:
         self._block_bytes = int(geom["block_bytes"])
         self._swap_enabled = True
         self._disagg = None
-        self.mesh = None  # a fleet member serves on one device
+        self.mesh = None  # no pool here: the host's engine moves the payload
         # --- fleet member surface
         self._beat_ns = 0
         self._died = False
         self._stop = threading.Event()
         self._wake = threading.Event()
-        self._thread = _StopWaiter(self._stop, f"remote-{name}")
+        # one delivery at a time against the fence (_StopWaiter.join)
+        self._deliver_mu = threading.RLock()
+        self._thread = _StopWaiter(self._stop, self._deliver_mu, f"remote-{name}")
         self._thread.start()
         self._ledger_hook = None
         self.trace = RequestTrace(capacity=16384)

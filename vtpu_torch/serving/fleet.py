@@ -54,14 +54,15 @@ requests, unserved lifecycle tickets), so a dead engine's invariants
 (allocator free == capacity, nothing parked, no slots) hold as a stopped
 engine's do.
 
-Members are one-device engines in this process or fabric proxies
+Members are engines in this process or fabric proxies
 (``vtpu_torch.serving.fabric.RemoteEngine``: an engine in another process
 or on another host behind an ``EngineHost``), which route, drain,
 rebalance and fail over through the same code path: a proxy's ledger is
 its client-side mirror of the tokens delivered across the wire, its reap
 drops that mirror, and ``stats()`` sums its channel's ``fabric_*``
-counters. An engine under ``mesh=`` cannot join a fleet: its sessions
-cannot migrate.
+counters. A member may serve under ``mesh=``: its sessions migrate through
+its adapter's snapshot and upload ops, and a failover rebuilds from the
+ledger's token history, as for a one-device member.
 """
 
 from __future__ import annotations
@@ -396,11 +397,6 @@ class EngineFleet:
                     "the session ledger, drain and failover all ride the "
                     "park/serialize machinery (kv_swap=0 is enough for "
                     "recompute-only fleets)")
-            if getattr(eng, "mesh", None) is not None:
-                raise ValueError(
-                    f"fleet engine {name!r} serves under mesh=: its sessions "
-                    "cannot migrate yet, so it has no drain, rebalance or "
-                    "failover path; build fleet members on one device")
             if getattr(eng, "_disagg", None) is not None:
                 raise ValueError(
                     f"fleet engine {name!r} is disaggregated: fleet "

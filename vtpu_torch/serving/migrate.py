@@ -7,17 +7,17 @@ vtpu/serving/migrate.py): a stream outlives the engine it started on.
    flight lands, then the settled session leaves its slot (``park``).
 2. EXTRACT on the source loop thread: the parked entry's metadata (token
    history, pending token, budget, priority, page count) and its block
-   payload. Resident blocks go through the adapter's swap staging gathers
-   (``swap_out``) into a block-major host buffer a plane, [n, L, page,
+   payload. Resident blocks go through the adapter's staging gathers
+   (``snapshot``) into a block-major host buffer a plane, [n, L, page,
    ...], pinned on a card: the one D2H the session would pay to spill
    anyway, waited for here on the loop thread. Blocks already spilled to
    the source's host tier are read from host memory once their spill's
    event has completed. A dropped entry ships metadata only.
 3. INSTALL on the destination loop thread: allocate pages (with the
    eviction-assisted reclaim an admission gets), upload the payload
-   through ``restore_pages`` (the swap-in's staging scatter, in place: no
-   state tensor moves and no graph is captured), and land the entry in the
-   parked set. ``resume`` then remaps the table row and the stream
+   through the adapter's ``upload`` (``restore_pages``, the swap-in's
+   staging scatter, in place: no state tensor moves and no graph is
+   captured), and land the entry in the parked set. ``resume`` then remaps the table row and the stream
    continues at exactly the next token. No device copy beyond that
    D2H/H2D pair (``stats()["migration_copies"] == 0``).
 
@@ -43,10 +43,16 @@ device state. On one card both engines enqueue on the same stream, so
 their work is serialized in stream order.
 
 The payload is the port's own block-major layout (the reference's is
-layer-major): payloads never cross packages. Either engine may be a fabric
-proxy (``vtpu_torch.serving.fabric.RemoteEngine``): its tickets are asks
-over the wire, its payload crosses CRC-chunked. An engine under ``mesh=``
-cannot migrate yet: its head shards need a broadcast op of their own.
+layer-major), whole heads: payloads never cross packages. Either engine may
+be a fabric proxy (``vtpu_torch.serving.fabric.RemoteEngine``): its tickets
+are asks over the wire, its payload crosses CRC-chunked. Either may serve
+under ``mesh=``: its adapter's snapshot and upload ops (rank 0's broadcast
+protocol, serving/adapters.py) have every rank gather its head shard of the
+resident blocks and read its own host tier's, rank 0 assembling the whole
+heads, and on the destination each rank upload its own heads into its pool
+or host tier. So a tensor-parallel engine and a one-device engine of the
+same model exchange sessions, as the reference's do; the byte counters are
+whole heads on both.
 """
 
 from __future__ import annotations
@@ -58,8 +64,7 @@ from typing import Optional
 
 import torch
 
-from vtpu_torch.serving.adapters import _runs, restore_pages, to_host
-from vtpu_torch.serving.engine import Status
+from vtpu_torch.serving.engine import Status, block_geometry
 
 log = logging.getLogger(__name__)
 
@@ -121,14 +126,14 @@ class _Ticket:
 
 def _block_shape(eng, key) -> tuple:
     """One plane's per-block geometry: the pool plane [L, blocks, page,
-    ...] without its block axis. A fabric proxy advertises its host's
-    shapes (``_plane_shapes``, from the hello frame); a local engine reads
-    its own pool tensor."""
+    ...] without its block axis, whole heads under a mesh
+    (``block_geometry``). A fabric proxy advertises its host's shapes
+    (``_plane_shapes``, from the hello frame); a local engine reads its own
+    pool tensor."""
     shapes = getattr(eng, "_plane_shapes", None)
     if shapes is not None:
         return tuple(shapes[key])
-    s = eng.state[key].shape
-    return (int(s[0]),) + tuple(int(x) for x in s[2:])
+    return block_geometry(eng.state[key], eng.mesh)
 
 
 def _plane_dtype(eng, key) -> torch.dtype:
@@ -147,11 +152,6 @@ def _compat_check(src, dst) -> None:
     if src is dst:
         raise MigrationError("cannot migrate a session onto its own engine")
     for eng, name in ((src, "source"), (dst, "destination")):
-        if eng.mesh is not None:
-            raise MigrationError(
-                f"the {name} engine serves under mesh=: migrating a session's head shards "
-                "needs a broadcast op of its own, not ported yet (a later slice); migrate "
-                "between one-device engines")
         if not getattr(eng, "_swap_enabled", False):
             raise MigrationError(
                 f"migration requires ServingConfig.kv_swap on the {name} engine (the "
@@ -481,37 +481,22 @@ def _do_migrate_out(eng, ticket: _Ticket) -> None:
 def _snapshot_payload(eng, e: dict) -> dict:
     """The entry's block contents in table-row order (shared prefix blocks
     first, then private) as one block-major host buffer a KV plane, [n, L,
-    page, ...] (scale planes included), pinned on a card. Resident blocks
-    go through the adapter's staging gathers and copy into it; the loop
-    thread waits for those copies once (the one D2H of the transfer).
-    Blocks spilled to this engine's host tier are read on the host, after
-    the spill's copies are known done (its event, waited for here: the
-    device-side wait a swap-in uses would not order a host read)."""
+    page, ...] (scale planes included; whole heads), pinned on a card: the
+    adapter's ``snapshot`` (resident blocks through its staging gathers,
+    waited for once, the one D2H of the transfer; blocks spilled to the
+    host tier read on the host; under a mesh every rank its own head
+    shard). A spill of the entry is known done first (its event, waited
+    for here: the device-side wait a swap-in uses would not order a host
+    read)."""
     if e["pend"] is not None:
         e["pend"].synchronize()
     if e in eng._swap_pending:
         eng._finalize_swap_out(e)
-    n = e["n_pages"]
-    cuda = eng.device.type == "cuda"
-    bufs = {key: torch.empty((n,) + _block_shape(eng, key), dtype=eng.state[key].dtype,
-                             pin_memory=cuda)
-            for key in eng._swap_planes}
     resident = list(e["shared"]) + (list(e["priv"]) if e["host"] is None else [])
-    if resident:
-        w = eng._swap_stage
-        pos = list(range(len(resident)))
-        for i, snap in eng.model.swap_out(eng.state, resident, pos, w):
-            to_host(bufs, snap, pos[i:i + w], non_blocking=cuda)
-        if cuda:
-            torch.cuda.current_stream(eng.device).synchronize()
-    done = len(resident)
-    if e["host"] is not None:
-        for j, h, r in _runs(e["host"]):
-            for key in eng._swap_planes:
-                bufs[key][done + j:done + j + r].copy_(eng._host_pool[key][h:h + r])
-        done += len(e["host"])
-    assert done == n, f"payload covered {done} of {n} pages"
-    return bufs
+    host = list(e["host"] or [])
+    assert len(resident) + len(host) == e["n_pages"], (
+        f"payload covers {len(resident) + len(host)} of {e['n_pages']} pages")
+    return eng.model.snapshot(eng.state, resident, host, eng._swap_stage)
 
 
 def _fault_install(eng, req, reason: str) -> dict:
@@ -590,7 +575,7 @@ def _do_migrate_in(eng, ticket: _Ticket) -> None:
         priv = eng._alloc_reclaim(n)
         if priv is not None:
             try:
-                _upload_payload(eng, priv, payload, n)
+                _upload_payload(eng, priv, payload)
             except Exception:
                 # the blocks are attached to nothing yet: give them back,
                 # or every such fault shrinks the pool for good
@@ -607,9 +592,9 @@ def _do_migrate_in(eng, ticket: _Ticket) -> None:
                     # a freed host block may still be the target of a spill
                     # in flight on the side stream: let it land first
                     eng._copy_stream.synchronize()
-                for j, h, r in _runs(hbs):
-                    for key in eng._swap_planes:
-                        eng._host_pool[key][h:h + r].copy_(payload[key][j:j + r])
+                # under a mesh every rank lands its own heads in its own tier
+                eng.state = eng.model.upload(eng.state, payload, hbs, eng._swap_stage,
+                                             tier=True)
             except Exception:
                 eng._host_free.extend(hbs)
                 raise
@@ -635,11 +620,12 @@ def _do_migrate_in(eng, ticket: _Ticket) -> None:
         eng.resume(req)  # no caller left to do it (_Ticket)
 
 
-def _upload_payload(eng, priv: list, payload: dict, n: int) -> None:
+def _upload_payload(eng, priv: list, payload: dict) -> None:
     """Scatter the payload into freshly allocated pool pages ``priv``
-    through the swap-in's staging path (``restore_pages``: up to
-    ``kv_swap_stage_blocks`` blocks a scatter, in place, on this thread's
-    stream), the one H2D of the transfer. On a card the pinned payload
+    through the adapter's ``upload`` (the swap-in's staging path,
+    ``restore_pages``: up to ``kv_swap_stage_blocks`` blocks a scatter, in
+    place, on this thread's stream; under a mesh each rank its own head
+    shard), the one H2D of the transfer. On a card the pinned payload
     copies non-blocking; the host allocator keeps it alive until the copy
     has read it."""
-    eng.state = restore_pages(eng.state, payload, priv, list(range(n)), eng._swap_stage)
+    eng.state = eng.model.upload(eng.state, payload, priv, eng._swap_stage)

@@ -346,7 +346,7 @@ def handle_prefix_command(eng, kind: str, ticket: _Ticket) -> None:
 def _do_prefix_out(eng, ticket: _Ticket) -> None:
     """Snapshot one registered prefix's pool blocks into pinned host
     buffers, block-major, through the migration payload's staging
-    (``_snapshot_payload``: the adapter's swap gathers, one D2H wait), so
+    (``_snapshot_payload``: the adapter's staging gathers, one D2H wait), so
     ``prefix_install_copies`` and ``migration_copies`` are untouched. The
     registry entry stays registered: an export is a copy, not a move (the
     spill policy unregisters separately once the payload is safe)."""
@@ -404,7 +404,7 @@ def _do_prefix_in(eng, ticket: _Ticket) -> None:
     planes = dict(payload)
     logits = planes.pop(LOGITS_PLANE)
     try:
-        _upload_payload(eng, blocks, planes, pages)
+        _upload_payload(eng, blocks, planes)
         last_logits = torch.as_tensor(logits).to(eng.device)
     except Exception:
         # the blocks are attached to nothing yet: hand them back, or every
