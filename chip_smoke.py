@@ -70,12 +70,14 @@ Phases, any failure exits nonzero:
       tokens speculation delivered, the pool free, every state tensor in
       place; tokens/s, TTFT, host ms a token, device busy share, acceptance,
       graphs and the memory they reserve per loop;
-   h. tensor-parallel serving: two spawned ranks (NCCL, one card each,
+   h. tensor-parallel serving, at the flagship's and the MoE's widths and
+      TP_LAYERS (4) of their 12 layers (a sharding check: every layer's
+      collectives, fewer layers): two spawned ranks (NCCL, one card each,
       where there are two cards; else gloo, both on card 0) serve the
       main path's wave with bf16 and then int8 KV on the pipelined loop
       (eager: no graphs under a mesh), every decode tick through the
       head-local paged kernel on each rank, streams checked against the
-      plain trunk of the same KV type; then, in the same world, one
+      plain trunk of the same depth and KV type; then, in the same world, one
       16-token wave of each of the broadcast protocol's other paths: h1
       phase e's chunks and a registered 512-token prefix; h2
       decode_loop_k=8, h3 spec_tokens=4 (bf16 and int8), h4 fused (8, 4);
@@ -100,9 +102,9 @@ Phases, any failure exits nonzero:
       and prints each move's ms, bytes and GB/s. Each
       of h1-h8 held as its one-device phase holds it: every stream against the plain trunk of
       its KV type or family teacher-forced on it (a near-tie skipped), on
-      every rank head-local paged launches = 12 x the inner ticks on the
+      every rank head-local paged launches = 4 x the inner ticks on the
       kernel route (verify ticks included) and no single-device paged
-      launch, flash launches = 12 x admission dispatches (none under
+      launch, flash launches = 4 x admission dispatches (none under
       disaggregation), no install or handoff copy, every swapped-in block
       byte for byte on each rank's shard, the pool and every rank's host
       tier free; tokens/s per arm. Given four cards, four ranks over NCCL
@@ -292,6 +294,20 @@ Phases, any failure exits nonzero:
       link's RTT EMA, each migration's and the prefix install's bytes, ms
       and GB/s, detection (r1's last beat to DEAD), the pause across the
       failover, and the phase's seconds;
+   q. kv_int8="auto" (run after p): the router's verdicts over its
+      measured grid printed; then the flagship at full depth with
+      ModelConfig(kv_int8="auto") on a paged pool (kv_page=128) and the
+      default loop, one engine a verdict the router gives in the grid (its
+      first cell of each; the flagship's shape alone where the grid gives
+      one): the resolved flag equal to choose_kv_int8(slots, max_seq), the
+      pool's dtype following it, the wave's decode ticks through the
+      matching paged kernel at 12 launches a tick and the other paged
+      kernel never, one replay a tick, every stream held against the plain
+      trunk of the resolved KV type teacher-forced on it.
+   Every teacher-forced check runs the plain trunk over a stream in one
+   pass (the prompt prefilled, the stream's tokens as one chunk through
+   the decode trunk; the SSM's recurrence stays step by step); each
+   phase's end prints the plain trunks' seconds and steps in it;
 4. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and the repo checkout; refuses to run without either.
@@ -863,33 +879,89 @@ def study_path(gen, log) -> dict:
     return {"launches": launches}
 
 
-def reference_stream(params, cfg, prompt: np.ndarray, steps: int, logprobs: list = None,
-                     forced: list = None):
+# the plain trunks' seconds and steps in each phase, by kind: "free" the
+# free-running references (reference_stream), "forced" the teacher-forced
+# checks' uncached streams; main() logs and resets them at every phase end
+TRUNK = {"free": [0.0, 0], "forced": [0.0, 0]}
+
+
+def trunk_timed(kind: str, fn, steps):
+    """``fn`` with its wall seconds and ``steps(*args)`` added to TRUNK[kind]."""
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        TRUNK[kind][0] += time.perf_counter() - t0
+        TRUNK[kind][1] += steps(*args)
+        return out
+    return timed
+
+
+def choices(rows: torch.Tensor, what: str) -> tuple[list, list]:
+    """Each row's greedy choice and top-1/top-2 margin, one fetch."""
+    if not bool(torch.isfinite(rows).all()):
+        raise AssertionError(f"{what} produced non-finite logits")
+    top = torch.topk(rows, 2, dim=-1).values
+    return rows.argmax(dim=-1).tolist(), (top[:, 0] - top[:, 1]).tolist()
+
+
+# one captured plain decode step per (weights, config), kept with its inputs
+PLAIN_STEPS: dict = {}
+
+
+def plain_step(params, cfg) -> tuple:
+    """The plain trunk's one-row decode step, batched_decode_step on a dense
+    one-row cache (the step an engine captures for a dense ring), captured
+    in a CUDA graph once per weights and config: (graph, cache, token
+    buffer, logits buffer). A replay runs the eager step's kernels without
+    its host dispatch (~20 ms a step eagerly on the card's host)."""
+    from vtpu_torch.models import init_kv_cache
+    from vtpu_torch.serving.engine import batched_decode_step
+
+    key = (id(params), cfg)
+    if key not in PLAIN_STEPS:
+        cache = init_kv_cache(cfg, 1, device="cuda")
+        tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        active = torch.ones((1,), dtype=torch.bool, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            batched_decode_step(params, cfg, cache, tok, active)  # lazy first uses
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, _ = batched_decode_step(params, cfg, cache, tok, active)
+        # the graph reads every tensor it captured at replay: keep them all
+        PLAIN_STEPS[key] = (graph, cache, tok, logits, params, active)
+    return PLAIN_STEPS[key][:4]
+
+
+def reference_stream(params, cfg, prompt: np.ndarray, steps: int, logprobs: list = None):
     """Greedy stream of the port's plain trunk with each step's top-1/top-2
     logit margin; with ``logprobs`` (a list) each step's log_softmax of its
-    greedy token is appended there. With ``forced`` (a stream's tokens) the
-    trunk is teacher-forced: each step feeds forced[i], not its own choice,
-    so its choices and margins are those at every step of that stream."""
-    from vtpu_torch.models import decode_step, prefill
+    greedy token is appended there. The prompt is prefilled eagerly, then
+    each step replays plain_step's graph fed the last step's argmax on the
+    device; every step's logits are read back once at the end."""
+    from vtpu_torch.models import prefill
+    from vtpu_torch.models.transformer import kv_keys
 
-    toks = torch.from_numpy(prompt[None]).cuda()
-    logits, cache = prefill(params, cfg, toks)
-    row = logits[0, -1]
-    out, margins = [], []
-    for i in range(steps):
-        if not bool(torch.isfinite(row).all()):
-            raise AssertionError("plain trunk produced non-finite logits")
-        top = torch.topk(row, 2).values
-        margins.append(float(top[0] - top[1]))
-        out.append(int(torch.argmax(row)))
-        if logprobs is not None:
-            logprobs.append(float(torch.log_softmax(row.float(), dim=-1)[out[-1]]))
-        if i + 1 < steps:
-            nxt = out[-1] if forced is None else forced[i]
-            logits, cache = decode_step(
-                params, cfg, cache, torch.tensor([nxt], dtype=torch.int32, device="cuda"))
-            row = logits[0]
-    return out, margins
+    t0 = time.perf_counter()
+    graph, cache, tok, out = plain_step(params, cfg)
+    logits, filled = prefill(params, cfg, torch.from_numpy(prompt[None]).cuda())
+    for key in kv_keys(cache) + ("len",):
+        cache[key].copy_(filled[key])
+    rows = [logits[0, -1]]
+    for _ in range(steps - 1):
+        tok.copy_(torch.argmax(rows[-1]))
+        graph.replay()
+        rows.append(out[0].clone())
+    rows = torch.stack(rows)
+    toks, margins = choices(rows, "plain trunk")
+    if logprobs is not None:
+        picked = torch.tensor(toks, device="cuda")[:, None]
+        logprobs += torch.log_softmax(rows.float(), dim=-1).gather(1, picked)[:, 0].tolist()
+    TRUNK["free"][0] += time.perf_counter() - t0
+    TRUNK["free"][1] += steps
+    return toks, margins
 
 
 def wave_prompts(vocab: int) -> list[np.ndarray]:
@@ -2025,19 +2097,43 @@ def resume_latency(eng, s: Session) -> float:
     return (s.times[n] - t0) * 1e3
 
 
+def forced_rows(params, cfg, prompt: np.ndarray, toks: list) -> torch.Tensor:
+    """The plain trunk's logits at every step of a stream in one pass,
+    [len(toks), vocab] f32: the prompt prefilled (as reference_stream
+    prefills it), then the stream's tokens but its last as one chunk
+    through the decode trunk over that cache (chunked_prefill_into_slot:
+    each query sees the cache up to its own position, an int8 cache
+    written quantized as a decode step writes it). Row i is what the
+    trunk fed the stream's first i tokens picks from."""
+    from vtpu_torch.models import prefill
+    from vtpu_torch.serving.engine import chunked_prefill_into_slot
+
+    dev = params["embed"].device
+    n = len(prompt)
+    row, cache = prefill(params, cfg, torch.from_numpy(prompt[None]).to(dev),
+                         logits_at=torch.tensor([n - 1], device=dev))
+    if len(toks) < 2:
+        return row
+    chunk = torch.tensor([list(toks[:-1])], dtype=torch.int32, device=dev)
+    logits, _ = chunked_prefill_into_slot(params, cfg, cache, chunk, 0, n, n + len(toks) - 1)
+    return torch.cat([row, logits[0]])
+
+
 def forced_trunk(params, cfg):
     """The plain trunk teacher-forced on a stream: ``ref(prompt, toks)`` ->
     (its greedy choice, its top-1/top-2 margin) at every step of ``toks``
-    (reference_stream with ``forced``), cached by prompt; a stream that
-    begins another one already forced reads that one's steps."""
+    (forced_rows: one pass over the stream), cached by prompt; a stream
+    that begins another one already forced reads that one's steps."""
     cache = {}
+    run = trunk_timed("forced", lambda prompt, toks: choices(
+        forced_rows(params, cfg, prompt, toks), "plain trunk"), lambda prompt, toks: len(toks))
 
     def ref(prompt: np.ndarray, toks: list) -> tuple[list, list]:
         runs = cache.setdefault(prompt.tobytes(), [])
         for got, want, margins in runs:
             if got[:len(toks)] == list(toks):
                 return want[:len(toks)], margins[:len(toks)]
-        want, margins = reference_stream(params, cfg, prompt, len(toks), forced=list(toks))
+        want, margins = run(prompt, list(toks))
         runs.append((list(toks), want, margins))
         return want, margins
 
@@ -3172,7 +3268,8 @@ def moe_forced_trunk(params, served, plain, serving):
       the chunk trunk under ``served`` on a one-row dense cache, at the
       engine's chunk grid and read windows (``serving``).
     The row then decodes alone on a one-row dense cache under ``plain``
-    (use_kernels False, eager), fed the stream's own tokens, so a later
+    (use_kernels False, eager), fed the stream's own tokens as one chunk
+    (every step in one pass, forced_steps), so a later
     step differs from the engine's only by the decode's rounding (the paged
     kernel's and the batched step's against the plain one-row step). A
     step's routing gap is the smallest, over the layers, of its token's
@@ -3181,8 +3278,7 @@ def moe_forced_trunk(params, served, plain, serving):
     from vtpu_torch.models import init_kv_cache
     from vtpu_torch.models.moe import moe_decode_ffn, moe_ffn, moe_prefill, route
     from vtpu_torch.ops import rms_norm
-    from vtpu_torch.serving.engine import (batched_decode_step, chunked_prefill_into_slot,
-                                           pad_to_chunks)
+    from vtpu_torch.serving.engine import chunked_prefill_into_slot, pad_to_chunks
 
     k = plain.top_k
     dev = params["embed"].device
@@ -3269,28 +3365,36 @@ def moe_forced_trunk(params, served, plain, serving):
         for got, res in runs:
             if got[:len(toks)] == list(toks):
                 return tuple(r[:len(toks)] for r in res)
-        row, kv, g0 = admit(prompt, admission)
-        want, margins, route_gaps = [], [], [g0]
-        active = torch.ones((1,), dtype=torch.bool, device=dev)
-        for j in range(len(toks)):
-            if j:
-                gaps.clear()
-                logits, kv = batched_decode_step(
-                    params, plain, kv, torch.tensor([toks[j - 1]], dtype=torch.int32, device=dev),
-                    active, ffn_fn=decode_ffn)
-                row = logits[0]
-                route_gaps.append(float(torch.stack(gaps).min()))
-            if not bool(torch.isfinite(row).all()):
-                raise AssertionError("plain MoE trunk produced non-finite logits")
-            top = torch.topk(row, 2).values
-            margins.append(float(top[0] - top[1]))
-            want.append(int(torch.argmax(row)))
-            if differs and want[-1] != toks[j]:
-                break  # the caller reads no step past the first that differs
-        res = (want, margins, route_gaps)
-        runs.append((list(toks[:len(want)]), res))
+        res = forced(prompt, list(toks), admission)
+        if differs:
+            # the caller reads no step past the first that differs
+            cut = next((j + 1 for j, (w, t) in enumerate(zip(res[0], toks)) if w != t),
+                       len(toks))
+            res = tuple(r[:cut] for r in res)
+        runs.append((list(toks[:len(res[0])]), res))
         return res
 
+    def forced_steps(prompt, toks, admission):
+        """Every step of the stream in one pass: the admission's first-token
+        logits, then the stream's tokens but its last as one chunk through
+        the plain decode trunk over the admitted row's cache (each query
+        sees the cache up to its own position; routing per token, nothing
+        dropped: moe_decode_ffn's capacity is the chunk's token count)."""
+        row, kv, g0 = admit(prompt, admission)
+        rows, route_gaps = [row[None]], [g0]
+        if len(toks) > 1:
+            n = int(kv["len"][0])
+            gaps.clear()
+            logits, _ = chunked_prefill_into_slot(
+                params, plain, kv, torch.tensor([toks[:-1]], dtype=torch.int32, device=dev),
+                0, n, n + len(toks) - 1, ffn_fn=decode_ffn)
+            rows.append(logits[0])
+            # a step's gap: the smallest over the layers at its query
+            route_gaps += torch.stack(gaps).amin(dim=(0, 1)).tolist()
+        want, margins = choices(torch.cat(rows), "plain MoE trunk")
+        return want, margins, route_gaps
+
+    forced = trunk_timed("forced", forced_steps, lambda prompt, toks, admission: len(toks))
     ref.drops = drops
     return ref
 
@@ -3422,32 +3526,32 @@ def ssm_forced_trunk(params, cfg):
     """The plain SSM recurrence teacher-forced on a stream: ``ref(prompt,
     toks)`` -> (its greedy choice, its top-1/top-2 logit margin) at every
     step: ssm_prefill over the prompt, then ssm_decode_step fed each
-    token of ``toks``, eager; cached by prompt."""
+    token of ``toks``, eager, with the stream uploaded once and every
+    step's logits fetched once at the end; cached by prompt."""
     from vtpu_torch.models.ssm import ssm_decode_step, ssm_prefill
 
     cache: dict = {}
+
+    def recurrence(prompt: np.ndarray, toks: list) -> tuple[list, list]:
+        dev = params["embed"].device
+        logits, state = ssm_prefill(params, cfg, torch.from_numpy(prompt[None]).to(dev),
+                                    len(prompt), logits_at=torch.tensor([len(prompt) - 1],
+                                                                        device=dev))
+        ids = torch.tensor(toks, dtype=torch.int32, device=dev)
+        rows = [logits[0]]
+        for i in range(len(toks) - 1):
+            logits, state = ssm_decode_step(params, cfg, state, ids[i:i + 1])
+            rows.append(logits[0])
+        return choices(torch.stack(rows), "plain SSM recurrence")
+
+    run = trunk_timed("forced", recurrence, lambda prompt, toks: len(toks))
 
     def ref(prompt: np.ndarray, toks: list) -> tuple[list, list]:
         runs = cache.setdefault(prompt.tobytes(), [])
         for got, want, margins in runs:
             if got[:len(toks)] == list(toks):
                 return want[:len(toks)], margins[:len(toks)]
-        dev = params["embed"].device
-        logits, state = ssm_prefill(params, cfg, torch.from_numpy(prompt[None]).to(dev),
-                                    len(prompt), logits_at=torch.tensor([len(prompt) - 1],
-                                                                        device=dev))
-        row = logits[0]
-        want, margins = [], []
-        for i in range(len(toks)):
-            if not bool(torch.isfinite(row).all()):
-                raise AssertionError("plain SSM recurrence produced non-finite logits")
-            top = torch.topk(row, 2).values
-            margins.append(float(top[0] - top[1]))
-            want.append(int(torch.argmax(row)))
-            if i + 1 < len(toks):
-                logits, state = ssm_decode_step(params, cfg, state, torch.tensor(
-                    [toks[i]], dtype=torch.int32, device=dev))
-                row = logits[0]
+        want, margins = run(prompt, list(toks))
         runs.append((list(toks), want, margins))
         return want, margins
 
@@ -5463,6 +5567,111 @@ def fabric_path(log, card: str, params, refs: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------- q. kv_int8="auto"
+
+# the router's measured grid (hack/torch_int8_ab.py, INT8_AB_H100.json)
+AUTO_SLOTS = (4, 8, 16, 32, 64)
+AUTO_WINDOWS = (1024, 2048)
+AUTO_TOKENS = 16
+
+
+def auto_shapes() -> list[tuple]:
+    """(slots, max_seq, verdict) of one engine a verdict choose_kv_int8
+    gives within its measured grid: the first cell of each verdict (fewest
+    slots, then the shorter window), or the flagship's shape alone where
+    the grid gives one verdict."""
+    from vtpu_torch.serving.engine import choose_kv_int8
+
+    first: dict = {}
+    for slots in AUTO_SLOTS:
+        for window in AUTO_WINDOWS:
+            first.setdefault(choose_kv_int8(slots, window, paged=True), (slots, window))
+    if len(first) < 2:
+        return [(4, FLAGSHIP["max_seq"], choose_kv_int8(4, FLAGSHIP["max_seq"], paged=True))]
+    return [(*first[v], v) for v in (True, False)]
+
+
+def auto_path(log, card: str, params) -> dict:
+    """Phase q: ModelConfig(kv_int8="auto") at the flagship's depth and
+    widths on a paged pool (kv_page=128) and the default loop (pipelined,
+    on graphs), one engine a verdict of the router (auto_shapes). Each
+    engine's resolved flag is choose_kv_int8(slots, max_seq) and its pool's
+    dtype follows (int8 with f32 scale planes, or bf16); the wave's decode
+    ticks went through the matching paged kernel, 12 launches a tick, one
+    replay a tick, and the other paged kernel not at all (launch counts set
+    to 0 just before the wave, read just after); every stream OK and held
+    against the plain trunk of the resolved KV type teacher-forced on it
+    (check_forced)."""
+    from vtpu_torch.models import ModelConfig
+    from vtpu_torch.ops import _build
+    from vtpu_torch.serving import ServingConfig, ServingEngine
+    from vtpu_torch.serving.engine import choose_kv_int8
+
+    grid = "; ".join(f"{pool} {s}x{w} {'int8' if choose_kv_int8(s, w, paged=paged) else 'bf16'}"
+                     for pool, paged in (("dense", False), ("paged", True))
+                     for w in AUTO_WINDOWS for s in AUTO_SLOTS)
+    log(f"kv_int8 router (choose_kv_int8, measured by hack/torch_int8_ab.py), pool slots x "
+        f"window: {grid}")
+    prompts = wave_prompts(FLAGSHIP["vocab"])
+    out = {"router": grid, "engines": []}
+    for slots, window, verdict in auto_shapes():
+        cfg = ModelConfig(**dict(FLAGSHIP, max_seq=window), dtype=torch.bfloat16,
+                          use_kernels=True, kv_int8="auto")
+        eng = ServingEngine(params, cfg, ServingConfig(
+            slots=slots, prefill_buckets=(1024,), max_new_tokens=AUTO_TOKENS, kv_page=128))
+        what = f"kv_int8='auto' at {slots} slots, max_seq {window}"
+        kv = eng.state["k"].dtype
+        if (eng.cfg.kv_int8 is not verdict or kv != (torch.int8 if verdict else torch.bfloat16)
+                or ("k_scale" in eng.state) != verdict):
+            eng.stop()
+            raise AssertionError(f"{what}: resolved kv_int8={eng.cfg.kv_int8!r}, pool {kv} "
+                                 f"(scales {'k_scale' in eng.state}); the router says {verdict}")
+        paged, other = "paged_decode_attention", "paged_decode_attention_int8kv"
+        if verdict:
+            paged, other = other, paged
+        graphs = eng.decode_graphs
+        eng.start()
+        try:
+            stream_all(eng, [prompts[0]])  # warm-up, not counted
+            base, replays = eng.stats(), graphs.replays
+            _build.reset_launches()
+            recs, wall = stream_all(eng, prompts)
+            launches = _build.launches()
+            after, replays = eng.stats(), graphs.replays - replays
+        finally:
+            eng.stop()
+        if eng.loop_error is not None:
+            raise AssertionError(f"{what}: serving loop failed: {eng.loop_error!r}")
+        ticks = after["decode_ticks"] - base["decode_ticks"]
+        for rec in recs:
+            if rec.get("status") != "OK" or len(rec["toks"]) != AUTO_TOKENS:
+                raise AssertionError(f"{what}: a stream ended {rec.get('status')} after "
+                                     f"{len(rec['toks'])} of {AUTO_TOKENS} tokens")
+        if (launches[paged] != cfg.n_layers * ticks or launches[other] or replays != ticks
+                or launches["flash_attention"] <= 0):
+            raise AssertionError(f"{what}: launches {launches} over {ticks} decode ticks and "
+                                 f"{replays} replays (expected {cfg.n_layers} {paged} a tick, "
+                                 f"no {other}, one replay a tick)")
+        forced = forced_trunk(params, dataclasses.replace(eng.cfg, use_kernels=False))
+        held = check_forced(forced, [(p, rec["toks"], AUTO_TOKENS)
+                                     for p, rec in zip(prompts, recs)], what)
+        total = sum(len(rec["toks"]) for rec in recs)
+        ttft = sorted((rec["first"] - rec["submit"]) * 1e3 for rec in recs)
+        log(f"{what} on {card}: resolved kv_int8={eng.cfg.kv_int8}, pool {kv}; {len(prompts)} "
+            f"requests, {total} tokens in {wall:.3f} s ({total / wall:.1f} tokens/s), TTFT "
+            f"p50 {ttft[len(ttft) // 2]:.1f} ms; decode ticks {ticks}, graph replays "
+            f"{replays}; {paged} {launches[paged]}, {other} {launches[other]}, flash "
+            f"{launches['flash_attention']}; {held['held']} tokens held against the plain "
+            f"{'int8' if verdict else 'bf16'} trunk teacher-forced, {held['skipped']} "
+            f"near-ties skipped (widest skipped flip {held['widest_flip']:.4f})")
+        out["engines"].append({"slots": slots, "max_seq": window, "kv_int8": verdict,
+                               "pool_dtype": str(kv), "decode_ticks": ticks,
+                               "graph_replays": replays, "launches": launches,
+                               "tokens_per_s": total / wall, "ttft_ms": ttft,
+                               "held": held["held"], "skipped": held["skipped"]})
+    return out
+
+
 # phase h's arms beyond the main path's waves (tp=2 only): 16-token waves
 # in the same world (TP_OPS_TAG on every tokens/s of a gloo world). Each
 # arm holds TP_HELD tokens at least against its plain trunk: it serves
@@ -5475,6 +5684,12 @@ TP_STALLS = ("delayed_fetch", 2, 2, 0.75)
 TP_OPS_TAG = "gloo, two ranks on one card: a sharding check, not a TP speed figure"
 TP_HELD = FAMILY_HELD
 TP_FIRST_WAVES = {"dense": 1, "chunked": 1, "moe": 3}
+# phase h's depth: the flagship's and phase k's MoE widths at 4 of their 12
+# layers. A sharding check needs every layer's collectives, not 12 of them;
+# the main path, phase c and every kernel check keep the full depth
+TP_LAYERS = 4
+TP_FLAGSHIP = dict(FLAGSHIP, n_layers=TP_LAYERS)
+TP_MOE = dict(MOE_FLAGSHIP, n_layers=TP_LAYERS)
 
 
 def tp_swap_watch(model):
@@ -5542,9 +5757,9 @@ def tp_ops_arms(serving) -> list[tuple]:
     from vtpu_torch.parallel.launch import Run, Script
     from vtpu_torch.serving import DisaggConfig, FaultPlan, FaultSpec
 
-    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    cfg = ModelConfig(**TP_FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
     c8 = dataclasses.replace(cfg, kv_int8=True)
-    moe = MoEConfig(**MOE_FLAGSHIP, dtype=torch.bfloat16)
+    moe = MoEConfig(**TP_MOE, dtype=torch.bfloat16)
     vocab = FLAGSHIP["vocab"]
     prefix, sufs, longs = chunked_prefix_prompts(vocab)
     bg, burst = dg_prompts(vocab)
@@ -5684,7 +5899,7 @@ def tp_move_rounds() -> list[tuple]:
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     if tests not in sys.path:
         sys.path.append(tests)
-    cfg = ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
+    cfg = ModelConfig(**TP_FLAGSHIP, dtype=torch.bfloat16, use_kernels=True)
     p = wave_prompts(FLAGSHIP["vocab"])
     at = MG_PARK_AT
     hook = "chip_smoke:tp_tier_watch"
@@ -5924,22 +6139,22 @@ def block_bytes_of(cfg, page: int) -> int:
     return 2 * per * (cfg.head_dim * (1 if int8 else 2) + (4 if int8 else 0))
 
 
-def tp_serving_paths(log, card: str, refs: dict, tp: int = TP, params=None) -> dict:
-    """Tensor-parallel serving: ``tp`` ranks, spawned, serve the main path's
-    wave on the flagship model, once with bf16 and once with int8 KV, and
+def tp_serving_paths(log, card: str, tp: int = TP) -> dict:
+    """Tensor-parallel serving at TP_LAYERS deep: ``tp`` ranks, spawned,
+    serve the main path's wave, once with bf16 and once with int8 KV, and
     at tp=2 in the same world phase h's arms (tp_ops_arms), each wave after
     a warm-up request served by an engine of its own. Every launch count is
     set to 0 on every rank just before each counted wave and read just
     after; the counts of every rank come back to this process. The main
     path's streams are held against the single-card plain trunk of the
-    same KV type (``refs``, from serving_path), the arms' by check_tp_arm
-    (``params``: the flagship's, for the teacher-forced trunks), each arm
-    over TP_HELD tokens at least (a second world serves the prompt sets of
-    the arms still short). The kernels were built by this process before:
-    the ranks only load them."""
+    same depth and KV type, the arms' by check_tp_arm (teacher-forced
+    trunks of the same seeded weights the ranks draw), each arm over
+    TP_HELD tokens at least (a second world serves the prompt sets of the
+    arms still short). The kernels were built by this process before: the
+    ranks only load them."""
     import tempfile
 
-    from vtpu_torch.models import ModelConfig, MoEConfig, init_moe_params
+    from vtpu_torch.models import ModelConfig, MoEConfig, init_moe_params, init_params
     from vtpu_torch.parallel.launch import Run, launch_tp, serve_requests
     from vtpu_torch.serving import ServingConfig
 
@@ -5956,9 +6171,13 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP, params=None) -> d
     new_tokens = 16
     serving = ServingConfig(slots=4, prefill_buckets=(1024,), max_new_tokens=new_tokens,
                             kv_page=128)
-    cfgs = {kv: ModelConfig(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=True,
+    cfgs = {kv: ModelConfig(**TP_FLAGSHIP, dtype=torch.bfloat16, use_kernels=True,
                             kv_int8=kv == "int8") for kv in ("bf16", "int8")}
     prompts = wave_prompts(FLAGSHIP["vocab"])
+    # every rank draws these weights from SEED at this depth
+    params = init_params(SEED, cfgs["bf16"])
+    refs = {kv: [reference_stream(params, dataclasses.replace(c, use_kernels=False), p,
+                                  new_tokens) for p in prompts] for kv, c in cfgs.items()}
     arms = tp_ops_arms(serving) if tp == TP else []
     # own_group is gloo only (several engines' NCCL groups driven at once
     # have no common collective order): h9 runs where the ranks share a card
@@ -5987,7 +6206,7 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP, params=None) -> d
     moved = [r[len(ranks[0]) - len(rounds):] for r in ranks]
     ranks = [r[:len(ranks[0]) - len(rounds)] for r in ranks]
     heads = FLAGSHIP["n_heads"] // tp
-    pool = [FLAGSHIP["n_layers"], 41, 128, heads, FLAGSHIP["head_dim"]]
+    pool = [TP_LAYERS, 41, 128, heads, FLAGSHIP["head_dim"]]
     out = {}
     for i, kv in enumerate(cfgs):
         lead = ranks[0][i]
@@ -6009,14 +6228,14 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP, params=None) -> d
             raise AssertionError(f"tp={tp} {kv}: paged pool not fully free after the run")
         for rank, res in enumerate(r[i] for r in ranks):
             got = res["launches"]
-            if (got[tp_name] != FLAGSHIP["n_layers"] * ticks or got[other_tp] != 0
+            if (got[tp_name] != TP_LAYERS * ticks or got[other_tp] != 0
                     or got[f"{tp_name}_verify"] or got[f"{other_tp}_verify"]
                     or got["paged_decode_attention"] != 0
                     or got["paged_decode_attention_int8kv"] != 0
                     or got["flash_attention"] <= 0 or res["kv_shape"] != pool):
                 raise AssertionError(
                     f"tp={tp} {kv} rank {rank}: launches {got} over {ticks} decode ticks "
-                    f"(expected {FLAGSHIP['n_layers']} {tp_name} per tick, no single-device "
+                    f"(expected {TP_LAYERS} {tp_name} per tick, no single-device "
                     f"paged launch, flash > 0), KV plane {res['kv_shape']} (expected {pool})")
         compared, ties = check_streams(lead["streams"], refs[kv], f"tp={tp} {kv}")
         total = sum(len(t) for t in lead["streams"])
@@ -6036,7 +6255,7 @@ def tp_serving_paths(log, card: str, refs: dict, tp: int = TP, params=None) -> d
         return out
     t0 = time.perf_counter()
     cfg = cfgs["bf16"]
-    moe_cfg = MoEConfig(**MOE_FLAGSHIP, dtype=torch.bfloat16)
+    moe_cfg = MoEConfig(**TP_MOE, dtype=torch.bfloat16)
     moe_params = init_moe_params(SEED, moe_cfg, device="cuda")
     forced = {"bf16": forced_trunk(params, dataclasses.replace(cfg, use_kernels=False)),
               "int8": forced_trunk(params, dataclasses.replace(cfgs["int8"], use_kernels=False)),
@@ -6597,9 +6816,20 @@ def main() -> int:
     phase_s: dict = {}
     marks = [time.perf_counter()]
 
+    trunk_s: dict = {}
+
     def mark(name: str) -> None:
         marks.append(time.perf_counter())
         phase_s[name] = marks[-1] - marks[-2]
+        (free_s, free_n), (forced_s, forced_n) = TRUNK["free"], TRUNK["forced"]
+        if free_n or forced_n:
+            trunk_s[name] = {"free_s": free_s, "free_steps": free_n,
+                             "forced_s": forced_s, "forced_steps": forced_n}
+            log(f"{name}: plain-trunk references {free_s:.1f} s ({free_n} free-running "
+                f"steps), teacher-forced checks {forced_s:.1f} s ({forced_n} steps), of "
+                f"{phase_s[name]:.1f} s")
+        for v in TRUNK.values():
+            v[:] = [0.0, 0]
 
     runs = {"main_path": serving_path(log, card, params, kv_int8=False),
             "int8_serving_path": serving_path(log, card, params, kv_int8=True)}
@@ -6629,12 +6859,14 @@ def main() -> int:
     mark("fleet")
     runs["fabric_path"] = fabric_path(log, card, params, refs)
     mark("fabric")
+    runs["auto_path"] = auto_path(log, card, params)
+    mark("kv_int8 auto")
     runs["study_path"] = study_path(gen, log)
     mark("study")
     torch.cuda.empty_cache()  # the TP ranks share this card when there is one
     for tp in (TP, 4):
         if tp == TP or torch.cuda.device_count() >= tp:
-            out = tp_serving_paths(log, card, refs, tp, params)
+            out = tp_serving_paths(log, card, tp)
             pre = "tp" if tp == TP else f"tp{tp}"
             runs[f"{pre}_serving_path"], runs[f"{pre}_int8_serving_path"] = out["bf16"], out["int8"]
             if "arms" in out:
@@ -6645,6 +6877,7 @@ def main() -> int:
             if "h9_seconds" in out:
                 phase_s["h9 (within tp=2)"] = out["h9_seconds"]
     del params
+    PLAIN_STEPS.clear()
     torch.cuda.empty_cache()
     runs["training_path"] = training_path(log, card)
     mark("training")
@@ -6680,7 +6913,7 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                        "builds": {k: v["seconds"] for k, v in builds.items()},
-                       "phase_seconds": phase_s,
+                       "phase_seconds": phase_s, "plain_trunk_seconds": trunk_s,
                        "kernels": kernels, **runs}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "tile", "n_split")

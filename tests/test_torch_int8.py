@@ -8,6 +8,8 @@ streams token-equal wherever the reference's top-1/top-2 margin is >= 1e-4. Wher
 port's kernel wrappers take their plain versions on CPU tensors
 (tests/test_torch_kernels.py runs the kernels themselves on a card)."""
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,7 +60,7 @@ from vtpu_torch.ops import (
     paged_decode_attention_int8kv_ref,
 )
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status
-from vtpu_torch.serving.engine import batched_decode_step, prefill_into_slot
+from vtpu_torch.serving.engine import batched_decode_step, choose_kv_int8, prefill_into_slot
 
 DIMS = dict(vocab=64, d_model=64, n_heads=2, n_layers=2, d_ff=128, max_seq=32, head_dim=32)
 JCFG = JModelConfig(**DIMS, dtype=jnp.float32, use_pallas=False, kv_int8=True)
@@ -532,9 +534,82 @@ def test_engine_int8_streams_match_jax_greedy(weights, int8_refs, layout):
 
 
 def test_kv_int8_auto_raises(weights):
-    """"auto" is the reference's TPU-measured router: refused, never
-    resolved."""
+    """"auto" no longer raises: ServingEngine(params, cfg) resolves it at
+    construction through the port's router, choose_kv_int8(slots, max_seq)
+    (an H100 measurement, as the reference's is a v5e one), before any cache
+    sees the flag: the engine's and the adapter's config carry the bool and
+    the pool follows it (int8 with f32 scale planes, or the model's
+    dtype), on the dense ring and the paged pool (the router's ``paged``),
+    at the router's measured grid's corners and the tiny shape."""
     _, tp = weights
+    shapes = ((1, DIMS["max_seq"]), (4, 1024), (4, 2048), (64, 1024), (64, 2048))
+    for (slots, window), page in itertools.product(shapes, (None, PAGE)):
+        cfg = ModelConfig(**{**DIMS, "max_seq": window}, dtype=torch.float32, kv_int8="auto")
+        want = choose_kv_int8(slots, window, paged=page is not None)
+        assert want in (True, False)
+        pool = {} if page is None else {"kv_page": page, "kv_pool_blocks": 4}
+        eng = ServingEngine(tp, cfg, ServingConfig(slots=slots, prefill_buckets=(8,), **pool),
+                            device="cpu")
+        assert eng.cfg.kv_int8 is want and eng.model.cfg.kv_int8 is want
+        assert eng.state["k"].dtype == (torch.int8 if want else torch.float32)
+        assert ("k_scale" in eng.state) is want
+
+
+def test_choose_kv_int8_gives_every_measured_cell_its_verdict():
+    """The router is the measurement's: every cell of INT8_AB_H100.json
+    (hack/torch_int8_ab.py on the card) gets its recorded verdict, each
+    cell from at least 5 interleaved repeats of both arms, and the verdict
+    follows the record's rule (int8 when int8's median decode rate is at
+    least bf16's x (1 - tie), the tie the larger arm's spread, at least
+    3%)."""
+    import json
+    import pathlib
+
+    record = json.loads((pathlib.Path(__file__).resolve().parent.parent
+                         / "INT8_AB_H100.json").read_text())
+    cells = record["cells"]
+    grid = {(c["slots"], c["window"], c["pool"]) for c in cells}
+    assert grid == {(s, w, p) for s in (4, 8, 16, 32, 64) for w in (1024, 2048)
+                    for p in ("dense", "paged")}
+    for c in cells:
+        b, q = (c[kv]["median_decode_tokens_per_s"] for kv in ("bf16", "int8"))
+        assert c["repeats"] >= 5 and len(c["bf16"]["decode_tokens_per_s"]) == c["repeats"]
+        tie = max(0.03, c["bf16"]["spread"], c["int8"]["spread"])
+        assert c["tie"] == pytest.approx(tie)
+        assert c["verdict"] == ("int8" if q >= b * (1 - tie) else "bf16")
+        got = choose_kv_int8(c["slots"], c["window"], paged=c["pool"] == "paged")
+        assert got is (c["verdict"] == "int8"), c
+
+
+@pytest.mark.parametrize("resolved", [True, False])
+def test_kv_int8_auto_streams_match_jax_engine(weights, int8_refs, monkeypatch, resolved):
+    """Both resolutions of "auto", whatever the measurement says (the port's
+    router patched to each answer): the engine serves the resolved KV type,
+    and its greedy streams equal the JAX engine's built with that same bool,
+    dense and paged."""
+    import dataclasses
+
+    from vtpu.serving import ServingConfig as JServingConfig, ServingEngine as JServingEngine
+    from vtpu_torch.serving import engine as port_engine
+
+    jp, tp = weights
+    prompts, _ = int8_refs
+    monkeypatch.setattr(port_engine, "choose_kv_int8",
+                        lambda slots, window, paged=False: resolved)
     cfg = ModelConfig(**DIMS, dtype=torch.float32, kv_int8="auto")
-    with pytest.raises(NotImplementedError, match="H100 measurement"):
-        ServingEngine(tp, cfg, ServingConfig(slots=1, prefill_buckets=(8,)), device="cpu")
+    jcfg = dataclasses.replace(JCFG, kv_int8=resolved)
+    for kw in ({}, {"kv_page": PAGE, "kv_pool_blocks": 6}):
+        kw = dict(slots=2, prefill_buckets=(8, 16), max_new_tokens=NEW, **kw)
+        eng = ServingEngine(tp, cfg, ServingConfig(**kw), device="cpu")
+        assert eng.cfg.kv_int8 is resolved
+        assert eng.state["k"].dtype == (torch.int8 if resolved else torch.float32)
+        streams = {}
+        for side, e in (("port", eng), ("jax", JServingEngine(jp, jcfg, JServingConfig(**kw)))):
+            reqs = [e.submit(p, max_new_tokens=NEW) for p in prompts]
+            e.start()
+            try:
+                streams[side] = [[int(t) for t in r.stream()] for r in reqs]
+            finally:
+                e.stop()
+        assert streams["port"] == streams["jax"], kw
+        assert all(len(t) == NEW for t in streams["port"])

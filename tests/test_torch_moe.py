@@ -586,7 +586,8 @@ def test_refusals(weights):
     and refuses the full tree, naming the counts; an engine given another
     mesh than its adapter's raises; a ServingConfig that disagrees with the
     adapter on kv_page or paged_attn raises with the reference's wording;
-    kv_int8="auto" is refused as for the dense family."""
+    kv_int8="auto" is not refused: a model= adapter reads it as int8, as the
+    reference's does (the engine resolves "auto" only for params + cfg)."""
     _, tp = weights
     mesh = TpMesh(rank=1, size=2, device=torch.device("cpu"))
     sharded = MoeSlotModel(shard_moe_params(tp, mesh), CFGS["f32"], mesh=mesh)
@@ -604,5 +605,27 @@ def test_refusals(weights):
         ServingEngine(model=MoeSlotModel(tp, CFGS["f32"], kv_page=PAGE, device="cpu"),
                       serving=ServingConfig(**BASE, paged_attn="gather"))
     auto = dataclasses.replace(CFGS["f32"], kv_int8="auto")
-    with pytest.raises(NotImplementedError, match="auto"):
-        ServingEngine(model=MoeSlotModel(tp, auto, device="cpu"), serving=ServingConfig(**BASE))
+    eng = ServingEngine(model=MoeSlotModel(tp, auto, device="cpu"), serving=ServingConfig(**BASE))
+    assert eng.cfg.kv_int8 == "auto" and eng.state["k"].dtype == torch.int8
+    assert eng.state["k_scale"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("page", [None, PAGE])
+def test_kv_int8_auto_adapter_serves_int8_like_jax(weights, page):
+    """ServingEngine(model=MoeSlotModel(cfg with kv_int8="auto")): neither
+    package resolves "auto" on the model= path, and both adapters read it as
+    int8 (kv_quantized). The port's streams equal the JAX MoE engine's given
+    the same "auto" config, and equal the port's own kv_int8=True engine's."""
+    jp, tp = weights
+    auto = dataclasses.replace(CFGS["f32"], kv_int8="auto")
+    jauto = dataclasses.replace(JCFGS["f32"], kv_int8="auto")
+    prompts = [_prompt(31, 5), _prompt(32, 9), _prompt(33, 14)]
+    port = ServingEngine(model=MoeSlotModel(tp, auto, kv_page=page, device="cpu"),
+                         serving=ServingConfig(**BASE))
+    assert port.state["k"].dtype == torch.int8
+    got, st = _serve(port, prompts)
+    want, _ = _serve(JServingEngine(model=JMoeSlotModel(jp, jauto, kv_page=page),
+                                    serving=JServingConfig(**BASE)), prompts)
+    int8, _ = _serve(_port(tp, "int8", page=page, **BASE), prompts)
+    assert got == want == int8
+    assert st["generated_tokens"] == NEW * len(prompts)

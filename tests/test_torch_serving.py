@@ -25,6 +25,7 @@ from vtpu_torch.serving import (
     BlockAllocator, ServingConfig, ServingEngine, Status, WaitQueue,
 )
 from vtpu_torch.serving import batched_decode_step, prefill_into_slot, prefill_into_slots
+from vtpu_torch.serving.engine import choose_kv_int8
 
 DIMS = dict(vocab=64, d_model=64, n_heads=2, n_layers=2, d_ff=128, max_seq=32, head_dim=32)
 JCFG = JModelConfig(**DIMS, dtype=jnp.float32, use_pallas=False)
@@ -414,10 +415,13 @@ def test_serving_exports_match_reference():
 
 def test_unported_model_options_raise(weights):
     _, tp = weights
-    # kv_int8=True is ported; "auto" (the reference's TPU-measured router) is not
+    # kv_int8=True is ported, and so is "auto" since the H100 router: it is
+    # resolved at construction by the port's choose_kv_int8(slots, max_seq)
     cfg8 = ModelConfig(**DIMS, dtype=torch.float32, kv_int8="auto")
-    with pytest.raises(NotImplementedError, match="kv_int8"):
-        ServingEngine(tp, cfg8, ServingConfig(), device="cpu")
+    auto = ServingEngine(tp, cfg8, ServingConfig(prefill_buckets=(8,)), device="cpu")
+    want = choose_kv_int8(ServingConfig().slots, DIMS["max_seq"])
+    assert auto.cfg.kv_int8 is want
+    assert auto.state["k"].dtype == (torch.int8 if want else torch.float32)
     # a custom sample= callable is ported since the sampling-API slice: it is
     # served on the synchronous host-sampling loop
     eng = ServingEngine(tp, CFG, ServingConfig(slots=1, prefill_buckets=(8,),

@@ -44,6 +44,7 @@ from vtpu_torch.ops import _build, paged_decode_attention, paged_decode_attentio
 from vtpu_torch.parallel import TpMesh, all_reduce_sum, head_shard, make_tp_mesh, shard_params
 from vtpu_torch.parallel.launch import Run, forced_decode_logits, launch_tp, serve_requests
 from vtpu_torch.serving import ServingConfig, ServingEngine, Status, TransformerSlotModel
+from vtpu_torch.serving.engine import choose_kv_int8
 
 DIMS = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=32, head_dim=8)
 JCFGS = {kv: JModelConfig(**DIMS, dtype=jnp.float32, use_pallas=False, kv_int8=kv == "int8")
@@ -189,6 +190,51 @@ def test_tp_streams_match_jax_tp_engine(port_tp, jax_tp_streams, port_single, tp
 
 
 # ------------------------------------------------------- teacher-forced
+
+
+def _auto_shapes():
+    """(slots, max_seq, verdict) of the first shape of each verdict the
+    port's router gives on the paged pool, fewest slots and shortest
+    window first."""
+    first = {}
+    for slots in (2, 16, 64):
+        for window in (DIMS["max_seq"], 1024, 2048):
+            first.setdefault(choose_kv_int8(slots, window, paged=True), (slots, window))
+    return [(*shape, verdict) for verdict, shape in sorted(first.items())]
+
+
+def test_tp_kv_int8_auto_resolves_on_every_rank(weights, prompts, tmp_path):
+    """ModelConfig(kv_int8="auto") at tp=2 through launch_tp: rank 0's
+    engine and rank 1's follower each build the adapter through the same
+    resolution of (slots, max_seq), so both ranks' configs carry
+    choose_kv_int8's bool and their KV planes its dtype, for each verdict
+    the router gives; the streams equal the JAX TP engine's (gather route)
+    built with that same bool."""
+    jp, tree = weights
+    shapes = _auto_shapes()
+    auto = dataclasses.replace(CFGS["f32"], kv_int8="auto")
+
+    def serving(slots, cls=ServingConfig):
+        return cls(slots=slots, prefill_buckets=(8,), max_new_tokens=NEW, kv_page=PAGE,
+                   kv_pool_blocks=8, paged_attn="gather")
+
+    runs = [Run(dataclasses.replace(auto, max_seq=window), serving(slots), prompts, NEW,
+                hook="torch_tp_hooks:kv_dtype") for slots, window, _ in shapes]
+    ranks = launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"], f"file://{tmp_path}/store",
+                      args=([tree] * len(runs), runs), timeout=WORLD_TIMEOUT_S)
+    for i, (slots, window, verdict) in enumerate(shapes):
+        dtype = str(torch.int8 if verdict else torch.float32)
+        assert [(r[i]["kv_int8"], r[i]["kv_dtype"]) for r in ranks] == [(verdict, dtype)] * 2
+        eng = JServingEngine(jp, dataclasses.replace(JCFGS["f32"], max_seq=window,
+                                                     kv_int8=verdict),
+                             serving(slots, JServingConfig), mesh=make_axis_mesh("tp", 2))
+        eng.start()
+        try:
+            reqs = [eng.submit(p.tolist(), max_new_tokens=NEW) for p in prompts]
+            want = [list(r.stream()) for r in reqs]
+        finally:
+            eng.stop()
+        assert ranks[0][i]["streams"] == want, (slots, window, verdict)
 
 
 def test_tp_teacher_forced_logits_match_jax(weights, tmp_path):
@@ -368,15 +414,16 @@ def test_dead_worker_fails_launch_tp(weights, prompts, tmp_path):
 
 
 def test_rank_error_fails_launch_tp_with_its_traceback(weights, prompts, tmp_path):
-    """Rank 0 refuses an unported config (kv_int8="auto") before its first
-    broadcast while rank 1 waits to follow it: launch_tp raises at once
-    with rank 0's error and leaves no rank running."""
+    """Rank 0's engine refuses a ServingConfig its adapter accepts (kv_swap
+    on the dense ring) before its first broadcast, while rank 1 has built
+    the same adapter and waits to follow it: launch_tp raises at once with
+    rank 0's error and leaves no rank running."""
     _, tree = weights
-    auto = dataclasses.replace(CFGS["f32"], kv_int8="auto")
+    swap = dataclasses.replace(_serving("dense"), kv_swap=4)
     t0 = time.monotonic()
-    with pytest.raises(RuntimeError, match=r"rank 0 raised:(.|\n)*kv_int8='auto'"):
+    with pytest.raises(RuntimeError, match=r"rank 0 raised:(.|\n)*kv_swap requires the paged"):
         launch_tp(serve_requests, 2, "gloo", ["cpu", "cpu"], f"file://{tmp_path}/store",
-                  args=([tree], [Run(auto, _serving("dense"), prompts, NEW)]),
+                  args=([tree], [Run(CFGS["f32"], swap, prompts, NEW)]),
                   timeout=WORLD_TIMEOUT_S)
     assert time.monotonic() - t0 < WORLD_TIMEOUT_S / 2
     assert not [p for p in multiprocessing.active_children() if p.name.startswith("tp-rank")]

@@ -69,6 +69,12 @@ def kv_state(model):
         "prefix_keys": sorted(model._prefixes)}
 
 
+def kv_dtype(model):
+    """The rank's resolved ``kv_int8`` and the dtype of its KV plane, after
+    the wave (``kv_int8``, ``kv_dtype``)."""
+    return lambda state: {"kv_int8": model.cfg.kv_int8, "kv_dtype": str(state["k"].dtype)}
+
+
 def tier_watch(model):
     """This rank's host tier across a migration round: every block a
     swap-out or a tier upload fills is held until a swap-in or a snapshot

@@ -61,7 +61,8 @@ class MoEConfig:
     max_seq: int = 1024
     head_dim: int = 128
     dtype: torch.dtype = torch.bfloat16
-    # int8 KV cache, as ModelConfig.kv_int8 (the serving engine refuses "auto")
+    # int8 KV cache, as ModelConfig.kv_int8 ("auto" reads as int8 here: the
+    # engine resolves it only for (params, cfg), as the reference does)
     kv_int8: bool | str = False
     # prefill attention through the flash kernel (ModelConfig.use_kernels);
     # decode reads the paged kernels through the shared trunk's route

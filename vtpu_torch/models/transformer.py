@@ -63,8 +63,8 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     use_kernels: bool = True
     # int8 KV cache with per-token-per-head f32 scales. Any true value builds
-    # int8 caches here; the serving engine refuses "auto" (the reference's
-    # router was measured on a TPU)
+    # int8 caches here; ServingEngine(params, cfg) resolves "auto" first
+    # (serving.engine.choose_kv_int8, an H100 measurement)
     kv_int8: bool | str = False
 
     @property

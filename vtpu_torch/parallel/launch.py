@@ -227,11 +227,18 @@ class Run:
 def _adapter(params, cfg, serving, mesh, device=None):
     """The slot adapter of ``cfg``'s family on this rank's shard (with no
     mesh, the whole ``params`` on ``device``): the MoE for a MoEConfig,
-    else the dense transformer."""
+    else the dense transformer. The dense family's ``kv_int8="auto"`` is
+    resolved here, on every rank from the same (slots, max_seq), as the
+    reference's ``ServingEngine(params, cfg, mesh=)`` resolves it; the MoE
+    reads it as int8, as the reference's ``model=`` adapter does."""
     from vtpu_torch.models.moe import MoEConfig
     from vtpu_torch.serving.adapters import MoeSlotModel, TransformerSlotModel
+    from vtpu_torch.serving.engine import resolve_kv_int8
 
-    cls = MoeSlotModel if isinstance(cfg, MoEConfig) else TransformerSlotModel
+    if isinstance(cfg, MoEConfig):
+        cls = MoeSlotModel
+    else:
+        cls, cfg = TransformerSlotModel, resolve_kv_int8(cfg, serving)
     return cls(params, cfg, kv_page=serving.kv_page, kv_pool_blocks=serving.kv_pool_blocks,
                paged_attn=serving.paged_attn, device=device, mesh=mesh)
 
