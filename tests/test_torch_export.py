@@ -1,10 +1,9 @@
-"""The port's ``vtpu_serving_*`` exporter (``vtpu_torch.obs.export``) and
-summary line (``vtpu_torch.obs.summary``) against vtpu's (CPU, f32, the
-same weights on both sides), in the reference's configuration
-(tests/test_obs.py's exporter cases).
+"""The port's ``vtpu_serving_*`` exporter (``vtpu_torch.obs.export``)
+against vtpu's (CPU, f32, the same weights on both sides), in the
+reference's configuration (tests/test_obs.py's exporter cases).
 
 Held: every reference table entry is carried over unchanged (suffix, help
-text, scale, label) and the port adds only its own eleven keys; every key
+text, scale, label) and the port adds only its own fourteen keys; every key
 a port engine's ``stats()`` reports has a family, on the engines the
 reference's coverage test builds (paged, ``kv_swap``, chunked) and on a
 disaggregated and an MoE engine, where the key sets of the two packages'
@@ -13,11 +12,10 @@ engines differ by exactly the port's keys;
 same request: the same family names apart from the port's own, none
 twice, equal values for every counter that does not depend on timing, the
 span and phase histograms carrying bucket samples; the port's collector in
-the reference monitor's one scrape; the reference's summary strings; and
-the tables, ``vtpu_torch.obs`` and ``vtpu_torch.serving`` importing with
-``prometheus_client`` hidden. One torch thread."""
+the reference monitor's one scrape; and the tables, ``vtpu_torch.obs`` and
+``vtpu_torch.serving`` importing with ``prometheus_client`` hidden. One
+torch thread."""
 
-import json
 import subprocess
 import sys
 
@@ -30,13 +28,12 @@ import torch
 from vtpu.models import ModelConfig as JModelConfig, init_params as j_init_params
 from vtpu.models.moe import MoEConfig as JMoEConfig, init_moe_params as j_init_moe_params
 from vtpu.obs import export as jexport
-from vtpu.obs.summary import summary_line as j_summary_line
 from vtpu.serving import ServingConfig as JServingConfig, ServingEngine as JServingEngine
 from vtpu.serving.adapters import MoeSlotModel as JMoeSlotModel
 from vtpu.serving.disagg import DisaggConfig as JDisaggConfig
 from vtpu_torch.convert import moe_params_from_numpy, params_from_numpy
 from vtpu_torch.models import ModelConfig, MoEConfig
-from vtpu_torch.obs import ServingCollector, export, serving_families, summary_line
+from vtpu_torch.obs import ServingCollector, export, serving_families, tickprof
 from vtpu_torch.serving import DisaggConfig, ServingConfig, ServingEngine
 from vtpu_torch.serving.adapters import MoeSlotModel
 
@@ -49,13 +46,15 @@ MOE_DIMS = dict(vocab=64, d_model=32, n_heads=2, n_layers=1, d_ff=32, n_experts=
 JMCFG = JMoEConfig(**MOE_DIMS, dtype=jnp.float32)
 MCFG = MoEConfig(**MOE_DIMS, dtype=torch.float32)
 
-# the port's own stats() keys: the kernel wrappers' launch counts and the
-# graphs captured at construction
+# the port's own stats() keys: the kernel wrappers' launch counts, the
+# device ms of the loop's admission and decode dispatches, the graphs
+# captured at construction and an MoE admission's device ms by stage
 PORT_COUNTERS = ("flash_launches", "paged_attn_launches", "paged_attn_int8kv_launches",
                  "paged_attn_tp_launches", "paged_attn_int8kv_tp_launches",
                  "paged_attn_tp_verify_launches", "paged_attn_int8kv_tp_verify_launches",
-                 "decode_attn_launches", "decode_attn_int8kv_launches")
-PORT_KEYS = set(PORT_COUNTERS) | {"graphs_captured"}
+                 "decode_attn_launches", "decode_attn_int8kv_launches",
+                 "admission_device_ms", "decode_device_ms")
+PORT_KEYS = set(PORT_COUNTERS) | {"graphs_captured", "moe_stage_device_ms"}
 # counters whose value depends on the host's timing (how many ticks ran
 # while an admission was pending, how many events the ring took), not on
 # what was served
@@ -120,9 +119,10 @@ def _engines(weights, case: str):
                                    "ALLOWLIST"])
 def test_reference_tables_carried_over_unchanged(table):
     """Every reference entry is in the port's table unchanged (suffix, help
-    text, scale or label); the port adds only its own eleven keys: nine
-    launch counters as counters, ``graphs_captured`` as a gauge, none of
-    them allowlisted."""
+    text, scale or label); the port adds only its own fourteen keys: nine
+    launch counters and two device-ms totals as counters,
+    ``graphs_captured`` as a gauge, the MoE stages' device ms as a labelled
+    counter, none of them allowlisted."""
     ref, port = getattr(jexport, table), getattr(export, table)
     assert export.PREFIX == jexport.PREFIX == "vtpu_serving_"
     if isinstance(ref, set):
@@ -133,7 +133,7 @@ def test_reference_tables_carried_over_unchanged(table):
         assert port.get(key) == entry, key
     extra = set(port) - set(ref)
     assert extra == {"COUNTERS": set(PORT_COUNTERS), "GAUGES": {"graphs_captured"},
-                     "HIST_COUNTERS": set()}[table]
+                     "HIST_COUNTERS": {"moe_stage_device_ms"}}[table]
     assert list(port)[:len(ref)] == list(ref)  # the reference's order, then the port's
 
 
@@ -202,6 +202,7 @@ def test_serving_families_shape(weights):
     assert stream == jstream and len(stream) == 4
     own = {export.PREFIX + export.COUNTERS[k][0] for k in PORT_COUNTERS}
     own.add(export.PREFIX + export.GAUGES["graphs_captured"][0])
+    own.add(export.PREFIX + export.HIST_COUNTERS["moe_stage_device_ms"][0])
     assert set(fams) - set(jfams) == own and set(jfams) <= set(fams)
     tokens = fams["vtpu_serving_tokens_generated"]
     assert tokens.samples[0].labels["engine"] == "engine0" and tokens.samples[0].value == 4.0
@@ -225,7 +226,7 @@ def test_serving_families_shape(weights):
               if s.name.endswith("_count")}
     assert counts == {"vtpu_serving_ttft_seconds_count": 1.0}
     phases = fams["vtpu_serving_tick_phase_seconds"]
-    assert {"admission", "dispatch", "fetch", "deliver", "swap_drain"} == {
+    assert set(tickprof.PHASES) == {
         s.labels["phase"] for s in phases.samples if "phase" in s.labels}
     launches = fams["vtpu_serving_flash_launches"]
     assert launches.type == "counter" and launches.samples
@@ -278,31 +279,6 @@ def test_monitor_collector_merges_serving(weights, tmp_path):
     for name in ("vtpu_memory_used_bytes", "vtpu_serving_tokens_generated",
                  "vtpu_serving_tick_phase_seconds", "vtpu_serving_paged_attn_launches"):
         assert name in names
-
-
-# ----------------------------------------------------------------- summary
-
-
-SUMMARY_CASES = {
-    "plain": (("tokens_per_s", 1234.5, "pass"), {}),
-    "unit_ci": (("ttft_p50_ms", 45.8, "info"), dict(unit="ms", ci95=(44.0, 47.5))),
-    "extras": (("speedup", 1.17, "fail"), dict(unit="x", cells=3, note="interleaved")),
-    "none": (("x", None, "skip"), dict(ci95=[1, 2])),
-}
-
-
-@pytest.mark.parametrize("case", list(SUMMARY_CASES))
-def test_summary_line_matches_reference(case, capsys):
-    """summary_line gives the reference's string for the same arguments
-    (key order included), and print_summary prints it as one line."""
-    args, kw = SUMMARY_CASES[case]
-    line = summary_line(*args, **kw)
-    assert line == j_summary_line(*args, **kw)
-    assert json.loads(line)["summary"] is True
-    from vtpu_torch.obs import print_summary
-
-    print_summary(*args, **kw)
-    assert capsys.readouterr().out == line + "\n"
 
 
 # ----------------------------------------------------- without the client

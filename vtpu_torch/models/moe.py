@@ -48,6 +48,10 @@ from vtpu_torch.ops.loss import next_token_ce
 from vtpu_torch.parallel.collectives import all_reduce_sum
 
 
+# the MoE block's stages as a stage timer names them (``moe_ffn``)
+MOE_STAGES = ("route", "dispatch", "experts", "combine")
+
+
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
     vocab: int = 2048
@@ -157,29 +161,41 @@ def expert_ffn(lp_e: dict[str, torch.Tensor], slots: torch.Tensor) -> torch.Tens
 
 def moe_ffn(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig,
             capacity: Optional[int] = None, pad_mask: Optional[torch.Tensor] = None,
-            mesh=None):
+            mesh=None, timer=None):
     """The MoE block. x: [B, S, D] -> (out [B, S, D], aux).
     ``capacity`` overrides the config formula (serving decode passes the
     full token count so routing can never drop a token); ``pad_mask``
     ([B, S] bool, True = real) keeps pads out of routing. Under ``mesh``
     with the expert axis split (``lp``'s stacks hold n_experts / tp
     experts) the route is the whole one, each rank dispatches to and
-    combines from its own experts, and the partial outputs are summed."""
+    combines from its own experts, and the partial outputs are summed.
+    ``timer`` (a ``vtpu_torch.obs.devtime.StageTimer``) times the
+    ``MOE_STAGES``: the route, the dispatch einsum, the experts and the
+    combine einsum with its all-reduce."""
+    lap = timer.lap() if timer is not None else None
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     cap = capacity or cfg.capacity(b * s)
     dispatch, combine, aux = route(lp["router"], flat, cfg, cap,
                                    pad_mask=None if pad_mask is None else pad_mask.reshape(b * s))
+    if lap:
+        lap("route")
     local = lp["w_gate"].shape[0]
     split = local != cfg.n_experts
     if split:
         e0 = mesh.rank * local
         dispatch, combine = dispatch[:, e0:e0 + local], combine[:, e0:e0 + local]
     slots = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), flat)  # [E, C, D]
+    if lap:
+        lap("dispatch")
     out_slots = expert_ffn(lp, slots)
+    if lap:
+        lap("experts")
     out = torch.einsum("tec,ecd->td", combine.to(x.dtype), out_slots)
     if split:
         out = all_reduce_sum(out, mesh)
+    if lap:
+        lap("combine")
     return out.reshape(b, s, d), aux
 
 
@@ -224,7 +240,7 @@ def moe_loss(params: Params, cfg: MoEConfig, tokens: torch.Tensor, ffn=moe_ffn) 
 # ------------------------------------------------------------------ serving
 
 
-def moe_decode_ffn(cfg: MoEConfig, mesh=None):
+def moe_decode_ffn(cfg: MoEConfig, mesh=None, timer=None):
     """The post-attention block for the shared decode trunk
     (transformer.spec_verify_loop): routed experts in place of the dense
     MLP; the aux term is a training loss, dropped here. Capacity is the full
@@ -232,18 +248,20 @@ def moe_decode_ffn(cfg: MoEConfig, mesh=None):
     slot's stale one too), and a drop triggered by such a token would zero a
     live slot's expert output; with capacity >= tokens nothing can drop. x
     is [B, T, D]: T = 1 for decode, K+1 for a verify chunk, C for a prefill
-    chunk. Under ``mesh`` the block owns its all-reduce (``moe_ffn``)."""
+    chunk. Under ``mesh`` the block owns its all-reduce (``moe_ffn``).
+    ``timer``: a stage timer for ``moe_ffn`` (a timed prefill chunk)."""
 
     def ffn(lp, x):
         out, _ = moe_ffn(lp, rms_norm(x, lp["mlp_norm"]), cfg, capacity=x.shape[0] * x.shape[1],
-                         mesh=mesh)
+                         mesh=mesh, timer=timer)
         return out
 
     return ffn
 
 
 def moe_prefill(params: Params, cfg: MoEConfig, tokens: torch.Tensor, true_len=None,
-                logits_at: Optional[torch.Tensor] = None, ffn=moe_ffn, mesh=None):
+                logits_at: Optional[torch.Tensor] = None, ffn=moe_ffn, mesh=None,
+                timer=None):
     """Full-sequence forward that also fills a KV cache: the serving-side
     sibling of ``moe_forward`` (the aux term dropped). tokens: [B, S] ->
     (logits, cache): [B, S, vocab] f32 logits, or [B, vocab] gathered at
@@ -256,13 +274,16 @@ def moe_prefill(params: Params, cfg: MoEConfig, tokens: torch.Tensor, true_len=N
     token's choice past capacity drops, as in training. Without it capacity
     is the full token count and nothing can drop. ``ffn`` is the MoE block
     (``moe_ffn``'s signature; it is given the pad mask or the capacity, and
-    the mesh under one). An int8 cache stores the quantized K/V. Under
-    ``mesh``: the rank's shard of params in, its head shard of the cache
-    out, logits whole on every rank."""
+    the mesh under one, and ``timer``, a stage timer, where one is given).
+    An int8 cache stores the quantized K/V. Under ``mesh``: the rank's
+    shard of params in, its head shard of the cache out, logits whole on
+    every rank."""
     b, s = tokens.shape
     dev = tokens.device
     x, cos, sin, positions = _embed(params, cfg, tokens)
     split = {} if mesh is None else {"mesh": mesh}  # a one-device ffn takes no mesh
+    if timer is not None:
+        split["timer"] = timer
     if true_len is not None:
         lens = torch.as_tensor(true_len, device=dev).reshape(-1, 1)
         pad_mask = positions < lens  # [B, S]

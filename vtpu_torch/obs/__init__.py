@@ -12,17 +12,19 @@ no device sync).
                ring, the dead engine's flight recorder and the merged
                multi-engine Chrome dump.
 - tickprof.py: per-tick decode-loop phase attribution (admission, dispatch,
-               fetch, deliver, swap drain) into bounded histograms: where
-               ``host_ms_per_tick`` goes.
+               fetch, deliver, swap drain, idle, hook) into bounded
+               histograms: where ``host_ms_per_tick`` goes; with the ring
+               on, the same phases as spans on its engine-loop track.
+- devtime.py:  device time of the loop's dispatches (an admission, a decode
+               tick, an MoE admission's stages), read at fetches the loop
+               makes anyway (imports torch; not imported here).
 - export.py:   the ``vtpu_serving_*`` Prometheus family set over
                ``ServingEngine.stats()`` and the span/phase histograms, and
                the ``vtpu_serving_fleet_*`` set over ``EngineFleet.stats()``;
                its mapping tables import without ``prometheus_client``.
-- summary.py:  the one-line stdout summary a benchmark ends with.
 """
 
 from vtpu_torch.obs.fleettrace import FleetTrace
-from vtpu_torch.obs.summary import print_summary, summary_line
 from vtpu_torch.obs.tickprof import BoundedHistogram, TickProfiler
 from vtpu_torch.obs.trace import RequestTrace, pct
 
@@ -40,7 +42,5 @@ __all__ = [
     "ServingCollector",
     "TickProfiler",
     "pct",
-    "print_summary",
     "serving_families",
-    "summary_line",
 ]

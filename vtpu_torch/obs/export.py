@@ -13,10 +13,12 @@ test walks a live engine's stats() keys and fails on any key that is
 neither mapped nor allowlisted. They carry the reference's entries
 unchanged, the keys of features the port has not reached included (a key
 an engine does not report skips its sample, the family is still
-emitted), plus the port's own: the kernel wrappers' launch counters and
-``graphs_captured``. The fleet half (``FLEET_*``, ``fleet_families``)
-maps every ``EngineFleet.stats()`` key to a ``vtpu_serving_fleet_*``
-family labelled by fleet name, the reference's entries unchanged.
+emitted), plus the port's own: the kernel wrappers' launch counters,
+``graphs_captured``, and the device milliseconds of the loop's admission
+and decode dispatches and of an MoE admission's stages. The fleet half
+(``FLEET_*``, ``fleet_families``) maps every ``EngineFleet.stats()`` key
+to a ``vtpu_serving_fleet_*`` family labelled by fleet name, the
+reference's entries unchanged.
 
 The tables import without ``prometheus_client``; building families needs
 it, and imports it at first use.
@@ -178,6 +180,16 @@ COUNTERS = {
     "decode_attn_int8kv_launches": ("decode_attn_int8kv_launches",
                                     "Dense decode-attention kernel launches "
                                     "(int8 cache)"),
+    # the port's own: the loop stream's milliseconds between a CUDA-event
+    # pair around each dispatch, read at the fetch of what it produced (0
+    # with the trace ring off); a span, so it holds the card's idle time
+    # while the host still enqueues the dispatch's kernels
+    "admission_device_ms": ("admission_device_milliseconds",
+                            "Stream ms spanned by admission dispatches "
+                            "(host enqueue gaps included)"),
+    "decode_device_ms": ("decode_device_milliseconds",
+                         "Stream ms spanned by decode and verify dispatches "
+                         "(host enqueue gaps included)"),
 }
 
 # stats() key -> (family suffix, help, scale). Point-in-time gauges; a
@@ -300,6 +312,12 @@ HIST_COUNTERS = {
     "read_pages_hist": ("read_pages_ticks",
                         "Dispatched ticks by gathered live-page count",
                         "live_pages"),
+    # the port's own: an MoE model's admissions by stage of its MoE block
+    # (route, dispatch, experts, combine), the stream's ms between one
+    # stage's events and the next's, summed over layers
+    "moe_stage_device_ms": ("moe_stage_device_milliseconds",
+                            "Stream ms spanned by MoE admission stages "
+                            "(host enqueue gaps included)", "stage"),
 }
 
 # Keys the exporter handles specially (labelled gauges / histogram

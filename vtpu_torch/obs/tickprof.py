@@ -5,10 +5,10 @@ port imports nothing of the reference). Each loop pass notes the seconds it
 spent in each phase into a bounded histogram, so a TTFT p99 outlier can be
 blamed on admission work, the dispatch, the device fetch or delivery.
 
-Phases (one histogram each):
+Phases (one histogram each; the first five are the reference's):
 
 - admission:  ``_tick_head`` — queue drain, batched admission dispatch,
-              cancel sweep.
+              cancel sweep (without the hook and the swap drain).
 - dispatch:   building and issuing the decode step (host-side tensor builds,
               the enqueue of every kernel or one graph replay, the staging
               of the tick's device->host copy).
@@ -20,15 +20,28 @@ Phases (one histogram each):
 - swap_drain: the tick head's retirement of finished swap-outs to the
               host tier (overcommit: event queries, never a wait; empty
               without ``kv_swap``).
+- idle:       ``_idle_wait`` — nothing to decode or deliver: the loop
+              waits for a submission.
+- hook:       a fleet's ledger hook at the tick head (the benchmark's
+              profiler control rides the same hook); empty outside a fleet.
+
+Given a ``RequestTrace`` with its ring enabled, every note also records the
+phase as a span on the engine-loop track (-1) of its loop ring: one
+``loop_phase`` event stamped with the phase's end (``time.monotonic_ns``),
+its slot the phase's index in ``PHASES`` and its val the phase's
+nanoseconds. Together the spans cover the loop thread's time; only its own
+bookkeeping falls between them.
 
 Everything is plain host arithmetic: a ``note()`` is one bisect over a
-static bucket table plus four scalar updates. Writers are the serving-loop
-thread; ``snapshot()`` readers from other threads see monotonic counters.
+static bucket table plus four scalar updates, and one ring write with the
+ring on. Writers are the serving-loop thread; ``snapshot()`` readers from
+other threads see monotonic counters.
 """
 
 from __future__ import annotations
 
 from bisect import bisect_left
+from typing import Optional
 
 # Bucket upper edges in MILLISECONDS. Tick phases live in the 10 us .. 100
 # ms range; span latencies (TTFT/ITL/queue wait, see trace.py) reuse the
@@ -42,7 +55,7 @@ LATENCY_BUCKETS_MS = (
     1000.0, 2500.0, 5000.0, 10000.0,
 )
 
-PHASES = ("admission", "dispatch", "fetch", "deliver", "swap_drain")
+PHASES = ("admission", "dispatch", "fetch", "deliver", "swap_drain", "idle", "hook")
 
 
 class BoundedHistogram:
@@ -104,17 +117,31 @@ class BoundedHistogram:
 
 
 class TickProfiler:
-    """One BoundedHistogram per decode-loop phase."""
+    """One BoundedHistogram per decode-loop phase, and with ``trace`` (a
+    RequestTrace) the phases as spans on its ring."""
 
-    __slots__ = ("phases",)
+    __slots__ = ("phases", "_index", "_trace")
 
-    def __init__(self, phases: tuple = PHASES, edges_ms: tuple = PHASE_BUCKETS_MS):
+    def __init__(self, phases: tuple = PHASES, edges_ms: tuple = PHASE_BUCKETS_MS,
+                 trace=None):
         self.phases = {p: BoundedHistogram(edges_ms) for p in phases}
+        self._index = {p: i for i, p in enumerate(phases)}
+        self._trace = trace if trace is not None and trace.enabled else None
 
-    def note(self, phase: str, seconds: float, ticks: int = 1) -> None:
-        """Record one phase sample; ``ticks`` is how many decode ticks it
-        amortizes over."""
+    def note(self, phase: str, seconds: float, ticks: int = 1,
+             span_s: Optional[float] = None) -> None:
+        """Record one phase sample that ends now; ``ticks`` is how many
+        decode ticks it amortizes over. ``span_s``: the ring's span is only
+        the last piece of the phase, this long (the others were marked)."""
         self.phases[phase].note(seconds, ticks=ticks)
+        if self._trace is not None:
+            self.mark(phase, seconds if span_s is None else span_s)
+
+    def mark(self, phase: str, seconds: float) -> None:
+        """The ring's span of a phase that ends now, without a histogram
+        sample: one piece of a phase that another phase interrupts."""
+        if self._trace is not None:
+            self._trace.record_loop("loop_phase", self._index[phase], int(seconds * 1e9))
 
     def snapshot(self) -> dict:
         """{phase: {count, total_ms, mean_ms, max_ms, ticks,

@@ -14,7 +14,14 @@ port has not reached (the disaggregation and migration events) are kept so
 a trace reads the same in both packages; the port never records them. It
 records prefill_chunk for each chunk of a chunked or prefixed admission,
 fault for a request a contained failure ended, and the overcommit
-lifecycle (park, evict, swap_out, swap_in, fault_recompute, resume).
+lifecycle (park, evict, swap_out, swap_in, fault_recompute, resume). Its
+own kinds ride the engine-loop track (rid -1) in a ring of their own,
+as large as the request ring: the loop's phases (loop_phase), the clock's
+offset to the wall clock (clock), admission batches (admit_batch) and an
+admission's device time (prefill_device). The loop writes several of them
+every pass, busy or idle, so in the request ring they would push the
+request lifecycles out; there a request's lifecycle, ``snapshot()``,
+``events_recorded`` and the flight recorder read as the reference's.
 
 Recording cost is the contract: one ``itertools.count`` bump (atomic under
 the GIL), one ``time.monotonic_ns`` stamp, one tuple, one list-slot store.
@@ -34,6 +41,7 @@ with the ring disabled (``capacity=0``).
 
 from __future__ import annotations
 
+import bisect
 import collections
 import itertools
 import json
@@ -41,7 +49,7 @@ import threading
 import time
 from typing import IO, Optional, Union
 
-from vtpu_torch.obs.tickprof import LATENCY_BUCKETS_MS, BoundedHistogram
+from vtpu_torch.obs.tickprof import LATENCY_BUCKETS_MS, PHASES, BoundedHistogram
 
 # The event vocabulary. ``val`` is one int whose meaning is per-kind
 # (prompt/installed tokens, chunk tokens, blocks, bytes, sequence length).
@@ -91,6 +99,20 @@ EVENT_KINDS = (
                        # cross-engine migration (val: pages shipped)
     "migrate_in",      # request installed into this engine's parked set
                        # by a migration (val: pages; resume continues it)
+    # the port's own, on the engine-loop track (rid -1) unless noted
+    "loop_phase",      # one phase of the serving loop, stamped at its end
+                       # (slot: the phase's index in tickprof.PHASES, val:
+                       # its ns)
+    "clock",           # the wall clock's offset (val: time.time_ns() -
+                       # time.monotonic_ns()), the clock torch.profiler
+                       # stamps in: at the engine's start, then at most
+                       # once a second at a tick head
+    "admit_batch",     # one batched admission dispatch, just before its
+                       # rows' admit events in their order (slot: rows,
+                       # val: bucket)
+    "prefill_device",  # an admitted request's admission dispatch on the
+                       # device, read at the fetch of its first token
+                       # (slot: the request's rid; val: ns of its batch)
 )
 
 # Typed terminal status -> the small int the retire/shed events carry in
@@ -161,6 +183,9 @@ class RequestTrace:
         self.enabled = self.capacity > 0
         self._buf: list = [None] * max(self.capacity, 1)
         self._ctr = itertools.count()  # next(ctr) is atomic under the GIL
+        # the engine loop's own kinds, in a ring of their own
+        self._loop_buf: list = [None] * max(self.capacity, 1)
+        self._loop_ctr = itertools.count()
         # latency substrate (always on, ring or no ring): bounded
         # reservoirs for percentiles + monotonic histograms for export.
         # One uncontended lock serializes reservoir appends (loop thread)
@@ -202,6 +227,28 @@ class RequestTrace:
             return
         seq = next(self._ctr)
         self._buf[seq % self.capacity] = (seq, ts_ns, event, rid, slot, val)
+
+    def record_loop(self, event: str, slot: int = -1, val: int = 0,
+                    ts_ns: Optional[int] = None) -> None:
+        """Stamp one of the engine loop's own events (rid -1) into the
+        loop's ring, now or at ``ts_ns``."""
+        if not self.enabled:
+            return
+        seq = next(self._loop_ctr)
+        self._loop_buf[seq % self.capacity] = (
+            seq, time.monotonic_ns() if ts_ns is None else ts_ns, event, -1, slot, val)
+
+    def record_clock(self) -> None:
+        """A ``clock`` event: the offset that turns the rings' stamps
+        (``time.monotonic_ns``) into the wall clock's, which
+        ``torch.profiler`` stamps in. The monotonic stamp is the mean of
+        two reads around the wall clock's."""
+        if not self.enabled:
+            return
+        a = time.monotonic_ns()
+        wall = time.time_ns()
+        mid = (a + time.monotonic_ns()) // 2
+        self.record_loop("clock", -1, wall - mid, ts_ns=mid)
 
     def note_itl(self, gap_s: float) -> None:
         with self._lat_lock:
@@ -260,11 +307,47 @@ class RequestTrace:
         evs.sort(key=lambda e: e[0])
         return evs
 
+    def loop_snapshot(self) -> list[tuple]:
+        """The loop ring's live events in recording order (oldest first)."""
+        evs = [e for e in self._loop_buf if e is not None]
+        evs.sort(key=lambda e: e[0])
+        return evs
+
     def events(self) -> list[dict]:
         """snapshot() as dicts — the JSONL record shape."""
         return [dict(zip(FIELDS, e)) for e in self.snapshot()]
 
     # ------------------------------------------------------------- derived
+
+    @staticmethod
+    def _span_row(out: dict, rid: int) -> dict:
+        """A request's span row, empty; the engine-loop track's also holds
+        its loop phases, clock offsets and admission batches."""
+        s = out[rid] = {
+            "rid": rid, "submit_ns": None, "queue_depart_ns": None,
+            "admit_ns": None, "first_token_ns": None,
+            "retire_ns": None, "tokens": 0, "prefill_chunks": 0,
+            "itl_ms": [], "parks": 0, "parked_ms": 0.0,
+            "resume_latency_ms": [], "evicted_blocks": 0,
+            "swap_out_bytes": 0, "swap_in_bytes": 0,
+            "fault_recomputes": 0,
+            "prefill_start_ns": None, "handoff_ns": None,
+            "pool_install_ns": None, "handoffs": 0,
+            "sheds": 0, "faults": 0, "worker_restarts": 0,
+            "migrations": 0,
+            "terminal": None,
+            # first/last DELIVERED token stamps (first_token OR
+            # token — a migrated-in hop has no first_token event,
+            # so first_token_ns alone cannot anchor it): the
+            # endpoints fleet journey stitching measures blackout
+            # windows between
+            "first_tok_ns": None, "last_tok_ns": None,
+            "_last_tok_ns": None, "_park_ns": None,
+            "_resume_ns": None,
+        }
+        if rid == -1:
+            s.update(loop_phases=[], clock=[], admissions=[])
+        return s
 
     def spans(self) -> dict[int, dict]:
         """Per-request derived spans from the event snapshot: queue wait,
@@ -273,39 +356,48 @@ class RequestTrace:
         (time from the resume command to the next delivered token), never
         to the ITL series — a parked request's silence is policy, not
         decode latency. Requests whose early events fell off the ring
-        yield partial spans (fields None)."""
+        yield partial spans (fields None). A request whose admission was
+        timed on the device has ``prefill_device_ms``.
+
+        The engine-loop track (rid -1) also carries, from the loop's ring,
+        ``loop_phases``, each phase as (phase, start_ns, end_ns);
+        ``clock``, each offset to the wall clock as (ts_ns, offset_ns); and
+        ``admissions``, each batched admission as (ts_ns, bucket, [rids])
+        with the rids of the admit events that follow it."""
         out: dict[int, dict] = {}
-        for seq, ts, event, rid, slot, val in self.snapshot():
-            s = out.get(rid)
-            if s is None:
-                s = out[rid] = {
-                    "rid": rid, "submit_ns": None, "queue_depart_ns": None,
-                    "admit_ns": None, "first_token_ns": None,
-                    "retire_ns": None, "tokens": 0, "prefill_chunks": 0,
-                    "itl_ms": [], "parks": 0, "parked_ms": 0.0,
-                    "resume_latency_ms": [], "evicted_blocks": 0,
-                    "swap_out_bytes": 0, "swap_in_bytes": 0,
-                    "fault_recomputes": 0,
-                    "prefill_start_ns": None, "handoff_ns": None,
-                    "pool_install_ns": None, "handoffs": 0,
-                    "sheds": 0, "faults": 0, "worker_restarts": 0,
-                    "migrations": 0,
-                    "terminal": None,
-                    # first/last DELIVERED token stamps (first_token OR
-                    # token — a migrated-in hop has no first_token event,
-                    # so first_token_ns alone cannot anchor it): the
-                    # endpoints fleet journey stitching measures blackout
-                    # windows between
-                    "first_tok_ns": None, "last_tok_ns": None,
-                    "_last_tok_ns": None, "_park_ns": None,
-                    "_resume_ns": None,
-                }
+        batch: list = []  # the admission batch still taking its rows
+        left = 0
+        device_ns: dict[int, int] = {}
+        loop = self.loop_snapshot()
+        at = 0
+        for ev in self.snapshot() + [None]:
+            # the loop ring's events up to this event's stamp
+            while at < len(loop) and (ev is None or loop[at][1] <= ev[1]):
+                _, ts, event, _, slot, val = loop[at]
+                at += 1
+                s = out.get(-1) or self._span_row(out, -1)
+                if event == "loop_phase":
+                    s["loop_phases"].append((PHASES[slot], ts - val, ts))
+                elif event == "clock":
+                    s["clock"].append((ts, val))
+                elif event == "admit_batch":
+                    batch, left = [], slot
+                    s["admissions"].append((ts, val, batch))
+                elif event == "prefill_device":
+                    device_ns[slot] = device_ns.get(slot, 0) + val
+            if ev is None:
+                break
+            seq, ts, event, rid, slot, val = ev
+            s = out.get(rid) or self._span_row(out, rid)
             if event == "submit":
                 s["submit_ns"] = ts
             elif event == "queue_depart":
                 s["queue_depart_ns"] = ts
             elif event == "admit":
                 s["admit_ns"] = ts
+                if left:
+                    batch.append(rid)
+                    left -= 1
             elif event == "prefill_start":
                 s["prefill_start_ns"] = ts
             elif event == "handoff":
@@ -391,6 +483,9 @@ class RequestTrace:
                 else None)
             for k in ("_last_tok_ns", "_park_ns", "_resume_ns"):
                 del s[k]
+        for rid, ns in device_ns.items():
+            if rid in out:
+                out[rid]["prefill_device_ms"] = ns / 1e6
         return out
 
     # -------------------------------------------------------------- export
@@ -409,29 +504,60 @@ class RequestTrace:
         return len(events)
 
     def chrome_trace(self, pid: int = 1, name: str = "vtpu-serving",
-                     t0_ns: Optional[int] = None) -> dict:
+                     t0_ns: Optional[int] = None, clock: str = "monotonic") -> dict:
         """The snapshot as a Chrome ``trace_event`` JSON object (the
         "JSON Array Format" wrapped in ``{"traceEvents": [...]}``) that
         loads in Perfetto: one track (tid) per request carrying complete
         ("X") slices for the queued / streaming / parked phases, plus
-        instant ("i") markers for every raw lifecycle event. Timestamps
-        are microseconds relative to the earliest event.
+        instant ("i") markers for every raw lifecycle event, and the
+        "engine loop" track (tid -1) with a slice per loop phase.
+        Timestamps are microseconds relative to the earliest stamp.
 
         ``pid``/``name`` tag every event with this trace's process id and
         display name, and ``t0_ns`` overrides the timestamp origin — the
         multi-engine merge hooks: each engine's ring dumps under its OWN
         pid (rids only name tracks within a pid, so equal rids on two
         engines stop colliding) against one shared fleet origin. The
-        defaults reproduce the single-engine output byte-identically."""
+        defaults reproduce the single-engine output byte-identically.
+
+        ``clock="profiler"`` moves every stamp onto the wall clock
+        ``torch.profiler`` stamps in, by the nearest ``clock`` event, with
+        the origin at 0 of that clock (``t0_ns``, in that clock, overrides
+        it), so the dump and a profiler export load into one Perfetto
+        timeline. A ring without a ``clock`` event cannot be moved."""
         evs = self.snapshot()
+        loop = self.loop_snapshot()
+        phases = [e for e in loop if e[2] == "loop_phase"]
+        marks = [(e[1], e[5]) for e in loop if e[2] == "clock"]
+        instants = [e for e in loop if e[2] not in ("loop_phase", "clock")]
+        if clock == "profiler":
+            if not marks:
+                raise ValueError("the ring holds no clock event to move its stamps by")
+            at = [m[0] for m in marks]
+
+            def moved(ns: int) -> int:
+                i = bisect.bisect_left(at, ns)
+                near = min((j for j in (i - 1, i) if 0 <= j < len(at)),
+                           key=lambda j: abs(at[j] - ns))
+                return ns + marks[near][1]
+        elif clock != "monotonic":
+            raise ValueError(f"clock must be 'monotonic' or 'profiler', got {clock!r}")
         out: list[dict] = [{
             "ph": "M", "pid": pid, "tid": 0, "name": "process_name",
             "args": {"name": name},
         }]
-        if not evs:
+        if not evs and not phases and not instants:
             return {"traceEvents": out, "displayTimeUnit": "ms"}
-        t0 = t0_ns if t0_ns is not None else min(e[1] for e in evs)
-        us = lambda ns: (ns - t0) / 1e3  # noqa: E731
+        if t0_ns is not None:
+            t0 = t0_ns
+        elif clock == "profiler":
+            t0 = 0
+        else:
+            t0 = min([e[1] for e in evs + instants] + [e[1] - e[5] for e in phases])
+        if clock == "profiler":
+            us = lambda ns: (moved(ns) - t0) / 1e3  # noqa: E731
+        else:
+            us = lambda ns: (ns - t0) / 1e3  # noqa: E731
         seen: set[int] = set()
         spans = self.spans()
         for seq, ts, event, rid, slot, val in evs:
@@ -439,7 +565,8 @@ class RequestTrace:
                 seen.add(rid)
                 out.append({"ph": "M", "pid": pid, "tid": rid,
                             "name": "thread_name",
-                            "args": {"name": f"request {rid}"}})
+                            "args": {"name": "engine loop" if rid == -1
+                                     else f"request {rid}"}})
             out.append({"ph": "i", "pid": pid, "tid": rid, "s": "t",
                         "ts": us(ts), "name": event,
                         "args": {"slot": slot, "val": val, "seq": seq}})
@@ -525,6 +652,18 @@ class RequestTrace:
                                      f"prefill worker "
                                      f"{tid - PREFILL_LANE_TID}"}})
             out.extend(lane)
+        # the engine-loop track: where the loop thread's time went, beside
+        # the requests it served, and its admission batches and device times
+        if phases or instants:
+            if -1 not in seen:
+                out.append({"ph": "M", "pid": pid, "tid": -1, "name": "thread_name",
+                            "args": {"name": "engine loop"}})
+            for _, ts, _, _, slot, val in phases:
+                out.append({"ph": "X", "pid": pid, "tid": -1, "ts": us(ts - val),
+                            "dur": val / 1e3, "name": PHASES[slot]})
+            for seq, ts, event, _, slot, val in instants:
+                out.append({"ph": "i", "pid": pid, "tid": -1, "s": "t", "ts": us(ts),
+                            "name": event, "args": {"slot": slot, "val": val, "seq": seq}})
         return {"traceEvents": out, "displayTimeUnit": "ms"}
 
     def to_chrome_trace(self, dest: Union[str, IO]) -> dict:

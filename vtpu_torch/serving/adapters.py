@@ -58,7 +58,7 @@ from typing import Any, Optional
 import torch
 
 from vtpu_torch.device import resolve_device
-from vtpu_torch.models.moe import moe_decode_ffn, moe_prefill
+from vtpu_torch.models.moe import MOE_STAGES, moe_decode_ffn, moe_prefill
 from vtpu_torch.models.ssm import init_ssm_state, ssm_decode_step, ssm_prefill
 from vtpu_torch.models.transformer import (
     init_kv_cache, init_paged_kv_cache, kv_keys, kv_quantized, multi_tick_decode,
@@ -313,10 +313,11 @@ def batched_admission_step(model: Any, temperature: float, top_k: int, top_p: fl
     N prompts' trunk forward, the per-slot KV scatter, the N first tokens
     and their scatter into the engine's per-slot first-token buffer ``buf``
     all happen without a host sync; the next decode tick reads the tokens
-    from ``buf``."""
+    from ``buf``. A ``timer=`` keyword goes on to the prefill (a stage
+    timer of the model's ``timed_stages``)."""
 
-    def step(params, state, buf, tokens, slots, true_lens, gens):
-        last, state = model.prefill_into_slots(params, state, tokens, slots, true_lens)
+    def step(params, state, buf, tokens, slots, true_lens, gens, **timer):
+        last, state = model.prefill_into_slots(params, state, tokens, slots, true_lens, **timer)
         tok = sample_tokens(last, gens, temperature, top_k, top_p)
         buf[slots] = tok
         return tok, buf, state
@@ -383,6 +384,9 @@ class TransformerSlotModel:
     # the family's post-attention block in the decode trunk (None: the
     # dense MLP)
     _ffn = None
+    # the stages of an admission a stage timer can lap (none: the dense
+    # family is timed per dispatch only)
+    timed_stages = ()
 
     def __init__(self, params: Any, cfg: Any, kv_page: Optional[int] = None,
                  kv_pool_blocks: Optional[int] = None,
@@ -434,17 +438,20 @@ class TransformerSlotModel:
             self._announce(_OP_INIT, (slots,))
             return self._init_state(slots)
 
-    def prefill_into_slot(self, params, state, padded, slot, true_len):
+    def prefill_into_slot(self, params, state, padded, slot, true_len, timer=None):
         # a rebuild inside a swap dispatch calls this: no host wait
         dev = padded.device
         last, state = self.prefill_into_slots(
-            params, state, padded, _device_ids([slot], dev), _device_ids([true_len], dev))
+            params, state, padded, _device_ids([slot], dev), _device_ids([true_len], dev),
+            timer=timer)
         return last[0], state
 
-    def prefill_into_slots(self, params, state, padded, slots, true_lens):
+    def prefill_into_slots(self, params, state, padded, slots, true_lens, timer=None):
+        """``timer``: a stage timer (vtpu_torch/obs/devtime.py) of the
+        ``timed_stages``, on this rank's work only."""
         with self._lock:
             self._announce(_OP_PREFILL, tuple(padded.shape), (padded, slots, true_lens), state)
-            return self._prefill(params, state, padded, slots, true_lens)
+            return self._prefill(params, state, padded, slots, true_lens, timer)
 
     def decode_step(self, params, state, tokens, active, kv_bucket):
         with self._lock:
@@ -459,7 +466,7 @@ class TransformerSlotModel:
             return self._verify(params, state, draft, active, cap, kv_bucket)
 
     def prefill_chunk_into_slot(self, params, state, chunk, slot, offset, new_len,
-                                kv_bucket=0, block_ids=None):
+                                kv_bucket=0, block_ids=None, timer=None):
         """One [1, C] prompt chunk into *slot* at ``offset`` (engine.py's
         ``chunked_prefill_into_slot``)."""
         with self._lock:
@@ -467,7 +474,7 @@ class TransformerSlotModel:
             self._announce(_OP_CHUNK, (chunk.shape[1], kv_bucket, sum(x.numel() for x in ids)),
                            ([slot, offset, new_len], chunk) + ids, state)
             return self._chunk(params, state, chunk, slot, offset, new_len, kv_bucket,
-                               block_ids)
+                               block_ids, timer)
 
     def copy_blocks(self, state, src: list[int], dst: list[int]):
         """Pool block ``src[i]`` into ``dst[i]`` on every rank (a prefix's
@@ -671,17 +678,23 @@ class TransformerSlotModel:
         return init_paged_kv_cache(self.cfg, slots, self.kv_page, self.n_kv_blocks,
                                    device=self.device, mesh=self.mesh)
 
-    def _prefill_fn(self, true_lens):
+    def _prefill_fn(self, true_lens, timer=None):
         """The family's full-sequence forward for an admission, gathering
         each row's final position before the vocab projection (so the
-        [N, bucket, vocab] logits never exist)."""
+        [N, bucket, vocab] logits never exist). The dense family times no
+        stages."""
         return lambda p, c, t, mesh: prefill(p, c, t, logits_at=true_lens - 1, mesh=mesh)
 
-    def _prefill(self, params, state, padded, slots, true_lens):
+    def _timed_ffn(self, timer):
+        """The decode trunk's post-attention block for a prefill chunk,
+        its stages timed by ``timer`` where the family has any."""
+        return self._ffn
+
+    def _prefill(self, params, state, padded, slots, true_lens, timer=None):
         from vtpu_torch.serving.engine import prefill_into_slots
 
         return prefill_into_slots(params, self.cfg, state, padded, slots, true_lens,
-                                  prefill_fn=self._prefill_fn(true_lens), mesh=self.mesh)
+                                  prefill_fn=self._prefill_fn(true_lens, timer), mesh=self.mesh)
 
     def _decode(self, params, state, tokens, active, kv_bucket):
         from vtpu_torch.serving.engine import batched_decode_step
@@ -697,12 +710,13 @@ class TransformerSlotModel:
                                  kv_bucket=kv_bucket, ffn_fn=self._ffn,
                                  paged_attn=self.paged_attn, mesh=self.mesh)
 
-    def _chunk(self, params, state, chunk, slot, offset, new_len, kv_bucket, block_ids):
+    def _chunk(self, params, state, chunk, slot, offset, new_len, kv_bucket, block_ids,
+               timer=None):
         from vtpu_torch.serving.engine import chunked_prefill_into_slot
 
         return chunked_prefill_into_slot(params, self.cfg, state, chunk, slot, offset,
                                          new_len, kv_bucket=kv_bucket, block_ids=block_ids,
-                                         ffn_fn=self._ffn, mesh=self.mesh)
+                                         ffn_fn=self._timed_ffn(timer), mesh=self.mesh)
 
     def _build_prefix(self, params, key: int, padded, n: int, chunk: int,
                       buckets: list[int]) -> torch.Tensor:
@@ -853,6 +867,9 @@ class MoeSlotModel(TransformerSlotModel):
     summed by one all-reduce a layer (none with replicated experts)."""
 
     family = "MoE"
+    # the stages an admission's stage timer laps (the engine hands one to
+    # prefill_into_slot(s) and prefill_chunk_into_slot with its ring on)
+    timed_stages = MOE_STAGES
 
     def __init__(self, params: Any, cfg: Any, kv_page: Optional[int] = None,
                  kv_pool_blocks: Optional[int] = None,
@@ -869,10 +886,14 @@ class MoeSlotModel(TransformerSlotModel):
                     f"w_gate holds {got} experts, expected {want} of n_experts={cfg.n_experts}")
         self._ffn = moe_decode_ffn(cfg, mesh=mesh)
 
-    def _prefill_fn(self, true_lens):
+    def _prefill_fn(self, true_lens, timer=None):
         # true_lens masks each row's pads out of routing
         return lambda p, c, t, mesh: moe_prefill(p, c, t, true_len=true_lens,
-                                                 logits_at=true_lens - 1, mesh=mesh)
+                                                 logits_at=true_lens - 1, mesh=mesh, timer=timer)
+
+    def _timed_ffn(self, timer):
+        return self._ffn if timer is None else moe_decode_ffn(self.cfg, mesh=self.mesh,
+                                                               timer=timer)
 
 
 class SsmSlotModel:

@@ -107,6 +107,7 @@ from vtpu_torch.models.transformer import (
     sample_tokens, spec_verify_loop, store_kv,
 )
 from vtpu_torch.obs import RequestTrace, TickProfiler, pct
+from vtpu_torch.obs.devtime import DeviceTimer, StageTimer
 from vtpu_torch.obs.trace import TERMINAL_CODES
 from vtpu_torch.ops import _build
 from vtpu_torch.ops.decode_attn import paged_attn_route
@@ -1154,6 +1155,12 @@ class ServingEngine:
             # (async_admission=False or a custom sampler), none when batched
             "admission_syncs": 0,
             "prefill_chunks": 0,
+            # ms of the loop's stream between CUDA events around the
+            # admission dispatches and the decode and verify dispatches (a
+            # flush once), each read at the fetch of what it produced (a
+            # span: the card's waits for the host's enqueue are inside it);
+            # 0 with the trace ring off
+            "admission_device_ms": 0.0, "decode_device_ms": 0.0,
             # prefix reuse: hits are admissions that reused a registered
             # prefix (a paged share or a dense install), misses prefixed
             # requests whose prefix was unregistered before admission;
@@ -1236,7 +1243,15 @@ class ServingEngine:
             # one event (val: the requested draft length): the trace shows
             # why the configured speculation never ran
             self.trace.record("spec_disabled", -1, -1, serving.spec_tokens)
-        self._prof = TickProfiler()
+        # the device-time timers and the loop's phase spans ride the ring's
+        # switch: with trace_events=0 nothing is recorded and no timer made
+        self._cuda = self.device.type == "cuda"
+        self._prof = TickProfiler(trace=self.trace)
+        self._clock_ns = 0  # the last clock event's monotonic stamp
+        # the stages of an admission the model can time (an MoE model's
+        # block, models/moe.py MOE_STAGES), and the device ms they summed
+        self._stages = tuple(getattr(self.model, "timed_stages", ()))
+        self._moe_stage_ms = dict.fromkeys(self._stages, 0.0) if self._stages else None
         self._itl_last: list[Optional[float]] = [None] * b
         self._host_ms_ema: Optional[float] = None
         self._admission_ms_ema: Optional[float] = None
@@ -1746,6 +1761,8 @@ class ServingEngine:
         return drain_engine(self, dst, timeout=timeout)
 
     def start(self) -> None:
+        self.trace.record_clock()
+        self._clock_ns = time.monotonic_ns()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
         if self._disagg is not None:
@@ -1811,6 +1828,12 @@ class ServingEngine:
         s["graphs_captured"] = sum(len(g.keys()) for g in self._graph_sets())
         s["admission_stall_ms"] = (round(self._admission_ms_ema, 4)
                                    if self._admission_ms_ema is not None else None)
+        s["admission_device_ms"] = round(s["admission_device_ms"], 4)
+        s["decode_device_ms"] = round(s["decode_device_ms"], 4)
+        # an MoE model's admissions by stage (None for other families)
+        s["moe_stage_device_ms"] = (
+            {k: round(v, 4) for k, v in self._moe_stage_ms.items()}
+            if self._moe_stage_ms is not None else None)
         # span telemetry is a view over the trace's reservoirs
         for samples, keys in (
                 (self.trace.itl_gaps(), ((0.5, "itl_p50_ms"), (0.99, "itl_p99_ms"))),
@@ -2871,24 +2894,36 @@ class ServingEngine:
             return
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = req.tokens
-        logits, self.state = self.model.prefill_into_slot(
-            self.params, self.state, self._upload(padded, torch.int32), slot, n)
+        ids = self._upload(padded, torch.int32)
+        timer, kw = self._admission_timers()
+        logits, self.state = self.model.prefill_into_slot(self.params, self.state, ids, slot, n,
+                                                          **kw)
+        timing = self._admission_timing(timer, kw)
         self._stats["prefill_batch_hist"][1] += 1
-        self._finish_admit(slot, req, self._sample_first(logits, slot), n)
+        first = self._sample_first(logits, slot)
+        # the first token's blocking fetch ran past the dispatch
+        self._note_admission_device(timing, [(slot, req, 0)])
+        self._finish_admit(slot, req, first, n)
 
-    def _first_from(self, slot: int, req: Request, logits_row: torch.Tensor, n: int) -> None:
+    def _first_from(self, slot: int, req: Request, logits_row: torch.Tensor, n: int,
+                    timing: Optional[dict] = None) -> None:
         """The first token of a single-row admission (a prefix's stored
         logits, a final chunk's last row): sampled on the device into the
         first-token buffer (batched admission), or fetched at once (the
-        serial path)."""
+        serial path). ``timing``: the admission's chunks, to which the
+        device sampling's own is added."""
         if not self._async_admission:
-            self._finish_admit(slot, req, self._sample_first(logits_row, slot), n)
+            first = self._sample_first(logits_row, slot)
+            self._note_admission_device(timing, [(slot, req, 0)])
+            self._finish_admit(slot, req, first, n)
             return
+        timer = self._device_timer()
         tok = self._sample_row(logits_row, slot)
+        timing = self._admission_timing(timer, {}, timing)
         self._begin_slot(slot, req, n)
         self._admit_buf[slot:slot + 1].copy_(tok)
         self._admit_mask[slot] = True
-        self._pending_firsts.append({"tokens": tok, "rows": [(slot, req, 0)]})
+        self._pending_firsts.append({"tokens": tok, "rows": [(slot, req, 0)], "timing": timing})
 
     def _advance_admissions(self, budget: float) -> float:
         """One prefill chunk per mid-admission slot, then back to the decode
@@ -2924,9 +2959,12 @@ class ServingEngine:
                     m = min(len(blocks), row.shape[0])
                     row[:m] = blocks[:m]
                     ids = self._upload(row, torch.int32)
+                chunk = self._upload(adm["padded"][:, off:off + c], torch.int32)
+                timer, kw = self._admission_timers()
                 logits, self.state = self._prefill_chunk(
-                    self.params, self.state, self._upload(adm["padded"][:, off:off + c], torch.int32),
-                    slot, base + off, min(base + off + c, n), kv_bucket=kv_bucket, block_ids=ids)
+                    self.params, self.state, chunk, slot, base + off, min(base + off + c, n),
+                    kv_bucket=kv_bucket, block_ids=ids, **kw)
+                adm["timing"] = self._admission_timing(timer, kw, adm.get("timing"))
                 adm["off"] = off + c
                 budget -= c
                 self._stats["prefill_chunks"] += 1
@@ -2940,7 +2978,8 @@ class ServingEngine:
                         # nothing is sampled
                         self._restore_slot(slot, adm["resume"])
                         continue
-                    self._first_from(slot, req, logits[0, (n - base - 1) - (pad - c)], n)
+                    self._first_from(slot, req, logits[0, (n - base - 1) - (pad - c)], n,
+                                     adm["timing"])
             except Exception:
                 self._admitting.pop(slot, None)
                 self._stats["faulted_requests"] += 1
@@ -2987,22 +3026,74 @@ class ServingEngine:
         """One [N, bucket] prefill dispatch that installs N prompts' KV and
         samples their first tokens on the device. Nothing here waits for
         the device: the tokens are fed to the next decode tick from
-        ``_admit_buf`` and reach the clients through the tick's fetch."""
+        ``_admit_buf`` and reach the clients through the tick's fetch. The
+        ring's ``admit_batch`` event (rows, bucket) comes just before the
+        rows' ``admit`` events, in their order."""
         lens = [int(r.tokens.shape[0]) for r in reqs]
         padded = np.zeros((len(reqs), bucket), np.int32)
         for i, req in enumerate(reqs):
             padded[i, :lens[i]] = req.tokens
+        uploads = (self._upload(padded, torch.int32), self._upload(slots, torch.long),
+                   self._upload(lens, torch.long))
+        timer, kw = self._admission_timers()
         tok, self._admit_buf, self.state = self._admit_step(
-            self.params, self.state, self._admit_buf, self._upload(padded, torch.int32),
-            self._upload(slots, torch.long), self._upload(lens, torch.long),
-            [self._gens[s] for s in slots])
+            self.params, self.state, self._admit_buf, *uploads, [self._gens[s] for s in slots],
+            **kw)
+        timing = self._admission_timing(timer, kw)
+        self.trace.record_loop("admit_batch", len(reqs), bucket)
         rows = []
         for i, (slot, req) in enumerate(zip(slots, reqs)):
             self._begin_slot(slot, req, lens[i])
             self._admit_mask[slot] = True
             rows.append((slot, req, i))
-        self._pending_firsts.append({"tokens": tok, "rows": rows})
+        self._pending_firsts.append({"tokens": tok, "rows": rows, "timing": timing})
         self._stats["prefill_batch_hist"][len(reqs)] += 1
+
+    def _device_timer(self) -> Optional[DeviceTimer]:
+        """A timer of the dispatch about to be enqueued (None with the
+        trace ring off)."""
+        return DeviceTimer(self._cuda) if self.trace.enabled else None
+
+    def _admission_timers(self) -> tuple[Optional[DeviceTimer], dict]:
+        """The timers of an admission dispatch about to be enqueued (after
+        its uploads): its DeviceTimer, and the keywords that hand the
+        model a StageTimer of its ``timed_stages`` (none with the trace
+        ring off or a model that times no stages)."""
+        if not self.trace.enabled:
+            return None, {}
+        kw = {"timer": StageTimer(self._stages, self._cuda)} if self._stages else {}
+        return DeviceTimer(self._cuda), kw
+
+    def _admission_timing(self, timer: Optional[DeviceTimer], kw: dict,
+                          timing: Optional[dict] = None) -> Optional[dict]:
+        """The timing of an admission dispatch just enqueued, added to
+        ``timing`` (an earlier chunk's of the same admission): its
+        timers and stage timers, read at the fetch of its first tokens
+        (``_note_admission_device``)."""
+        if timer is None:
+            return timing
+        stages = [kw["timer"]] if kw else []
+        if timing is None:
+            return {"timers": [timer.stop()], "stages": stages}
+        timing["timers"].append(timer.stop())
+        timing["stages"] += stages
+        return timing
+
+    def _note_admission_device(self, timing: Optional[dict], rows: list) -> None:
+        """An admission's device time, read once the stream has run past
+        it (at the fetch of its first tokens): into the
+        admission_device_ms total, a ``prefill_device`` event for each of
+        its rows (in the trace's loop ring, its rid in the slot field) and,
+        on an MoE model, the stages' totals."""
+        if timing is None:
+            return
+        ms = sum(t.ms() for t in timing["timers"])
+        self._stats["admission_device_ms"] += ms
+        for _, req, _ in rows:
+            self.trace.record_loop("prefill_device", req.rid, int(ms * 1e6))
+        for stages in timing["stages"]:
+            for stage, v in stages.ms().items():
+                self._moe_stage_ms[stage] += v
 
     def _begin_slot(self, slot: int, req: Request, n: int) -> None:
         """Slot bookkeeping for an admission whose first token is still on
@@ -3138,6 +3229,8 @@ class ServingEngine:
         if fetched is None:
             fetched = self._collect(self._stage([f["tokens"] for f in firsts], "admission"))
         for f, arr in zip(firsts, fetched):
+            # the fetch ran past the admission's dispatch: its timers are read
+            self._note_admission_device(f.get("timing"), f["rows"])
             for slot, req, idx in f["rows"]:
                 if req is not self._slot_req[slot]:
                     continue  # retired between dispatch and delivery
@@ -3180,6 +3273,7 @@ class ServingEngine:
         staged = tick.get("staged") or self._stage(
             self._tick_arrays(tick) + [f["tokens"] for f in firsts])
         toks, *rest = self._collect(staged)
+        self._note_decode_device(tick["timer"])
         lps = rest.pop(0).view(np.float32) if tick["logprobs"] is not None else None
         t0 = time.perf_counter()
         if firsts:
@@ -3299,19 +3393,25 @@ class ServingEngine:
         this thread only), restarts dead workers and re-queues what they
         held (``DisaggRuntime.watch``), and installs finished handoffs into
         free slots in place of admitting. Returns whether anything was
-        admitted or installed."""
-        t0 = time.perf_counter()
+        admitted or installed. The hook is its own phase (``hook``), the
+        swap drain too; the rest is ``admission``."""
         # a fleet's supervision, in the order ledger, heartbeat, death: the
         # ledger records every session as of the last delivery (a dispatch
         # in flight dies with a crash and its rebuild regenerates it), so at
         # the seam's death the ledger is as fresh as the client's stream
+        t_head = time.perf_counter()
         hook = self._ledger_hook
         if hook is not None:
             try:
                 hook(self)
             except Exception:  # a fleet's fault must not end the loop
                 log.exception("session-ledger hook raised; continuing")
+            self._prof.note("hook", time.perf_counter() - t_head)
+        t0 = time.perf_counter()
         self._beat_ns = time.monotonic_ns()
+        if self._beat_ns - self._clock_ns >= 1_000_000_000:
+            self.trace.record_clock()
+            self._clock_ns = self._beat_ns
         if self._fire_fault("engine_death"):
             self._died = True
             raise EngineDeath("injected engine_death at the flush boundary")
@@ -3324,11 +3424,14 @@ class ServingEngine:
                 break
         self._shed_deadlines()
         swap_s = 0.0
+        t_rest = t0
         if self._swap_enabled:
             self._process_lifecycle()
             t_sw = time.perf_counter()
+            self._prof.mark("admission", t_sw - t0)
             self._drain_swap_outs()
-            swap_s = time.perf_counter() - t_sw
+            t_rest = time.perf_counter()
+            swap_s = t_rest - t_sw
             self._prof.note("swap_drain", swap_s)
         if self._disagg is not None and self._swap_enabled:
             need = self._disagg.take_needed_blocks()
@@ -3351,9 +3454,12 @@ class ServingEngine:
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.cancelled:
                 self._retire(slot)
-        dt = time.perf_counter() - t0
-        self._note_admission_ms(dt)
-        self._prof.note("admission", dt - swap_s)
+        t1 = time.perf_counter()
+        # the reference's EMA takes the whole pass; the histogram the tick
+        # head less the hook and the swap drain, and the ring the piece
+        # after the drain (the piece before it is marked above)
+        self._note_admission_ms(t1 - t_head)
+        self._prof.note("admission", t1 - t0 - swap_s, span_s=t1 - t_rest)
         return admitted
 
     def _shed_deadlines(self) -> None:
@@ -3421,11 +3527,14 @@ class ServingEngine:
 
     def _idle_wait(self, admitted: bool) -> None:
         """Nothing to decode or deliver: wait briefly for a submission,
-        unless admissions are mid-chunk or one just landed."""
+        unless admissions are mid-chunk or one just landed (the ``idle``
+        phase)."""
         if admitted or self._admitting:
             return
+        t0 = time.perf_counter()
         if self._wake.wait(timeout=0.05):
             self._wake.clear()
+        self._prof.note("idle", time.perf_counter() - t0)
 
     def _spec_probe_ema(self) -> float:
         """The acceptance EMA of a fresh probe: a little above breakeven,
@@ -3495,11 +3604,12 @@ class ServingEngine:
             if not self._device_sampling:
                 self._host_sampled_tick(tokens, active, kv_bucket, active_slots, t_disp)
                 continue
+            timer = self._device_timer()
             out, self.state = self._step(
                 self.params, self.state, tokens, active, self._gens, kv_bucket)
             self._stats["decode_ticks"] += 1
             self._on_ticks(1)
-            tick = self._tick(out, list(self._slot_req))
+            tick = self._tick(out, list(self._slot_req), timer)
             tick["staged"] = self._stage(self._tick_arrays(tick) + [f["tokens"] for f in firsts])
             disp_s = time.perf_counter() - t_disp
             self._prof.note("dispatch", disp_s)
@@ -3517,12 +3627,15 @@ class ServingEngine:
         draft = self._upload([[self._tokens[i]] + (drafts[i] or [0] * k) for i in range(b)],
                              torch.int32)
         cap = self._upload([max(self._slot_budget[i], 0) for i in range(b)], torch.int32)
+        timer = self._device_timer()
         (pred, count), self.state = self._spec(self.params, self.state, draft, active, cap,
                                                self._gens, kv_bucket)
+        self._stop_timer(timer)
         staged = self._stage([pred, count])
         disp_s = time.perf_counter() - t_disp
         self._prof.note("dispatch", disp_s)
         pred, count = self._collect(staged)
+        self._note_decode_device(timer)
         pred = pred.reshape(b, k + 1)
         t0 = time.perf_counter()
         eos = self.serving.eos_token
@@ -3562,23 +3675,37 @@ class ServingEngine:
         self._prof.note("deliver", time.perf_counter() - t0)
         self._note_host_ms(disp_s + time.perf_counter() - t0)
 
-    def _tick(self, out, reqs: list) -> dict:
+    def _tick(self, out, reqs: list, timer: Optional[DeviceTimer] = None) -> dict:
         """A dispatched tick: the sampled step's output (the tokens, or the
-        tokens and their logprobs) and each slot's request at dispatch."""
+        tokens and their logprobs), each slot's request at dispatch, and
+        the timer of its dispatch (stopped here)."""
         tok, lp = out if self._logprobs else (out, None)
-        return {"tokens": tok, "logprobs": lp, "reqs": reqs}
+        return {"tokens": tok, "logprobs": lp, "reqs": reqs, "timer": self._stop_timer(timer)}
+
+    @staticmethod
+    def _stop_timer(timer: Optional[DeviceTimer]) -> Optional[DeviceTimer]:
+        return timer.stop() if timer is not None else None
+
+    def _note_decode_device(self, timer: Optional[DeviceTimer]) -> None:
+        """A decode or verify dispatch's device time (a flush's once), read
+        after the fetch of its own staged copy."""
+        if timer is not None:
+            self._stats["decode_device_ms"] += timer.ms()
 
     def _host_sampled_tick(self, tokens, active, kv_bucket: int, active_slots: list,
                            t_disp: float) -> None:
         """The host-sampler tick: the decode step's [B, vocab] f32 logits,
         fetched in the tick's one staged copy, and the custom sampler on
         each live row (an exception in it faults that request alone)."""
+        timer = self._device_timer()
         logits, self.state = self._decode(self.params, self.state, tokens, active, kv_bucket)
+        self._stop_timer(timer)
         self._stats["decode_ticks"] += 1
         staged = self._stage([logits.float()])
         disp_s = time.perf_counter() - t_disp
         self._prof.note("dispatch", disp_s)
         (flat,) = self._collect(staged)
+        self._note_decode_device(timer)
         rows = flat.reshape(len(self._slot_req), -1)
         t0 = time.perf_counter()
         for slot in active_slots:
@@ -3670,6 +3797,7 @@ class ServingEngine:
                 lens = [self._slot_len[i] + (1 if fed[i] else 0) for i in dispatch]
                 kv_bucket = self._kv_bucket(1 + max(lens))
                 self._note_kv_window(kv_bucket, lens)
+                timer = self._device_timer()
                 out, self.state = self._step(
                     self.params, self.state, tokens, active, self._gens, kv_bucket)
                 self._stats["decode_ticks"] += 1
@@ -3677,7 +3805,7 @@ class ServingEngine:
                 if inflight is not None:
                     self._stats["pipelined_ticks"] += 1
                 new_inflight = self._tick(out, [self._slot_req[i] if i in live else None
-                                                for i in range(b)])
+                                                for i in range(b)], timer)
                 disp_s = time.perf_counter() - t_disp
                 self._prof.note("dispatch", disp_s)
             if not dispatch and inflight is None:
@@ -3799,8 +3927,10 @@ class ServingEngine:
                         for i in dispatch]
                 kv_bucket = self._kv_bucket(k + max(lens))
                 self._note_kv_window(kv_bucket, lens, ticks=k)
-                out, self.state = flush(self.params, self.state, tokens, active,
-                                        self._upload(pred, torch.int32), self._gens, kv_bucket)
+                pred_dev = self._upload(pred, torch.int32)
+                timer = self._device_timer()
+                out, self.state = flush(self.params, self.state, tokens, active, pred_dev,
+                                        self._gens, kv_bucket)
                 self._stats["decode_ticks"] += k
                 self._stats["loop_flushes"] += 1
                 self._on_ticks(k)
@@ -3810,6 +3940,7 @@ class ServingEngine:
                 new_inflight = {"tokens": toks, "counts": counts, "carry": carry,
                                 "logprobs": lps, "pred": pred, "k": k,
                                 "t_disp_ns": time.monotonic_ns(),
+                                "timer": self._stop_timer(timer),
                                 "reqs": [self._slot_req[i] if i in live else None
                                          for i in range(b)]}
                 disp_s = time.perf_counter() - t_disp
@@ -3862,6 +3993,7 @@ class ServingEngine:
         staged = flush.get("staged") or self._stage(
             self._flush_arrays(flush) + [f["tokens"] for f in firsts])
         toks, counts, *rest = self._collect(staged, ticks=k)
+        self._note_decode_device(flush["timer"])
         toks = toks.reshape(b, k)
         lps = rest.pop(0).view(np.float32).reshape(b, k) if flush["logprobs"] is not None else None
         t0 = time.perf_counter()
@@ -3960,8 +4092,11 @@ class ServingEngine:
                 kv_bucket = self._kv_bucket(k_cap + max(self._slot_len[i] for i in active_slots))
                 self._note_kv_window(kv_bucket, [self._slot_len[i] for i in active_slots],
                                      ticks=k_cap)
-                out, self.state = flush(self.params, self.state, tokens, active,
-                                        self._upload(pred, torch.int32), self._gens, kv_bucket)
+                pred_dev = self._upload(pred, torch.int32)
+                timer = self._device_timer()
+                out, self.state = flush(self.params, self.state, tokens, active, pred_dev,
+                                        self._gens, kv_bucket)
+                self._stop_timer(timer)
                 self._stats["decode_ticks"] += k_cap
                 self._stats["loop_flushes"] += 1
                 disp_s = time.perf_counter() - t_disp
@@ -3969,6 +4104,7 @@ class ServingEngine:
                 toks, counts, _, lps = out
                 self._deliver_flush({"tokens": toks, "counts": counts, "logprobs": lps,
                                      "pred": pred, "k": k_cap, "t_disp_ns": time.monotonic_ns(),
+                                     "timer": timer,
                                      "reqs": [self._slot_req[i] if i in active_slots else None
                                               for i in range(b)]},
                                     extra_host_s=disp_s, firsts=firsts)
@@ -3988,9 +4124,12 @@ class ServingEngine:
             kv_bucket = self._kv_bucket(k * chunk + max(self._slot_len[i] for i in active_slots))
             self._note_kv_window(kv_bucket, [self._slot_len[i] + k * chunk - 1
                                              for i in active_slots], t=chunk, ticks=k)
+            hist_dev, hlen_dev = self._upload(hist, torch.int32), self._upload(hlen, torch.int32)
+            timer = self._device_timer()
             (toks, counts, _), self.state = self._fused[k](
-                self.params, self.state, tokens, active, cap, self._upload(hist, torch.int32),
-                self._upload(hlen, torch.int32), self._gens, kv_bucket)
+                self.params, self.state, tokens, active, cap, hist_dev, hlen_dev, self._gens,
+                kv_bucket)
+            self._stop_timer(timer)
             self._stats["spec_ticks"] += k
             self._stats["loop_flushes"] += 1
             self._stats["fused_flushes"] += 1
@@ -3998,7 +4137,7 @@ class ServingEngine:
             disp_s = time.perf_counter() - t_disp
             self._prof.note("dispatch", disp_s, ticks=k)
             self._deliver_fused_flush({"tokens": toks, "counts": counts, "k": k,
-                                       "t_disp_ns": time.monotonic_ns(),
+                                       "t_disp_ns": time.monotonic_ns(), "timer": timer,
                                        "reqs": [self._slot_req[i] if i in active_slots else None
                                                 for i in range(b)]},
                                       extra_host_s=disp_s, firsts=firsts)
@@ -4018,6 +4157,7 @@ class ServingEngine:
         firsts = firsts or []
         toks, counts, *rest = self._collect(self._stage(
             [flush["tokens"], flush["counts"]] + [f["tokens"] for f in firsts]), ticks=k)
+        self._note_decode_device(flush["timer"])
         toks = toks.reshape(b, kmax, t)
         counts = counts.reshape(b, kmax)
         t0 = time.perf_counter()
